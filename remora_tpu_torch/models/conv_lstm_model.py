@@ -49,17 +49,14 @@ class ConvLSTM_w_ref(nn.Module):
     def forward(self, sigs, seqs, train=False, channels_last_in=False):
         """sigs: (B, 1, T); seqs: (B, 4*kmer_len, T) -> f32 logits
         (B, num_out). ``channels_last_in=True`` takes sigs (B, T, 1) and
-        seqs (B, T, 4*kmer_len) instead."""
-        if train:
-            raise NotImplementedError(
-                "the train-mode forward is not ported yet"
-            )
+        seqs (B, T, 4*kmer_len) instead. ``train=True`` normalises with
+        the batch statistics and moves the BatchNorm buffers."""
         if not channels_last_in:
             sigs = sigs.transpose(1, 2)
             seqs = seqs.transpose(1, 2)
 
         def cbs(conv, bn, x):
-            return L.swish(bn(conv(x)))
+            return L.apply_conv_bn_swish(conv, bn, x, train)
 
         sigs_x = cbs(self.sig_conv1, self.sig_bn1, sigs)
         sigs_x = cbs(self.sig_conv2, self.sig_bn2, sigs_x)
@@ -78,8 +75,12 @@ class ConvLSTM_w_ref(nn.Module):
         z = z.transpose(0, 1).contiguous()  # (B, T, C) -> (T, B, C)
         # only the final forward timestep and the FIRST step of the
         # reverse LSTM reach the head: the reverse scan collapses to one
-        # zero-state cell step (see the JAX model)
-        z = L.swish(L.lstm_last(self.lstm1.params, z))
+        # zero-state cell step (see the JAX model). Training runs the full
+        # forward (K2, whose backward is K3); inference the last-only K1.
+        if train:
+            z = L.swish(L.lstm(self.lstm1.params, z)[-1])
+        else:
+            z = L.swish(L.lstm_last(self.lstm1.params, z))
         z = L.swish(L.lstm_cell_step0(self.lstm2.params, z))
         return self.fc(z)
 

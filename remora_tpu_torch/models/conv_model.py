@@ -53,16 +53,12 @@ class Conv_w_ref(nn.Module):
     def forward(self, sigs, seqs, train=False, channels_last_in=False):
         """sigs: (B, 1, T); seqs: (B, 4*kmer_len, T) -> f32 logits
         (B, num_out); ``channels_last_in`` as in the ConvLSTM model."""
-        if train:
-            raise NotImplementedError(
-                "the train-mode forward is not ported yet"
-            )
         if not channels_last_in:
             sigs = sigs.transpose(1, 2)
             seqs = seqs.transpose(1, 2)
 
         def cbs(conv, bn, x):
-            return L.swish(bn(conv(x)))
+            return L.apply_conv_bn_swish(conv, bn, x, train)
 
         sigs_x = cbs(self.sig_conv1, self.sig_bn1, sigs)
         sigs_x = cbs(self.sig_conv2, self.sig_bn2, sigs_x)

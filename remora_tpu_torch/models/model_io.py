@@ -10,6 +10,10 @@ running statistics) under ``bn/``.
 
 Refinement settings (``refine_*`` keys and arrays) are carried through
 unchanged as a plain ``refine_settings`` dict.
+
+Optimizer state rides as ``opt_leaf/<i>`` arrays in the leaf order of the
+JAX package's optax state (``train/optim.py`` maps torch's optimizers to
+and from it), so a training run resumes across the two packages.
 """
 
 import json
@@ -17,6 +21,7 @@ import json
 import numpy as np
 import torch
 
+from remora_tpu_torch import constants
 from remora_tpu_torch.models.registry import get_model
 
 _REFINE_KEYS = ("rough_rescale_method",)
@@ -75,6 +80,65 @@ def module_to_trees(model):
 # ---------------- metadata ----------------
 
 
+def default_refine_settings():
+    """The ``refine_*`` settings of a dataset that carries none: those of
+    the JAX package's default ``SigMapRefiner`` (no levels table, no
+    rescaling, no refinement)."""
+    target, limit, weight = constants.DEFAULT_REFINE_SHORT_DWELL_PARAMS
+    dwell = np.arange(min(limit, target), dtype=np.float32)
+    return {
+        "refine_kmer_levels": None,
+        "refine_kmer_center_idx": -1,
+        "refine_do_rough_rescale": False,
+        "refine_scale_iters": -1,
+        "refine_algo": constants.DEFAULT_REFINE_ALGO,
+        "refine_half_bandwidth": constants.DEFAULT_REFINE_HBW,
+        "refine_sd_arr": weight * np.square(dwell - target),
+    }
+
+
+def make_model_metadata(dataset_metadata, model_name, model_params):
+    """Assemble the checkpoint metadata dict and its arrays from dataset
+    metadata (the JAX package's ``make_model_metadata``)."""
+    md = dataset_metadata
+    meta = {
+        "model_name": model_name,
+        "model_params": dict(model_params),
+        "model_version": constants.MODEL_VERSION,
+        "chunk_context": list(md.chunk_context),
+        "motifs": [list(m) for m in md.motifs],
+        "num_motifs": md.num_motifs,
+        "reverse_signal": md.reverse_signal,
+        "mod_bases": list(md.mod_bases),
+        "mod_long_names": list(md.mod_long_names),
+        "modified_base_labels": md.modified_base_labels,
+        "kmer_context_bases": list(md.kmer_context_bases),
+        "base_start_justify": md.base_start_justify,
+        "offset": md.offset,
+        "pa_scaling": (
+            None if md.pa_scaling is None else list(md.pa_scaling)
+        ),
+    }
+    refine = default_refine_settings()
+    refine.update(
+        (k, v) for k, v in (md.refine_settings or {}).items() if v is not None
+    )
+    # levels/sd arrays ride as npz arrays, the rest as JSON scalars
+    meta["refine_kmer_center_idx"] = int(refine["refine_kmer_center_idx"])
+    meta["refine_do_rough_rescale"] = bool(refine["refine_do_rough_rescale"])
+    meta["refine_scale_iters"] = int(refine["refine_scale_iters"])
+    meta["refine_algo"] = refine["refine_algo"]
+    meta["refine_half_bandwidth"] = int(refine["refine_half_bandwidth"])
+    meta["rough_rescale_method"] = md.rough_rescale_method
+    arrays = {}
+    if refine["refine_kmer_levels"] is not None:
+        arrays["refine_kmer_levels"] = np.asarray(
+            refine["refine_kmer_levels"], np.float32
+        )
+    arrays["refine_sd_arr"] = np.asarray(refine["refine_sd_arr"], np.float32)
+    return meta, arrays
+
+
 def add_derived_metadata(meta):
     """Populate derived fields used throughout inference."""
     meta.setdefault("reverse_signal", False)
@@ -113,9 +177,10 @@ def add_derived_metadata(meta):
 # ---------------- native save/load ----------------
 
 
-def save_model(path, model, meta, meta_arrays=None):
+def save_model(path, model, meta, meta_arrays=None, opt_state=None):
     """Write a single-file ``.npz`` model artifact (the JAX package's
-    ``save_model`` layout, without optimizer state)."""
+    ``save_model`` layout). ``opt_state`` is a sequence of arrays, the
+    optimizer state's leaves in optax order (``optim.optimizer_leaves``)."""
     params, bn_state = module_to_trees(model)
     payload = {"__meta__": np.frombuffer(
         json.dumps(meta, default=_json_default).encode(), dtype=np.uint8
@@ -128,6 +193,8 @@ def save_model(path, model, meta, meta_arrays=None):
     )
     if meta_arrays:
         payload.update({f"meta_arr/{k}": v for k, v in meta_arrays.items()})
+    for i, leaf in enumerate(opt_state or ()):
+        payload[f"opt_leaf/{i:05d}"] = np.asarray(leaf)
     with open(path, "wb") as fh:
         np.savez(fh, **payload)
 
@@ -174,3 +241,13 @@ def load_model(path):
     )
     model.load_state_dict(params_from_numpy(params, bn_state))
     return model, meta
+
+
+def load_opt_state(path):
+    """The optimizer-state leaves ``save_model`` stored (optax order), or
+    None when the checkpoint holds none."""
+    with np.load(str(path), allow_pickle=False) as data:
+        keys = sorted(k for k in data.files if k.startswith("opt_leaf/"))
+        if not keys:
+            return None
+        return [data[k] for k in keys]

@@ -1,6 +1,8 @@
-"""The port's kernel modules against the JAX package on the CPU: the
-last-only LSTM's plain version, and the device featurizer."""
+"""The port's kernel modules against the JAX package on the CPU: the plain
+versions of the LSTM kernels (K1, and the training pair K2/K3), and the
+device featurizer."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,6 +58,129 @@ def test_lstm_last_plain_matches_pallas_and_scan(monkeypatch, T, C, H):
     )
 
 
+def _w_aug(params):
+    bias = params["b_ih"] + params["b_hh"]
+    return np.concatenate(
+        [params["w_ih"].T, params["w_hh"].T, bias[None]], axis=0
+    )
+
+
+# Pallas in interpret mode on a small plan: two batch tiles, time chunks of
+# 4 with a ragged tail (T not a multiple of KT), and one exact multiple;
+# C == H and C != H both ways
+@pytest.mark.parametrize(
+    "T,C,H", [(7, 16, 16), (13, 24, 16), (12, 16, 32)]
+)
+def test_lstm_train_plain_matches_pallas(monkeypatch, T, C, H):
+    B = 16
+    monkeypatch.setattr(PL, "_tile_plan", lambda *a, **k: (8, 4))
+    params, x = _lstm_case(T, B, C, H, seed=T)
+    w_aug = _w_aug(params)
+    dhs = np.random.default_rng(T + 1).normal(size=(T, B, H)).astype(
+        np.float32
+    )
+    j_hs, j_cs = PL._fwd_call(jnp.asarray(x), jnp.asarray(w_aug),
+                              interpret=True)
+    j_dx, j_dw = PL._bwd_call(jnp.asarray(x), jnp.asarray(w_aug), j_hs, j_cs,
+                              jnp.asarray(dhs), interpret=True)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w_aug)
+    launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
+    hs, cs = K.lstm_fwd(tx, tw)
+    assert hs.dtype == cs.dtype == torch.float32
+    assert np.allclose(hs.numpy(), np.asarray(j_hs), atol=1e-5, rtol=0)
+    assert np.allclose(cs.numpy(), np.asarray(j_cs), atol=1e-5, rtol=0)
+    hs_nocs, none = K.lstm_fwd(tx, tw, want_cs=False)
+    assert none is None and torch.equal(hs_nocs, hs)
+    dx, dw = K.lstm_bwd(tx, tw, hs, cs, torch.from_numpy(dhs))
+    assert dx.dtype == dw.dtype == torch.float32
+    assert np.allclose(dx.numpy(), np.asarray(j_dx), atol=1e-5, rtol=0)
+    # gradients: 1e-4 relative to the largest entry
+    scale = np.abs(np.asarray(j_dw)).max()
+    assert np.abs(dw.numpy() - np.asarray(j_dw)).max() <= 1e-4 * scale
+    assert (K.LAUNCHES_FWD, K.LAUNCHES_BWD) == launches  # plain on the CPU
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_fused_grads_match_jax_scan(reverse):
+    """``lstm_fused`` (K2/K3's plain versions through ``LSTMFused``) against
+    ``jax.vjp`` of the JAX scan, and against autograd through the port's
+    plain loop: values <= 1e-5, gradients <= 1e-4 relative."""
+    T, B, C, H = 9, 6, 12, 8
+    params, x = _lstm_case(T, B, C, H, seed=3)
+    probe = np.random.default_rng(4).normal(size=(T, B, H)).astype(
+        np.float32
+    )
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    want, vjp = jax.vjp(
+        lambda p, xx: JL.lstm(p, xx, reverse=reverse, impl="scan"),
+        jparams, jnp.asarray(x),
+    )
+    j_dp, j_dx = vjp(jnp.asarray(probe))
+
+    def port(impl):
+        tp = {k: torch.from_numpy(v).requires_grad_() for k, v in
+              params.items()}
+        tx = torch.from_numpy(x).requires_grad_()
+        hs = K.L.lstm(tp, tx, reverse=reverse, impl=impl)
+        (hs * torch.from_numpy(probe)).sum().backward()
+        return hs.detach().numpy(), {k: v.grad.numpy() for k, v in
+                                     tp.items()}, tx.grad.numpy()
+
+    def close_rel(got, ref):
+        ref = np.asarray(ref)
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+    fused, scan = port("fused"), port("scan")
+    for hs, dp, dx in (fused, scan):
+        assert np.allclose(hs, np.asarray(want), atol=1e-5, rtol=0)
+        close_rel(dx, j_dx)
+        for name in params:
+            close_rel(dp[name], j_dp[name])
+    close_rel(fused[2], scan[2])
+    for name in params:
+        close_rel(fused[1][name], scan[1][name])
+
+
+def test_lstm_train_plain_bf16_numerics():
+    """bf16 K2/K3 plain versions: outputs and dx in bf16, dW in f32, within
+    bf16 rounding of the f32 run on the same (bf16-representable) inputs."""
+    T, B, C, H = 6, 5, 8, 8
+    params, x = _lstm_case(T, B, C, H, seed=9)
+    w = torch.from_numpy(_w_aug(params)).bfloat16()
+    xb = torch.from_numpy(x).bfloat16()
+    dhs = torch.from_numpy(
+        np.random.default_rng(2).normal(size=(T, B, H)).astype(np.float32)
+    ).bfloat16()
+    hs, cs = K.lstm_fwd(xb, w)
+    hs32, cs32 = K.lstm_fwd(xb.float(), w.float())
+    assert hs.dtype == cs.dtype == torch.bfloat16
+    assert (hs.float() - hs32).abs().max() <= 2e-2
+    assert (cs.float() - cs32).abs().max() <= 2e-2
+    dx, dw = K.lstm_bwd(xb, w, hs, cs, dhs)
+    dx32, dw32 = K.lstm_bwd(xb.float(), w.float(), hs32, cs32, dhs.float())
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert (dx.float() - dx32).abs().max() <= 2e-2 * dx32.abs().max()
+    assert (dw - dw32).abs().max() <= 2e-2 * dw32.abs().max()
+
+
+def test_lstm_fused_skips_cs_without_grad(monkeypatch):
+    params, x = _lstm_case(4, 3, 8, 8)
+    tparams = {k: torch.from_numpy(v).requires_grad_() for k, v in
+               params.items()}
+    seen = []
+    fwd = K.lstm_fwd
+
+    def spy(x, w_aug, want_cs=True):
+        seen.append(want_cs)
+        return fwd(x, w_aug, want_cs)
+
+    monkeypatch.setattr(K, "lstm_fwd", spy)
+    with torch.no_grad():
+        K.lstm_fused(tparams, torch.from_numpy(x))
+    K.lstm_fused(tparams, torch.from_numpy(x))
+    assert seen == [False, True]
+
+
 def test_make_w_aug_matches_pallas_layout():
     params, _ = _lstm_case(3, 4, 12, 8)
     tparams = {k: torch.from_numpy(v) for k, v in params.items()}
@@ -73,10 +198,13 @@ def test_lstm_last_refuses_devices_without_a_kernel():
     tparams = {k: torch.from_numpy(v).to("meta") for k, v in params.items()}
     with pytest.raises(ValueError, match="no kernel for device"):
         K.lstm_last(tparams, torch.from_numpy(x).to("meta"))
+    w_aug = torch.from_numpy(_w_aug(params)).to("meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        K.lstm_fwd(torch.from_numpy(x).to("meta"), w_aug)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    assert "lstm_last" in _build.sources()
+    assert {"lstm_last", "lstm_train"} <= set(_build.sources())
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RemoraError, match="nvcc not found"):

@@ -80,9 +80,9 @@ def test_conv_bn_swish_layers(stride):
     tc, tb, ts = ({k: _t(v) for k, v in d.items()} for d in (conv, bn, state))
     y = L.conv1d(tc, _t(x), stride)
     _close(y, JL.conv1d(conv, x, stride))
-    _close(L.batchnorm(tb, ts, y), JL.batchnorm(bn, state, np.asarray(y),
-                                                False)[0])
-    _close(L.conv_bn_swish(tc, tb, ts, _t(x), stride),
+    _close(L.batchnorm(tb, ts, y)[0], JL.batchnorm(bn, state, np.asarray(y),
+                                                   False)[0])
+    _close(L.conv_bn_swish(tc, tb, ts, _t(x), stride)[0],
            JL.conv_bn_swish(conv, bn, state, x, stride)[0])
     _close(L.swish(_t(x)), JL.swish(x))
 
@@ -137,9 +137,13 @@ def test_eval_forward_matches_jax(jax_model, port_model, width,
         got = model(_t(sigs), _t(seqs), channels_last_in=channels_last_in)
     assert got.dtype == torch.float32
     _close(got, want)
-    with pytest.raises(NotImplementedError):
-        model(_t(sigs), _t(seqs), train=True,
-              channels_last_in=channels_last_in)
+    # the train-mode forward (batch statistics) too
+    want, _ = JAX_FORWARD[jax_model](params, bn_state, sigs, seqs, train=True,
+                                     channels_last_in=channels_last_in)
+    with torch.no_grad():
+        got = model(_t(sigs), _t(seqs), train=True,
+                    channels_last_in=channels_last_in)
+    _close(got, want)
 
 
 def _meta(name, chunk_context):
