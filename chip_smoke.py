@@ -30,7 +30,18 @@ printed):
    with the kernels against the same step with the plain LSTM versions;
    then the trained checkpoint loads through ``ModelHandle.load`` and calls
    one batch;
-7. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
+8. the banded refinement DP: K4 (forward) and K5 (traceback) against
+   their plain versions on the card (8 reads of 400 bases, W = 128) and
+   against the native host DP on one micro-batch (64 synthetic reads of
+   4000 bases), Viterbi and dwell_penalty, with their times and bounds;
+   (8b) the refinement stage at full size: 256 such reads with labels and
+   CG focus bases through ``SigMapRefiner.refine_reads_batch`` (device,
+   micro-batches of 64, launch counts set to 0 first: K4/K5 launch as the
+   refiner planned, no read goes to the host), ``extract_chunks_batch`` and
+   ``CoreDataset``, identical to the same stage with the native backend; a
+   scale_iters=2 leg held to the same call on the CPU; one profiled
+   micro-batch;
+9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package ``remora_tpu``.
@@ -827,6 +838,476 @@ def infer_trained(ckpt):
         f"softmax p(mod) {float(softmax(out)[:, 1].mean()):.4f}")
 
 
+# ---------------- phase 8: the banded refinement DP (K4, K5) -------------
+
+# benchmarks/synth_set.py::BASE_LVL: the normalized level of each base
+BASE_LVL = {0: -1.2, 1: -0.4, 2: 0.4, 3: 1.2}
+DP_READS, DP_BASES = 64, 4000  # one micro-batch (REFINE_DEVICE_READ_BATCH)
+DP_SMALL_READS, DP_SMALL_BASES = 8, 400
+DP_HBW = 5  # DEFAULT_REFINE_HBW
+STAGE_READS = 256
+STAGE_CHUNK_CONTEXT, STAGE_KMER_CONTEXT = (200, 200), (4, 4)
+STAGE_MAX_SEQ_LEN = 400 // 5  # prepare's chunk width // min samples/base
+STAGE_MAX_CHUNKS = 100_000  # above every read's site count: no RNG draw
+# dependent latency of one stay-fold step on the card, in SM cycles: the
+# chain cs -> FADD (stay = cs + base) -> FSETP (cand < stay) -> FSEL (cs =
+# take ? cand : stay) in the SASS of the fold loop (cuobjdump -sass of
+# libbanded_dp.so), 4 + 4 + 4 cycles for the three dependent f32 ops of
+# Hopper's FMA-pipe latency
+FOLD_STEP_CYCLES = 12
+
+
+def synth_read(rng, n_bases, levels_of=None):
+    """``benchmarks/synth_set.py::synth_read``: random bases, dwells of 4 to
+    11 samples, level + N(0, 0.1) noise, int16 DACs at shift 90, scale 20.
+    ``levels_of`` maps the bases to their levels (default ``BASE_LVL``)."""
+    int_seq = rng.integers(0, 4, n_bases)
+    if levels_of is None:
+        levels = np.array([BASE_LVL[int(b)] for b in int_seq])
+    else:
+        levels = levels_of(int_seq)
+    dwells = rng.integers(4, 12, n_bases)
+    s2s = np.concatenate([[0], np.cumsum(dwells)])
+    norm = np.repeat(levels, dwells) + rng.normal(0, 0.1, s2s[-1])
+    dacs = np.clip(norm * 20 + 90, -500, 3000).astype(np.int16)
+    return int_seq, s2s, dacs
+
+
+def dp_reads(seed, n_reads, n_bases):
+    """(normalized signal f32, levels f32, refiner band) per synthetic read,
+    the band built as the refiner builds it (half-width 5, min step 2)."""
+    from remora_tpu_torch.refine.refiner import _banded_search_space
+
+    rng = np.random.default_rng(seed)
+    reads = []
+    for _ in range(n_reads):
+        int_seq, s2s, dacs = synth_read(rng, n_bases)
+        levels = np.array([BASE_LVL[int(b)] for b in int_seq], np.float32)
+        sig = ((dacs - 90.0) / 20.0).astype(np.float32)
+        band = _banded_search_space(s2s, levels, sig.size, DP_HBW, 2)
+        reads.append((sig, levels, band))
+    return reads
+
+
+def width_bucket(reads):
+    """The refiner's pow-2 band-width bucket of a launch of ``reads``."""
+    w = max(16, max(int((bd[1] - bd[0]).max()) for _s, _l, bd in reads))
+    return 1 << (w - 1).bit_length()
+
+
+def dp_tensors(reads, w_bucket, device):
+    import torch
+
+    from remora_tpu_torch.kernels import banded_dp as K
+
+    packed = K.pad_reads_for_dp(reads, w_max=w_bucket)
+    return [torch.from_numpy(packed[k]).to(device)
+            for k in ("signal", "levels", "band_starts", "band_widths",
+                      "seq_lens")]
+
+
+def max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def check_banded_dp():
+    """K4 and K5 against their plain versions on the card (8 reads of 400
+    bases) and against the native host DP on one micro-batch (64 reads of
+    4000 bases), both algorithms; their times and bounds. Returns the K4
+    and K5 records of dwell_penalty, the default algorithm and so the main
+    path's (Viterbi's numbers are logged)."""
+    import torch
+
+    from remora_tpu_torch.io.native import banded_dp_path, get_lib
+    from remora_tpu_torch.kernels import banded_dp as K
+    from remora_tpu_torch.refine.refiner import DEFAULT_REFINE_SHORT_DWELL_PEN
+
+    cuda = torch.device("cuda")
+    check(get_lib() is not None, "the native host DP library failed to build")
+    sdp_np = np.asarray(DEFAULT_REFINE_SHORT_DWELL_PEN, np.float32)
+    sdp = torch.from_numpy(sdp_np).to(cuda)
+
+    small = dp_reads(8, DP_SMALL_READS, DP_SMALL_BASES)
+    w_small = width_bucket(small)
+    log(f"banded DP, {DP_SMALL_READS} reads of {DP_SMALL_BASES} bases: "
+        f"band-width bucket {w_small}")
+    check(w_small == 128, f"small DP case buckets at W={w_small}, not 128")
+    sig, lvl, st, wd, sl = dp_tensors(small, w_small, cuda)
+    plain_ms, small_ms = {}, {}
+    for algo in ("Viterbi", "dwell_penalty"):
+        dwell = algo == "dwell_penalty"
+        tb = K.dp_forward(sig, lvl, st, wd, sdp, dwell, w_small)
+        tb_ref = K.dp_forward_reference(sig, lvl, st, wd, sdp, dwell, w_small)
+        path = K.dp_traceback(tb, st, wd, sl)
+        path_ref = K.dp_traceback_reference(tb_ref, st, wd, sl)
+        torch.cuda.synchronize()
+        check(torch.equal(tb, tb_ref),
+              f"K4 {algo}: traceback rows differ from the plain version "
+              f"({int((tb != tb_ref).sum())} of {tb.numel()})")
+        check(torch.equal(path, path_ref),
+              f"K5 {algo}: paths differ from the plain version")
+        small_ms[algo] = (
+            time_ms(lambda: K.dp_forward(sig, lvl, st, wd, sdp, dwell,
+                                         w_small)),
+            time_ms(lambda: K.dp_traceback(tb, st, wd, sl)),
+        )
+        plain_ms[algo] = (
+            time_ms(lambda: K.dp_forward_reference(sig, lvl, st, wd, sdp,
+                                                   dwell, w_small),
+                    n=3, calls=1),
+            time_ms(lambda: K.dp_traceback_reference(tb, st, wd, sl), n=3,
+                    calls=1),
+        )
+        log(f"  {algo}: K4/K5 equal to their plain versions (tb rows and "
+            f"paths, bit for bit); kernel {small_ms[algo][0]:.4f} / "
+            f"{small_ms[algo][1]:.4f} ms, plain {plain_ms[algo][0]:.1f} / "
+            f"{plain_ms[algo][1]:.1f} ms")
+
+    batch = dp_reads(9, DP_READS, DP_BASES)
+    w_main = width_bucket(batch)
+    sig, lvl, st, wd, sl = dp_tensors(batch, w_main, cuda)
+    R, N = lvl.shape
+    for algo in ("Viterbi", "dwell_penalty"):
+        dwell = algo == "dwell_penalty"
+        path, tb, _ = K.banded_dp_batch(sig, lvl, st, wd, sl, sdp, algo=algo,
+                                        w_max=w_main)
+        got = path.cpu().numpy()
+        t0 = time.perf_counter()
+        native = [banded_dp_path(s, lv, bd, sdp_np, algo)
+                  for s, lv, bd in batch]
+        native_s = time.perf_counter() - t0
+        diffs = sum(int((got[r, :lv.size + 1] != native[r]).sum())
+                    for r, (_s, lv, _b) in enumerate(batch))
+        check(diffs == 0,
+              f"K4/K5 {algo}: {diffs} path entries differ from the native "
+              "host DP")
+        W = tb.shape[2]
+        fwd_ms = time_ms(lambda: K.dp_forward(sig, lvl, st, wd, sdp, dwell,
+                                              W))
+        tb_ms = time_ms(lambda: K.dp_traceback(tb, st, wd, sl))
+        # K4's floor: the longest read's serial fold chain
+        rows = int(wd.sum(1).max())
+        folds = 2 if dwell else 1
+        chain_ms = rows * folds * FOLD_STEP_CYCLES / max_sm_clock_hz() * 1e3
+        fwd_bytes = (sig.numel() * 4 + 3 * R * N * 4 + sdp.numel() * 4
+                     + tb.numel() * 2)
+        fwd_bytes_ms = fwd_bytes / PEAK_BYTES_PER_S * 1e3
+        # K5 needs one int16 of each base's row, the bands and the path
+        tb_bytes = R * N * 2 + 2 * R * N * 4 + R * 4 + path.numel() * 4
+        tb_bytes_ms = tb_bytes / PEAK_BYTES_PER_S * 1e3
+        n_bases = sum(lv.size for _s, lv, _b in batch)
+        log(f"banded DP {algo}, {R} reads of {DP_BASES} bases (bucket "
+            f"W={W}): paths equal to the native host DP; K4 {fwd_ms:.4f} "
+            f"ms, K5 {tb_ms:.4f} ms ({n_bases / ((fwd_ms + tb_ms) / 1e3):,.0f}"
+            f" bases/s); native host DP {native_s * 1e3:.1f} ms on one core "
+            f"({n_bases / native_s:,.0f} bases/s); K4 floor: serial chain "
+            f"{rows} rows x {folds} folds x {FOLD_STEP_CYCLES} cycles = "
+            f"{chain_ms:.4f} ms, bytes {fwd_bytes / 1e6:.2f} MB = "
+            f"{fwd_bytes_ms:.4f} ms; K5 bytes {tb_bytes / 1e6:.3f} MB = "
+            f"{tb_bytes_ms:.4f} ms")
+        if not dwell:
+            continue
+        records = [
+            {"name": "banded_dp_forward", "route": "cuda",
+             "source": "remora_tpu_torch/csrc/banded_dp.cu",
+             "replaces": "remora_tpu/kernels/pallas_dp.py:240",
+             "launches": None, "max_abs_err": float(diffs),
+             "ms": fwd_ms, "plain_ms": plain_ms[algo][0],
+             "bound_ms": max(chain_ms, fwd_bytes_ms),
+             "bound_by": "operations" if chain_ms >= fwd_bytes_ms
+             else "bytes",
+             "library_ms": None},
+            {"name": "banded_dp_traceback", "route": "cuda",
+             "source": "remora_tpu_torch/csrc/banded_dp.cu",
+             "replaces": "remora_tpu/kernels/pallas_dp.py:361",
+             "launches": None, "max_abs_err": float(diffs),
+             "ms": tb_ms, "plain_ms": plain_ms[algo][1],
+             "bound_ms": tb_bytes_ms, "bound_by": "bytes",
+             "library_ms": None},
+        ]
+    return records
+
+
+# ---------------- phase 8b: the refinement stage at full size ------------
+
+
+def synth_level_table(kmer_len=9):
+    """A 9-mer level table: ``BASE_LVL`` of the centre base plus a small
+    deterministic term from its neighbours (weights falling with
+    distance), indexed as the refiner indexes k-mers."""
+    idx = np.arange(4 ** kmer_len)
+    digits = np.stack([(idx // 4 ** (kmer_len - 1 - j)) % 4
+                       for j in range(kmer_len)], 1)
+    lvl = np.array([BASE_LVL[b] for b in range(4)])
+    center = kmer_len // 2
+    table = lvl[digits[:, center]].copy()
+    for j in range(kmer_len):
+        if j != center:
+            table += 0.06 / abs(j - center) * lvl[digits[:, j]]
+    return table.astype(np.float32), center
+
+
+def stage_reads(seed, n_reads, table, center):
+    """``RemoraRead``s of 4000 synthetic bases with per-base labels and CG
+    focus bases; the signal follows the 9-mer table."""
+    from remora_tpu_torch.core.seq import Motif
+    from remora_tpu_torch.data.read import RemoraRead
+    from remora_tpu_torch.refine.levels import extract_levels
+
+    kmer_len = (table.size - 1).bit_length() // 2
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(n_reads):
+        int_seq, s2s, dacs = synth_read(
+            rng, DP_BASES,
+            lambda s: extract_levels(s, table, kmer_len, center))
+        rd = RemoraRead(
+            dacs=dacs, shift=88.0 + rng.normal(0, 1),
+            scale=21.0 + rng.normal(0, 0.5), seq_to_sig_map=s2s,
+            int_seq=int_seq, labels=rng.integers(0, 2, DP_BASES),
+            read_id=f"synth-read-{i:05d}",
+        )
+        rd.set_motif_focus_bases([Motif("CG", 0)])
+        reads.append(rd)
+    return reads
+
+
+def extract_stage_chunks(reads, errs):
+    """prepare's per-read tail after refinement: the focus-base downsample,
+    the read check and ``extract_chunks_batch``; returns the arrays of
+    every read."""
+    from remora_tpu_torch.core.seq import Motif
+    from remora_tpu_torch.data.chunk_batch import extract_chunks_batch
+
+    out = []
+    for rd, err in zip(reads, errs):
+        if err is not None:
+            continue
+        rd.downsample_focus_bases(STAGE_MAX_CHUNKS)
+        rd.check()
+        res = extract_chunks_batch(
+            rd, STAGE_CHUNK_CONTEXT, STAGE_KMER_CONTEXT, STAGE_MAX_SEQ_LEN,
+            motifs=[Motif("CG", 0)], check_chunks=True)
+        if res is None:
+            continue
+        arrays, _n_long = res
+        arrays["read_ids"] = np.full(arrays["labels"].size, rd.read_id,
+                                     "<U36")
+        out.append(arrays)
+    return out
+
+
+def write_stage_dataset(path, batches, refiner):
+    from remora_tpu_torch.data.dataset import CoreDataset
+    from remora_tpu_torch.data.metadata import DatasetMetadata
+
+    n = sum(b["labels"].size for b in batches)
+    md = DatasetMetadata(
+        allocate_size=n, max_seq_len=STAGE_MAX_SEQ_LEN,
+        mod_bases=["m"], mod_long_names=["5mC"],
+        motif_sequences=["CG"], motif_offsets=[0],
+        extra_arrays={
+            "read_ids": ("<U36", "UUID of the source read"),
+            "read_focus_bases": ("int64", "Focus base index"),
+        },
+        kmer_context_bases=STAGE_KMER_CONTEXT,
+        chunk_context=STAGE_CHUNK_CONTEXT, sig_map_refiner=refiner,
+    )
+    ds = CoreDataset(path, mode="w", metadata=md)
+    for arrays in batches:
+        ds.write_batch(arrays)
+    ds.flush()
+    ds.write_metadata()
+    return CoreDataset(path, infinite_iter=False)
+
+
+@contextlib.contextmanager
+def timed_dp_kernels(intervals):
+    """Record a pair of CUDA events around every K4/K5 launch."""
+    import torch
+
+    from remora_tpu_torch.kernels import banded_dp as K
+
+    kernels = K.dp_forward, K.dp_traceback
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            intervals.append((start, end))
+            return out
+        return run
+
+    K.dp_forward, K.dp_traceback = (timed(fn) for fn in kernels)
+    try:
+        yield
+    finally:
+        K.dp_forward, K.dp_traceback = kernels
+
+
+def profile_micro_batch(refiner, batch):
+    """The K4/K5 busy and idle share of one micro-batch of
+    ``refine_reads_batch`` (CUDA events around each launch, against the
+    host wall of the call), then the same call under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    intervals = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed_dp_kernels(intervals):
+        refiner.refine_reads_batch(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy_s = sum(a.elapsed_time(b) for a, b in intervals) / 1e3
+    log(f"  one micro-batch ({len(batch)} reads), CUDA events: K4/K5 busy "
+        f"{busy_s * 1e3:.4f} ms of {wall * 1e3:.4f} ms wall ({busy_s / wall:.1%}"
+        f" busy, {1 - busy_s / wall:.1%} idle; {len(intervals)} launches)")
+    batch = [rd.copy() for rd in batch]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        refiner.refine_reads_batch(batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = kernel_rows(prof)
+    if not rows:
+        events = prof.key_averages()
+        log("  profile: the profiler recorded no device time (breakdown by "
+            f"kernel not measured; {len(events)} events, "
+            f"{sum(e.device_type != DeviceType.CPU for e in events)} not on "
+            "the CPU)")
+        return
+    busy_s = sum(r[0] for r in rows) / 1e6
+    log(f"  profile of one micro-batch: kernels busy {busy_s * 1e3:.4f} ms "
+        f"of {wall * 1e3:.4f} ms profiled wall ({busy_s / wall:.1%} busy, "
+        f"{1 - busy_s / wall:.1%} idle)")
+    for dev_us, key, count in rows[:6]:
+        log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+
+
+def refine_stage(root):
+    """256 reads through ``refine_reads_batch`` (device, micro-batches of
+    64) and through the native backend, carried into two datasets that
+    must be identical; K4/K5 launches as planned and no host reroute; a
+    scale_iters=2 leg held to the same call on the CPU; one profiled
+    micro-batch first. Returns (launches, rates)."""
+    import torch
+
+    from remora_tpu_torch.constants import REFINE_DEVICE_READ_BATCH
+    from remora_tpu_torch.kernels import banded_dp as K
+    from remora_tpu_torch.refine import refiner as RF
+
+    table, center = synth_level_table()
+    device_refiner = RF.SigMapRefiner(
+        _levels_array=table, center_idx=center, do_rough_rescale=True,
+        scale_iters=0, backend="device")
+    check(device_refiner.device.type == "cuda",
+          f"device refiner on {device_refiner.device}")
+    native_refiner = RF.SigMapRefiner(
+        _levels_array=table, center_idx=center, do_rough_rescale=True,
+        scale_iters=0, backend="native")
+    reads = stage_reads(10, STAGE_READS, table, center)
+    native_reads = [rd.copy() for rd in reads]
+    n_bases = sum(rd.int_seq.size for rd in reads)
+    micro = REFINE_DEVICE_READ_BATCH
+
+    # warm-up on a copy: the kernels' first launch, the native library
+    device_refiner.refine_reads_batch([rd.copy() for rd in reads[:micro]])
+    torch.cuda.synchronize()
+    profile_micro_batch(device_refiner, [rd.copy() for rd in reads[:micro]])
+    K.LAUNCHES_FWD = K.LAUNCHES_TB = 0
+    RF.PLANNED_LAUNCHES = RF.HOST_ROUTED_READS = 0
+    t0 = time.perf_counter()
+    errs = []
+    for i in range(0, len(reads), micro):
+        errs.extend(device_refiner.refine_reads_batch(reads[i:i + micro]))
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    launches = (K.LAUNCHES_FWD, K.LAUNCHES_TB)
+    planned, rerouted = RF.PLANNED_LAUNCHES, RF.HOST_ROUTED_READS
+    log(f"refine stage, device: {len(reads)} reads ({n_bases} bases) in "
+        f"{device_s:.3f} s = {len(reads) / device_s:,.1f} reads/s, "
+        f"{n_bases / device_s:,.0f} bases/s; K4/K5 launches {launches}, "
+        f"planned {planned}, reads routed to the host {rerouted}")
+    check(launches == (planned, planned) and planned > 0,
+          f"K4/K5 launched {launches} times, the refiner planned {planned}")
+    check(rerouted == 0, f"{rerouted} reads were routed to the host DP")
+    check(all(e is None for e in errs),
+          f"{sum(e is not None for e in errs)} reads failed to refine")
+
+    t0 = time.perf_counter()
+    for rd in native_reads:
+        rd.refine_signal_mapping(native_refiner)
+    native_s = time.perf_counter() - t0
+    log(f"refine stage, native: {len(reads)} reads in {native_s:.3f} s = "
+        f"{len(reads) / native_s:,.1f} reads/s, {n_bases / native_s:,.0f} "
+        "bases/s (one core)")
+
+    dev_ds = write_stage_dataset(os.path.join(root, "device"),
+                                 extract_stage_chunks(reads, errs),
+                                 device_refiner)
+    nat_ds = write_stage_dataset(os.path.join(root, "native"),
+                                 extract_stage_chunks(native_reads,
+                                                      [None] * len(reads)),
+                                 native_refiner)
+    log(f"refine stage datasets: device {dev_ds.size} chunks, native "
+        f"{nat_ds.size} chunks")
+    check(dev_ds.size == nat_ds.size > 0,
+          f"device dataset holds {dev_ds.size} chunks, native {nat_ds.size}")
+    for name in nat_ds.array_names:
+        check(np.array_equal(getattr(dev_ds, name)[:dev_ds.size],
+                             getattr(nat_ds, name)[:nat_ds.size]),
+              f"refine stage: {name} differs between device and native")
+    check(dev_ds.metadata.sig_map_refiner == device_refiner,
+          "the dataset's refiner differs from the stage's")
+
+    # scale_iters=2: the device normalizes in f32 on the card; held to the
+    # same call on the CPU (the plain versions)
+    legs = []
+    for device in (None, "cpu"):
+        refiner = RF.SigMapRefiner(
+            _levels_array=table, center_idx=center, do_rough_rescale=True,
+            scale_iters=2, backend="device", device=device)
+        leg = [rd.copy() for rd in reads[:micro]]
+        np.random.seed(11)
+        t0 = time.perf_counter()
+        leg_errs = refiner.refine_reads_batch(leg)
+        legs.append((leg, leg_errs, time.perf_counter() - t0))
+    (card, card_errs, card_s), (cpu, cpu_errs, cpu_s) = legs
+    moved = sum(int((a.seq_to_sig_map != b.seq_to_sig_map).sum())
+                for a, b in zip(card, cpu))
+    scaled = sum(a.shift != b.shift or a.scale != b.scale
+                 for a, b in zip(card, cpu))
+    log(f"scale_iters=2, {micro} reads: card {card_s:.3f} s, CPU (plain "
+        f"versions) {cpu_s:.3f} s; map entries that differ {moved}, reads "
+        f"whose shift or scale differ {scaled}")
+    check([e is None for e in card_errs] == [e is None for e in cpu_errs],
+          "scale_iters=2: errors differ between the card and the CPU")
+    check(moved == 0 and scaled == 0,
+          "scale_iters=2: the card's refinement differs from the CPU's")
+
+    rates = {
+        "refine_device_reads_per_s": len(reads) / device_s,
+        "refine_device_bases_per_s": n_bases / device_s,
+        "refine_native_reads_per_s": len(reads) / native_s,
+        "refine_native_bases_per_s": n_bases / native_s,
+        "refine_reads": len(reads), "refine_bases_per_read": DP_BASES,
+        "refine_chunks": int(dev_ds.size),
+    }
+    return launches, rates
+
+
 def main():
     import torch
 
@@ -890,15 +1371,22 @@ def main():
         final = os.path.join(tmp, "train_f32", "model_final.checkpoint")
         check_train_step_vs_plain(final)
         infer_trained(final)
+
+    dp_kernels = check_banded_dp()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, refine_rates = refine_stage(tmp)
+    for rec, n in zip(dp_kernels, launches):
+        rec["launches"] = n
     log(json.dumps({"slice": {
         "f32_chunks_per_s": f32_rate, "bf16_chunks_per_s": bf16_rate,
         "batches": N_BATCHES, "batch": BATCH, "last_batch": LAST_BATCH,
         "width": WIDTH, "kmer_len": KMER_LEN, "size": SIZE,
         "train_epoch_chunks_per_s": train_rates,
         "train_steps_per_epoch": TRAIN_STEPS, "train_epochs": TRAIN_EPOCHS,
+        **refine_rates,
     }}))
     records = list(kernels.values())
-    for recs in train_kernels.values():
+    for recs in (*train_kernels.values(), dp_kernels):
         records.extend(recs)
     log(json.dumps({"kernels": records}))
     log(nvidia_smi_line())

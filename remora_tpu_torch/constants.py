@@ -58,3 +58,24 @@ ROUGH_RESCALE_METHODS = (ROUGH_RESCALE_LEAST_SQUARES, ROUGH_RESCALE_THEIL_SEN)
 DEFAULT_ROUGH_RESCALE_METHOD = ROUGH_RESCALE_LEAST_SQUARES
 
 PA_TO_NORM_SCALING_FACTOR = 1.4826
+# execution backends for the banded refinement DP (a runtime routing
+# choice, not part of dataset/model metadata): auto = native C++ when
+# built, else NumPy; device = the CUDA kernels (K4, K5)
+REFINE_BACKEND_AUTO = "auto"
+REFINE_BACKEND_NATIVE = "native"
+REFINE_BACKEND_NUMPY = "numpy"
+REFINE_BACKEND_DEVICE = "device"
+REFINE_BACKENDS = (
+    REFINE_BACKEND_AUTO,
+    REFINE_BACKEND_NATIVE,
+    REFINE_BACKEND_NUMPY,
+    REFINE_BACKEND_DEVICE,
+)
+# reads per micro-batch of the device DP stage
+REFINE_DEVICE_READ_BATCH = 64
+# widest per-base band the device DP accepts; wider reads route to the
+# host DP (the K4 kernel keeps six band-wide arrays in shared memory:
+# 96 KB at 4096 rows)
+REFINE_DEVICE_MAX_BAND = 4096
+
+MAX_POINTS_FOR_THEIL_SEN = 1000

@@ -1,5 +1,6 @@
 """Nucleotide encoding and IUPAC motifs (copy of the parts of
-``remora_tpu/core/seq.py`` that the dataset and its metadata use).
+``remora_tpu/core/seq.py`` that the dataset, its metadata, reads and
+chunk extraction use).
 
 Integer base encoding A=0 C=1 G=2 T=3 (other = -1); every IUPAC code is
 a 4-bit mask over ACGT, so superset tests and merge-exactness reduce to
@@ -48,6 +49,15 @@ def int_to_seq(int_seq, alphabet=CONV_ALPHABET):
         raise RemoraError(f"Invalid value in int sequence ({hi})")
     lut = np.frombuffer(alphabet.encode("ascii"), dtype=np.uint8)
     return lut[int_seq].tobytes().decode("ascii")
+
+
+def _int_seq_masks(int_seq):
+    """Per-position base masks for an integer sequence (-1 -> 0, no match)."""
+    int_seq = np.asarray(int_seq)
+    masks = np.zeros(int_seq.size, dtype=np.uint8)
+    valid = int_seq >= 0
+    masks[valid] = np.left_shift(1, int_seq[valid].astype(np.uint8))
+    return masks
 
 
 @dataclass
@@ -108,6 +118,36 @@ class Motif:
     def num_bases_after_focus(self):
         return len(self) - 1 - self.focus_pos
 
+    def findall(self, int_seq):
+        """Start positions of every (possibly overlapping) motif hit, as a
+        bitwise-AND reduction of shifted mask views; add ``focus_pos`` to
+        convert to focus coordinates."""
+        mlen = len(self.raw_motif)
+        n_win = np.asarray(int_seq).size - mlen + 1
+        if n_win <= 0:
+            return np.empty(0, dtype=np.int64)
+        seq_masks = _int_seq_masks(int_seq)
+        ok = np.ones(n_win, dtype=bool)
+        for off, pos_mask in enumerate(self.masks):
+            ok &= (seq_masks[off : off + n_win] & pos_mask) != 0
+        return np.flatnonzero(ok)
+
+    def match(self, int_seq, pos):
+        """Does the motif match with its focus at position ``pos``? Motif
+        positions that fall off either end of the sequence match."""
+        int_seq = np.asarray(int_seq)
+        masks = self.masks
+        lo = pos - self.focus_pos
+        hi = lo + masks.size
+        if lo < 0:
+            masks = masks[-lo:]
+            lo = 0
+        if hi > int_seq.size:
+            masks = masks[: masks.size - (hi - int_seq.size)]
+            hi = int_seq.size
+        window = _int_seq_masks(int_seq[lo:hi])
+        return bool(((window & masks) != 0).all())
+
     def is_super_set(self, other):
         """Are all sequences matched by ``other`` also matched by self?"""
         if self.focus_pos > other.focus_pos:
@@ -164,3 +204,16 @@ def merge_motifs(motifs):
             if merged_any:
                 break
     return pool
+
+
+def find_focus_bases(int_seq, motifs):
+    """Positions of any-motif focus hits within an integer sequence, in
+    set order (unsorted, deduplicated), as the JAX package returns them."""
+    return np.fromiter(
+        set(
+            int(pos) + mot.focus_pos
+            for mot in motifs
+            for pos in mot.findall(int_seq)
+        ),
+        dtype=np.int64,
+    )

@@ -54,3 +54,18 @@ def pad_rows(arr, n_rows):
         return arr
     pad = np.zeros((n_rows - arr.shape[0],) + arr.shape[1:], arr.dtype)
     return np.concatenate([arr, pad])
+
+
+def resolve_device(device=None):
+    """The torch device entry points run on: ``device`` when given, else
+    the GPU; raises when no GPU is present and no device was named."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RemoraError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU"
+        )
+    return torch.device("cuda")

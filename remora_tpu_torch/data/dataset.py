@@ -15,11 +15,8 @@ the device and the encoded-kmer featurization runs there (the host
 featurizer here serves validation batches). Every ``np.random`` call sits
 where the JAX package has it, so the same seed gives the same batches.
 
-Changes from the JAX copy: refinement settings are the plain
-``refine_settings`` dict of ``DatasetMetadata`` (compared with
-``same_refine_settings``), and the chunk-context trim is the vectorised
-NumPy path only (the JAX package may take a C++ kernel with the same
-result).
+Change from the JAX copy: the chunk-context trim is the vectorised NumPy
+path only (the JAX package may take a C++ kernel with the same result).
 """
 
 import hashlib
@@ -40,10 +37,7 @@ from remora_tpu_torch.constants import (
 from remora_tpu_torch.core import seq as sequtil
 from remora_tpu_torch.core.util import resolve_path
 from remora_tpu_torch.data import encoded_kmers
-from remora_tpu_torch.data.metadata import (
-    DatasetMetadata,
-    same_refine_settings,
-)
+from remora_tpu_torch.data.metadata import DatasetMetadata
 
 LOGGER = log.get_logger()
 
@@ -256,7 +250,7 @@ class CoreDataset:
             ("reverse_signal", md.reverse_signal),
             ("chunk_extract_base_start", md.base_start_justify),
             ("chunk_extract_offset", md.offset),
-            ("refine_settings", md.refine_settings),
+            ("sig_map_refiner", md.sig_map_refiner),
         )
         return "".join(f"{name:>25} : {val}\n" for name, val in fields)
 
@@ -776,14 +770,6 @@ def load_dataset(ds_path):
     return parse_dataset_config(ds_path)
 
 
-def _same_metadata(attr, a, b):
-    """Equality of one metadata field of two datasets (refinement settings
-    by the settings that affect refinement)."""
-    if attr == "refine_settings":
-        return same_refine_settings(a.refine_settings, b.refine_settings)
-    return getattr(a, attr) == getattr(b, attr)
-
-
 def compute_best_split(total_size, props):
     """Integer split of total_size approximately proportional to props."""
     if len(props) > total_size:
@@ -811,7 +797,7 @@ class ComposedDataset:
 
     # metadata that every member dataset must share exactly
     UNIFORM_METADATA = (
-        "refine_settings",
+        "sig_map_refiner",
         "pa_scaling",
         "reverse_signal",
         "modified_base_labels",
@@ -887,7 +873,7 @@ class ComposedDataset:
             ("chunk_extract_base_start", md.base_start_justify),
             ("chunk_extract_offset", md.offset),
             ("pa_scaling", md.pa_scaling),
-            ("refine_settings", md.refine_settings),
+            ("sig_map_refiner", md.sig_map_refiner),
         )
         return "".join(f"{name:>25} : {val}\n" for name, val in fields)
 
@@ -953,7 +939,7 @@ class ComposedDataset:
         for ds in self.datasets[1:]:
             member_md = ds.metadata
             for attr in self.UNIFORM_METADATA:
-                if not _same_metadata(attr, member_md, self.metadata):
+                if getattr(member_md, attr) != getattr(self.metadata, attr):
                     raise RemoraError(
                         f"All datasets must have same {attr} "
                         f"{getattr(member_md, attr)} != "
@@ -982,7 +968,7 @@ class ComposedDataset:
         "offset",
         "reverse_signal",
         "pa_scaling",
-        "refine_settings",
+        "sig_map_refiner",
     )
     _UPDATE_INHERIT_KEYS = (
         "mod_bases",
@@ -995,7 +981,7 @@ class ComposedDataset:
     def update_metadata(self, other):
         theirs = other.metadata
         for md_key in self._UPDATE_GUARD_KEYS:
-            if not _same_metadata(md_key, theirs, self.metadata):
+            if getattr(theirs, md_key) != getattr(self.metadata, md_key):
                 raise RemoraError(
                     f"metadata field {md_key!r} differs; cannot update"
                 )

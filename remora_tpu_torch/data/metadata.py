@@ -3,12 +3,8 @@
 Copy of ``remora_tpu/data/metadata.py``. The on-disk representation
 (``metadata.jsn`` + ``kmer_table.npy`` sidecar) is the JAX package's, so
 datasets interoperate in both directions; dataclass field names double
-as the JSON key contract.
-
-The JAX package holds the refinement settings as a ``SigMapRefiner``;
-this package does not refine (yet), so it carries them as a plain
-``refine_settings`` dict of the ``refine_*`` keys, which round-trip
-unchanged through ``write`` and ``load``.
+as the JSON key contract. The refinement settings are a
+``SigMapRefiner``, written as its ``refine_*`` keys.
 """
 
 import dataclasses
@@ -26,6 +22,7 @@ from remora_tpu_torch.constants import (
     DEFAULT_ROUGH_RESCALE_METHOD,
 )
 from remora_tpu_torch.core.seq import Motif
+from remora_tpu_torch.refine.refiner import SigMapRefiner
 
 DATASET_VERSION = constants.DATASET_VERSION
 
@@ -44,25 +41,6 @@ def jsonify_numpy(obj):
         if isinstance(obj, np_type):
             return coerce(obj)
     raise TypeError(f"Object of type {type(obj)} is not JSON serializable")
-
-
-def same_refine_settings(a, b):
-    """Equality on the settings that affect refinement (the tiers of the
-    JAX package's ``SigMapRefiner.__eq__``): when neither side rescales
-    nor refines, the rest is inert; otherwise every key must agree."""
-    a, b = a or {}, b or {}
-
-    def mode(s):
-        return (bool(s.get("refine_do_rough_rescale", False)),
-                int(s.get("refine_scale_iters", -1)))
-
-    if mode(a) != mode(b):
-        return False
-    if not mode(a)[0] and mode(a)[1] < 0:
-        return True
-    if a.keys() != b.keys():
-        return False
-    return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
 
 
 @dataclasses.dataclass
@@ -94,7 +72,7 @@ class DatasetMetadata:
     kmer_context_bases: Tuple[int, int] = DEFAULT_KMER_CONTEXT_BASES
     reverse_signal: "bool" = False
     pa_scaling: Optional[Tuple[float, float]] = None
-    refine_settings: Optional[dict] = None
+    sig_map_refiner: Optional[SigMapRefiner] = None
     rough_rescale_method: "str" = DEFAULT_ROUGH_RESCALE_METHOD
 
     _stored_kmer_context_bases: Optional[Tuple[int, int]] = None
@@ -153,7 +131,10 @@ class DatasetMetadata:
 
     def asdict(self):
         flat = dataclasses.asdict(self)
-        flat.update(flat.pop("refine_settings") or {})
+        del flat["sig_map_refiner"]
+        refiner = self.sig_map_refiner
+        if refiner is not None:
+            flat.update(refiner.asdict())
         return flat
 
     def write(self, metadata_path, kmer_table_path=None):
@@ -182,10 +163,10 @@ class DatasetMetadata:
             record["refine_sd_arr"] = np.asarray(
                 record["refine_sd_arr"], np.float32
             )
-        refine = {
-            k: record.pop(k) for k in list(record) if k.startswith("refine_")
-        }
-        record["refine_settings"] = refine or None
+        record["sig_map_refiner"] = SigMapRefiner.load_from_metadata(record)
+        refine_keys = [k for k in record if k.startswith("refine_")]
+        for key in refine_keys:
+            record.pop(key)
         return record
 
 

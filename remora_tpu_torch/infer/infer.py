@@ -20,26 +20,13 @@ from collections import deque
 
 import torch
 
-from remora_tpu_torch import RemoraError, log
+from remora_tpu_torch import log
 from remora_tpu_torch.core.pipeline import put_item, queue_iter
-from remora_tpu_torch.core.util import pad_rows
+from remora_tpu_torch.core.util import pad_rows, resolve_device
 from remora_tpu_torch.kernels.encoded_kmers import compute_encoded_kmer_batch
 from remora_tpu_torch.models import model_io
 
 LOGGER = log.get_logger()
-
-
-def resolve_device(device=None):
-    """The torch device entry points run on: ``device`` when given, else
-    the GPU; raises when no GPU is present and no device was named."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RemoraError(
-            "no CUDA device is available; pass device='cpu' to run on the "
-            "CPU"
-        )
-    return torch.device("cuda")
 
 
 @contextlib.contextmanager

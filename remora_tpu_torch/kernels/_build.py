@@ -24,6 +24,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+# flags of one source only: the DP kernels must never contract a product
+# and a sum into an FMA (their paths are bit-exact to the host DP)
+SOURCE_FLAGS = {"banded_dp": ("--fmad=false",)}
+
 _LIBS = {}
 _LOCK = threading.Lock()
 # name -> (seconds, compiler output) of the builds this process ran
@@ -62,7 +66,8 @@ def _is_fresh(name):
 def _start(name):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o",
+           str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

@@ -8,8 +8,8 @@ module's state-dict key ``<layer>.<leaf>`` is the checkpoint key
 ``<layer>/<leaf>``: parameters go under ``params/``, buffers (BatchNorm
 running statistics) under ``bn/``.
 
-Refinement settings (``refine_*`` keys and arrays) are carried through
-unchanged as a plain ``refine_settings`` dict.
+Refinement settings (``refine_*`` keys and arrays) load as a
+``SigMapRefiner`` (``sig_map_refiner``), as in the JAX package.
 
 Optimizer state rides as ``opt_leaf/<i>`` arrays in the leaf order of the
 JAX package's optax state (``train/optim.py`` maps torch's optimizers to
@@ -23,8 +23,7 @@ import torch
 
 from remora_tpu_torch import constants
 from remora_tpu_torch.models.registry import get_model
-
-_REFINE_KEYS = ("rough_rescale_method",)
+from remora_tpu_torch.refine.refiner import SigMapRefiner
 
 
 # ---------------- param pytree <-> flat arrays ----------------
@@ -80,23 +79,6 @@ def module_to_trees(model):
 # ---------------- metadata ----------------
 
 
-def default_refine_settings():
-    """The ``refine_*`` settings of a dataset that carries none: those of
-    the JAX package's default ``SigMapRefiner`` (no levels table, no
-    rescaling, no refinement)."""
-    target, limit, weight = constants.DEFAULT_REFINE_SHORT_DWELL_PARAMS
-    dwell = np.arange(min(limit, target), dtype=np.float32)
-    return {
-        "refine_kmer_levels": None,
-        "refine_kmer_center_idx": -1,
-        "refine_do_rough_rescale": False,
-        "refine_scale_iters": -1,
-        "refine_algo": constants.DEFAULT_REFINE_ALGO,
-        "refine_half_bandwidth": constants.DEFAULT_REFINE_HBW,
-        "refine_sd_arr": weight * np.square(dwell - target),
-    }
-
-
 def make_model_metadata(dataset_metadata, model_name, model_params):
     """Assemble the checkpoint metadata dict and its arrays from dataset
     metadata (the JAX package's ``make_model_metadata``)."""
@@ -119,17 +101,15 @@ def make_model_metadata(dataset_metadata, model_name, model_params):
             None if md.pa_scaling is None else list(md.pa_scaling)
         ),
     }
-    refine = default_refine_settings()
-    refine.update(
-        (k, v) for k, v in (md.refine_settings or {}).items() if v is not None
-    )
+    smr = md.sig_map_refiner
+    refine = (smr or SigMapRefiner()).asdict()
     # levels/sd arrays ride as npz arrays, the rest as JSON scalars
     meta["refine_kmer_center_idx"] = int(refine["refine_kmer_center_idx"])
     meta["refine_do_rough_rescale"] = bool(refine["refine_do_rough_rescale"])
     meta["refine_scale_iters"] = int(refine["refine_scale_iters"])
     meta["refine_algo"] = refine["refine_algo"]
     meta["refine_half_bandwidth"] = int(refine["refine_half_bandwidth"])
-    meta["rough_rescale_method"] = md.rough_rescale_method
+    meta["rough_rescale_method"] = refine["rough_rescale_method"]
     arrays = {}
     if refine["refine_kmer_levels"] is not None:
         arrays["refine_kmer_levels"] = np.asarray(
@@ -166,11 +146,24 @@ def add_derived_metadata(meta):
         f"loaded modified base model to call (alt to {meta['can_base']}): "
         f"{mod_str}"
     )
-    meta["refine_settings"] = {
-        k: meta.pop(k)
-        for k in list(meta)
-        if k.startswith("refine_") or k in _REFINE_KEYS
-    }
+    levels = meta.pop("refine_kmer_levels", None)
+    sd_arr = meta.pop("refine_sd_arr", None)
+    meta["sig_map_refiner"] = SigMapRefiner(
+        _levels_array=None if levels is None else np.asarray(levels, np.float32),
+        center_idx=int(meta.pop("refine_kmer_center_idx", -1)),
+        do_rough_rescale=bool(meta.pop("refine_do_rough_rescale", False)),
+        scale_iters=int(meta.pop("refine_scale_iters", -1)),
+        algo=meta.pop("refine_algo", constants.DEFAULT_REFINE_ALGO),
+        half_bandwidth=int(
+            meta.pop("refine_half_bandwidth", constants.DEFAULT_REFINE_HBW)
+        ),
+        sd_arr=(
+            None if sd_arr is None else np.asarray(sd_arr, np.float32)
+        ),
+        rough_rescale_method=meta.pop(
+            "rough_rescale_method", constants.ROUGH_RESCALE_LEAST_SQUARES
+        ),
+    )
     return meta
 
 
@@ -213,7 +206,7 @@ def load_model(path):
     """Load an ``.npz`` checkpoint into a module on the CPU.
 
     Returns (model, metadata); metadata has all derived fields set
-    (kmer_len, chunk_len, can_base, refine_settings, ...).
+    (kmer_len, chunk_len, can_base, sig_map_refiner, ...).
     """
     with np.load(str(path), allow_pickle=False) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())

@@ -155,3 +155,134 @@ def test_lstm_train_kernels_refuse_bad_inputs(cuda):
     hs, cs = K.lstm_fwd(xw, ww)
     with pytest.raises(ValueError, match="kernel takes"):
         K.lstm_bwd(xw, ww, hs, cs, hs)
+
+
+# ---------------- K4 / K5: the banded refinement DP ----------------
+
+
+def _dp_case(seed, lengths, stall=False):
+    """Reads of ``lengths`` bases (one with a 220-sample stall when
+    ``stall``), bands as the refiner builds them; (reads, sdp, bucket)."""
+    from remora_tpu_torch.refine import band
+    from remora_tpu_torch.refine.refiner import DEFAULT_REFINE_SHORT_DWELL_PEN
+
+    rng = np.random.default_rng(seed)
+    reads = []
+    for k, n in enumerate(lengths):
+        spb = rng.integers(1, 12, n)
+        if stall and k == 1:
+            spb[n // 2] = 220
+        bps = np.concatenate([[0], np.cumsum(spb)]).astype(np.int64)
+        levels = rng.normal(size=n).astype(np.float32)
+        signal = rng.normal(size=int(bps[-1])).astype(np.float32)
+        seq_band = band.convert_to_seq_band(
+            band.compute_sig_band(bps, levels, bhw=5))
+        band.adjust_seq_band(seq_band)
+        reads.append((signal, levels, seq_band))
+    w = max(16, max(int((b[1] - b[0]).max()) for _s, _l, b in reads))
+    sdp = np.asarray(DEFAULT_REFINE_SHORT_DWELL_PEN, np.float32)
+    return reads, sdp, 1 << (w - 1).bit_length()
+
+
+def _dp_inputs(reads, w_max, device):
+    from remora_tpu_torch.kernels import banded_dp as DP
+
+    packed = DP.pad_reads_for_dp(reads, w_max=w_max)
+    return [torch.from_numpy(packed[k]).to(device)
+            for k in ("signal", "levels", "band_starts", "band_widths",
+                      "seq_lens")]
+
+
+# ragged launches: one read, reads of very different lengths, a launch
+# whose band widths differ 4x (a stall), and widths that are not a
+# multiple of the block's 128 threads
+@pytest.mark.parametrize("algo", ["Viterbi", "dwell_penalty"])
+@pytest.mark.parametrize("lengths,stall", [
+    ((37,), False), ((5, 300, 61, 1 + 128), False), ((40, 50, 30), True),
+])
+def test_banded_dp_kernels_match_plain_and_native(cuda, algo, lengths,
+                                                  stall):
+    from remora_tpu_torch.io.native import banded_dp_path
+    from remora_tpu_torch.kernels import banded_dp as DP
+
+    reads, sdp_np, w_max = _dp_case(len(lengths), lengths, stall)
+    sig, lvl, st, wd, sl = _dp_inputs(reads, w_max, cuda)
+    sdp = torch.from_numpy(sdp_np).to(cuda)
+    dwell = algo == "dwell_penalty"
+    W = DP.launch_width(w_max)
+    launches = (DP.LAUNCHES_FWD, DP.LAUNCHES_TB)
+    tb = DP.dp_forward(sig, lvl, st, wd, sdp, dwell, W)
+    path = DP.dp_traceback(tb, st, wd, sl)
+    torch.cuda.synchronize()
+    assert (DP.LAUNCHES_FWD, DP.LAUNCHES_TB) == (launches[0] + 1,
+                                                 launches[1] + 1)
+    tb_ref = DP.dp_forward_reference(sig, lvl, st, wd, sdp, dwell, W)
+    assert torch.equal(tb, tb_ref)
+    assert torch.equal(path, DP.dp_traceback_reference(tb_ref, st, wd, sl))
+    got = path.cpu().numpy()
+    for r, (signal, levels, seq_band) in enumerate(reads):
+        want = banded_dp_path(signal, levels, seq_band, sdp_np, algo)
+        assert np.array_equal(got[r, : levels.size + 1], want)
+
+
+def test_banded_dp_kernels_repeat_bit_for_bit(cuda):
+    from remora_tpu_torch.kernels import banded_dp as DP
+
+    reads, sdp_np, w_max = _dp_case(5, (200, 150, 90, 260))
+    sig, lvl, st, wd, sl = _dp_inputs(reads, w_max, cuda)
+    sdp = torch.from_numpy(sdp_np).to(cuda)
+    runs = [DP.banded_dp_batch(sig, lvl, st, wd, sl, sdp, w_max=w_max)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_banded_dp_kernels_refuse_bad_inputs(cuda):
+    from remora_tpu_torch import RemoraError
+    from remora_tpu_torch.kernels import banded_dp as DP
+
+    reads, sdp_np, w_max = _dp_case(6, (30, 40))
+    sig, lvl, st, wd, sl = _dp_inputs(reads, w_max, cuda)
+    sdp = torch.from_numpy(sdp_np).to(cuda)
+    with pytest.raises(RemoraError, match="device DP limit"):
+        DP.dp_forward(sig, lvl, st, wd, sdp, True, 4104)
+    with pytest.raises(RemoraError, match="contiguous"):
+        DP.dp_forward(sig.double(), lvl, st, wd, sdp, True, w_max)
+    with pytest.raises(RemoraError, match="is on cpu"):
+        DP.dp_forward(sig, lvl.cpu(), st, wd, sdp, True, w_max)
+    with pytest.raises(RemoraError, match="launch width"):
+        DP.banded_dp_batch(sig, lvl, st, wd, sl, sdp, w_max=8)
+
+
+def test_refine_reads_batch_on_card_matches_cpu(cuda):
+    """The device refiner on the card against the same call on the CPU
+    (the plain versions), scale_iters 0 and 2."""
+    from remora_tpu_torch.data.read import RemoraRead
+    from remora_tpu_torch.refine.refiner import SigMapRefiner
+
+    base_lvl = {"A": -1.0, "C": -0.3, "G": 0.3, "T": 1.0}
+    table = {a + b + c: base_lvl[b] + 0.2 * base_lvl[a] + 0.1 * base_lvl[c]
+             for a in "ACGT" for b in "ACGT" for c in "ACGT"}
+    rng = np.random.default_rng(7)
+    reads = []
+    for n in (120, 300, 80):
+        int_seq = rng.integers(0, 4, n)
+        dwells = rng.integers(3, 11, n)
+        s2s = np.concatenate([[0], np.cumsum(dwells)])
+        sig = rng.normal(0, 1, s2s[-1])
+        reads.append(RemoraRead(dacs=sig * 15 + 50, shift=48.0, scale=16.0,
+                                seq_to_sig_map=s2s, int_seq=int_seq))
+    for scale_iters in (0, 2):
+        out = []
+        for device in (None, "cpu"):
+            smr = SigMapRefiner.load_from_dict(
+                table, do_rough_rescale=True, scale_iters=scale_iters,
+                backend="device", device=device)
+            leg = [rd.copy() for rd in reads]
+            np.random.seed(1)
+            assert smr.refine_reads_batch(leg) == [None] * len(leg)
+            out.append(leg)
+        for a, b in zip(*out):
+            assert np.array_equal(a.seq_to_sig_map, b.seq_to_sig_map)
+            assert a.shift == b.shift and a.scale == b.scale

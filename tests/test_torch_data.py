@@ -14,6 +14,7 @@ from remora_tpu_torch import RemoraError
 from remora_tpu_torch.core import seq as port_seq
 from remora_tpu_torch.data import dataset as port_dataset
 from remora_tpu_torch.data import metadata as port_metadata
+from remora_tpu_torch.refine.refiner import SigMapRefiner as PortRefiner
 
 PACKAGES = {
     "jax": (jax_dataset, jax_metadata),
@@ -134,8 +135,8 @@ def test_same_seed_same_batches(tmp_path, raw, sample_frac):
 def test_metadata_round_trips(tmp_path):
     """A JAX-written dataset whose refiner carries a levels table and
     non-default settings: the port reads its metadata.jsn (refine_* keys
-    as ``refine_settings``), writes it back unchanged, and the JAX package
-    reads the port's copy to an equal refiner."""
+    as its own ``SigMapRefiner``), writes it back unchanged, and the JAX
+    package reads the port's copy to an equal refiner."""
     levels = np.linspace(-1, 1, 4 ** 3).astype(np.float32)
     refiner = SigMapRefiner(
         _levels_array=levels, center_idx=1, do_rough_rescale=True,
@@ -144,10 +145,14 @@ def test_metadata_round_trips(tmp_path):
     path = write_synth_dataset("jax", tmp_path / "ds", 10, seed=4,
                                sig_map_refiner=refiner)
     ds = port_dataset.CoreDataset(path, infinite_iter=False)
-    settings = ds.metadata.refine_settings
-    assert settings["refine_algo"] == "Viterbi"
-    assert settings["refine_half_bandwidth"] == 7
-    assert np.array_equal(settings["refine_kmer_levels"], levels)
+    port_refiner = ds.metadata.sig_map_refiner
+    assert port_refiner.algo == "Viterbi"
+    assert port_refiner.half_bandwidth == 7
+    assert np.array_equal(port_refiner.levels_array, levels)
+    assert port_refiner == PortRefiner(
+        _levels_array=levels, center_idx=1, do_rough_rescale=True,
+        scale_iters=0, algo="Viterbi", half_bandwidth=7, sd_params=(5, 4, 1.0),
+    )
     out = tmp_path / "copy"
     out.mkdir()
     ds.metadata.write(out / "metadata.jsn", out / "kmer_table.npy")

@@ -186,14 +186,12 @@ def test_checkpoints_cross_load(tmp_path, jax_model, port_model, width):
     assert type(model).__name__ == port_model.NAME
     assert port_meta["chunk_len"] == width and port_meta["kmer_len"] == 9
     assert port_meta["can_base"] == "C"
-    refine = port_meta["refine_settings"]
-    assert refine["refine_algo"] == "dwell_penalty"
-    assert refine["refine_kmer_center_idx"] == 2
-    assert refine["rough_rescale_method"] == "least_squares"
-    assert np.array_equal(refine["refine_sd_arr"], sd_arr)
-    assert {k for k in port_meta if k.startswith("refine_")} == {
-        "refine_settings"
-    }
+    refiner = port_meta["sig_map_refiner"]
+    assert refiner.algo == "dwell_penalty"
+    assert refiner.center_idx == 2
+    assert refiner.rough_rescale_method == "least_squares"
+    assert np.array_equal(refiner.sd_arr, sd_arr)
+    assert not any(k.startswith("refine_") for k in port_meta)
     with torch.no_grad():
         got = model(_t(sigs), _t(seqs))
     _close(got, want)

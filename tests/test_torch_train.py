@@ -364,7 +364,7 @@ def test_train_model_matches_jax(synth_config):
         for key, got in model_io.flatten_tree(tree).items():
             assert _rel_err(got, want[key]) <= 1e-4, key
     assert meta["epoch"] == j_meta["epoch"] == 2
-    assert np.array_equal(meta["refine_settings"]["refine_sd_arr"],
+    assert np.array_equal(meta["sig_map_refiner"].sd_arr,
                           j_meta["sig_map_refiner"].sd_arr)
 
 
