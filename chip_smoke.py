@@ -39,8 +39,9 @@ printed):
    micro-batches of 64, launch counts set to 0 first: K4/K5 launch as the
    refiner planned, no read goes to the host), ``extract_chunks_batch`` and
    ``CoreDataset``, identical to the same stage with the native backend; a
-   scale_iters=2 leg held to the same call on the CPU; one profiled
-   micro-batch;
+   scale_iters=2 leg held to the same call on the CPU; the K4/K5 busy
+   share of one micro-batch (CUDA events), and one micro-batch by kernel
+   under torch.profiler in a child process (``--profile-refine``);
 9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -855,6 +856,8 @@ STAGE_MAX_CHUNKS = 100_000  # above every read's site count: no RNG draw
 # libbanded_dp.so), 4 + 4 + 4 cycles for the three dependent f32 ops of
 # Hopper's FMA-pipe latency
 FOLD_STEP_CYCLES = 12
+# a stay-only row (dwell_penalty's past-band suffix): one dependent FADD
+STAY_STEP_CYCLES = 4
 
 
 def synth_read(rng, n_bases, levels_of=None):
@@ -906,6 +909,28 @@ def dp_tensors(reads, w_bucket, device):
                       "seq_lens")]
 
 
+def dp_chain_cycles(starts, widths, n_dwell, dwell):
+    """K4's serial chain for the read that needs the longest, in SM cycles:
+    every base's folded rows at ``FOLD_STEP_CYCLES``; in dwell_penalty
+    mode also the second fold's past-band suffix, rows p0c .. w-1 with p0c
+    = max(previous width - bsd + L, 1), at ``STAY_STEP_CYCLES`` (rows below
+    p0c take their candidate whatever the carry, so they chain nothing).
+    Returns (cycles, folded rows, suffix rows) of that read."""
+    st = starts.cpu().numpy().astype(np.int64)
+    wd = widths.cpu().numpy().astype(np.int64)
+    folded = wd.sum(1)
+    suffix = np.zeros_like(folded)
+    if dwell:
+        # the first base's carry is spoofed: bsd = 1, previous width w[0]
+        prev_w = np.concatenate([wd[:, :1], wd[:, :-1]], 1)
+        bsd = np.diff(st, axis=1, prepend=st[:, :1] - 1)
+        p0c = np.maximum(prev_w - bsd + n_dwell, 1)
+        suffix = np.maximum(wd - p0c, 0).sum(1)
+    cycles = folded * FOLD_STEP_CYCLES + suffix * STAY_STEP_CYCLES
+    r = int(cycles.argmax())
+    return int(cycles[r]), int(folded[r]), int(suffix[r])
+
+
 def max_sm_clock_hz():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -938,7 +963,7 @@ def check_banded_dp():
         f"band-width bucket {w_small}")
     check(w_small == 128, f"small DP case buckets at W={w_small}, not 128")
     sig, lvl, st, wd, sl = dp_tensors(small, w_small, cuda)
-    plain_ms, small_ms = {}, {}
+    plain_ms, small_ms, plain_err = {}, {}, {}
     for algo in ("Viterbi", "dwell_penalty"):
         dwell = algo == "dwell_penalty"
         tb = K.dp_forward(sig, lvl, st, wd, sdp, dwell, w_small)
@@ -951,6 +976,10 @@ def check_banded_dp():
               f"({int((tb != tb_ref).sum())} of {tb.numel()})")
         check(torch.equal(path, path_ref),
               f"K5 {algo}: paths differ from the plain version")
+        plain_err[algo] = (
+            float((tb.int() - tb_ref.int()).abs().max()),
+            float((path - path_ref).abs().max()),
+        )
         small_ms[algo] = (
             time_ms(lambda: K.dp_forward(sig, lvl, st, wd, sdp, dwell,
                                          w_small)),
@@ -990,10 +1019,9 @@ def check_banded_dp():
         fwd_ms = time_ms(lambda: K.dp_forward(sig, lvl, st, wd, sdp, dwell,
                                               W))
         tb_ms = time_ms(lambda: K.dp_traceback(tb, st, wd, sl))
-        # K4's floor: the longest read's serial fold chain
-        rows = int(wd.sum(1).max())
-        folds = 2 if dwell else 1
-        chain_ms = rows * folds * FOLD_STEP_CYCLES / max_sm_clock_hz() * 1e3
+        # K4's floor: the serial fold chain of the read that needs longest
+        cycles, rows, suffix = dp_chain_cycles(st, wd, sdp.numel(), dwell)
+        chain_ms = cycles / max_sm_clock_hz() * 1e3
         fwd_bytes = (sig.numel() * 4 + 3 * R * N * 4 + sdp.numel() * 4
                      + tb.numel() * 2)
         fwd_bytes_ms = fwd_bytes / PEAK_BYTES_PER_S * 1e3
@@ -1006,29 +1034,40 @@ def check_banded_dp():
             f"ms, K5 {tb_ms:.4f} ms ({n_bases / ((fwd_ms + tb_ms) / 1e3):,.0f}"
             f" bases/s); native host DP {native_s * 1e3:.1f} ms on one core "
             f"({n_bases / native_s:,.0f} bases/s); K4 floor: serial chain "
-            f"{rows} rows x {folds} folds x {FOLD_STEP_CYCLES} cycles = "
-            f"{chain_ms:.4f} ms, bytes {fwd_bytes / 1e6:.2f} MB = "
+            f"{rows} folded rows x {FOLD_STEP_CYCLES} cycles + {suffix} "
+            f"suffix rows x {STAY_STEP_CYCLES} cycles = {chain_ms:.4f} ms, "
+            f"bytes {fwd_bytes / 1e6:.2f} MB = "
             f"{fwd_bytes_ms:.4f} ms; K5 bytes {tb_bytes / 1e6:.3f} MB = "
             f"{tb_bytes_ms:.4f} ms")
         if not dwell:
             continue
+        # ms and bound_ms at the micro-batch; plain_ms, ms_at_plain_shape
+        # and max_abs_err (tb rows, paths) at the small shape
+        shapes = {
+            "shape": f"{R} reads x {DP_BASES} bases, W={W}, {algo}",
+            "plain_shape": f"{DP_SMALL_READS} reads x {DP_SMALL_BASES} "
+                           f"bases, W={w_small}, {algo}",
+            "path_mismatches_vs_native": diffs,
+        }
         records = [
             {"name": "banded_dp_forward", "route": "cuda",
              "source": "remora_tpu_torch/csrc/banded_dp.cu",
              "replaces": "remora_tpu/kernels/pallas_dp.py:240",
-             "launches": None, "max_abs_err": float(diffs),
+             "launches": None, "max_abs_err": plain_err[algo][0],
              "ms": fwd_ms, "plain_ms": plain_ms[algo][0],
+             "ms_at_plain_shape": small_ms[algo][0],
              "bound_ms": max(chain_ms, fwd_bytes_ms),
              "bound_by": "operations" if chain_ms >= fwd_bytes_ms
              else "bytes",
-             "library_ms": None},
+             "library_ms": None, **shapes},
             {"name": "banded_dp_traceback", "route": "cuda",
              "source": "remora_tpu_torch/csrc/banded_dp.cu",
              "replaces": "remora_tpu/kernels/pallas_dp.py:361",
-             "launches": None, "max_abs_err": float(diffs),
+             "launches": None, "max_abs_err": plain_err[algo][1],
              "ms": tb_ms, "plain_ms": plain_ms[algo][1],
+             "ms_at_plain_shape": small_ms[algo][1],
              "bound_ms": tb_bytes_ms, "bound_by": "bytes",
-             "library_ms": None},
+             "library_ms": None, **shapes},
         ]
     return records
 
@@ -1153,13 +1192,11 @@ def timed_dp_kernels(intervals):
         K.dp_forward, K.dp_traceback = kernels
 
 
-def profile_micro_batch(refiner, batch):
+def micro_batch_busy_share(refiner, batch):
     """The K4/K5 busy and idle share of one micro-batch of
-    ``refine_reads_batch`` (CUDA events around each launch, against the
-    host wall of the call), then the same call under torch.profiler."""
+    ``refine_reads_batch``: CUDA events around each launch, against the
+    host wall of the call."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     intervals = []
     torch.cuda.synchronize()
@@ -1170,38 +1207,77 @@ def profile_micro_batch(refiner, batch):
     wall = time.perf_counter() - t0
     busy_s = sum(a.elapsed_time(b) for a, b in intervals) / 1e3
     log(f"  one micro-batch ({len(batch)} reads), CUDA events: K4/K5 busy "
-        f"{busy_s * 1e3:.4f} ms of {wall * 1e3:.4f} ms wall ({busy_s / wall:.1%}"
-        f" busy, {1 - busy_s / wall:.1%} idle; {len(intervals)} launches)")
-    batch = [rd.copy() for rd in batch]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+        f"{busy_s * 1e3:.4f} ms of {wall * 1e3:.4f} ms wall "
+        f"({busy_s / wall:.1%} busy, {1 - busy_s / wall:.1%} idle; "
+        f"{len(intervals)} launches)")
+
+
+def profile_micro_batch():
+    """``chip_smoke.py --profile-refine``: one micro-batch of the refinement
+    stage (the stage's first 64 reads, device backend) under
+    torch.profiler, by kernel, against the median of 3 unprofiled walls. It
+    runs in a process of its own: in the smoke run's process, after the
+    earlier phases, the profiler recorded no device activity for this
+    stage."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from remora_tpu_torch.constants import REFINE_DEVICE_READ_BATCH
+    from remora_tpu_torch.refine import refiner as RF
+
+    table, center = synth_level_table()
+    refiner = RF.SigMapRefiner(
+        _levels_array=table, center_idx=center, do_rough_rescale=True,
+        scale_iters=0, backend="device")
+    reads = stage_reads(10, REFINE_DEVICE_READ_BATCH, table, center)
+    walls = []
+    for _ in range(4):  # a warm-up, then 3 timed
+        batch = [rd.copy() for rd in reads]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refiner.refine_reads_batch(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls[1:])
+    batch = [rd.copy() for rd in reads]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         refiner.refine_reads_batch(batch)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     rows = kernel_rows(prof)
     if not rows:
-        events = prof.key_averages()
-        log("  profile: the profiler recorded no device time (breakdown by "
-            f"kernel not measured; {len(events)} events, "
-            f"{sum(e.device_type != DeviceType.CPU for e in events)} not on "
-            "the CPU)")
-        return
+        log("profile: the profiler recorded no device time (breakdown by "
+            "kernel not measured)")
+        return 0
     busy_s = sum(r[0] for r in rows) / 1e6
-    log(f"  profile of one micro-batch: kernels busy {busy_s * 1e3:.4f} ms "
-        f"of {wall * 1e3:.4f} ms profiled wall ({busy_s / wall:.1%} busy, "
-        f"{1 - busy_s / wall:.1%} idle)")
+    log(f"profile of one micro-batch ({len(reads)} reads): device busy "
+        f"{busy_s * 1e3:.4f} ms; unprofiled median wall {wall * 1e3:.4f} ms "
+        f"({busy_s / wall:.1%} busy, {1 - busy_s / wall:.1%} idle)")
     for dev_us, key, count in rows[:6]:
-        log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+        log(f"  {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+    return 0
+
+
+def profile_micro_batch_apart():
+    """Run ``profile_micro_batch`` in a child process and log its lines."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profile-refine"],
+        capture_output=True, text=True, timeout=600, cwd=REPO,
+    )
+    for line in proc.stdout.splitlines():
+        log(f"  {line}")
+    check(proc.returncode == 0,
+          f"the profiled micro-batch failed (rc {proc.returncode}):\n"
+          f"{proc.stderr[-3000:]}")
 
 
 def refine_stage(root):
     """256 reads through ``refine_reads_batch`` (device, micro-batches of
     64) and through the native backend, carried into two datasets that
     must be identical; K4/K5 launches as planned and no host reroute; a
-    scale_iters=2 leg held to the same call on the CPU; one profiled
-    micro-batch first. Returns (launches, rates)."""
+    scale_iters=2 leg held to the same call on the CPU; first, one
+    micro-batch's K4/K5 busy share and its kernel profile. Returns
+    (launches, rates)."""
     import torch
 
     from remora_tpu_torch.constants import REFINE_DEVICE_READ_BATCH
@@ -1225,7 +1301,9 @@ def refine_stage(root):
     # warm-up on a copy: the kernels' first launch, the native library
     device_refiner.refine_reads_batch([rd.copy() for rd in reads[:micro]])
     torch.cuda.synchronize()
-    profile_micro_batch(device_refiner, [rd.copy() for rd in reads[:micro]])
+    micro_batch_busy_share(device_refiner,
+                           [rd.copy() for rd in reads[:micro]])
+    profile_micro_batch_apart()
     K.LAUNCHES_FWD = K.LAUNCHES_TB = 0
     RF.PLANNED_LAUNCHES = RF.HOST_ROUTED_READS = 0
     t0 = time.perf_counter()
@@ -1319,6 +1397,8 @@ def main():
               "(remora_tpu_torch/ not found)", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    if sys.argv[1:] == ["--profile-refine"]:
+        return profile_micro_batch()
     # per-batch host dispatch / fetch / input-wait of every stage pass
     os.environ["REMORA_TPU_INFER_STAGE_STATS"] = "1"
     from remora_tpu_torch.kernels import _build

@@ -27,7 +27,10 @@
 //     threads for the data-parallel parts (band costs, move candidates, the
 //     dwell candidates); one thread runs each stay fold over the base's own
 //     w rows, in order (the TPU kernel's _stay_fold, bounded per base as
-//     its n_groups bounds it per lane tile). The per-base state lives in
+//     its n_groups bounds it per lane tile). dwell_penalty's second fold
+//     takes the candidate unconditionally below row p0c, so the block copies
+//     those rows and one thread folds only the past-band suffix, rows p0c
+//     .. w-1, as a running sum. The per-base state lives in
 //     dynamic shared memory: prev scores, band costs, candidates and tb
 //     codes, plus the unpenalized scores and codes in dwell mode (at most
 //     six 4-byte arrays of W: 96 KB at W = 4096). The signal is read
@@ -44,10 +47,11 @@
 //     Pallas kernel's (BIG = 3.0e38, LARGE_SCORE = 100). Paths are
 //     bit-identical to theirs.
 //
-// Bound: no roofline applies. K4's floor is its serial chain: bases x
-// folded rows x folds per base (1 Viterbi, 2 dwell) x the dependent latency
-// of one fold step (an f32 add, a compare and a select). K5 moves N x 2
-// bytes a read. chip_smoke.py phase 8 states both.
+// Bound: no roofline applies. K4's floor is its serial chain: the folded
+// rows of every base x the dependent latency of one fold step (an f32 add,
+// a compare and a select), plus in dwell mode the past-band suffix rows x
+// the latency of one f32 add. K5 moves N x 2 bytes a read. chip_smoke.py
+// phase 8 states both.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,18 +61,17 @@ namespace {
 constexpr float kBig = 3.0e38f;
 constexpr float kLargeScore = 100.0f;
 constexpr int kThreads = 128;
-constexpr int kMaxBand = 4096;
+constexpr int kMaxBand = 4096;  // = REFINE_DEVICE_MAX_BAND
 constexpr int kMaxDwell = 32;
 
 // One row of the exact sequential stay fold (the TPU kernel's _stay_fold):
-// stay = carry + base; the candidate is taken on strict improvement (p0c <
-// 0) or unconditionally below row p0c.
+// stay = carry + base; the candidate is taken on strict improvement.
 __device__ __forceinline__ void fold_row(float& cs, int& ct, float b, float c,
-                                         int t, int i, int w, int p0c,
-                                         float* out_s, int* out_t) {
+                                         int t, int i, int w, float* out_s,
+                                         int* out_t) {
   if (i >= w) return;
   const float stay = __fadd_rn(cs, b);
-  const bool take = p0c < 0 ? (c < stay) : (i < p0c);
+  const bool take = c < stay;
   cs = take ? c : stay;
   ct = take ? t : ct + 1;
   out_s[i] = cs;
@@ -82,7 +85,7 @@ __device__ __forceinline__ void fold_row(float& cs, int& ct, float b, float c,
 // may be ctb itself. Rows w .. W-1 of the inputs may be read, never used.
 __device__ __forceinline__ void stay_fold(const float* base, const float* cand,
                                           const int* ctb, float* out_s,
-                                          int* out_t, int w, int p0c) {
+                                          int* out_t, int w) {
   float cs = __int_as_float(0x7f800000);  // +inf
   int ct = 0;
   float4 b = *reinterpret_cast<const float4*>(base);
@@ -93,13 +96,30 @@ __device__ __forceinline__ void stay_fold(const float* base, const float* cand,
     const float4 bn = *reinterpret_cast<const float4*>(base + gn);
     const float4 cn = *reinterpret_cast<const float4*>(cand + gn);
     const int4 tn = *reinterpret_cast<const int4*>(ctb + gn);
-    fold_row(cs, ct, b.x, c.x, t.x, g, w, p0c, out_s, out_t);
-    fold_row(cs, ct, b.y, c.y, t.y, g + 1, w, p0c, out_s, out_t);
-    fold_row(cs, ct, b.z, c.z, t.z, g + 2, w, p0c, out_s, out_t);
-    fold_row(cs, ct, b.w, c.w, t.w, g + 3, w, p0c, out_s, out_t);
+    fold_row(cs, ct, b.x, c.x, t.x, g, w, out_s, out_t);
+    fold_row(cs, ct, b.y, c.y, t.y, g + 1, w, out_s, out_t);
+    fold_row(cs, ct, b.z, c.z, t.z, g + 2, w, out_s, out_t);
+    fold_row(cs, ct, b.w, c.w, t.w, g + 3, w, out_s, out_t);
     b = bn;
     c = cn;
     t = tn;
+  }
+}
+
+// dwell_penalty's second fold over rows lo .. w-1 (1 <= lo < w). Rows
+// below lo take their candidate whatever the carry, so the fold from row 0
+// reaches row lo - 1 holding (cand[lo-1], ctb[lo-1]); every row from lo on
+// is a stay. The chain is a running sum, one add a row.
+__device__ __forceinline__ void stay_suffix(const float* base,
+                                            const float* cand, int* ctb,
+                                            float* out_s, int lo, int w) {
+  float cs = cand[lo - 1];
+  int ct = ctb[lo - 1];
+#pragma unroll 4
+  for (int i = lo; i < w; ++i) {
+    cs = __fadd_rn(cs, base[i]);
+    out_s[i] = cs;
+    ctb[i] = ++ct;
   }
 }
 
@@ -165,10 +185,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     if (!kDwell) {
-      if (tid == 0) stay_fold(base, cand, ctb, prev, ctb, w, -1);
+      if (tid == 0) stay_fold(base, cand, ctb, prev, ctb, w);
     } else {
       // the unpenalized Viterbi pass, kept for the long-dwell candidate
-      if (tid == 0) stay_fold(base, cand, ctb, unpen, unpen_tb, w, -1);
+      if (tid == 0) stay_fold(base, cand, ctb, unpen, unpen_tb, w);
       __syncthreads();
       // short- and long-dwell candidates (_dwell_candidates)
       const int p0 = prev_valid - bsd + L;
@@ -204,8 +224,11 @@ __global__ void __launch_bounds__(kThreads)
         ctb[p] = t;
       }
       __syncthreads();
-      // past-band stay-only suffix, folded from the last main-region row
-      if (tid == 0) stay_fold(base, cand, ctb, prev, ctb, w, max(p0, 1));
+      // the second fold: rows below p0c take their candidate (a copy across
+      // the block), the past-band rows from p0c on are a stay-only suffix
+      const int p0c = max(p0, 1);
+      for (int p = tid; p < min(p0c, w); p += kThreads) prev[p] = cand[p];
+      if (tid == 0 && p0c < w) stay_suffix(base, cand, ctb, prev, p0c, w);
     }
     __syncthreads();
 
@@ -248,7 +271,6 @@ __global__ void dp_traceback_kernel(const int16_t* __restrict__ tb,
 
 extern "C" {
 
-int banded_dp_max_band() { return kMaxBand; }
 int banded_dp_max_dwell() { return kMaxDwell; }
 
 const char* banded_dp_error_string(int err) {

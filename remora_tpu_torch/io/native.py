@@ -9,7 +9,9 @@ package (``banded_dp_path`` and ``theil_sen_slope`` return None).
 """
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 from pathlib import Path
 
@@ -20,16 +22,31 @@ from remora_tpu_torch import log
 LOGGER = log.get_logger()
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "host"
-_LIB_PATH = _CSRC.parent / "build" / "libremora_torch_host.so"
 _LIB = None
 _BUILD_FAILED = False
 
 
-def _build_library():
-    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+def _lib_path():
+    """The library's path, named for the host it is built on: the build
+    takes ``-march=native``, so a library built on another CPU (say, in a
+    checkout copied between machines) is never loaded here."""
+    try:
+        target = subprocess.run(
+            ["g++", "-march=native", "-Q", "--help=target"],
+            capture_output=True, text=True, check=True,
+        ).stdout
+    except (OSError, subprocess.CalledProcessError):
+        target = ""
+    host = hashlib.sha1(f"{platform.machine()}\n{target}".encode())
+    name = f"libremora_torch_host-{host.hexdigest()[:16]}.so"
+    return _CSRC.parent / "build" / name
+
+
+def _build_library(lib_path):
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
     srcs = [str(p) for p in sorted(_CSRC.glob("*.cpp"))]
     # concurrent processes each build to their own file, then rename
-    tmp = _LIB_PATH.with_name(f".{_LIB_PATH.name}.{os.getpid()}.tmp")
+    tmp = lib_path.with_name(f".{lib_path.name}.{os.getpid()}.tmp")
     # -ffp-contract=off keeps float rounding identical to the NumPy
     # reference paths (no FMA contraction)
     for arch_flags in (["-march=native"], []):
@@ -40,7 +57,7 @@ def _build_library():
         LOGGER.debug(f"Building native library: {' '.join(cmd)}")
         try:
             subprocess.run(cmd, check=True, capture_output=True)
-            tmp.replace(_LIB_PATH)
+            tmp.replace(lib_path)
             return
         except subprocess.CalledProcessError:
             if not arch_flags:
@@ -55,10 +72,11 @@ def get_lib():
     if _BUILD_FAILED:
         return None
     try:
+        lib_path = _lib_path()
         src_mtime = max(p.stat().st_mtime for p in _CSRC.glob("*.cpp"))
-        if not _LIB_PATH.exists() or _LIB_PATH.stat().st_mtime < src_mtime:
-            _build_library()
-        lib = ctypes.CDLL(str(_LIB_PATH))
+        if not lib_path.exists() or lib_path.stat().st_mtime < src_mtime:
+            _build_library(lib_path)
+        lib = ctypes.CDLL(str(lib_path))
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         lib.banded_dp.restype = ctypes.c_int

@@ -207,9 +207,8 @@ def _library():
         lib.banded_dp_traceback.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
                                             i32, ptr, ptr]
         lib.banded_dp_traceback.restype = i32
-        for fn in ("banded_dp_max_band", "banded_dp_max_dwell"):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = i32
+        lib.banded_dp_max_dwell.argtypes = []
+        lib.banded_dp_max_dwell.restype = i32
         lib.banded_dp_error_string.argtypes = [i32]
         lib.banded_dp_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -265,12 +264,12 @@ def dp_forward(signal, levels, starts, widths, sdp, dwell, W):
     _checked("starts", starts, torch.int32, (R, N), device)
     _checked("widths", widths, torch.int32, (R, N), device)
     _checked("sdp", sdp, torch.float32, (sdp.shape[0],), device)
-    lib = _load_library("dp_forward")
-    if W > lib.banded_dp_max_band() or W > REFINE_DEVICE_MAX_BAND:
+    if W > REFINE_DEVICE_MAX_BAND:
         raise RemoraError(
             f"dp_forward: band width {W} exceeds the device DP limit "
             f"({REFINE_DEVICE_MAX_BAND})"
         )
+    lib = _load_library("dp_forward")
     if sdp.shape[0] > lib.banded_dp_max_dwell():
         raise RemoraError(
             f"dp_forward: {sdp.shape[0]} short-dwell penalties; the kernel "
