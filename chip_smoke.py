@@ -11,7 +11,10 @@ printed):
 3. each hand kernel against its plain PyTorch version on the card at the
    main paths' shapes, with kernel / plain / ``torch.nn`` times and the
    kernel's bound: K1 (last-only LSTM), and (3b) K2 and K3 (the training
-   LSTM forward and backward) at T=124, B=2048, C=H=64;
+   LSTM forward and backward) at T=124, B=2048, C=H=64; (3c) K6 (the
+   conv+BN+swish backward) at the four stride-1 block shapes of the
+   training path, f32 and bf16, with ``ConvBNSwish.backward``'s cuDNN path
+   as the library yardstick;
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -29,7 +32,12 @@ printed):
    epoch timer, and one step profiled by kernel. (6b) one f32 train step
    with the kernels against the same step with the plain LSTM versions;
    then the trained checkpoint loads through ``ModelHandle.load`` and calls
-   one batch;
+   one batch. (6c) ``train_model`` with ``REMORA_TPU_CONVBN=pallas``, f32
+   one step a call and bf16 in windows of ``steps_per_launch=4``, 2 epochs
+   of 12 steps each, counts set to 0 first: K6 launches once per stride-1
+   block and step (4 a step), K2/K3 once a step, finite losses, logs and
+   checkpoints written, one pallas-mode step profiled by kernel; (6d) one
+   f32 pallas-mode step against the same step in fused mode;
 8. the banded refinement DP: K4 (forward) and K5 (traceback) against
    their plain versions on the card (8 reads of 400 bases, W = 128) and
    against the native host DP on one micro-batch (64 synthetic reads of
@@ -78,6 +86,7 @@ N_STAGE_PASSES = 11  # the host's clock is noisy: a median of many passes
 # 2048-chunk test split, over two dataset members
 TRAIN_STEPS, TRAIN_EPOCHS = 12, 3
 TRAIN_LSTM_T = 124  # the LSTM's length at chunk 400
+PALLAS_EPOCHS = 2  # the REMORA_TPU_CONVBN=pallas legs: 2 epochs of 12 steps
 
 
 class SmokeFailure(Exception):
@@ -326,6 +335,149 @@ def check_lstm_train(dtype, tol):
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": lib_ms,
+        })
+    return records
+
+
+# ---------------- phase 3c: K6, the conv+BN+swish backward ---------------
+
+# the stride-1 blocks of ConvLSTM_w_ref (size 64, 9-mer, chunk 400): (name,
+# I, O, K, Ti), the shapes K6 takes on the training path
+CONVBN_BLOCKS = (("sig_conv1", 1, 4, 5, WIDTH),
+                 ("sig_conv2", 4, 16, 5, WIDTH - 4),
+                 ("seq_conv1", 4 * KMER_LEN, 16, 5, WIDTH),
+                 ("merge_conv1", 2 * SIZE, SIZE, 5, TRAIN_LSTM_T + 4))
+
+
+def convbn_case(dtype, I, O, K, Ti, seed):
+    """Seeded K6 inputs on the card in the layouts the training path gives
+    them: x a channels-last view of (B, I, Ti) storage, dout one of (B, O,
+    To) storage (merge_conv1's of (To, B, O): the LSTM's input layout);
+    mu and r the batch statistics of conv(x, w)."""
+    import torch
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    To = Ti - K + 1
+    cuda = torch.device("cuda")
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.normal(size=shape) * scale).astype(np.float32)).to(cuda)
+
+    x = arr(BATCH, I, Ti).to(dtype).transpose(1, 2)
+    if I == 2 * SIZE:
+        dout = arr(To, BATCH, O).to(dtype).transpose(0, 1)
+    else:
+        dout = arr(BATCH, O, To).to(dtype).transpose(1, 2)
+    w = arr(O, I, K, scale=1.0 / np.sqrt(I * K)).to(dtype)
+    gamma = torch.from_numpy(rng.uniform(0.5, 1.5, O).astype(np.float32))
+    beta = torch.from_numpy(rng.uniform(-0.1, 0.1, O).astype(np.float32))
+    gamma, beta = gamma.to(cuda, dtype), beta.to(cuda, dtype)
+    y = F.conv1d(x.transpose(1, 2).float(), w.float())
+    mu = y.mean((0, 2))
+    r = torch.rsqrt(y.var((0, 2), correction=0) + 1e-5)
+    return x, dout, w, gamma, beta, mu.to(dtype), r.to(dtype)
+
+
+def library_convbn_bwd(x, dout, w, gamma, beta, mu, r):
+    """``ConvBNSwish.backward``'s work: the cuDNN conv recompute, the
+    folded BN+swish chain, ``conv1d_weight`` and ``conv1d_input`` (the
+    yardstick; the port's pallas mode never calls it)."""
+    from remora_tpu_torch.models import layers as L
+
+    y = L._conv_nobias(w, x, 1)
+    dy, dgamma, dbeta = L._folded_dy(dout, gamma, beta, (y - mu) * r, r)
+    dw, dx = L._conv_grads(x, w, dy, 1)
+    return dx, dw, dy.sum((0, 1)), dgamma, dbeta
+
+
+def check_convbn(dtype, tol):
+    """K6 against its plain version at each stride-1 block shape of the
+    training path; kernel, plain and library times and the bound. Returns
+    one record per block."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import full_f32
+    from remora_tpu_torch.kernels import convbn as CB
+
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    records = []
+    for seed, (block, I, O, K, Ti) in enumerate(CONVBN_BLOCKS):
+        args = convbn_case(dtype, I, O, K, Ti, seed=20 + seed)
+        x, dout, w, gamma = args[:4]
+        To = Ti - K + 1
+        with full_f32():
+            got = CB.conv_bn_swish_bwd(*args)
+            want = CB.conv_bn_swish_bwd_reference(*args)
+            again = CB.conv_bn_swish_bwd(*args)
+            torch.cuda.synchronize()
+            errs, rels = {}, {}
+            for name, a, b in zip(("dx", "dw", "db", "dgamma", "dbeta"),
+                                  got, want):
+                check(a.shape == b.shape and a.dtype == b.dtype,
+                      f"K6 {block} {sfx}: {name} {tuple(a.shape)} {a.dtype}"
+                      f" vs {tuple(b.shape)} {b.dtype}")
+                d = (a.float() - b.float()).abs().max().item()
+                errs[name] = d
+                rels[name] = d / max(b.float().abs().max().item(), 1e-30)
+            # db is a centred sum (rounding noise around 0): held against
+            # the size of its terms, max |gamma r| x sum |dout| a channel
+            db_scale = ((gamma.float() * args[6].float()).abs().max()
+                        * dout.float().abs().sum((0, 1)).max()).item()
+            db_tol = 1e-6 * db_scale
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            lib = library_convbn_bwd(*args)
+            lib_rel = {name: ((a.float() - b.float()).abs().max()
+                              / b.float().abs().max()).item()
+                       for name, a, b in (("dx", lib[0], want[0]),
+                                          ("dw", lib[1], want[1]))}
+            log(f"conv_bn_swish_bwd {block} {sfx} (B={BATCH}, Ti={Ti}, I={I},"
+                f" O={O}, K={K}): relative max |d| dx {rels['dx']:.3e} dw "
+                f"{rels['dw']:.3e} dgamma {rels['dgamma']:.3e} dbeta "
+                f"{rels['dbeta']:.3e} (tolerance {tol}); db |d| "
+                f"{errs['db']:.3e} (tolerance {db_tol:.3e}); repeat "
+                f"identical {same}; library vs plain dx {lib_rel['dx']:.3e} "
+                f"dw {lib_rel['dw']:.3e}")
+            for name in ("dx", "dw", "dgamma", "dbeta"):
+                check(np.isfinite(rels[name]) and rels[name] <= tol,
+                      f"K6 {block} {sfx}: {name} disagrees with the plain "
+                      f"version ({rels[name]:.3e} > {tol})")
+            check(np.isfinite(errs["db"]) and errs["db"] <= db_tol,
+                  f"K6 {block} {sfx}: db disagrees with the plain version "
+                  f"({errs['db']:.3e} > {db_tol:.3e})")
+            check(same, f"K6 {block} {sfx}: a repeated call differs")
+            ms = time_ms(lambda: CB.conv_bn_swish_bwd(*args))
+            plain_ms = time_ms(lambda: CB.conv_bn_swish_bwd_reference(*args),
+                               n=10, calls=1)
+            library_ms = time_ms(lambda: library_convbn_bwd(*args), n=10,
+                                 calls=1)
+        prod = 2.0 * BATCH * To * I * O * K
+        flops = 3 * prod  # the conv once, dw, dx
+        isz = x.element_size()
+        io_bytes = ((BATCH * Ti * I * 2 + BATCH * To * O) * isz
+                    + (O * I * K * 2 + 6 * O) * 4)
+        bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
+        log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(ConvBNSwish.backward) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, "
+            f"{io_bytes / 1e6:.2f} MB)")
+        records.append({
+            "name": f"conv_bn_swish_bwd_{block}_{sfx}",
+            "route": "cuda",
+            "source": "remora_tpu_torch/csrc/convbn_bwd.cu",
+            "replaces": "remora_tpu/kernels/pallas_convbn.py:57",
+            "launches": None,
+            "max_abs_err": max(errs.values()),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+            "shape": f"B={BATCH}, Ti={Ti}, I={I}, O={O}, K={K}",
+            "dtype": sfx,
+            "max_rel_err": {k: v for k, v in rels.items() if k != "db"},
+            "key": (Ti, I, O, K),
         })
     return records
 
@@ -644,10 +796,29 @@ class EpochRates(logging.Handler):
             self.rates.append(float(found.group(1).replace(",", "")))
 
 
-def train_leg(root, config, bf16, tag):
+@contextlib.contextmanager
+def convbn_mode(mode):
+    """REMORA_TPU_CONVBN set to ``mode`` (None: left as it is)."""
+    saved = os.environ.get("REMORA_TPU_CONVBN")
+    if mode is not None:
+        os.environ["REMORA_TPU_CONVBN"] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("REMORA_TPU_CONVBN", None)
+        else:
+            os.environ["REMORA_TPU_CONVBN"] = saved
+
+
+def train_leg(root, config, bf16, tag, epochs=TRAIN_EPOCHS,
+              steps_per_launch=1, convbn=None):
     """``train_model`` at full width with the launch counts set to 0; K2
-    and K3 must launch once per optimizer step."""
+    and K3 must launch once per optimizer step, and in pallas mode K6 once
+    per stride-1 conv block and step. Returns (out dir, (K2, K3) launches,
+    epoch rates, K6 launches by block shape)."""
     from remora_tpu_torch import log as port_log
+    from remora_tpu_torch.kernels import convbn as CB
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.train import optim
     from remora_tpu_torch.train.train import train_model
@@ -657,28 +828,39 @@ def train_leg(root, config, bf16, tag):
     port_log.get_logger().addHandler(rates)
     t0 = time.monotonic()
     K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+    CB.LAUNCHES = 0
+    CB.LAUNCHES_BY_SHAPE.clear()
     try:
         # no device named: the entry point's default is the GPU
-        best = train_model(
-            seed=1, out_path=out, remora_dataset_path=config,
-            chunk_context=None, kmer_context_bases=None, batch_size=BATCH,
-            model_name="ConvLSTM_w_ref", size=SIZE,
-            train_opts=optim.TrainOpts(epochs=TRAIN_EPOCHS,
-                                       lr_scheduler_str="constant",
-                                       learning_rate=2e-3),
-            chunks_per_epoch=TRAIN_STEPS * BATCH, num_test_chunks=BATCH,
-            bf16_compute=bf16,
-        )
+        with convbn_mode(convbn):
+            best = train_model(
+                seed=1, out_path=out, remora_dataset_path=config,
+                chunk_context=None, kmer_context_bases=None,
+                batch_size=BATCH, model_name="ConvLSTM_w_ref", size=SIZE,
+                train_opts=optim.TrainOpts(epochs=epochs,
+                                           lr_scheduler_str="constant",
+                                           learning_rate=2e-3),
+                chunks_per_epoch=TRAIN_STEPS * BATCH, num_test_chunks=BATCH,
+                bf16_compute=bf16, steps_per_launch=steps_per_launch,
+            )
     finally:
         port_log.get_logger().removeHandler(rates)
     launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
-    steps = TRAIN_STEPS * TRAIN_EPOCHS
-    log(f"{tag}: train_model {steps} steps in {time.monotonic() - t0:.1f} s "
-        f"(with validation and checkpoints); epoch rates {rates.rates} "
-        f"chunks/s; lstm_fwd/lstm_bwd launches {launches}; best val acc "
-        f"{best:.4f}")
+    k6 = dict(CB.LAUNCHES_BY_SHAPE)
+    steps = TRAIN_STEPS * epochs
+    log(f"{tag}: train_model {steps} steps (REMORA_TPU_CONVBN="
+        f"{convbn or 'auto'}, steps_per_launch {steps_per_launch}) in "
+        f"{time.monotonic() - t0:.1f} s (with validation and checkpoints); "
+        f"epoch rates {rates.rates} chunks/s; lstm_fwd/lstm_bwd launches "
+        f"{launches}; conv_bn_swish_bwd launches {CB.LAUNCHES} "
+        f"{sorted(k6.items())}; best val acc {best:.4f}")
     check(launches == (steps, steps),
           f"{tag}: K2/K3 launched {launches} times for {steps} steps")
+    blocks = CONVBN_BLOCKS if convbn == "pallas" else ()
+    check(CB.LAUNCHES == len(blocks) * steps
+          and k6 == {(Ti, I, O, K): steps for _, I, O, K, Ti in blocks},
+          f"{tag}: K6 launched {CB.LAUNCHES} times {sorted(k6.items())} "
+          f"for {steps} steps of {len(blocks)} stride-1 blocks")
     with open(os.path.join(out, "batch.log")) as fh:
         losses = [float(line.split()[1]) for line in fh.readlines()[1:]]
     check(len(losses) == steps and np.isfinite(losses).all(),
@@ -687,16 +869,15 @@ def train_leg(root, config, bf16, tag):
     log(f"{tag}: batch losses first {losses[0]:.4f}, last {losses[-1]:.4f}")
     with open(os.path.join(out, "validation.log")) as fh:
         rows = fh.readlines()[1:]
-    check(len(rows) == 2 * (TRAIN_EPOCHS + 1),
+    check(len(rows) == 2 * (epochs + 1),
           f"{tag}: validation.log holds {len(rows)} rows")
     log(f"{tag}: last validation row: {rows[-2].strip()}")
     for name in ("model_final.checkpoint", "model_best.checkpoint",
                  "epoch_summary.txt"):
         check(os.path.isfile(os.path.join(out, name)),
               f"{tag}: {name} not written")
-    check(len(rates.rates) == TRAIN_EPOCHS,
-          f"{tag}: epoch rates {rates.rates}")
-    return out, launches, rates.rates
+    check(len(rates.rates) == epochs, f"{tag}: epoch rates {rates.rates}")
+    return out, launches, rates.rates, k6
 
 
 def _train_batch(seed=5):
@@ -712,9 +893,10 @@ def _loaded_model(ckpt):
     return model.cuda(), meta
 
 
-def profile_train_step(ckpt, bf16, tag, n_walls=10):
+def profile_train_step(ckpt, bf16, tag, n_walls=10, convbn=None):
     """Device time by kernel over one optimizer step of the raw train step
-    (torch.profiler), against the median unprofiled step wall."""
+    (torch.profiler), against the median unprofiled step wall;
+    ``convbn`` sets REMORA_TPU_CONVBN for the step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -729,7 +911,7 @@ def profile_train_step(ckpt, bf16, tag, n_walls=10):
         model, opt, meta["kmer_context_bases"], meta["chunk_len"],
         compute_dtype=torch.bfloat16 if bf16 else None)
     inputs = tuple(_put(a, torch.device("cuda")) for a in _train_batch())
-    with full_f32():
+    with full_f32(), convbn_mode(convbn):
         for _ in range(3):
             step(*inputs)
         torch.cuda.synchronize()
@@ -822,6 +1004,65 @@ def check_train_step_vs_plain(ckpt):
           f"gradients of {sorted(rel)}")
     check(max(rel.values()) <= 1e-4,
           "train step gradients disagree with the plain LSTM")
+
+
+def check_pallas_step_vs_fused(ckpt):
+    """One f32 train step (forward, loss, backward) with
+    REMORA_TPU_CONVBN=pallas (K6 in the four stride-1 blocks) against the
+    same step in fused mode (cuDNN conv gradients), from the same
+    checkpoint and batch: loss <= 1e-5, gradients <= 1e-4 relative, the
+    conv biases (centred sums: rounding noise) <= 1e-5 absolute."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import _put, full_f32
+    from remora_tpu_torch.kernels import convbn as CB
+    from remora_tpu_torch.kernels.encoded_kmers import (
+        compute_encoded_kmer_batch,
+    )
+    from remora_tpu_torch.train import train as T
+
+    sigs, seqs, maps, lens, labels = (
+        _put(a, torch.device("cuda")) for a in _train_batch(seed=8))
+    results = []
+    for mode in ("pallas", "fused"):
+        model, meta = _loaded_model(ckpt)
+        loss_fn = T.make_loss_fn(model, channels_last=True)
+        launches = CB.LAUNCHES
+        with convbn_mode(mode), full_f32():
+            bb, ab = meta["kmer_context_bases"]
+            enc = compute_encoded_kmer_batch(bb, ab, seqs, maps, lens,
+                                             meta["chunk_len"],
+                                             channels_last=True)
+            loss, _ = loss_fn(sigs.transpose(1, 2), enc, labels)
+            loss.backward()
+            torch.cuda.synchronize()
+        ran = CB.LAUNCHES - launches
+        want = len(CONVBN_BLOCKS) if mode == "pallas" else 0
+        check(ran == want, f"train step ({mode}) launched K6 {ran} times")
+        results.append((loss.item(), {name: p.grad for name, p in
+                                      T.sorted_params(model)
+                                      if p.grad is not None}))
+    (k_loss, k_grads), (f_loss, f_grads) = results
+    check(k_grads.keys() == f_grads.keys(), "gradients of other parameters")
+    dloss = abs(k_loss - f_loss)
+    rel, bias = {}, {}
+    for name, g in f_grads.items():
+        d = (k_grads[name] - g).abs().max().item()
+        if "conv" in name and name.endswith("/b"):
+            bias[name] = d
+        else:
+            rel[name] = d / max(g.abs().max().item(), 1e-30)
+    worst = max(rel, key=rel.get)
+    log(f"train step, pallas vs fused mode: loss {k_loss:.6f} vs "
+        f"{f_loss:.6f} (|d| {dloss:.3e}, tolerance 1e-5); worst relative "
+        f"gradient gap {rel[worst]:.3e} ({worst}; tolerance 1e-4) over "
+        f"{len(rel)} parameters; conv-bias gradients |d| <= "
+        f"{max(bias.values()):.3e} (tolerance 1e-5)")
+    check(dloss <= 1e-5, "pallas-mode train step loss disagrees with fused")
+    check(rel[worst] <= 1e-4,
+          "pallas-mode train step gradients disagree with fused")
+    check(max(bias.values()) <= 1e-5,
+          "pallas-mode conv-bias gradients disagree with fused")
 
 
 def infer_trained(ckpt):
@@ -1424,6 +1665,10 @@ def main():
         torch.float32: check_lstm_train(torch.float32, 1e-5),
         torch.bfloat16: check_lstm_train(torch.bfloat16, 2e-2),
     }
+    convbn_kernels = {
+        torch.float32: check_convbn(torch.float32, 1e-5),
+        torch.bfloat16: check_convbn(torch.bfloat16, 2e-2),
+    }
 
     batches = make_batches()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1442,7 +1687,7 @@ def main():
         config = write_train_set(tmp)
         for dtype, bf16, tag in ((torch.float32, False, "train_f32"),
                                  (torch.bfloat16, True, "train_bf16")):
-            out, launches, rates = train_leg(tmp, config, bf16, tag)
+            out, launches, rates, _ = train_leg(tmp, config, bf16, tag)
             for rec, n in zip(train_kernels[dtype], launches):
                 rec["launches"] = n
             train_rates[tag] = rates
@@ -1451,6 +1696,22 @@ def main():
         final = os.path.join(tmp, "train_f32", "model_final.checkpoint")
         check_train_step_vs_plain(final)
         infer_trained(final)
+        # 6c: the pallas-mode training path (K6 in every stride-1 block),
+        # f32 one step a call and bf16 in windows of 4
+        for dtype, bf16, spl, tag in (
+                (torch.float32, False, 1, "train_pallas_f32"),
+                (torch.bfloat16, True, 4, "train_pallas_bf16")):
+            out, _, rates, k6 = train_leg(tmp, config, bf16, tag,
+                                          epochs=PALLAS_EPOCHS,
+                                          steps_per_launch=spl,
+                                          convbn="pallas")
+            for rec in convbn_kernels[dtype]:
+                rec["launches"] = k6[rec.pop("key")]
+            train_rates[tag] = rates
+            profile_train_step(os.path.join(out, "model_final.checkpoint"),
+                               bf16, tag, convbn="pallas")
+        # 6d: a pallas-mode step against the fused-mode step
+        check_pallas_step_vs_fused(final)
 
     dp_kernels = check_banded_dp()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1463,10 +1724,12 @@ def main():
         "width": WIDTH, "kmer_len": KMER_LEN, "size": SIZE,
         "train_epoch_chunks_per_s": train_rates,
         "train_steps_per_epoch": TRAIN_STEPS, "train_epochs": TRAIN_EPOCHS,
+        "train_pallas_epochs": PALLAS_EPOCHS,
         **refine_rates,
     }}))
     records = list(kernels.values())
-    for recs in (*train_kernels.values(), dp_kernels):
+    for recs in (*train_kernels.values(), *convbn_kernels.values(),
+                 dp_kernels):
         records.extend(recs)
     log(json.dumps({"kernels": records}))
     log(nvidia_smi_line())

@@ -21,7 +21,9 @@ the result is the f32-accumulated product of the bf16 operands.
 Train mode: ``batchnorm(train=True)`` and ``conv_bn_swish(train=True)``
 return the new running statistics beside the output, as the JAX functions
 do (the models write them into their BatchNorm buffers under
-``torch.no_grad()``); ``lstm`` runs the K2/K3 kernel pair on CUDA tensors.
+``torch.no_grad()``); ``lstm`` runs the K2/K3 kernel pair on CUDA tensors,
+and ``REMORA_TPU_CONVBN=pallas`` runs the stride-1 conv blocks' backward
+as K6.
 """
 
 import math
@@ -29,6 +31,7 @@ import os
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from remora_tpu_torch import RemoraError
@@ -119,12 +122,50 @@ def batchnorm(params, state, x, train=False, momentum=0.1, eps=1e-5):
 # and forms the conv-output cotangent with the folded identity
 #     dy = gamma*r * (dz - dbeta/N - xhat * dgamma/N).
 # dw and dx come from cuDNN's conv gradients (the JAX package leaves this
-# conv to XLA).
+# conv to XLA). The other REMORA_TPU_CONVBN modes of the JAX package:
+#   * remat: the plain path under activation checkpointing;
+#   * fused_resid (``ConvBNSwishResid``): the forward also saves xhat, so
+#     the backward skips the conv recompute;
+#   * packed (``ConvBNSwishPacked``): ``_cbs_bwd_packed``'s math, whose
+#     lane packing is a TPU layout trick; what carries over are its rounding
+#     points (f32 BN math, dy rounded once to x's dtype, db from that dy);
+#   * pallas (``ConvBNSwishK6``): the backward is K6, ``kernels.convbn``.
 
 
 def _conv_nobias(w, x, stride):
     """(B, T, C_in) -> (B, T', C_out); w in torch (O, I, K) format."""
     return F.conv1d(x.transpose(1, 2), w, None, stride=stride).transpose(1, 2)
+
+
+def _bn_swish_fwd(y, gamma, beta, eps):
+    """(out, mu, var, r, xhat) of swish(BN_train(y))."""
+    mu = y.mean((0, 1))
+    var = y.var((0, 1), correction=0)
+    r = torch.rsqrt(var + eps)
+    xhat = (y - mu) * r
+    z = gamma * xhat + beta
+    return z * torch.sigmoid(z), mu, var, r, xhat
+
+
+def _folded_dy(dout, gamma, beta, xhat, r):
+    """(dy, dgamma, dbeta): the BN+swish backward with the folded identity
+    (``_cbs_bwd``'s order of operations)."""
+    z = gamma * xhat + beta
+    s = torch.sigmoid(z)
+    dz = dout * (s + z * s * (1.0 - s))
+    dgamma = (dz * xhat).sum((0, 1))
+    dbeta = dz.sum((0, 1))
+    n = xhat.shape[0] * xhat.shape[1]
+    dy = gamma * r * (dz - dbeta / n - xhat * (dgamma / n))
+    return dy, dgamma, dbeta
+
+
+def _conv_grads(x, w, dy, stride):
+    """(dw, dx) of the biasless conv for the conv-output cotangent dy."""
+    x_ncw, dy_ncw = x.transpose(1, 2), dy.transpose(1, 2)
+    dw = torch.nn.grad.conv1d_weight(x_ncw, w.shape, dy_ncw, stride=stride)
+    dx = torch.nn.grad.conv1d_input(x_ncw.shape, w, dy_ncw, stride=stride)
+    return dw, dx.transpose(1, 2)
 
 
 class ConvBNSwish(torch.autograd.Function):
@@ -134,69 +175,130 @@ class ConvBNSwish(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, b, gamma, beta, x, stride, eps):
         del b  # cancels in the normalisation; its gradient is sum(dy)
-        y = _conv_nobias(w, x, stride)
-        mu = y.mean((0, 1))
-        var = y.var((0, 1), correction=0)
-        r = torch.rsqrt(var + eps)
-        z = gamma * ((y - mu) * r) + beta
+        out, mu, var, r, _ = _bn_swish_fwd(_conv_nobias(w, x, stride), gamma,
+                                           beta, eps)
         ctx.save_for_backward(w, gamma, beta, x, mu, r)
         ctx.stride = stride
         ctx.mark_non_differentiable(mu, var)
-        return z * torch.sigmoid(z), mu, var
+        return out, mu, var
 
     @staticmethod
     def backward(ctx, dout, _dmu, _dvar):
         w, gamma, beta, x, mu, r = ctx.saved_tensors
         y = _conv_nobias(w, x, ctx.stride)  # recompute: cheaper than residuals
-        xhat = (y - mu) * r
-        z = gamma * xhat + beta
+        dy, dgamma, dbeta = _folded_dy(dout, gamma, beta, (y - mu) * r, r)
+        dw, dx = _conv_grads(x, w, dy, ctx.stride)
+        return dw, dy.sum((0, 1)), dgamma, dbeta, dx, None, None
+
+
+class ConvBNSwishResid(torch.autograd.Function):
+    """``ConvBNSwish`` whose forward saves xhat (``_cbs_fwd_resid``), so
+    the backward reads it instead of recomputing the conv."""
+
+    @staticmethod
+    def forward(ctx, w, b, gamma, beta, x, stride, eps):
+        del b
+        out, mu, var, r, xhat = _bn_swish_fwd(_conv_nobias(w, x, stride),
+                                              gamma, beta, eps)
+        ctx.save_for_backward(w, gamma, beta, x, xhat, r)
+        ctx.stride = stride
+        ctx.mark_non_differentiable(mu, var)
+        return out, mu, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmu, _dvar):
+        w, gamma, beta, x, xhat, r = ctx.saved_tensors
+        dy, dgamma, dbeta = _folded_dy(dout, gamma, beta, xhat, r)
+        dw, dx = _conv_grads(x, w, dy, ctx.stride)
+        return dw, dy.sum((0, 1)), dgamma, dbeta, dx, None, None
+
+
+class ConvBNSwishPacked(torch.autograd.Function):
+    """``_cbs_bwd_packed``: the forward saves xhat; the backward runs the
+    BN+swish math in f32, rounds dy once to x's dtype (the JAX package's
+    optimization barrier), sums db from that rounded dy and casts db,
+    dgamma and dbeta to their parameters' dtypes. The forward is
+    ``ConvBNSwishResid``'s."""
+
+    @staticmethod
+    def forward(ctx, w, b, gamma, beta, x, stride, eps):
+        return ConvBNSwishResid.forward(ctx, w, b, gamma, beta, x, stride,
+                                        eps)
+
+    @staticmethod
+    def backward(ctx, dout, _dmu, _dvar):
+        w, gamma, beta, x, xhat, r = ctx.saved_tensors
+        f32 = torch.float32
+        g, be, r32, xh = (t.to(f32) for t in (gamma, beta, r, xhat))
+        z = g * xh + be
         s = torch.sigmoid(z)
-        dz = dout * (s + z * s * (1.0 - s))
-        dgamma = (dz * xhat).sum((0, 1))
+        dz = dout.to(f32) * (s + z * s * (1.0 - s))
+        dgamma = (dz * xh).sum((0, 1))
         dbeta = dz.sum((0, 1))
-        n = y.shape[0] * y.shape[1]
-        dy = gamma * r * (dz - dbeta / n - xhat * (dgamma / n))
-        db = dy.sum((0, 1))
-        x_ncw, dy_ncw = x.transpose(1, 2), dy.transpose(1, 2)
-        dw = torch.nn.grad.conv1d_weight(x_ncw, w.shape, dy_ncw,
-                                         stride=ctx.stride)
-        dx = torch.nn.grad.conv1d_input(x_ncw.shape, w, dy_ncw,
-                                        stride=ctx.stride)
-        return dw, db, dgamma, dbeta, dx.transpose(1, 2), None, None
+        n = xhat.shape[0] * xhat.shape[1]
+        dy = ((g * r32) * (dz - dbeta / n - xh * (dgamma / n))).to(x.dtype)
+        db = dy.to(f32).sum((0, 1))
+        dw, dx = _conv_grads(x, w, dy, ctx.stride)
+        return (dw, db.to(w.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(beta.dtype), dx, None, None)
 
 
-# REMORA_TPU_CONVBN modes of the JAX package that are not ported, with the
-# ROADMAP item that brings each
-_CONVBN_LATER = {
-    "pallas": "ROADMAP queue 2, K6",
-    "remat": "ROADMAP queue 1 item 11",
-    "fused_resid": "ROADMAP queue 1 item 11",
-    "packed": "ROADMAP queue 1 item 11",
-}
+class ConvBNSwishK6(torch.autograd.Function):
+    """``ConvBNSwish`` whose backward is K6 (``kernels.convbn``, stride 1):
+    ``_cbs_bwd_pallas``, with dw and db cast to w's dtype and dgamma and
+    dbeta to gamma's. The forward is ``ConvBNSwish``'s."""
+
+    @staticmethod
+    def forward(ctx, w, b, gamma, beta, x, stride, eps):
+        return ConvBNSwish.forward(ctx, w, b, gamma, beta, x, stride, eps)
+
+    @staticmethod
+    def backward(ctx, dout, _dmu, _dvar):
+        from remora_tpu_torch.kernels import convbn
+
+        w, gamma, beta, x, mu, r = ctx.saved_tensors
+        dx, dw, db, dgamma, dbeta = convbn.conv_bn_swish_bwd(
+            x, dout.to(x.dtype), w, gamma, beta, mu, r, stride=ctx.stride,
+            need_dx=ctx.needs_input_grad[4],
+        )
+        return (dw.to(w.dtype), db.to(w.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(beta.dtype), dx, None, None)
+
+
+CONVBN_MODES = ("plain", "remat", "fused", "fused_resid", "packed", "pallas")
 
 
 def convbn_impl(device):
-    """The train-mode conv+BN+swish implementation: REMORA_TPU_CONVBN
-    (plain|fused|auto), auto being plain on the CPU and fused on CUDA, as
-    the JAX package picks by backend."""
+    """The train-mode conv+BN+swish implementation: REMORA_TPU_CONVBN (one
+    of ``CONVBN_MODES``, or auto), auto being plain on the CPU and fused on
+    CUDA, as the JAX package picks by backend."""
     mode = os.environ.get("REMORA_TPU_CONVBN", "auto")
-    if mode in _CONVBN_LATER:
-        raise RemoraError(
-            f"REMORA_TPU_CONVBN={mode} is not ported yet "
-            f"({_CONVBN_LATER[mode]}); use plain, fused or auto"
-        )
-    if mode not in ("plain", "fused", "auto"):
-        raise RemoraError(f"unknown REMORA_TPU_CONVBN mode {mode!r}")
     if mode == "auto":
         return "plain" if torch.device(device).type == "cpu" else "fused"
+    if mode not in CONVBN_MODES:
+        raise RemoraError(f"unknown REMORA_TPU_CONVBN mode {mode!r}")
     return mode
+
+
+def _cbs_plain(w, b, gamma, beta, x, stride, eps):
+    """(out, mean, var) of swish(BatchNorm1d_train(Conv1d(x))), the plain
+    path's arithmetic (``batchnorm``'s formula); mean and var (with the
+    bias) leave the graph."""
+    y = conv1d({"w": w, "b": b}, x, stride)
+    mean = y.mean((0, 1))
+    var = y.var((0, 1), correction=0)
+    out = (y - mean) * (torch.rsqrt(var + eps) * gamma) + beta
+    return swish(out), mean.detach(), var.detach()
 
 
 def conv_bn_swish(conv_params, bn_params, state, x, stride=1, train=False,
                   momentum=0.1, eps=1e-5, impl=None):
     """swish(BatchNorm1d(Conv1d(x))) with the running-state update. Returns
-    (out, new_state). ``impl`` (train mode) is "plain" (autograd through
-    BN) or "fused" (``ConvBNSwish``); None picks by ``convbn_impl``."""
+    (out, new_state). ``impl`` (train mode) is one of ``CONVBN_MODES``:
+    "plain" (autograd through BN), "remat" (the plain path recomputed in
+    the backward; the running-state update stays outside the recompute),
+    "fused" (``ConvBNSwish``), "fused_resid", "packed" or "pallas" (K6 for
+    stride-1 blocks); None picks by ``convbn_impl``."""
     if not train:
         y = conv1d(conv_params, x, stride)
         return swish(batchnorm(bn_params, state, y)[0]), state
@@ -206,14 +308,27 @@ def conv_bn_swish(conv_params, bn_params, state, x, stride=1, train=False,
         y = conv1d(conv_params, x, stride)
         y, new_state = batchnorm(bn_params, state, y, True, momentum, eps)
         return swish(y), new_state
-    if impl != "fused":
-        raise RemoraError(f"unknown conv_bn_swish impl {impl!r}")
-    out, mu, var = ConvBNSwish.apply(
-        conv_params["w"], conv_params["b"], bn_params["gamma"],
-        bn_params["beta"], x, stride, eps,
-    )
+    args = (conv_params["w"], conv_params["b"], bn_params["gamma"],
+            bn_params["beta"], x, stride, eps)
+    if impl == "remat":
+        out, mu, var = torch.utils.checkpoint.checkpoint(
+            _cbs_plain, *args, use_reentrant=False)
+    else:
+        if impl == "pallas" and stride == 1:
+            core = ConvBNSwishK6
+        elif impl == "packed":
+            core = ConvBNSwishPacked
+        elif impl == "fused_resid":
+            core = ConvBNSwishResid
+        elif impl in ("fused", "pallas"):
+            # a strided block in pallas mode takes ConvBNSwish: the JAX
+            # package runs its Pallas backward on stride-1 blocks only
+            core = ConvBNSwish
+        else:
+            raise RemoraError(f"unknown conv_bn_swish impl {impl!r}")
+        out, mu, var = core.apply(*args)
+        mu = mu + conv_params["b"].detach()
     with torch.no_grad():
-        mu = mu + conv_params["b"]
         y_cols = (x.shape[1] - conv_params["w"].shape[2]) // stride + 1
         n = x.shape[0] * y_cols
         unbiased = var * n / max(n - 1, 1)

@@ -11,10 +11,12 @@ writes the same ``batch.log``, ``validation.log``, ``epoch_summary.txt``
 and checkpoints.
 
 ``train_model`` runs on the GPU unless the caller names ``device="cpu"``;
-with no GPU and no device named it raises. Not ported yet (each raises
+with no GPU and no device named it raises. ``steps_per_launch > 1`` runs K
+optimizer steps per call over K batches put on the device at once (the JAX
+package's ``lax.scan`` window); ``REMORA_TPU_JAX_TRACE_DIR`` writes a
+torch.profiler trace of the first epoch there. Not ported yet (raises
 ``RemoraError`` naming its ROADMAP item): ``mesh``, ``sync_bn`` and
-multihost data parallelism, ``steps_per_launch > 1``, and the
-``REMORA_TPU_CONVBN`` modes other than plain/fused/auto.
+multihost data parallelism.
 
 Precision: the f32 path runs convs and matmuls in full f32 (TF32 off).
 ``bf16_compute`` runs the forward and backward on bf16 casts of the f32
@@ -221,6 +223,26 @@ def make_train_step_raw(model, optimizer, kmer_context_bases, chunk_width,
     return step
 
 
+def make_train_step_raw_multi(step, steps_per_launch, use_grad_clip=False):
+    """K optimizer steps of ``step`` (a ``make_train_step_raw`` step) per
+    call over K stacked raw batches: the JAX package's ``lax.scan`` window,
+    run eagerly. ``multi(signal[K, B, 1, W], seqs, maps, lens, labels,
+    grad_threshs=None) -> (losses[K], n_filt[K], grad_maxs[K, n_params] |
+    None)``, left on the device so the host reads them once per window;
+    ``grad_threshs`` stay frozen over the window."""
+
+    def multi(signal, sequence, seq_maps, seq_lens, labels,
+              grad_threshs=None):
+        outs = [step(signal[j], sequence[j], seq_maps[j], seq_lens[j],
+                     labels[j], grad_threshs)
+                for j in range(steps_per_launch)]
+        losses, n_filts, grad_maxs = zip(*outs)
+        return (torch.stack(losses), torch.stack(n_filts),
+                torch.stack(grad_maxs) if use_grad_clip else None)
+
+    return multi
+
+
 def _write_batch_line(batch_fp, entry, high_conf_incorrect_thr_frac):
     """Write one batch.log row, converting the (lagged) device scalars."""
     it, loss, n_filt = entry
@@ -252,18 +274,35 @@ def set_learning_rate(optimizer, lr):
     return optimizer
 
 
-def _not_ported(mesh, sync_bn, steps_per_launch):
+def _not_ported(mesh, sync_bn):
     if mesh is not None or sync_bn:
         raise RemoraError(
             "data-parallel training (mesh, sync_bn, multihost) is not "
             "ported yet (ROADMAP queue 1 item 7)"
         )
-    if steps_per_launch > 1:
-        raise RemoraError(
-            "steps_per_launch > 1 is not ported yet (ROADMAP queue 1 item "
-            "11: a CUDA graph of K steps takes the place of the JAX "
-            "package's lax.scan)"
-        )
+
+
+def _start_trace(device):
+    """A running torch.profiler over the host and, on a GPU, the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof, trace_dir, device):
+    """Stop ``prof`` and write its Chrome trace into ``trace_dir``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "train_epoch0.trace.json")
+    prof.export_chrome_trace(path)
+    LOGGER.info(f"torch.profiler trace written to {path}")
 
 
 def train_model(
@@ -298,8 +337,8 @@ def train_model(
     device=None,
 ):
     device = resolve_device(device)
-    _not_ported(mesh, sync_bn, steps_per_launch)
-    L.convbn_impl(device)  # refuses the REMORA_TPU_CONVBN modes not ported
+    _not_ported(mesh, sync_bn)
+    L.convbn_impl(device)  # refuses an unknown REMORA_TPU_CONVBN mode
     out_path = str(out_path)
     os.makedirs(out_path, exist_ok=True)
     seed = (
@@ -459,6 +498,24 @@ def train_model(
             compute_dtype=compute_dtype,
         )
         names = ("signal", "enc_kmers", "labels")
+    multi_step = None
+    if steps_per_launch > 1:
+        if featurize_on_device:
+            # K optimizer steps per call over stacked raw batches; numerics
+            # per step identical (grad-clip thresholds frozen within each
+            # window)
+            multi_step = make_train_step_raw_multi(
+                train_step, steps_per_launch, use_grad_clip)
+            LOGGER.info(
+                f"Launching {steps_per_launch} optimizer steps per call"
+            )
+        else:
+            LOGGER.info(
+                "--steps-per-launch requires the raw (on-device "
+                "featurization) single-host path; running one step per "
+                "launch"
+            )
+            steps_per_launch = 1
     eval_step = make_eval_step(model)
 
     def eval_fn(sigs, enc_kmers):
@@ -516,13 +573,64 @@ def train_model(
         epoch = start_epoch
         trn_iter = trn_ds.iter_batches(raw=featurize_on_device)
         pending_losses = deque()
+        # optional trace of the first epoch (the JAX package's device trace
+        # under the same variable): a Chrome trace for chrome://tracing or
+        # Perfetto
+        trace_dir = os.environ.get("REMORA_TPU_JAX_TRACE_DIR")
         with full_f32():
             for epoch in range(start_epoch, train_opts.epochs):
+                prof = None
+                if trace_dir is not None and epoch == 0:
+                    prof = _start_trace(device)
                 set_learning_rate(optimizer, lr_schedule(epoch))
                 t0 = time.monotonic()
                 n_chunks = 0
-                for epoch_i in range(batches_per_epoch):
-                    batch = next(trn_iter)
+                epoch_i = 0
+                # a window's batches that differ in shape (a short batch at
+                # a super batch's end) run one step a call, in order
+                queued = []
+                while epoch_i < batches_per_epoch:
+                    if (multi_step is not None and not queued
+                            and epoch_i + steps_per_launch
+                            <= batches_per_epoch):
+                        batches = [next(trn_iter)
+                                   for _ in range(steps_per_launch)]
+                        if len({tuple(b[n].shape for n in names)
+                                for b in batches}) > 1:
+                            queued = batches
+                            continue
+                        step_inputs = tuple(
+                            _put(np.stack([b[n] for b in batches]), device)
+                            for n in names
+                        )
+                        losses, n_filts, grad_maxs = multi_step(
+                            *step_inputs,
+                            *((grad_threshs,) if use_grad_clip else ()),
+                        )
+                        opt_count += steps_per_launch
+                        n_chunks += sum(b["labels"].shape[0]
+                                        for b in batches)
+                        if use_grad_clip:
+                            # one RollingMAD update per step, from the
+                            # window's stacked maxima (the thresholds were
+                            # frozen within it)
+                            for maxs in grad_maxs.cpu().tolist():
+                                threshs = rolling_mads.update(maxs)
+                            if threshs is not None:
+                                grad_threshs = [float(t) for t in threshs]
+                        for j in range(steps_per_launch):
+                            pending_losses.append(
+                                (epoch * batches_per_epoch + epoch_i + j,
+                                 losses[j], n_filts[j])
+                            )
+                            if len(pending_losses) > 8:
+                                _write_batch_line(
+                                    batch_fp, pending_losses.popleft(),
+                                    high_conf_incorrect_thr_frac,
+                                )
+                        epoch_i += steps_per_launch
+                        continue
+                    batch = queued.pop(0) if queued else next(trn_iter)
                     step_inputs = tuple(_put(batch[n], device) for n in names)
                     loss, n_filt, grad_maxs = train_step(
                         *step_inputs,
@@ -545,12 +653,15 @@ def train_model(
                             batch_fp, pending_losses.popleft(),
                             high_conf_incorrect_thr_frac,
                         )
+                    epoch_i += 1
                 while pending_losses:
                     _write_batch_line(
                         batch_fp, pending_losses.popleft(),
                         high_conf_incorrect_thr_frac,
                     )
                 dt = time.monotonic() - t0
+                if prof is not None:
+                    _stop_trace(prof, trace_dir, device)
                 LOGGER.info(
                     f"Epoch {epoch + 1}: {n_chunks / dt:,.0f} chunks/s "
                     f"({batches_per_epoch} batches in {dt:.1f}s)"

@@ -286,3 +286,127 @@ def test_refine_reads_batch_on_card_matches_cpu(cuda):
         for a, b in zip(*out):
             assert np.array_equal(a.seq_to_sig_map, b.seq_to_sig_map)
             assert a.shift == b.shift and a.scale == b.scale
+
+
+# ---------------- K6: the conv+BN(train)+swish backward ----------------
+
+
+def _convbn_case(B, Ti, I, O, K, dtype, device, view, seed=0):
+    """K6 inputs; ``view`` gives x and dout as channels-last views of
+    (B, C, T) storage (the training path's layout), else contiguous."""
+    rng = np.random.default_rng(seed)
+    To = Ti - K + 1
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+
+    if view:
+        x = arr(B, I, Ti).to(dtype).transpose(1, 2)
+        dout = arr(B, O, To).to(dtype).transpose(1, 2)
+    else:
+        x, dout = arr(B, Ti, I).to(dtype), arr(B, To, O).to(dtype)
+    w = arr(O, I, K, scale=1.0 / np.sqrt(I * K)).to(dtype)
+    gamma = arr(O, scale=0.2).add(1.0).to(dtype)
+    beta = arr(O, scale=0.1).to(dtype)
+    mu = arr(O, scale=0.1).to(dtype)
+    r = arr(O, scale=0.2).abs().add(0.5).to(dtype)
+    return x, dout, w, gamma, beta, mu, r
+
+
+# f32 is held to f32 sums in another order; bf16 rounds dy and dx to bf16
+# (one bf16 step is 2**-8 of a value); db, a centred sum, by an absolute
+# bound
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("view", [False, True], ids=["contiguous", "view"])
+@pytest.mark.parametrize("B,Ti,I,O,K", [
+    (5, 40, 1, 4, 5), (3, 61, 16, 32, 11), (4, 30, 128, 64, 5),
+    (2, 300, 36, 16, 5),
+])
+def test_convbn_kernel_matches_plain(cuda, B, Ti, I, O, K, view, dtype, tol):
+    from remora_tpu_torch.kernels import convbn as CB
+
+    args = _convbn_case(B, Ti, I, O, K, dtype, cuda, view)
+    launches = CB.LAUNCHES
+    with full_f32():
+        got = CB.conv_bn_swish_bwd(*args)
+        want = CB.conv_bn_swish_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert CB.LAUNCHES == launches + 1
+    for name, a, b in zip(("dx", "dw", "db", "dgamma", "dbeta"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if name == "db":
+            assert (a - b).abs().max().item() <= 1e-4, name
+        else:
+            assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+def test_convbn_kernel_repeats_bit_for_bit(cuda):
+    """K6 sums every cross-block partial in block order (no atomics)."""
+    from remora_tpu_torch.kernels import convbn as CB
+
+    args = _convbn_case(64, 128, 128, 64, 5, torch.float32, cuda, True)
+    first = CB.conv_bn_swish_bwd(*args)
+    second = CB.conv_bn_swish_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_convbn_kernel_refuses_bad_inputs(cuda):
+    from remora_tpu_torch.kernels import convbn as CB
+
+    x, dout, w, gamma, beta, mu, r = _convbn_case(
+        2, 20, 4, 8, 5, torch.float32, cuda, False)
+    with pytest.raises(ValueError, match="stride 1"):
+        CB.conv_bn_swish_bwd(x, dout, w, gamma, beta, mu, r, stride=2)
+    with pytest.raises(ValueError, match="dtype"):
+        CB.conv_bn_swish_bwd(x.double(), dout.double(), w, gamma, beta, mu,
+                             r)
+    with pytest.raises(ValueError, match="not \\(B, To, O\\)"):
+        CB.conv_bn_swish_bwd(x, dout[:, 1:], w, gamma, beta, mu, r)
+    with pytest.raises(ValueError, match="does not take"):
+        CB.conv_bn_swish_bwd(x[..., 1:], dout, w, gamma, beta, mu, r)
+    with pytest.raises(ValueError, match="kernel takes K"):
+        xk, dk, wk = x.new_zeros(2, 60, 4), x.new_zeros(2, 20, 8), \
+            w.new_zeros(8, 4, 41)
+        CB.conv_bn_swish_bwd(xk, dk, wk, gamma, beta, mu, r)
+
+
+def test_convbn_k6_autograd_on_card(cuda):
+    """ConvBNSwishK6 (K6 backward) against ConvBNSwish (cuDNN gradients),
+    f32 on the card, with the input needing a gradient and not."""
+    from remora_tpu_torch.kernels import convbn as CB
+    from remora_tpu_torch.models import layers as L
+
+    rng = np.random.default_rng(4)
+    conv = {"w": rng.normal(size=(16, 8, 5)) * 0.3, "b": rng.normal(size=16)}
+    bn = {"gamma": rng.uniform(0.5, 1.5, 16), "beta": rng.normal(size=16)}
+    state = {"mean": np.zeros(16), "var": np.ones(16)}
+    x = rng.normal(size=(6, 50, 8))
+    probe = torch.from_numpy(rng.normal(size=(6, 46, 16))).float().to(cuda)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    for x_grad in (True, False):
+        grads = []
+        for impl in ("pallas", "fused"):
+            tc = {k: t(v).requires_grad_() for k, v in conv.items()}
+            tb = {k: t(v).requires_grad_() for k, v in bn.items()}
+            tx = t(x).requires_grad_(x_grad)
+            launches = CB.LAUNCHES
+            with full_f32():
+                out, _ = L.conv_bn_swish(tc, tb, {k: t(v) for k, v in
+                                                  state.items()}, tx, 1,
+                                         train=True, impl=impl)
+                (out * probe).sum().backward()
+            torch.cuda.synchronize()
+            assert CB.LAUNCHES - launches == (impl == "pallas")
+            grads.append([tc["w"].grad, tb["gamma"].grad, tb["beta"].grad]
+                         + ([tx.grad] if x_grad else []))
+            assert (tx.grad is None) != x_grad
+            assert tc["b"].grad.abs().max().item() <= 1e-4
+        for got, want in zip(*grads):
+            assert _rel(got, want) <= 1e-4

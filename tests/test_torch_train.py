@@ -60,8 +60,12 @@ def _is_conv_bias(key):
 
 
 @pytest.mark.parametrize("stride", [1, 3])
-@pytest.mark.parametrize("impl", ["plain", "fused"])
+@pytest.mark.parametrize("impl", L.CONVBN_MODES)
 def test_conv_bn_swish_train_matches_jax(impl, stride):
+    """Every REMORA_TPU_CONVBN mode against the JAX package's same mode
+    (pallas: K6's plain version against the Pallas kernel in interpret
+    mode on stride-1 blocks, ``ConvBNSwish`` against ``_cbs_core`` on
+    strided ones): output, new statistics and gradients <= 1e-5."""
     rng = np.random.default_rng(stride)
     conv = {"w": rng.normal(size=(8, 5, 7)).astype(np.float32) * 0.3,
             "b": rng.normal(size=8).astype(np.float32)}
@@ -102,22 +106,34 @@ def test_conv_bn_swish_train_matches_jax(impl, stride):
 
 
 def test_convbn_modes(monkeypatch):
+    """auto picks by device; every mode of the JAX package is taken on
+    either device; an unknown mode raises, from the env and as ``impl``."""
     assert L.convbn_impl("cpu") == "plain"
     assert L.convbn_impl("cuda") == "fused"
-    monkeypatch.setenv("REMORA_TPU_CONVBN", "fused")
-    assert L.convbn_impl("cpu") == "fused"
-    for mode, item in (("pallas", "K6"), ("remat", "item 11"),
-                       ("packed", "item 11")):
+    assert set(L.CONVBN_MODES) == {"plain", "remat", "fused", "fused_resid",
+                                   "packed", "pallas"}
+    for mode in L.CONVBN_MODES:
         monkeypatch.setenv("REMORA_TPU_CONVBN", mode)
-        with pytest.raises(RemoraError, match=item):
-            L.convbn_impl("cpu")
+        assert L.convbn_impl("cpu") == L.convbn_impl("cuda") == mode
+    monkeypatch.setenv("REMORA_TPU_CONVBN", "lanes")
+    with pytest.raises(RemoraError, match="unknown REMORA_TPU_CONVBN"):
+        L.convbn_impl("cpu")
+    x = torch.zeros(2, 9, 3)
+    conv = {"w": torch.zeros(4, 3, 5), "b": torch.zeros(4)}
+    bn = {"gamma": torch.ones(4), "beta": torch.zeros(4)}
+    with pytest.raises(RemoraError, match="unknown conv_bn_swish impl"):
+        L.conv_bn_swish(conv, bn, {"mean": torch.zeros(4),
+                                   "var": torch.ones(4)}, x, train=True,
+                        impl="lanes")
 
 
 # ---------------- train-mode forward, loss, gradients ----------------
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step(jax_model, thr, channels_last, compute_dtype):
+def _jax_step(jax_model, thr, channels_last, compute_dtype, convbn=None):
+    """The JAX package's jitted loss and gradients; ``convbn`` keys the
+    cache by the REMORA_TPU_CONVBN mode the caller set (read at trace)."""
     loss_fn = jax_train.make_loss_fn(
         jax_model, high_conf_incorrect_thr_frac=thr,
         compute_dtype=compute_dtype, channels_last=channels_last,
@@ -150,24 +166,33 @@ def _port_step(port_model, params, bn_state, sigs, seqs, labels, thr,
 
 
 @pytest.mark.parametrize("thr", [None, (0.3, 0.2)], ids=["nofilt", "filt"])
-@pytest.mark.parametrize("channels_last", [False, True])
-@pytest.mark.parametrize("arch", ["ConvLSTM", "Conv", "ConvLSTM-fused"])
+@pytest.mark.parametrize("arch,channels_last", [
+    (arch, cl) for arch in ("ConvLSTM", "Conv", "ConvLSTM-fused")
+    for cl in (False, True)
+] + [("ConvLSTM-pallas", True), ("Conv-pallas", True)])
 def test_train_loss_and_grads_match_jax(monkeypatch, arch, channels_last,
                                         thr):
     """f32: loss <= 1e-5, gradients <= 1e-4 relative (conv biases by an
     absolute bound), new BatchNorm statistics <= 1e-5. "ConvLSTM-fused"
     runs the LSTM through ``LSTMFused`` (K2/K3's plain versions) and the
-    conv blocks through ``ConvBNSwish``."""
+    conv blocks through ``ConvBNSwish``; the "-pallas" cases run
+    REMORA_TPU_CONVBN=pallas in both packages (K6's plain version against
+    the Pallas kernel in interpret mode, in every stride-1 block)."""
     jax_model, port_model, width = ARCHS[arch.split("-")[0]]
+    convbn = None
     if arch.endswith("fused"):
         monkeypatch.setattr(L, "lstm", functools.partial(L.lstm,
                                                          impl="fused"))
-        monkeypatch.setenv("REMORA_TPU_CONVBN", "fused")
+        convbn = "fused"
+    elif arch.endswith("pallas"):
+        convbn = "pallas"
+    if convbn is not None:
+        monkeypatch.setenv("REMORA_TPU_CONVBN", convbn)
     params, bn_state = _numpy_trees(port_model, 16, 9, 3, seed=5)
     sigs, seqs, labels = _batch(width, channels_last)
     (j_loss, (j_bn, j_filt)), j_grads = _jax_step(
-        jax_model, thr, channels_last, None)(params, bn_state, sigs, seqs,
-                                             labels)
+        jax_model, thr, channels_last, None, convbn)(params, bn_state, sigs,
+                                                     seqs, labels)
     launches = K.LAUNCHES_FWD
     loss, n_filt, grads, new_bn = _port_step(
         port_model, params, bn_state, sigs, seqs, labels, thr,
@@ -305,7 +330,8 @@ def _run(pkg, out, config, opts, **kw):
     args = dict(seed=5, out_path=str(out), remora_dataset_path=config,
                 chunk_context=(25, 25), kmer_context_bases=(4, 4),
                 batch_size=32, model_name="ConvLSTM_w_ref", size=16,
-                chunks_per_epoch=96, num_test_chunks=32, **kw)
+                chunks_per_epoch=96, num_test_chunks=32)
+    args.update(kw)
     if pkg == "jax":
         return jax_train.train_model(
             train_opts=jax_optim.TrainOpts(**opts), **args)
@@ -427,11 +453,12 @@ def test_train_model_options(synth_config, monkeypatch):
     head, rows = _table(out / "batch.log")
     assert head == ["Iteration", "Loss", "NumberFiltered"]
     assert len(rows) == 3
-    for kw, match in (({"mesh": object()}, "item 7"),
-                      ({"sync_bn": True}, "item 7"),
-                      ({"steps_per_launch": 2}, "item 11")):
-        with pytest.raises(RemoraError, match=match):
+    for kw in ({"mesh": object()}, {"sync_bn": True}):
+        with pytest.raises(RemoraError, match="item 7"):
             _run("port", root / "x", config, SGD, **kw)
+    monkeypatch.setenv("REMORA_TPU_CONVBN", "lanes")
+    with pytest.raises(RemoraError, match="unknown REMORA_TPU_CONVBN"):
+        _run("port", root / "x", config, SGD)
     if not torch.cuda.is_available():
         with pytest.raises(RemoraError, match="no CUDA device"):
             train.train_model(
@@ -441,3 +468,71 @@ def test_train_model_options(synth_config, monkeypatch):
                 model_name="ConvLSTM_w_ref", size=16,
                 train_opts=optim.TrainOpts(), chunks_per_epoch=32,
                 num_test_chunks=32)
+
+
+def _read(path):
+    with open(path) as fh:
+        return fh.read()
+
+
+@pytest.fixture(scope="module")
+def window_config(synth_config):
+    """Two members of 144 chunks read in super batches of 64: every batch
+    holds 32 chunks, so each window stacks (the JAX package's window
+    cannot stack the short batch that ends a super batch)."""
+    root, _, init = synth_config
+    members = [(write_synth_dataset(pkg, root / f"w{pkg}", 144, seed=s), 1)
+               for pkg, s in (("jax", 4), ("port", 5))]
+    return root, write_config(root / "window.jsn", members), init
+
+
+def test_train_model_steps_per_launch(window_config, synth_config):
+    """``steps_per_launch=3`` over 4 batches an epoch (a window of 3, then
+    one single step), SGD with gradient clipping set: batch.log and
+    validation.log within 1e-4 of the JAX package's same run. Without
+    clipping, identical to the port's one-step-a-call run, logs and final
+    weights, here and on a config whose short batches break windows up."""
+    root, config, init = window_config
+    kw = dict(finetune_path=init, chunks_per_epoch=128, steps_per_launch=3,
+              super_batch_size=64)
+    for pkg in ("jax", "port"):
+        _run(pkg, root / f"spl_{pkg}", config, SGD,
+             gradient_clip_num_mads=3.0, **kw)
+    _same_logs(root / "spl_port", root / "spl_jax")
+    _, rows = _table(root / "spl_port" / "batch.log")
+    assert [r[0] for r in rows] == [str(i) for i in range(8)]
+
+    ragged = synth_config[1]
+    for cfg, tag, extra in ((config, "w", {}),
+                            (ragged, "r", {"super_batch_size": None})):
+        for spl in (3, 1):
+            args = dict(kw, steps_per_launch=spl, **extra)
+            if args["super_batch_size"] is None:
+                del args["super_batch_size"]
+            _run("port", root / f"spl{spl}{tag}", cfg, SGD, **args)
+        for name in ("batch.log", "validation.log"):
+            assert _read(root / f"spl3{tag}" / name) == \
+                _read(root / f"spl1{tag}" / name)
+        models = [model_io.load_model(root / f"spl{spl}{tag}" /
+                                      "model_final.checkpoint")[0]
+                  for spl in (3, 1)]
+        for (name, a), (_, b) in zip(*(train.sorted_params(m)
+                                       for m in models)):
+            assert torch.equal(a, b), name
+
+
+def test_train_model_writes_first_epoch_trace(synth_config, monkeypatch):
+    """REMORA_TPU_JAX_TRACE_DIR: a torch.profiler Chrome trace of epoch 0
+    (the JAX package's first-epoch device trace under the same variable)."""
+    import json
+
+    root, config, init = synth_config
+    trace_dir = root / "trace"
+    monkeypatch.setenv("REMORA_TPU_JAX_TRACE_DIR", str(trace_dir))
+    _run("port", root / "traced", config, dict(SGD, epochs=1),
+         finetune_path=init)
+    traces = sorted(trace_dir.iterdir())
+    assert [p.name for p in traces] == ["train_epoch0.trace.json"]
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any("conv1d" in str(e.get("name", "")) for e in events)
