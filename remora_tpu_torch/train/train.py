@@ -223,24 +223,29 @@ def make_train_step_raw(model, optimizer, kmer_context_bases, chunk_width,
     return step
 
 
-def make_train_step_raw_multi(step, steps_per_launch, use_grad_clip=False):
-    """K optimizer steps of ``step`` (a ``make_train_step_raw`` step) per
-    call over K stacked raw batches: the JAX package's ``lax.scan`` window,
-    run eagerly. ``multi(signal[K, B, 1, W], seqs, maps, lens, labels,
-    grad_threshs=None) -> (losses[K], n_filt[K], grad_maxs[K, n_params] |
-    None)``, left on the device so the host reads them once per window;
+def make_train_step_raw_multi(step, use_grad_clip=False):
+    """k optimizer steps of ``step`` per call over k stacked batches: the
+    JAX package's ``lax.scan`` window, run eagerly. ``multi(*arrays,
+    grad_threshs=None) -> (losses[k], n_filt[k], grad_maxs[k, n_params] |
+    None)``, each array stacked along a leading axis of k (``signal[k, B,
+    1, W], seqs, maps, lens, labels`` for a ``make_train_step_raw`` step),
+    the results left on the device so the host reads them once per window;
     ``grad_threshs`` stay frozen over the window."""
 
-    def multi(signal, sequence, seq_maps, seq_lens, labels,
-              grad_threshs=None):
-        outs = [step(signal[j], sequence[j], seq_maps[j], seq_lens[j],
-                     labels[j], grad_threshs)
-                for j in range(steps_per_launch)]
+    def multi(*arrays, grad_threshs=None):
+        outs = [step(*(a[j] for a in arrays), grad_threshs)
+                for j in range(arrays[0].shape[0])]
         losses, n_filts, grad_maxs = zip(*outs)
         return (torch.stack(losses), torch.stack(n_filts),
                 torch.stack(grad_maxs) if use_grad_clip else None)
 
     return multi
+
+
+def _stack(arrays):
+    """The window's host arrays stacked along a new leading axis (a view
+    for a window of one)."""
+    return arrays[0][None] if len(arrays) == 1 else np.stack(arrays)
 
 
 def _write_batch_line(batch_fp, entry, high_conf_incorrect_thr_frac):
@@ -498,14 +503,12 @@ def train_model(
             compute_dtype=compute_dtype,
         )
         names = ("signal", "enc_kmers", "labels")
-    multi_step = None
+    # every call runs a window of stacked batches: steps_per_launch steps on
+    # the raw path, one step otherwise; numerics per step identical
+    # (grad-clip thresholds frozen within each window)
+    multi_step = make_train_step_raw_multi(train_step, use_grad_clip)
     if steps_per_launch > 1:
         if featurize_on_device:
-            # K optimizer steps per call over stacked raw batches; numerics
-            # per step identical (grad-clip thresholds frozen within each
-            # window)
-            multi_step = make_train_step_raw_multi(
-                train_step, steps_per_launch, use_grad_clip)
             LOGGER.info(
                 f"Launching {steps_per_launch} optimizer steps per call"
             )
@@ -586,74 +589,54 @@ def train_model(
                 t0 = time.monotonic()
                 n_chunks = 0
                 epoch_i = 0
-                # a window's batches that differ in shape (a short batch at
-                # a super batch's end) run one step a call, in order
-                queued = []
+                carry = None  # the batch that ended the last window early
                 while epoch_i < batches_per_epoch:
-                    if (multi_step is not None and not queued
-                            and epoch_i + steps_per_launch
-                            <= batches_per_epoch):
-                        batches = [next(trn_iter)
-                                   for _ in range(steps_per_launch)]
-                        if len({tuple(b[n].shape for n in names)
-                                for b in batches}) > 1:
-                            queued = batches
-                            continue
-                        step_inputs = tuple(
-                            _put(np.stack([b[n] for b in batches]), device)
-                            for n in names
-                        )
-                        losses, n_filts, grad_maxs = multi_step(
-                            *step_inputs,
-                            *((grad_threshs,) if use_grad_clip else ()),
-                        )
-                        opt_count += steps_per_launch
-                        n_chunks += sum(b["labels"].shape[0]
-                                        for b in batches)
-                        if use_grad_clip:
-                            # one RollingMAD update per step, from the
-                            # window's stacked maxima (the thresholds were
-                            # frozen within it)
-                            for maxs in grad_maxs.cpu().tolist():
-                                threshs = rolling_mads.update(maxs)
-                            if threshs is not None:
-                                grad_threshs = [float(t) for t in threshs]
-                        for j in range(steps_per_launch):
-                            pending_losses.append(
-                                (epoch * batches_per_epoch + epoch_i + j,
-                                 losses[j], n_filts[j])
-                            )
-                            if len(pending_losses) > 8:
-                                _write_batch_line(
-                                    batch_fp, pending_losses.popleft(),
-                                    high_conf_incorrect_thr_frac,
-                                )
-                        epoch_i += steps_per_launch
-                        continue
-                    batch = queued.pop(0) if queued else next(trn_iter)
-                    step_inputs = tuple(_put(batch[n], device) for n in names)
-                    loss, n_filt, grad_maxs = train_step(
-                        *step_inputs,
-                        *((grad_threshs,) if use_grad_clip else ()),
+                    # a window of steps_per_launch batches while the epoch
+                    # has room for one, else of one; a batch whose shapes
+                    # differ from the window's first (a short batch at a
+                    # super batch's end) ends it early and opens the next
+                    k = (steps_per_launch
+                         if epoch_i + steps_per_launch <= batches_per_epoch
+                         else 1)
+                    batches = [next(trn_iter) if carry is None else carry]
+                    carry = None
+                    shapes = [batches[0][n].shape for n in names]
+                    while len(batches) < k:
+                        batch = next(trn_iter)
+                        if [batch[n].shape for n in names] != shapes:
+                            carry = batch
+                            break
+                        batches.append(batch)
+                    step_inputs = tuple(
+                        _put(_stack([b[n] for b in batches]), device)
+                        for n in names
                     )
-                    opt_count += 1
-                    n_chunks += batch["labels"].shape[0]
+                    losses, n_filts, grad_maxs = multi_step(
+                        *step_inputs, grad_threshs=grad_threshs)
+                    opt_count += len(batches)
+                    n_chunks += sum(b["labels"].shape[0] for b in batches)
                     if use_grad_clip:
-                        threshs = rolling_mads.update(grad_maxs.cpu().tolist())
+                        # one RollingMAD update per step, from the window's
+                        # stacked maxima (the thresholds were frozen within
+                        # it)
+                        for maxs in grad_maxs.cpu().tolist():
+                            threshs = rolling_mads.update(maxs)
                         if threshs is not None:
                             grad_threshs = [float(t) for t in threshs]
-                    # fetch loss with a lag so the scalar read does not fence
-                    # every step: the device stays several steps ahead (grad
-                    # clipping already fences on grad_maxs above)
-                    pending_losses.append(
-                        (epoch * batches_per_epoch + epoch_i, loss, n_filt)
-                    )
-                    if len(pending_losses) > 8:
-                        _write_batch_line(
-                            batch_fp, pending_losses.popleft(),
-                            high_conf_incorrect_thr_frac,
+                    # fetch losses with a lag so the scalar read does not
+                    # fence every window: the device stays several steps
+                    # ahead (grad clipping already fences on grad_maxs)
+                    for j in range(len(batches)):
+                        pending_losses.append(
+                            (epoch * batches_per_epoch + epoch_i + j,
+                             losses[j], n_filts[j])
                         )
-                    epoch_i += 1
+                        if len(pending_losses) > 8:
+                            _write_batch_line(
+                                batch_fp, pending_losses.popleft(),
+                                high_conf_incorrect_thr_frac,
+                            )
+                    epoch_i += len(batches)
                 while pending_losses:
                     _write_batch_line(
                         batch_fp, pending_losses.popleft(),
