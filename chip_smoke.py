@@ -416,6 +416,49 @@ def convbn_db_f64(x, dout, w, gamma, beta, mu, r):
     return dy.sum((0, 1))
 
 
+def ptxas_kernels(log_text):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    entry function in an ``nvcc -Xptxas=-v`` log."""
+    out, name, spills = [], None, {}
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name is not None:
+            spills[name] = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), *spills.get(name, (0, 0))))
+    return out
+
+
+def check_convbn_compile():
+    """Log the registers and spills of every K6 kernel (from the nvcc log
+    of its library) and fail if one spills."""
+    from remora_tpu_torch.kernels import _build
+
+    kernels = ptxas_kernels(_build.compile_log("convbn_bwd"))
+    check(kernels, "K6: no ptxas -v lines in the build log")
+    for name, regs, st, ld in kernels:
+        short = re.search(r"(conv_mma_kernel|conv_tiles_kernel|"
+                          r"conv_rows_kernel|dw_mma_kernel|dw_tiles_kernel|"
+                          r"dw_kernel|dy_tm_kernel|dy_kernel|"
+                          r"time_major_kernel|ordered_sum_runs|ordered_sum)"
+                          r"(I\w*?E+v)?", name)
+        log(f"  K6 {short.group(0) if short else name}: {regs} registers, "
+            f"spill stores {st} B, spill loads {ld} B")
+        check(st == 0 and ld == 0, f"K6 kernel {name} spills ({st} B "
+              f"stores, {ld} B loads)")
+
+
 def check_convbn(dtype, tols):
     """K6 against its plain version at each stride-1 block shape of the
     training path, each output within ``tols[name]`` of the largest entry
@@ -488,6 +531,8 @@ def check_convbn(dtype, tols):
             f"(ConvBNSwish.backward) {library_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, "
             f"{io_bytes / 1e6:.2f} MB)")
+        products = CB.products(BATCH, Ti, I, O, K, dtype)
+        log(f"  products: {products}")
         records.append({
             "name": f"conv_bn_swish_bwd_{block}_{sfx}",
             "route": "cuda",
@@ -502,6 +547,7 @@ def check_convbn(dtype, tols):
             "library_ms": library_ms,
             "shape": f"B={BATCH}, Ti={Ti}, I={I}, O={O}, K={K}",
             "dtype": sfx,
+            "products": products,
             "max_rel_err": dict(rels, db=db_rel64),
             "key": (Ti, I, O, K),
         })
@@ -639,13 +685,16 @@ def ml_bytes(logits):
 
 def kernel_rows(prof):
     """(device us, name, count) per kernel of a profile, largest first:
-    kernels only, since a CPU op's device time repeats its kernels'."""
+    kernels only, since a CPU op's device time repeats its kernels', and no
+    user annotation (a range such as ``Optimizer.step#AdamW.step`` can come
+    back as a device row that spans the kernels it encloses)."""
     from torch.autograd import DeviceType
 
     return sorted(
         ((evt.self_device_time_total, evt.key, evt.count)
          for evt in prof.key_averages()
          if evt.device_type == DeviceType.CUDA
+         and not getattr(evt, "is_user_annotation", False)
          and evt.self_device_time_total > 0),
         reverse=True,
     )
@@ -1696,6 +1745,7 @@ def main():
     # the same bf16 operands, but a dy within f32 noise of a bf16 rounding
     # boundary rounds the other way: 1.1e-5 to 4.2e-5 on an H100)
     f32_tols = dict.fromkeys(("dx", "dw", "db", "dgamma", "dbeta"), 1e-5)
+    check_convbn_compile()
     convbn_kernels = {
         torch.float32: check_convbn(torch.float32, f32_tols),
         torch.bfloat16: check_convbn(torch.bfloat16,

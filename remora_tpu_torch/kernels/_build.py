@@ -80,7 +80,14 @@ def _finish(name, proc, tmp, t0):
         tmp.unlink(missing_ok=True)
         raise RemoraError(f"nvcc failed to build {name}.cu:\n{log}")
     os.replace(tmp, _lib_path(name))
+    _lib_path(name).with_suffix(".log").write_text(log)
     BUILD_LOG[name] = (time.monotonic() - t0, log)
+
+
+def compile_log(name):
+    """The compiler output (``-Xptxas=-v``: registers and spills of each
+    kernel) of the build that made ``csrc/build/lib<name>.so``."""
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def build_all():

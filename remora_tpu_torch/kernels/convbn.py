@@ -95,8 +95,10 @@ def _library():
             fn.restype = i32
         lib.convbn_bwd_workspace_bytes.argtypes = [i32] * 6
         lib.convbn_bwd_workspace_bytes.restype = i64
-        lib.convbn_bwd_fits.argtypes = [i32] * 5
-        lib.convbn_bwd_fits.restype = i32
+        lib.convbn_bwd_path.argtypes = [i32] * 6
+        lib.convbn_bwd_path.restype = i32
+        lib.convbn_bwd_pack_dims.argtypes = [i32] * 4 + [ptr]
+        lib.convbn_bwd_pack_dims.restype = None
         for fn in ("convbn_bwd_max_k", "convbn_bwd_max_c"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i32
@@ -106,14 +108,59 @@ def _library():
     return lib
 
 
+# the kernel's product paths (csrc/convbn_bwd.cu, enum Path)
+PATH_ROWS, PATH_MMA, PATH_TILES = 0, 1, 2
+PRODUCTS = {PATH_ROWS: "fp32 rows", PATH_MMA: "mma.sync bf16",
+            PATH_TILES: "fp32 register tiles"}
+
+
+def products(B, Ti, I, O, K, dtype):
+    """The name of the product path K6 takes for this block shape and
+    dtype (``PRODUCTS``), as the library picks it; None where no kernel
+    takes the shape."""
+    return PRODUCTS.get(
+        _library().convbn_bwd_path(B, Ti, I, O, K, dtype.itemsize))
+
+
 def pack_weights(w):
-    """(C_out, C_in, K) f32 -> the kernel's float4 groups of 4 output
+    """(C_out, C_in, K) f32 -> the row kernels' float4 groups of 4 output
     channels, (ceil(C_out / 4), K, C_in, 4), zero-padded."""
     c_out, c_in, K = w.shape
     groups = -(-c_out // 4)
     wp = w.new_zeros((groups * 4, c_in, K))
     wp[:c_out] = w
     return wp.view(groups, 4, c_in, K).permute(0, 3, 2, 1).contiguous()
+
+
+def pack_weights_mma(w, n_pad, c_pad):
+    """(C_out, C_in, K) -> the tensor-core products' B operand, (K, n_pad,
+    c_pad) bf16: wq[k, n, c] = w[n, c, k], zero past C_out and C_in (each
+    output channel's input channels contiguous: mma's col layout)."""
+    c_out, c_in, K = w.shape
+    wq = w.new_zeros((K, n_pad, c_pad), dtype=torch.bfloat16)
+    wq[:, :c_out, :c_in] = w.permute(2, 0, 1)
+    return wq
+
+
+def pack_weights_tiles(w, n_pad, c_pad):
+    """(C_out, C_in, K) -> the f32 register tiles' weights, (K, c_pad,
+    n_pad) f32: wq[k, c, n] = w[n, c, k], zero past C_out and C_in."""
+    c_out, c_in, K = w.shape
+    wq = w.new_zeros((K, c_pad, n_pad), dtype=torch.float32)
+    wq[:, :c_in, :c_out] = w.permute(2, 1, 0)
+    return wq
+
+
+def _packed(lib, path, w):
+    """w (C_out, C_in, K) f32 packed for ``path``, padded as the library
+    asks (``convbn_bwd_pack_dims``)."""
+    if path == PATH_ROWS:
+        return pack_weights(w)
+    dims = (ctypes.c_int * 2)()
+    lib.convbn_bwd_pack_dims(path, w.shape[1], w.shape[0], w.shape[2],
+                             ctypes.addressof(dims))
+    pack = pack_weights_mma if path == PATH_MMA else pack_weights_tiles
+    return pack(w, dims[0], dims[1])
 
 
 def _channels_first(t):
@@ -151,26 +198,31 @@ def conv_bn_swish_bwd(x, dout, w, gamma, beta, mu, r, stride=1,
             f"conv_bn_swish_bwd: dout is {dout.dtype}, x {x.dtype}"
         )
     lib = _library()
-    if not lib.convbn_bwd_fits(B, Ti, I, O, K):
+    path = lib.convbn_bwd_path(B, Ti, I, O, K, x.element_size())
+    if path < 0:
         raise ValueError(
             f"conv_bn_swish_bwd: kernel takes K <= {lib.convbn_bwd_max_k()}, "
             f"I, O <= {lib.convbn_bwd_max_c()}, Ti >= K and an input tile "
             f"of C_in x (rows + K - 1) f32 within 227 KB of shared memory, "
             f"got B={B}, Ti={Ti}, I={I}, O={O}, K={K}"
         )
-    x_cf = _channels_first(x)
-    g_cf = _channels_first(dout)
+    # the tensor-core path copies x time-major itself and reads dout by
+    # its strides; the others want unit stride along T
+    x_cf = x.transpose(1, 2) if path == PATH_MMA else _channels_first(x)
+    g_cf = dout.transpose(1, 2) if path == PATH_MMA else _channels_first(dout)
     wk = w.detach().to(x.dtype).float()
-    wp_y = pack_weights(wk)
-    wp_dx = pack_weights(wk.transpose(0, 1).flip(2))
+    wp_y = _packed(lib, path, wk)
+    wp_dx = _packed(lib, path, wk.transpose(0, 1).flip(2))
     sv = torch.stack([v.detach().float() for v in (gamma, beta, mu, r)])
     dev = x.device
     ws = torch.empty(
         lib.convbn_bwd_workspace_bytes(B, Ti, I, O, K, x.element_size()),
         dtype=torch.uint8, device=dev,
     )
-    dx_cf = (torch.empty((B, I, Ti), dtype=x.dtype, device=dev)
-             if need_dx else None)
+    # dx comes out time-major (B, Ti, I) on the tensor-core path
+    dx_shape = (B, Ti, I) if path == PATH_MMA else (B, I, Ti)
+    dx_out = (torch.empty(dx_shape, dtype=x.dtype, device=dev)
+              if need_dx else None)
     dw = torch.empty((O, I, K), dtype=torch.float32, device=dev)
     db = torch.empty(O, dtype=torch.float32, device=dev)
     dgb = torch.empty((2, O), dtype=torch.float32, device=dev)
@@ -179,7 +231,7 @@ def conv_bn_swish_bwd(x, dout, w, gamma, beta, mu, r, stride=1,
             x_cf.data_ptr(), *x_cf.stride(), g_cf.data_ptr(),
             *g_cf.stride(), wp_y.data_ptr(), wp_dx.data_ptr(),
             sv.data_ptr(), B, Ti, I, O, K,
-            None if dx_cf is None else dx_cf.data_ptr(), dw.data_ptr(),
+            None if dx_out is None else dx_out.data_ptr(), dw.data_ptr(),
             db.data_ptr(), dgb.data_ptr(), ws.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -190,5 +242,7 @@ def conv_bn_swish_bwd(x, dout, w, gamma, beta, mu, r, stride=1,
         )
     LAUNCHES += 1
     LAUNCHES_BY_SHAPE[(Ti, I, O, K)] += 1
-    dx = None if dx_cf is None else dx_cf.transpose(1, 2)
+    dx = dx_out
+    if dx is not None and path != PATH_MMA:
+        dx = dx.transpose(1, 2)
     return dx, dw, db, dgb[0], dgb[1]

@@ -174,6 +174,31 @@ def test_pack_weights_layout():
                     assert wp[g, k, c, j].item() == want
 
 
+@pytest.mark.parametrize("pack,order,dtype", [
+    (CB.pack_weights_mma, "knc", torch.bfloat16),
+    (CB.pack_weights_tiles, "kcn", torch.float32),
+], ids=["mma", "tiles"])
+def test_pack_weights_tiled_layouts(pack, order, dtype):
+    """The tiled products' weights: (K, n_pad, c_pad) bf16 for mma.sync's
+    col-major B operand, (K, c_pad, n_pad) f32 for the register tiles;
+    unpacked they give back w (exact in bf16: integers below 256), zeros
+    in the padding."""
+    c_out, c_in, K = 12, 36, 5
+    w = torch.arange(c_out * c_in * K, dtype=torch.float32).reshape(
+        c_out, c_in, K) % 251
+    n_pad, c_pad = 16, 48
+    wq = pack(w, n_pad, c_pad)
+    assert wq.dtype == dtype and wq.is_contiguous()
+    if order == "knc":
+        assert wq.shape == (K, n_pad, c_pad)
+        back = wq.permute(1, 2, 0)
+    else:
+        assert wq.shape == (K, c_pad, n_pad)
+        back = wq.permute(2, 1, 0)
+    assert torch.equal(back[:c_out, :c_in].float(), w)
+    assert not back[c_out:].any() and not back[:, c_in:].any()
+
+
 # bf16 at the block level: both packages compute the forward statistics in
 # bf16 and round at other places inside it (XLA keeps excess precision in
 # fused elementwise chains), so the output and the gradients are held to

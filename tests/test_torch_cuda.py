@@ -320,9 +320,18 @@ def _convbn_case(B, Ti, I, O, K, dtype, device, view, seed=0):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("view", [False, True], ids=["contiguous", "view"])
+#
+# Shapes: the row kernels (I or O below 8), K = 11 (f32 rows, bf16 mma.sync
+# with two tap chunks in dw), and the tile edges of the tiled products: O =
+# 12 (not a multiple of 8) with I * K = 180 (not a multiple of 16); To one
+# more and one less than mma.sync's 128-row tile (129, 127) and than the f32
+# tiles' 256-row tile at O = 64 (257, 255); B = 1; merge_conv1's widths at
+# B = 3.
 @pytest.mark.parametrize("B,Ti,I,O,K", [
     (5, 40, 1, 4, 5), (3, 61, 16, 32, 11), (4, 30, 128, 64, 5),
-    (2, 300, 36, 16, 5),
+    (2, 300, 36, 16, 5), (2, 50, 36, 12, 5), (1, 133, 24, 16, 5),
+    (2, 131, 16, 24, 5), (2, 261, 64, 64, 5), (1, 259, 32, 64, 5),
+    (3, 128, 128, 64, 5),
 ])
 def test_convbn_kernel_matches_plain(cuda, B, Ti, I, O, K, view, dtype, tol):
     from remora_tpu_torch.kernels import convbn as CB
@@ -342,16 +351,38 @@ def test_convbn_kernel_matches_plain(cuda, B, Ti, I, O, K, view, dtype, tol):
             assert _rel(a, b) <= tol, (name, _rel(a, b))
 
 
-def test_convbn_kernel_repeats_bit_for_bit(cuda):
-    """K6 sums every cross-block partial in block order (no atomics)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_convbn_kernel_repeats_bit_for_bit(cuda, dtype):
+    """K6 sums every cross-block partial in block order (no atomics), on
+    the register tiles (f32) and the tensor cores (bf16) at merge_conv1's
+    widths."""
     from remora_tpu_torch.kernels import convbn as CB
 
-    args = _convbn_case(64, 128, 128, 64, 5, torch.float32, cuda, True)
+    args = _convbn_case(64, 128, 128, 64, 5, dtype, cuda, True)
     first = CB.conv_bn_swish_bwd(*args)
     second = CB.conv_bn_swish_bwd(*args)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_convbn_product_paths(cuda):
+    """The library's product path by shape: the four stride-1 blocks of the
+    main path, and K != 5 in f32 (the tiles unroll five taps)."""
+    from remora_tpu_torch.kernels import convbn as CB
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for (I, O, Ti), paths in (
+            ((1, 4, 400), ("fp32 rows", "fp32 rows")),
+            ((4, 16, 396), ("fp32 rows", "fp32 rows")),
+            ((36, 16, 400), ("fp32 register tiles", "mma.sync bf16")),
+            ((128, 64, 128), ("fp32 register tiles", "mma.sync bf16"))):
+        assert (CB.products(2048, Ti, I, O, 5, f32),
+                CB.products(2048, Ti, I, O, 5, bf16)) == paths
+    assert CB.products(3, 61, 16, 32, 11, f32) == "fp32 rows"
+    assert CB.products(3, 61, 16, 32, 11, bf16) == "mma.sync bf16"
+    assert CB.products(2, 60, 4, 8, 41, f32) is None
 
 
 def test_convbn_kernel_refuses_bad_inputs(cuda):
