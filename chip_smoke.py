@@ -10,8 +10,11 @@ printed):
 2. build every CUDA source of the package with ``nvcc``;
 3. each hand kernel against its plain PyTorch version on the card at the
    main paths' shapes, with kernel / plain / ``torch.nn`` times and the
-   kernel's bound: K1 (last-only LSTM), and (3b) K2 and K3 (the training
-   LSTM forward and backward) at T=124, B=2048, C=H=64; (3c) K6 (the
+   kernel's bound (K1-K3 also their serial chain's floor): K1 (last-only
+   LSTM), and (3b) K2 and K3 (the training LSTM forward and backward) at
+   T=124, B=2048, C=H=64, K3 in bf16 also part by part (gates,
+   recurrence, products: each held to its plain twin and timed, no ptxas
+   spill allowed) and both dtypes' K3 repeated bit for bit; (3c) K6 (the
    conv+BN+swish backward) at the four stride-1 block shapes of the
    training path, f32 and bf16 (db against the plain math in f64), with
    ``ConvBNSwish.backward``'s cuDNN path as the library yardstick;
@@ -28,8 +31,10 @@ printed):
    ``train_model`` on ConvLSTM_w_ref (size 64, batch 2048, 12 steps per
    epoch, 3 epochs), f32 and bf16 legs, each with the launch counts set to
    0: K2 and K3 must launch once per optimizer step, every batch loss be
-   finite, the logs and checkpoints be written; train chunks/s from the
-   epoch timer, and one step profiled by kernel. (6b) one f32 train step
+   finite, the logs and checkpoints be written, K3's three bf16 parts
+   launch once per bf16 step and never in f32; train chunks/s from the
+   epoch timer, and one step profiled by kernel (K3's kernels and launches
+   listed apart). (6b) one f32 train step
    with the kernels against the same step with the plain LSTM versions;
    then the trained checkpoint loads through ``ModelHandle.load`` and calls
    one batch. (6c) ``train_model`` with ``REMORA_TPU_CONVBN=pallas``, f32
@@ -52,6 +57,12 @@ printed):
    under torch.profiler in a child process (``--profile-refine``);
 9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --step-walls`` runs only the step profiles of
+phases 6 and 6c (fused and pallas mode, f32 and bf16; 20 unprofiled walls
+each) from a seeded checkpoint, against the package of the checkout it
+sits in: copied into a checkout of another commit, it compares two trees
+in one call on one card.
 
 Imports nothing of JAX or of the JAX package ``remora_tpu``.
 """
@@ -186,6 +197,57 @@ def lstm_bound(flops, io_bytes, dtype):
         else "bytes"
 
 
+# The LSTM kernels' serial chain (K1-K3): the instructions a step must
+# run one after another, each at least DEP_LATENCY_CYCLES apart (the FP32
+# pipe's dependent latency, the latency FOLD_STEP_CYCLES counts for
+# K4; MUFU, shared-memory, barrier and tensor-core instructions take longer,
+# so the count is a floor), read off each kernel's source. A sigmoid or tanh
+# is at least ACT_CHAIN of them (ex2 -> add -> rcp -> mul).
+DEP_LATENCY_CYCLES = 4
+ACT_CHAIN = 4
+
+
+def lstm_chain_instrs(kind, C, H, bf16):
+    """Dependent instructions of one step of an LSTM kernel's chain."""
+    K, G = C + H, 4 * H
+    if kind == "fwd":
+        # K1 (lstm_last.cu), K2 (lstm_train.cu::lstm_fwd_kernel): LDS the
+        # operand -> C + H FFMA into one accumulator a gate -> the gates'
+        # activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) -> h = o
+        # tanh(c) -> (round to bf16) -> STS h -> BAR
+        return 1 + K + ACT_CHAIN + 2 + ACT_CHAIN + 1 + int(bf16) + 2
+    if kind == "bwd":
+        # K3 f32 (lstm_train.cu::lstm_bwd_kernel): LDS the operand -> C + H
+        # FFMA (phase A) -> activations -> LDS, FADD dh -> dc (FMUL, FMUL,
+        # FADD) -> dgates (3 FMUL) -> STS dgates -> BAR -> 4H FFMA into one
+        # accumulator (phase C) -> STS dh -> BAR
+        return 1 + K + ACT_CHAIN + 2 + 3 + 3 + 2 + G + 2
+    # K3 bf16 (lstm_bwd_mma.cu::lstm_bwd_recurrence_kernel; the other parts
+    # have no serial dependence): BAR -> LDS a warp partial -> ceil(H / 8)
+    # FADD (the partials in warp order) -> FADD dh -> dc (FMUL, FMUL, FADD)
+    # -> dgates (3 FMUL) -> pack to bf16 -> 2 HMMA -> STS the partial
+    return 1 + 1 + -(-H // 8) + 1 + 3 + 3 + 1 + 2 + 1
+
+
+def lstm_chain_bound_ms(kind, T, C, H, bf16):
+    """T steps of the chain at the card's maximum SM clock."""
+    cycles = T * lstm_chain_instrs(kind, C, H, bf16) * DEP_LATENCY_CYCLES
+    return cycles / max_sm_clock_hz() * 1e3
+
+
+def with_chain(record, chain_ms):
+    """The record with ``chain_bound_ms`` and the largest of the three
+    bounds as ``floor_ms`` / ``floor_by``; ``bound_ms`` / ``bound_by`` stay
+    the function's bytes-or-operations bound (the chain is the design's)."""
+    record["chain_bound_ms"] = chain_ms
+    if chain_ms > record["bound_ms"]:
+        record["floor_ms"], record["floor_by"] = chain_ms, "chain"
+    else:
+        record["floor_ms"] = record["bound_ms"]
+        record["floor_by"] = record["bound_by"]
+    return record
+
+
 def check_lstm_last(dtype, tol):
     import torch
 
@@ -225,10 +287,12 @@ def check_lstm_last(dtype, tol):
     io_bytes = (x.numel() + (C + H + 1) * 4 * H + B * H) * x.element_size()
     bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
     name = "lstm_last_" + ("f32" if dtype == torch.float32 else "bf16")
+    chain_ms = lstm_chain_bound_ms("fwd", T, C, H, dtype == torch.bfloat16)
     log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.nn.LSTM {library_ms} ms, bound {bound_ms:.4f}"
-        f" ms ({flops / 1e9:.2f} GFLOP, {io_bytes / 1e6:.2f} MB)")
-    return {
+        f" ms ({flops / 1e9:.2f} GFLOP, {io_bytes / 1e6:.2f} MB), chain "
+        f"{chain_ms:.4f} ms")
+    return with_chain({
         "name": name,
         "route": "cuda",
         "source": "remora_tpu_torch/csrc/lstm_last.cu",
@@ -240,7 +304,49 @@ def check_lstm_last(dtype, tol):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, chain_ms)
+
+
+def check_lstm_bwd_parts(x, w_aug, hs, cs, dhs):
+    """K3's bf16 parts each against its plain twin on the same inputs (Z
+    <= 1e-4 and dgates <= 2e-2 of their largest entries; dx <= 2e-2, dW <=
+    1e-4 of its largest entry from the same dgates) and their times: ms
+    by part."""
+    from remora_tpu_torch.kernels import lstm as K
+
+    z = K.lstm_bwd_gates(x, w_aug, hs)
+    dg = K.lstm_bwd_recurrence(z, cs, dhs, w_aug)
+    dx, dw = K.lstm_bwd_products(x, hs, w_aug, dg)
+    errs = {
+        "gates": rel_err(z, K.lstm_bwd_gates_reference(x, w_aug, hs)),
+        "recurrence": rel_err(
+            dg, K.lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)),
     }
+    dx_ref, dw_ref = K.lstm_bwd_products_reference(x, hs, w_aug, dg)
+    errs["products dx"] = (dx.float() - dx_ref.float()).abs().max().item()
+    errs["products dW"] = rel_err(dw, dw_ref)
+    tols = {"gates": 1e-4, "recurrence": 2e-2, "products dx": 2e-2,
+            "products dW": 1e-4}
+    log("lstm_bwd_bf16 parts against their plain twins: " + ", ".join(
+        f"{k} {v:.3e} (tolerance {tols[k]})" for k, v in errs.items()))
+    for k, v in errs.items():
+        check(np.isfinite(v) and v <= tols[k],
+              f"lstm_bwd_bf16 part {k} disagrees with its plain twin "
+              f"({v:.3e} > {tols[k]})")
+    ms = {
+        "gates": time_ms(lambda: K.lstm_bwd_gates(x, w_aug, hs)),
+        "recurrence": time_ms(
+            lambda: K.lstm_bwd_recurrence(z, cs, dhs, w_aug)),
+        "products": time_ms(lambda: K.lstm_bwd_products(x, hs, w_aug, dg)),
+    }
+    log("lstm_bwd_bf16 parts: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items()))
+    return ms
+
+
+def rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
 
 
 def check_lstm_train(dtype, tol):
@@ -267,7 +373,7 @@ def check_lstm_train(dtype, tol):
         errs = {name: (a.float() - b.float()).abs().max().item()
                 for name, a, b in (("hs", hs, hs_ref), ("cs", cs, cs_ref),
                                    ("dx", dx, dx_ref))}
-        dw_rel = ((dw - dw_ref).abs().max() / dw_ref.abs().max()).item()
+        dw_rel = rel_err(dw, dw_ref)
         dw_tol = 1e-4 if dtype == torch.float32 else tol
         log(f"lstm_fwd/bwd {sfx}: max |d| hs {errs['hs']:.3e} cs "
             f"{errs['cs']:.3e} dx {errs['dx']:.3e} (tolerance {tol}); dW "
@@ -279,6 +385,12 @@ def check_lstm_train(dtype, tol):
         check(np.isfinite(dw_rel) and dw_rel <= dw_tol,
               f"lstm_bwd {sfx}: dW disagrees with the plain version "
               f"({dw_rel:.3e} > {dw_tol})")
+        again = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        check(torch.equal(again[0], dx) and torch.equal(again[1], dw),
+              f"lstm_bwd {sfx}: a second call gave other bits")
+        log(f"lstm_bwd {sfx}: a second call repeats dx and dW bit for bit")
+        parts_ms = (check_lstm_bwd_parts(x, w_aug, hs, cs, dhs)
+                    if dtype == torch.bfloat16 else None)
 
         fwd_ms = time_ms(lambda: K.lstm_fwd(x, w_aug))
         fwd_plain_ms = time_ms(lambda: K.lstm_fwd_reference(x, w_aug), n=5,
@@ -308,25 +420,35 @@ def check_lstm_train(dtype, tol):
     w_bytes = (C + H + 1) * 4 * H * isz
     fwd_flops = 2.0 * T * B * (C + H) * 4 * H
     fwd_bytes = (n_x + 2 * n_h) * isz + w_bytes
-    partial_bytes = -(-B // 16) * (C + H + 1) * 4 * H * 4
     bwd_flops = 3 * fwd_flops
-    bwd_bytes = (2 * n_x + 3 * n_h) * isz + w_bytes + partial_bytes
+    # the function's inputs and outputs only: x, hs, cs, dhs, W read, dx
+    # and dW written (each kernel's scratch is the design's)
+    bwd_bytes = (2 * n_x + 3 * n_h) * isz + w_bytes \
+        + (C + H + 1) * 4 * H * 4
+    bf16 = dtype == torch.bfloat16
+    bwd_src = ("remora_tpu_torch/csrc/lstm_bwd_mma.cu" if bf16
+               else "remora_tpu_torch/csrc/lstm_train.cu")
     records = []
-    for kname, ms, plain_ms, lib_ms, flops, io_bytes, err, replaces in (
+    for kname, ms, plain_ms, lib_ms, flops, io_bytes, err, replaces, src, \
+            chain in (
         ("lstm_fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_flops, fwd_bytes,
          max(errs["hs"], errs["cs"]),
-         "remora_tpu/kernels/pallas_lstm.py:137"),
+         "remora_tpu/kernels/pallas_lstm.py:137",
+         "remora_tpu_torch/csrc/lstm_train.cu", "fwd"),
         ("lstm_bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_flops, bwd_bytes,
-         errs["dx"], "remora_tpu/kernels/pallas_lstm.py:251"),
+         errs["dx"], "remora_tpu/kernels/pallas_lstm.py:251", bwd_src,
+         "bwd_mma" if bf16 else "bwd"),
     ):
         bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
+        chain_ms = lstm_chain_bound_ms(chain, T, C, H, bf16)
         log(f"{kname}_{sfx}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"torch.nn.LSTM {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {io_bytes / 1e6:.2f} MB)")
-        records.append({
+            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {io_bytes / 1e6:.2f} "
+            f"MB), chain {chain_ms:.4f} ms")
+        records.append(with_chain({
             "name": f"{kname}_{sfx}",
             "route": "cuda",
-            "source": "remora_tpu_torch/csrc/lstm_train.cu",
+            "source": src,
             "replaces": replaces,
             "launches": None,
             "max_abs_err": err,
@@ -335,7 +457,9 @@ def check_lstm_train(dtype, tol):
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": lib_ms,
-        })
+        }, chain_ms))
+    if parts_ms is not None:
+        records[1]["parts_ms"] = parts_ms
     return records
 
 
@@ -440,23 +564,36 @@ def ptxas_kernels(log_text):
     return out
 
 
-def check_convbn_compile():
-    """Log the registers and spills of every K6 kernel (from the nvcc log
-    of its library) and fail if one spills."""
+def check_compile(lib, label, names):
+    """Log the registers and spills of every kernel of ``lib`` (from the
+    nvcc log of its library; each named by the first of ``names`` in its
+    mangled name) and fail if one spills."""
     from remora_tpu_torch.kernels import _build
 
-    kernels = ptxas_kernels(_build.compile_log("convbn_bwd"))
-    check(kernels, "K6: no ptxas -v lines in the build log")
+    kernels = ptxas_kernels(_build.compile_log(lib))
+    check(kernels, f"{label}: no ptxas -v lines in the build log")
     for name, regs, st, ld in kernels:
-        short = re.search(r"(conv_mma_kernel|conv_tiles_kernel|"
-                          r"conv_rows_kernel|dw_mma_kernel|dw_tiles_kernel|"
-                          r"dw_kernel|dy_tm_kernel|dy_kernel|"
-                          r"time_major_kernel|ordered_sum_runs|ordered_sum)"
-                          r"(I\w*?E+v)?", name)
-        log(f"  K6 {short.group(0) if short else name}: {regs} registers, "
-            f"spill stores {st} B, spill loads {ld} B")
-        check(st == 0 and ld == 0, f"K6 kernel {name} spills ({st} B "
+        short = re.search("(" + "|".join(names) + r")(I\w*?E+v)?", name)
+        log(f"  {label} {short.group(0) if short else name}: {regs} "
+            f"registers, spill stores {st} B, spill loads {ld} B")
+        check(st == 0 and ld == 0, f"{label} kernel {name} spills ({st} B "
               f"stores, {ld} B loads)")
+
+
+def check_convbn_compile():
+    """K6's kernels: registers logged, no spill."""
+    check_compile("convbn_bwd", "K6", (
+        "conv_mma_kernel", "conv_tiles_kernel", "conv_rows_kernel",
+        "dw_mma_kernel", "dw_tiles_kernel", "dw_kernel", "dy_tm_kernel",
+        "dy_kernel", "time_major_kernel", "ordered_sum_runs", "ordered_sum"))
+
+
+def check_lstm_bwd_compile():
+    """K3 bf16's kernels: registers logged, no spill."""
+    check_compile("lstm_bwd_mma", "K3 bf16", (
+        "lstm_bwd_gates_kernel", "lstm_bwd_recurrence_kernel",
+        "lstm_bwd_dx_kernel", "lstm_bwd_dw_reduce_kernel",
+        "lstm_bwd_dw_kernel"))
 
 
 def check_convbn(dtype, tols):
@@ -903,6 +1040,7 @@ def train_leg(root, config, bf16, tag, epochs=TRAIN_EPOCHS,
     port_log.get_logger().addHandler(rates)
     t0 = time.monotonic()
     K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+    K.LAUNCHES_BWD_MMA.update(dict.fromkeys(K.LAUNCHES_BWD_MMA, 0))
     CB.LAUNCHES = 0
     CB.LAUNCHES_BY_SHAPE.clear()
     try:
@@ -921,16 +1059,21 @@ def train_leg(root, config, bf16, tag, epochs=TRAIN_EPOCHS,
     finally:
         port_log.get_logger().removeHandler(rates)
     launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
+    parts = dict(K.LAUNCHES_BWD_MMA)
     k6 = dict(CB.LAUNCHES_BY_SHAPE)
     steps = TRAIN_STEPS * epochs
     log(f"{tag}: train_model {steps} steps (REMORA_TPU_CONVBN="
         f"{convbn or 'auto'}, steps_per_launch {steps_per_launch}) in "
         f"{time.monotonic() - t0:.1f} s (with validation and checkpoints); "
         f"epoch rates {rates.rates} chunks/s; lstm_fwd/lstm_bwd launches "
-        f"{launches}; conv_bn_swish_bwd launches {CB.LAUNCHES} "
+        f"{launches}; K3 bf16 parts {parts}; conv_bn_swish_bwd launches "
+        f"{CB.LAUNCHES} "
         f"{sorted(k6.items())}; best val acc {best:.4f}")
     check(launches == (steps, steps),
           f"{tag}: K2/K3 launched {launches} times for {steps} steps")
+    check(parts == dict.fromkeys(parts, steps if bf16 else 0),
+          f"{tag}: K3's bf16 parts launched {parts} times for {steps} "
+          f"{'bf16' if bf16 else 'f32'} steps")
     blocks = CONVBN_BLOCKS if convbn == "pallas" else ()
     check(CB.LAUNCHES == len(blocks) * steps
           and k6 == {(Ti, I, O, K): steps for _, I, O, K, Ti in blocks},
@@ -966,6 +1109,11 @@ def _loaded_model(ckpt):
 
     model, meta = model_io.load_model(ckpt)
     return model.cuda(), meta
+
+
+# K3's kernels by name: lstm_train.cu's f32 pair and lstm_bwd_mma.cu's bf16
+# parts
+K3_KERNELS = r"lstm_bwd_\w*kernel|lstm_dw_reduce"
 
 
 def profile_train_step(ckpt, bf16, tag, n_walls=10, convbn=None):
@@ -1014,6 +1162,26 @@ def profile_train_step(ckpt, bf16, tag, n_walls=10, convbn=None):
         f"busy, {1 - busy_s / wall:.1%} idle)")
     for dev_us, key, count in rows[:15]:
         log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+    k3 = [r for r in rows if re.search(K3_KERNELS, r[1])]
+    log(f"  {tag} K3 in the step: {sum(r[2] for r in k3)} launches, "
+        f"{sum(r[0] for r in k3) / 1e3:.4f} ms")
+    for dev_us, key, count in k3:
+        log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+
+
+def step_walls():
+    """Phase 6/6c's step profiles, the four legs, from a seeded
+    checkpoint: each leg's unprofiled walls, kernel busy time and K3's
+    kernels."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "convlstm_size64.npz")
+        seeded_checkpoint(path)
+        for bf16 in (False, True):
+            for convbn in ("fused", "pallas"):
+                profile_train_step(
+                    path, bf16, f"{convbn} {'bf16' if bf16 else 'f32'} step",
+                    n_walls=20, convbn=convbn)
+    return 0
 
 
 @contextlib.contextmanager
@@ -1715,6 +1883,9 @@ def main():
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["--profile-refine"]:
         return profile_micro_batch()
+    if sys.argv[1:] == ["--step-walls"]:
+        log(f"card: {nvidia_smi_line()}; package {REPO}")
+        return step_walls()
     # per-batch host dispatch / fetch / input-wait of every stage pass
     os.environ["REMORA_TPU_INFER_STAGE_STATS"] = "1"
     from remora_tpu_torch.kernels import _build
@@ -1736,6 +1907,7 @@ def main():
         torch.float32: check_lstm_last(torch.float32, 1e-5),
         torch.bfloat16: check_lstm_last(torch.bfloat16, 2e-2),
     }
+    check_lstm_bwd_compile()
     train_kernels = {
         torch.float32: check_lstm_train(torch.float32, 1e-5),
         torch.bfloat16: check_lstm_train(torch.bfloat16, 2e-2),

@@ -81,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -562,69 +564,7 @@ struct ConvIO {
   void* out;          // otherwise: the conv in the compute dtype
 };
 
-// --- bf16: mma.sync.m16n8k16 with f32 accumulators ---
-
-typedef unsigned short bf16_bits;  // staged bf16 values, by their bits
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), f32 accumulators
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// cp.async: 16 bytes, or 4 bytes with zero fill where !valid (src is then
-// not read); commit and wait on groups
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
+// --- bf16: mma.sync.m16n8k16 with f32 accumulators (mma_sm90.cuh) ---
 
 // The tensor-core path keeps its operands time-major in device memory, so
 // that every tile is a run of 16-byte rows that cp.async copies as it is:

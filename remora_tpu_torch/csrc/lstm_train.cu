@@ -6,7 +6,9 @@
 //     hidden state hs (T, B, H) and, for the backward, every cell state cs;
 //   * K3, lstm_bwd: _bwd_kernel (launched by _bwd_call), the reverse-time
 //     backward that recomputes the gates from the saved h and c, writes dx
-//     and accumulates dW_aug = sum_t [x_t; h_{t-1}; 1]^T . dgates.
+//     and accumulates dW_aug = sum_t [x_t; h_{t-1}; 1]^T . dgates. Only its
+//     f32 leg is here (lstm_bwd_f32); bf16 runs lstm_bwd_mma.cu's three
+//     tensor-core kernels.
 //
 //   gates_t = [x_t ; h_{t-1}] @ W_aug[:C+H] + W_aug[C+H]     (B, 4H), i|f|g|o
 //   c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)
@@ -651,13 +653,6 @@ int lstm_bwd_f32(const void* x, const void* w_aug, const void* hs,
                  void* dw, int n_steps, int B, int C, int H, void* stream) {
   return launch_bwd<float>(x, w_aug, hs, cs, dhs, dx, partials, dw, n_steps,
                            B, C, H, stream);
-}
-
-int lstm_bwd_bf16(const void* x, const void* w_aug, const void* hs,
-                  const void* cs, const void* dhs, void* dx, void* partials,
-                  void* dw, int n_steps, int B, int C, int H, void* stream) {
-  return launch_bwd<__nv_bfloat16>(x, w_aug, hs, cs, dhs, dx, partials, dw,
-                                   n_steps, B, C, H, stream);
 }
 
 int lstm_train_blocks(int B) { return n_blocks(B); }

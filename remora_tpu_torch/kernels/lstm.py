@@ -4,18 +4,22 @@ Counterpart of ``remora_tpu/kernels/pallas_lstm.py``:
 
   * ``lstm_last`` (K1, ``csrc/lstm_last.cu``) is ``lstm_last_fused``: the
     whole time loop in one launch, writing only h_{T-1};
-  * ``lstm_fwd`` (K2) and ``lstm_bwd`` (K3), both in ``csrc/lstm_train.cu``,
-    are ``_fwd_call`` and ``_bwd_call``: the full forward that writes hs
-    (and cs for the backward), and the reverse-time backward that emits dx
-    and dW_aug. ``LSTMFused`` ties them into one ``torch.autograd.Function``
-    and ``lstm_fused`` is the drop-in for ``layers.lstm``, as in the JAX
-    package.
+  * ``lstm_fwd`` (K2, ``csrc/lstm_train.cu``) and ``lstm_bwd`` (K3) are
+    ``_fwd_call`` and ``_bwd_call``: the full forward that writes hs (and
+    cs for the backward), and the reverse-time backward that emits dx and
+    dW_aug. K3 routes by dtype: f32 runs ``lstm_train.cu``'s one-launch
+    kernel; bf16 runs ``csrc/lstm_bwd_mma.cu``, three tensor-core parts
+    with wrappers and plain twins of their own (``lstm_bwd_gates``,
+    ``lstm_bwd_recurrence``, ``lstm_bwd_products``). ``LSTMFused`` ties K2
+    and K3 into one ``torch.autograd.Function`` and ``lstm_fused`` is the
+    drop-in for ``layers.lstm``, as in the JAX package.
 
 The source notes give each kernel's design and bound. Each entry point
 launches its kernel for a CUDA tensor and uses its plain version
-(``lstm_last_reference``, ``lstm_fwd_reference``, ``lstm_bwd_reference``)
-only for a CPU tensor. There is no fallback: a CUDA input a kernel does not
-take, a failed build or a refused launch raises.
+(``lstm_last_reference``, ``lstm_fwd_reference``, ``lstm_bwd_reference``
+and the three parts' ``*_reference``) only for a CPU tensor. There is no
+fallback: a CUDA input a kernel does not take, a failed build or a refused
+launch raises.
 """
 
 import ctypes
@@ -26,10 +30,12 @@ from remora_tpu_torch.kernels import _build
 from remora_tpu_torch.models import layers as L
 
 # kernel launches in this process: K1 (one per ``lstm_last`` call on CUDA),
-# K2 (one per ``lstm_fwd``) and K3 (one per ``lstm_bwd``)
+# K2 (one per ``lstm_fwd``) and K3 (one per ``lstm_bwd``, either dtype);
+# K3's bf16 parts count apart, one per call of each part's wrapper
 LAUNCHES = 0
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+LAUNCHES_BWD_MMA = dict.fromkeys(("gates", "recurrence", "products"), 0)
 
 _DTYPES = {torch.float32: "lstm_last_f32", torch.bfloat16: "lstm_last_bf16"}
 _TRAIN_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -145,28 +151,42 @@ def lstm_fwd_reference(x, w_aug, want_cs=True):
     return hs, cs
 
 
-def lstm_bwd_reference(x, w_aug, hs, cs, dhs):
-    """Plain version of K3: (dx in x's dtype, dW_aug f32 (C + H + 1, 4H)).
+def _xh(x, hs):
+    """[x_t ; h_{t-1}] of every step, (T, B, C + H) in x's dtype, with
+    h_{-1} = 0."""
+    zero = hs.new_zeros((1, *hs.shape[1:]))
+    return torch.cat([x, torch.cat([zero, hs[:-1]])], dim=-1)
 
-    ``_bwd_kernel``'s math: the gates are recomputed from the saved h and c
-    (read as f32 from x's dtype), the dh and dc carries are f32, dgates are
-    rounded into x's dtype before both products, and the bias row of dW is
-    the dgates sum. The gates of every step come from one matmul (they need
-    no carry); only the carries walk time in reverse."""
+
+def lstm_bwd_gates_reference(x, w_aug, hs):
+    """Plain version of K3's gate recompute: Z = [x_t ; h_{t-1}] @
+    W_aug[:C+H] + b for every step, (T, B, 4H) f32 from f32 sums of the
+    operands in x's dtype. Needs no carry: one matmul."""
     T, B, C = x.shape
     H = w_aug.shape[1] // 4
-    dt = x.dtype
     w = w_aug[: C + H].float()
-    zero = x.new_zeros((1, B, H))
-    xh = torch.cat([x, torch.cat([zero, hs[:-1]])], dim=-1)
-    z = (xh.reshape(T * B, C + H).float() @ w).reshape(T, B, 4 * H)
-    i, f, g, o = _gates(z + w_aug[C + H].float(), H)
-    c_prev = torch.cat([zero, cs[:-1]]).float()
+    z = (_xh(x, hs).reshape(T * B, C + H).float() @ w).reshape(T, B, 4 * H)
+    return z + w_aug[C + H].float()
+
+
+def lstm_bwd_recurrence_reference(z, cs, dhs, w_aug):
+    """Plain version of K3's reverse recurrence, its only serial part: the
+    gate cotangents dgates (T, B, 4H) in cs's dtype from the gate
+    pre-activations z (``lstm_bwd_gates_reference``), the saved c and the
+    hidden-state cotangents. ``_bwd_kernel``'s math: the dh and dc carries
+    are f32, dgates are rounded into cs's dtype once, and the carry
+    dh_{t-1} = dgates_t @ W_h^T takes the rounded dgates."""
+    T, B, G = z.shape
+    H = G // 4
+    C = w_aug.shape[0] - H - 1
+    dt = cs.dtype
+    i, f, g, o = _gates(z, H)
+    c_prev = torch.cat([cs.new_zeros((1, B, H)), cs[:-1]]).float()
     tanh_c = torch.tanh(cs.float())
-    dg = x.new_empty((T, B, 4 * H))
+    dg = cs.new_empty((T, B, G))
     dh_c = z.new_zeros((B, H))
     dc_c = z.new_zeros((B, H))
-    w_h_t = w[C:].T
+    w_h_t = w_aug[C: C + H].float().T
     for t in range(T - 1, -1, -1):
         dh = dhs[t].float() + dh_c
         dc = dc_c + dh * o[t] * (1.0 - tanh_c[t] * tanh_c[t])
@@ -178,11 +198,34 @@ def lstm_bwd_reference(x, w_aug, hs, cs, dhs):
         ], dim=-1).to(dt)
         dc_c = dc * f[t]
         dh_c = dg[t].float() @ w_h_t
+    return dg
+
+
+def lstm_bwd_products_reference(x, hs, w_aug, dg):
+    """Plain version of K3's two products off the chain: dx = dgates @
+    W_x^T (x's dtype, rounded once) and dW_aug = [x ; h_{t-1} ; 1]^T @
+    dgates (f32, C + H + 1 rows: the last, the bias's, is the dgates
+    sum)."""
+    T, B, C = x.shape
+    H = w_aug.shape[1] // 4
     dg2 = dg.reshape(T * B, 4 * H).float()
-    dx = (dg2 @ w[:C].T).reshape(T, B, C).to(dt)
-    dw = torch.cat([xh.reshape(T * B, C + H).float().T @ dg2,
+    dx = (dg2 @ w_aug[:C].float().T).reshape(T, B, C).to(x.dtype)
+    dw = torch.cat([_xh(x, hs).reshape(T * B, C + H).float().T @ dg2,
                     dg2.sum(0, keepdim=True)])
     return dx, dw
+
+
+def lstm_bwd_reference(x, w_aug, hs, cs, dhs):
+    """Plain version of K3: (dx in x's dtype, dW_aug f32 (C + H + 1, 4H)),
+    the composition of its three parts. ``_bwd_kernel``'s math: the gates
+    are recomputed from the saved h and c (read as f32 from x's dtype),
+    the dh and dc carries are f32, dgates are rounded into x's dtype before
+    every product, and the bias row of dW is the dgates sum. Only the
+    carries walk time in reverse; the gates of every step come from one
+    matmul before, and dx and dW from two after."""
+    z = lstm_bwd_gates_reference(x, w_aug, hs)
+    dg = lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)
+    return lstm_bwd_products_reference(x, hs, w_aug, dg)
 
 
 def _train_library():
@@ -193,9 +236,8 @@ def _train_library():
             fwd = getattr(lib, f"lstm_fwd_{sfx}")
             fwd.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             fwd.restype = i32
-            bwd = getattr(lib, f"lstm_bwd_{sfx}")
-            bwd.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-            bwd.restype = i32
+        lib.lstm_bwd_f32.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.lstm_bwd_f32.restype = i32
         for fn in ("lstm_train_max_c", "lstm_train_max_h"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i32
@@ -237,11 +279,13 @@ def _check_cuda(name, x, w_aug, *seq):
     return T, B, C, H
 
 
-def _raise_on(lib, name, err):
+def _raise_on(error_string, name, err):
+    """Raise for a launcher's nonzero cudaError_t; ``error_string`` is the
+    library's function that names it."""
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: "
-            f"{lib.lstm_train_error_string(err).decode()} (cudaError {err})"
+            f"{error_string(err).decode()} (cudaError {err})"
         )
 
 
@@ -266,18 +310,152 @@ def lstm_fwd(x, w_aug, want_cs=True):
             None if cs is None else cs.data_ptr(), T, B, C, H,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib, "lstm_fwd", err)
+    _raise_on(lib.lstm_train_error_string, "lstm_fwd", err)
     LAUNCHES_FWD += 1
     return hs, cs
 
 
+def _mma_library():
+    lib = _build.load("lstm_bwd_mma")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for fn, n_ptr in (("lstm_bwd_mma_gates", 4),
+                          ("lstm_bwd_mma_recurrence", 5),
+                          ("lstm_bwd_mma_products", 7)):
+            getattr(lib, fn).argtypes = [ptr] * n_ptr + [i32] * 4 + [ptr]
+            getattr(lib, fn).restype = i32
+        lib.lstm_bwd_mma_chunks.argtypes = [i32] * 4
+        lib.lstm_bwd_mma_chunks.restype = i32
+        lib.lstm_bwd_mma_fits.argtypes = [i32, i32]
+        lib.lstm_bwd_mma_fits.restype = i32
+        for fn in ("lstm_bwd_mma_max_h", "lstm_bwd_mma_max_k"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i32
+        lib.lstm_bwd_mma_error_string.argtypes = [i32]
+        lib.lstm_bwd_mma_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _mma_lib(name, ref, C, H):
+    """The library of K3's bf16 parts, after the checks each part adds to
+    the shapes': a bf16 tensor on the card and a shape the kernels take."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {ref.device}")
+    if ref.dtype != torch.bfloat16:
+        raise ValueError(
+            f"{name}: the tensor-core kernels take bf16, got {ref.dtype} "
+            "(lstm_bwd runs f32 on lstm_train.cu's kernel)"
+        )
+    lib = _mma_library()
+    if not lib.lstm_bwd_mma_fits(C, H):
+        raise ValueError(
+            f"{name}: kernel takes H <= {lib.lstm_bwd_mma_max_h()} and C + H "
+            f"<= {lib.lstm_bwd_mma_max_k()}, got C={C}, H={H}"
+        )
+    return lib
+
+
+def lstm_bwd_gates(x, w_aug, hs):
+    """K3 bf16, part (a): the gate pre-activations Z (T, B, 4H) f32 of every
+    step (``lstm_bwd_gates_reference``), on the tensor cores."""
+    if x.device.type == "cpu":
+        return lstm_bwd_gates_reference(x, w_aug, hs)
+    T, B, C, H = _check_cuda("lstm_bwd_gates", x, w_aug, hs)
+    lib = _mma_lib("lstm_bwd_gates", x, C, H)
+    z = torch.empty((T, B, 4 * H), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.lstm_bwd_mma_gates(
+            x.data_ptr(), hs.data_ptr(), w_aug.data_ptr(), z.data_ptr(), T,
+            B, C, H, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib.lstm_bwd_mma_error_string, "lstm_bwd_gates", err)
+    LAUNCHES_BWD_MMA["gates"] += 1
+    return z
+
+
+def lstm_bwd_recurrence(z, cs, dhs, w_aug):
+    """K3 bf16, part (b): dgates (T, B, 4H) bf16 from the gate
+    pre-activations z (f32), the saved c and the hidden-state cotangents
+    (``lstm_bwd_recurrence_reference``): the reverse walk, one block per 16
+    batch rows, dh_{t-1} = dgates_t @ W_h^T on the tensor cores."""
+    if cs.device.type == "cpu":
+        return lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)
+    name = "lstm_bwd_recurrence"
+    if cs.dim() != 3:
+        raise ValueError(f"{name}: cs must be (T, B, H), got "
+                         f"{tuple(cs.shape)}")
+    T, B, H = cs.shape
+    C = w_aug.shape[0] - H - 1
+    if w_aug.shape[1] != 4 * H:
+        raise ValueError(f"{name}: W_aug {tuple(w_aug.shape)} does not "
+                         f"match H={H}")
+    for t, shape, dtype in ((z, (T, B, 4 * H), torch.float32),
+                            (dhs, (T, B, H), cs.dtype),
+                            (w_aug, w_aug.shape, cs.dtype)):
+        if t.shape != shape or t.dtype != dtype or t.device != cs.device:
+            raise ValueError(
+                f"{name}: {tuple(t.shape)} {t.dtype} is not {tuple(shape)} "
+                f"{dtype} on {cs.device}"
+            )
+    lib = _mma_lib(name, cs, C, H)
+    if not all(t.is_contiguous() for t in (z, cs, dhs, w_aug)):
+        raise ValueError(f"{name}: operands must be contiguous")
+    dg = torch.empty((T, B, 4 * H), dtype=cs.dtype, device=cs.device)
+    with torch.cuda.device(cs.device):
+        err = lib.lstm_bwd_mma_recurrence(
+            z.data_ptr(), cs.data_ptr(), dhs.data_ptr(), w_aug.data_ptr(),
+            dg.data_ptr(), T, B, C, H,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib.lstm_bwd_mma_error_string, "lstm_bwd_recurrence", err)
+    LAUNCHES_BWD_MMA["recurrence"] += 1
+    return dg
+
+
+def lstm_bwd_products(x, hs, w_aug, dg):
+    """K3 bf16, part (c): (dx (T, B, C) bf16, dW_aug (C + H + 1, 4H) f32)
+    from dgates (``lstm_bwd_products_reference``): dx and the chunked dW on
+    the tensor cores, then the chunks' partials summed in order."""
+    if x.device.type == "cpu":
+        return lstm_bwd_products_reference(x, hs, w_aug, dg)
+    T, B, C, H = _check_cuda("lstm_bwd_products", x, w_aug, hs)
+    lib = _mma_lib("lstm_bwd_products", x, C, H)
+    if dg.shape != (T, B, 4 * H) or dg.dtype != x.dtype \
+            or dg.device != x.device or not dg.is_contiguous():
+        raise ValueError(
+            "lstm_bwd_products: dgates must be a contiguous (T, B, 4H) "
+            f"tensor in x's dtype, got {tuple(dg.shape)} {dg.dtype}"
+        )
+    dx = torch.empty_like(x)
+    partials = torch.empty(
+        (lib.lstm_bwd_mma_chunks(T, B, C, H), C + H + 1, 4 * H),
+        dtype=torch.float32, device=x.device,
+    )
+    dw = torch.empty((C + H + 1, 4 * H), dtype=torch.float32,
+                     device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.lstm_bwd_mma_products(
+            x.data_ptr(), hs.data_ptr(), w_aug.data_ptr(), dg.data_ptr(),
+            dx.data_ptr(), partials.data_ptr(), dw.data_ptr(), T, B, C, H,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib.lstm_bwd_mma_error_string, "lstm_bwd_products", err)
+    LAUNCHES_BWD_MMA["products"] += 1
+    return dx, dw
+
+
 def lstm_bwd(x, w_aug, hs, cs, dhs):
     """K3: (dx in x's dtype, dW_aug f32 (C + H + 1, 4H)) from the forward's
-    saved hs and cs and the hidden-state cotangents dhs."""
+    saved hs and cs and the hidden-state cotangents dhs. bf16 runs the
+    three tensor-core parts, f32 ``lstm_train.cu``'s one-launch kernel."""
     global LAUNCHES_BWD
     if x.device.type == "cpu":
         return lstm_bwd_reference(x, w_aug, hs, cs, dhs)
     T, B, C, H = _check_cuda("lstm_bwd", x, w_aug, hs, cs, dhs)
+    if x.dtype == torch.bfloat16:
+        z = lstm_bwd_gates(x, w_aug, hs)
+        dg = lstm_bwd_recurrence(z, cs, dhs, w_aug)
+        dx, dw = lstm_bwd_products(x, hs, w_aug, dg)
+        LAUNCHES_BWD += 1
+        return dx, dw
     lib = _train_library()
     if not lib.lstm_bwd_fits(C, H):
         raise ValueError(
@@ -294,13 +472,13 @@ def lstm_bwd(x, w_aug, hs, cs, dhs):
     dw = torch.empty((C + H + 1, 4 * H), dtype=torch.float32,
                      device=x.device)
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"lstm_bwd_{_TRAIN_SUFFIX[x.dtype]}")(
+        err = lib.lstm_bwd_f32(
             x.data_ptr(), w_aug.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             dhs.data_ptr(), dx.data_ptr(), partials.data_ptr(),
             dw.data_ptr(), T, B, C, H,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib, "lstm_bwd", err)
+    _raise_on(lib.lstm_train_error_string, "lstm_bwd", err)
     LAUNCHES_BWD += 1
     return dx, dw
 

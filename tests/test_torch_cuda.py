@@ -157,6 +157,73 @@ def test_lstm_train_kernels_refuse_bad_inputs(cuda):
         K.lstm_bwd(xw, ww, hs, cs, hs)
 
 
+def _bwd_inputs(T, B, C, H, dtype, device):
+    params, x = _case(T, B, C, H, dtype, device)
+    w_aug = _w_aug(params)
+    dhs = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(T, B, H)).astype(np.float32)).to(device, dtype)
+    hs, cs = K.lstm_fwd(x, w_aug)
+    return x, w_aug, hs, cs, dhs
+
+
+# K3's bf16 parts, each against its plain twin on the same inputs: the gates
+# (f32 sums of the same bf16 products in another order), the recurrence
+# (dgates rounded to bf16 once; the carries in f32, summed in another order)
+# and the products (dx rounded once; dW the f32 sum of the same products)
+@pytest.mark.parametrize(
+    "T,B,C,H",
+    [(1, 16, 64, 64), (13, 37, 64, 64), (24, 40, 24, 16), (9, 5, 100, 12)],
+)
+def test_lstm_bwd_mma_parts_match_plain(cuda, T, B, C, H):
+    x, w_aug, hs, cs, dhs = _bwd_inputs(T, B, C, H, torch.bfloat16, cuda)
+    launches = dict(K.LAUNCHES_BWD_MMA)
+    with full_f32():
+        z = K.lstm_bwd_gates(x, w_aug, hs)
+        z_ref = K.lstm_bwd_gates_reference(x, w_aug, hs)
+        dg = K.lstm_bwd_recurrence(z, cs, dhs, w_aug)
+        dg_ref = K.lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)
+        dx, dw = K.lstm_bwd_products(x, hs, w_aug, dg)
+        dx_ref, dw_ref = K.lstm_bwd_products_reference(x, hs, w_aug, dg)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES_BWD_MMA == {k: n + 1 for k, n in launches.items()}
+    assert z.dtype == torch.float32 and z.shape == (T, B, 4 * H)
+    assert dg.dtype == torch.bfloat16 and dg.shape == (T, B, 4 * H)
+    assert _rel(z, z_ref) <= 1e-4
+    assert _rel(dg, dg_ref) <= 2e-2
+    assert (dx.float() - dx_ref.float()).abs().max().item() <= 2e-2
+    assert _rel(dw, dw_ref) <= 1e-4
+
+
+def test_lstm_bwd_routes_by_dtype(cuda):
+    """bf16 goes to the tensor-core parts, f32 to lstm_train.cu's kernel;
+    a part refuses f32 and a shape it does not take."""
+    for dtype, parts in ((torch.bfloat16, 1), (torch.float32, 0)):
+        x, w_aug, hs, cs, dhs = _bwd_inputs(9, 24, 64, 64, dtype, cuda)
+        launches = dict(K.LAUNCHES_BWD_MMA), K.LAUNCHES_BWD
+        K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES_BWD == launches[1] + 1
+        assert K.LAUNCHES_BWD_MMA == {k: n + parts
+                                      for k, n in launches[0].items()}
+    with pytest.raises(ValueError, match="take bf16"):
+        K.lstm_bwd_gates(x, w_aug, hs)
+    x, w_aug, hs, cs, dhs = _bwd_inputs(3, 16, 72, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="kernel takes"):
+        K.lstm_bwd(x, w_aug, hs, cs, dhs)
+
+
+def test_lstm_bwd_bf16_repeats_bit_for_bit(cuda):
+    """K3's bf16 parts sum dW's chunk partials in chunk order and the
+    recurrence's warp partials in warp order (no atomics): two runs on the
+    same inputs give the same bits."""
+    x, w_aug, hs, cs, dhs = _bwd_inputs(31, 96, 64, 64, torch.bfloat16, cuda)
+    first = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+    second = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 # ---------------- K4 / K5: the banded refinement DP ----------------
 
 
