@@ -13,8 +13,10 @@ printed):
    kernel's bound (K1-K3 also their serial chain's floor): K1 (last-only
    LSTM), and (3b) K2 and K3 (the training LSTM forward and backward) at
    T=124, B=2048, C=H=64, K3 in bf16 also part by part (gates,
-   recurrence, products: each held to its plain twin and timed, no ptxas
-   spill allowed) and both dtypes' K3 repeated bit for bit; (3c) K6 (the
+   recurrence, products: each held to its plain twin and timed); K1 and
+   K2 in bf16 run one tensor-core kernel (``lstm_fwd_mma.cu``); no ptxas
+   spill allowed in it or in K3 bf16's, and K1-K3 repeated bit for bit in
+   both dtypes; (3c) K6 (the
    conv+BN+swish backward) at the four stride-1 block shapes of the
    training path, f32 and bf16 (db against the plain math in f64), with
    ``ConvBNSwish.backward``'s cuDNN path as the library yardstick;
@@ -57,6 +59,11 @@ printed):
    under torch.profiler in a child process (``--profile-refine``);
 9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --lstm-kernels`` runs phases 1-3b only (the build,
+K1-K3 against their plain versions with their times, registers and
+spills), for quick turns on the LSTM kernels; its ``kernels`` line has no
+launch counts.
 
 ``python3 chip_smoke.py --step-walls`` runs only the step profiles of
 phases 6 and 6c (fused and pallas mode, f32 and bf16; 20 unprofiled walls
@@ -207,15 +214,22 @@ DEP_LATENCY_CYCLES = 4
 ACT_CHAIN = 4
 
 
-def lstm_chain_instrs(kind, C, H, bf16):
+def lstm_chain_instrs(kind, C, H):
     """Dependent instructions of one step of an LSTM kernel's chain."""
     K, G = C + H, 4 * H
     if kind == "fwd":
-        # K1 (lstm_last.cu), K2 (lstm_train.cu::lstm_fwd_kernel): LDS the
-        # operand -> C + H FFMA into one accumulator a gate -> the gates'
-        # activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) -> h = o
-        # tanh(c) -> (round to bf16) -> STS h -> BAR
-        return 1 + K + ACT_CHAIN + 2 + ACT_CHAIN + 1 + int(bf16) + 2
+        # K1 f32 (lstm_last.cu), K2 f32 (lstm_train.cu::lstm_fwd_kernel):
+        # LDS the operand -> C + H FFMA into one accumulator a gate -> the
+        # gates' activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) -> h =
+        # o tanh(c) -> STS h -> BAR
+        return 1 + K + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 2
+    if kind == "fwd_mma":
+        # K1/K2 bf16 (lstm_fwd_mma.cu; x_t . W_x is off the chain): BAR ->
+        # LDSM h_{t-1} -> ceil(H / 16) dependent HMMA -> FADD bias -> the
+        # gates' activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) -> h =
+        # o tanh(c) -> pack to bf16 -> STS h
+        return 1 + 1 + -(-H // 16) + 1 + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 \
+            + 1
     if kind == "bwd":
         # K3 f32 (lstm_train.cu::lstm_bwd_kernel): LDS the operand -> C + H
         # FFMA (phase A) -> activations -> LDS, FADD dh -> dc (FMUL, FMUL,
@@ -229,9 +243,9 @@ def lstm_chain_instrs(kind, C, H, bf16):
     return 1 + 1 + -(-H // 8) + 1 + 3 + 3 + 1 + 2 + 1
 
 
-def lstm_chain_bound_ms(kind, T, C, H, bf16):
+def lstm_chain_bound_ms(kind, T, C, H):
     """T steps of the chain at the card's maximum SM clock."""
-    cycles = T * lstm_chain_instrs(kind, C, H, bf16) * DEP_LATENCY_CYCLES
+    cycles = T * lstm_chain_instrs(kind, C, H) * DEP_LATENCY_CYCLES
     return cycles / max_sm_clock_hz() * 1e3
 
 
@@ -257,6 +271,7 @@ def check_lstm_last(dtype, tol):
     params, x = lstm_case(dtype)
     T, B, C = x.shape
     H = params["w_hh"].shape[1]
+    bf16 = dtype == torch.bfloat16
     with full_f32():
         got = K.lstm_last(params, x)
         want = K.lstm_last_reference(params, x)
@@ -268,6 +283,9 @@ def check_lstm_last(dtype, tol):
         check(np.isfinite(err) and err <= tol,
               f"lstm_last {dtype}: kernel disagrees with the plain version "
               f"(max |dh| {err:.3e} > {tol})")
+        check(torch.equal(K.lstm_last(params, x), got),
+              f"lstm_last {dtype}: a second call gave other bits")
+        log(f"lstm_last {dtype}: a second call repeats h_(T-1) bit for bit")
 
         lib_lstm = torch.nn.LSTM(C, H).cuda().to(dtype)
         with torch.no_grad():
@@ -286,8 +304,8 @@ def check_lstm_last(dtype, tol):
     flops = 2.0 * T * B * (C + H) * 4 * H
     io_bytes = (x.numel() + (C + H + 1) * 4 * H + B * H) * x.element_size()
     bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
-    name = "lstm_last_" + ("f32" if dtype == torch.float32 else "bf16")
-    chain_ms = lstm_chain_bound_ms("fwd", T, C, H, dtype == torch.bfloat16)
+    name = "lstm_last_" + ("bf16" if bf16 else "f32")
+    chain_ms = lstm_chain_bound_ms("fwd_mma" if bf16 else "fwd", T, C, H)
     log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.nn.LSTM {library_ms} ms, bound {bound_ms:.4f}"
         f" ms ({flops / 1e9:.2f} GFLOP, {io_bytes / 1e6:.2f} MB), chain "
@@ -295,7 +313,8 @@ def check_lstm_last(dtype, tol):
     return with_chain({
         "name": name,
         "route": "cuda",
-        "source": "remora_tpu_torch/csrc/lstm_last.cu",
+        "source": "remora_tpu_torch/csrc/" + ("lstm_fwd_mma.cu" if bf16
+                                              else "lstm_last.cu"),
         "replaces": "remora_tpu/kernels/pallas_lstm.py:181",
         "launches": None,
         "max_abs_err": err,
@@ -385,10 +404,16 @@ def check_lstm_train(dtype, tol):
         check(np.isfinite(dw_rel) and dw_rel <= dw_tol,
               f"lstm_bwd {sfx}: dW disagrees with the plain version "
               f"({dw_rel:.3e} > {dw_tol})")
+        again = K.lstm_fwd(x, w_aug)
+        check(torch.equal(again[0], hs) and torch.equal(again[1], cs),
+              f"lstm_fwd {sfx}: a second call gave other bits")
+        check(torch.equal(K.lstm_fwd(x, w_aug, want_cs=False)[0], hs),
+              f"lstm_fwd {sfx}: hs without cs differs from hs with cs")
         again = K.lstm_bwd(x, w_aug, hs, cs, dhs)
         check(torch.equal(again[0], dx) and torch.equal(again[1], dw),
               f"lstm_bwd {sfx}: a second call gave other bits")
-        log(f"lstm_bwd {sfx}: a second call repeats dx and dW bit for bit")
+        log(f"lstm_fwd/bwd {sfx}: a second call repeats hs, cs, dx and dW "
+            "bit for bit; hs without cs is the same")
         parts_ms = (check_lstm_bwd_parts(x, w_aug, hs, cs, dhs)
                     if dtype == torch.bfloat16 else None)
 
@@ -426,6 +451,8 @@ def check_lstm_train(dtype, tol):
     bwd_bytes = (2 * n_x + 3 * n_h) * isz + w_bytes \
         + (C + H + 1) * 4 * H * 4
     bf16 = dtype == torch.bfloat16
+    fwd_src = ("remora_tpu_torch/csrc/lstm_fwd_mma.cu" if bf16
+               else "remora_tpu_torch/csrc/lstm_train.cu")
     bwd_src = ("remora_tpu_torch/csrc/lstm_bwd_mma.cu" if bf16
                else "remora_tpu_torch/csrc/lstm_train.cu")
     records = []
@@ -433,14 +460,14 @@ def check_lstm_train(dtype, tol):
             chain in (
         ("lstm_fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_flops, fwd_bytes,
          max(errs["hs"], errs["cs"]),
-         "remora_tpu/kernels/pallas_lstm.py:137",
-         "remora_tpu_torch/csrc/lstm_train.cu", "fwd"),
+         "remora_tpu/kernels/pallas_lstm.py:137", fwd_src,
+         "fwd_mma" if bf16 else "fwd"),
         ("lstm_bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_flops, bwd_bytes,
          errs["dx"], "remora_tpu/kernels/pallas_lstm.py:251", bwd_src,
          "bwd_mma" if bf16 else "bwd"),
     ):
         bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
-        chain_ms = lstm_chain_bound_ms(chain, T, C, H, bf16)
+        chain_ms = lstm_chain_bound_ms(chain, T, C, H)
         log(f"{kname}_{sfx}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"torch.nn.LSTM {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}; {flops / 1e9:.2f} GFLOP, {io_bytes / 1e6:.2f} "
@@ -594,6 +621,12 @@ def check_lstm_bwd_compile():
         "lstm_bwd_gates_kernel", "lstm_bwd_recurrence_kernel",
         "lstm_bwd_dx_kernel", "lstm_bwd_dw_reduce_kernel",
         "lstm_bwd_dw_kernel"))
+
+
+def check_lstm_fwd_compile():
+    """K1/K2 bf16's kernel, each instantiation: registers logged, no
+    spill."""
+    check_compile("lstm_fwd_mma", "K1/K2 bf16", ("lstm_fwd_mma_kernel",))
 
 
 def check_convbn(dtype, tols):
@@ -1903,6 +1936,7 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    check_lstm_fwd_compile()
     kernels = {
         torch.float32: check_lstm_last(torch.float32, 1e-5),
         torch.bfloat16: check_lstm_last(torch.bfloat16, 2e-2),
@@ -1912,6 +1946,12 @@ def main():
         torch.float32: check_lstm_train(torch.float32, 1e-5),
         torch.bfloat16: check_lstm_train(torch.bfloat16, 2e-2),
     }
+    if sys.argv[1:] == ["--lstm-kernels"]:
+        # phases 1-3b only: no main path ran, so no launch counts
+        records = list(kernels.values())
+        for recs in train_kernels.values():
+            records.extend(recs)
+        return finish(records)
     # relative to each output's largest entry: f32 rounding everywhere but
     # bf16's dx (dy and dx each rounded once to bf16) and dw (f32 sums of
     # the same bf16 operands, but a dy within f32 noise of a bf16 rounding
@@ -1985,6 +2025,13 @@ def main():
     for recs in (*train_kernels.values(), *convbn_kernels.values(),
                  dp_kernels):
         records.extend(recs)
+    return finish(records)
+
+
+def finish(records):
+    """The kernels line, the card's line and the result line."""
+    import torch
+
     log(json.dumps({"kernels": records}))
     log(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
-// Last-only LSTM forward for inference on Hopper (sm_90a).
+// Last-only LSTM forward for inference on Hopper (sm_90a), f32 leg.
 //
 // Replaces the TPU kernel remora_tpu/kernels/pallas_lstm.py::_fwd_kernel_last
-// (launched by _fwd_last_call, API lstm_last_fused). It returns only
-// h_{T-1} (B, H) of a single-layer forward LSTM over x (T, B, C):
+// (launched by _fwd_last_call, API lstm_last_fused) for f32; bf16 runs
+// lstm_fwd_mma.cu's tensor-core recurrence in its last-only form. It
+// returns only h_{T-1} (B, H) of a single-layer forward LSTM over x (T, B,
+// C):
 //
 //   gates_t = [x_t ; h_{t-1}] @ W_aug[:C+H] + W_aug[C+H]     (B, 4H), i|f|g|o
 //   c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)
@@ -20,12 +22,10 @@
 //     the other, so a step needs one barrier;
 //   * thread (row group, unit) keeps its rows' c and h in f32 registers;
 //     only h_{T-1} is written back;
-//   * f32: full-f32 FMAs. bf16: x, W and the h operand are bf16, products
-//     and sums are f32 (bf16 products are exact in f32), c and h carried
-//     in f32 -- the numerics of the Pallas kernel's bf16 path.
+//   * full-f32 FMAs (the Pallas kernel pins Precision.HIGHEST).
 //
 // Bound at the main-path shape (T=124, B=2048, C=H=64): 2*T*B*(C+H)*4H =
-// 16.6 GFLOP and 65 MB of x in f32 (32.5 MB in bf16). f32 runs on the
+// 16.6 GFLOP and 65 MB of x. It runs on the
 // non-tensor FP32 pipes (67 TFLOP/s on H100 SXM): >= 0.25 ms, operations
 // bound; the bytes alone need ~19 us at 3.35 TB/s. Per step a block does
 // 16 x 128 x 256 FMAs; the inner loop issues two shared-memory vector loads
@@ -34,7 +34,6 @@
 // 128 blocks at B = 2048, one per SM) is the parallelism; tensor cores
 // (wgmma) and TMA staging are left for a later kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,9 +48,6 @@ constexpr int kXPerThread = 8;                // x_t elements staged per thread
 constexpr int kMaxC = kThreads * kXPerThread / kRows;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -59,22 +55,10 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
-// four consecutive operands (16-byte aligned f32, 8-byte aligned bf16)
+// four consecutive operands (16-byte aligned)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 __device__ __forceinline__ float sigmoid(float z) {
@@ -223,11 +207,6 @@ extern "C" {
 int lstm_last_f32(const void* x, const void* w_aug, void* out, int n_steps,
                   int B, int C, int H, void* stream) {
   return launch<float>(x, w_aug, out, n_steps, B, C, H, stream);
-}
-
-int lstm_last_bf16(const void* x, const void* w_aug, void* out, int n_steps,
-                   int B, int C, int H, void* stream) {
-  return launch<__nv_bfloat16>(x, w_aug, out, n_steps, B, C, H, stream);
 }
 
 int lstm_last_max_c(void) { return kMaxC; }

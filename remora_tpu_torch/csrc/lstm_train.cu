@@ -3,7 +3,9 @@
 // Replaces the TPU kernels of remora_tpu/kernels/pallas_lstm.py:
 //   * K2, lstm_fwd: _fwd_kernel / _fwd_kernel_nocs (launched by _fwd_call),
 //     the full forward of a single-layer LSTM over x (T, B, C), writing every
-//     hidden state hs (T, B, H) and, for the backward, every cell state cs;
+//     hidden state hs (T, B, H) and, for the backward, every cell state cs.
+//     Only its f32 leg is here (lstm_fwd_f32); bf16 runs lstm_fwd_mma.cu's
+//     tensor-core recurrence;
 //   * K3, lstm_bwd: _bwd_kernel (launched by _bwd_call), the reverse-time
 //     backward that recomputes the gates from the saved h and c, writes dx
 //     and accumulates dW_aug = sum_t [x_t; h_{t-1}; 1]^T . dgates. Only its
@@ -24,14 +26,11 @@
 //   * the matmul operand [x_t ; h_{t-1}] lives in shared memory, k-major,
 //     double-buffered; the next step's operand is loaded from global memory
 //     into registers before the step's arithmetic and stored after it;
-//   * f32: full-f32 FMAs (the Pallas kernels pin Precision.HIGHEST). bf16:
-//     bf16 operands, f32 products and sums, h rounded into bf16 each step,
-//     c/h (forward) and dh/dc (backward) carried in f32; the saved hs/cs and
-//     the dgates are in bf16 -- the Pallas kernels' numerics.
+//   * full-f32 FMAs (the Pallas kernels pin Precision.HIGHEST).
 //
 // K2 is the inference kernel lstm_last.cu with per-step stores: thread
 // (row group, unit) keeps its 4 rows' c and h in f32 registers and writes
-// hs[t] (and cs[t] when kCs) in x's dtype, coalesced along the unit.
+// hs[t] (and cs[t] when kCs), coalesced along the unit.
 //
 // K3, per step t = T-1 ... 0 (two block barriers per step):
 //   A. recompute z = [x_t; h_{t-1}] @ W + b exactly as K2 did (h_{-1} = 0);
@@ -49,19 +48,17 @@
 //      repeat from run to run.
 //
 // Bounds at the main-path shape (T=124, B=2048, C=H=64) on an H100 SXM
-// (67 TFLOP/s FP32, 989 TFLOP/s bf16 tensor cores, 3.35 TB/s):
-//   K2 with cs: 2*T*B*(C+H)*4H = 16.64 GFLOP; x + hs + cs = 195 MB f32 /
-//     97.5 MB bf16 -> >= 0.248 ms f32 (operations), >= 0.029 ms bf16 (bytes).
+// (67 TFLOP/s FP32, 3.35 TB/s):
+//   K2 with cs: 2*T*B*(C+H)*4H = 16.64 GFLOP; x + hs + cs = 195 MB ->
+//     >= 0.248 ms (operations).
 //   K3: ~3 x 16.7 = 50.1 GFLOP (recompute, dxh, dW); x, hs, cs, dhs read,
-//     dx written, partials: ~342 MB f32 / 180 MB bf16 -> >= 0.75 ms f32
-//     (operations), >= 0.054 ms bf16 (bytes).
+//     dx written, partials: ~342 MB -> >= 0.75 ms (operations).
 // Both run on the FP32 pipes (no tensor cores) and every product reads one
 // operand from shared memory, so shared-memory bandwidth and FMA throughput
 // bound them well above those floors; wgmma and TMA staging are later work.
 // The recurrence is serial in T: the block count (B / 16 = 128 at B = 2048,
 // one per SM) is the parallelism.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,9 +80,6 @@ constexpr int kTileG = 16;
 constexpr int kDxRows = kRows * 128 / kThreads;  // rows per thread in phase C
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -93,40 +87,15 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
-// four consecutive operands (16-byte aligned f32, 8-byte aligned bf16)
+// four consecutive operands (16-byte aligned)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, __nv_bfloat16 a,
-                                       __nv_bfloat16 b, __nv_bfloat16 c,
-                                       __nv_bfloat16 d) {
-  __nv_bfloat162 lo, hi;
-  lo.x = a;
-  lo.y = b;
-  hi.x = c;
-  hi.y = d;
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float sigmoid(float z) {
@@ -639,12 +608,6 @@ extern "C" {
 int lstm_fwd_f32(const void* x, const void* w_aug, void* hs, void* cs,
                  int n_steps, int B, int C, int H, void* stream) {
   return launch_fwd<float>(x, w_aug, hs, cs, n_steps, B, C, H, stream);
-}
-
-int lstm_fwd_bf16(const void* x, const void* w_aug, void* hs, void* cs,
-                  int n_steps, int B, int C, int H, void* stream) {
-  return launch_fwd<__nv_bfloat16>(x, w_aug, hs, cs, n_steps, B, C, H,
-                                   stream);
 }
 
 // partials: (lstm_train_blocks(B), C+H+1, 4H) f32 scratch; dw: (C+H+1, 4H) f32

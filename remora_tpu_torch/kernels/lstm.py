@@ -2,13 +2,16 @@
 
 Counterpart of ``remora_tpu/kernels/pallas_lstm.py``:
 
-  * ``lstm_last`` (K1, ``csrc/lstm_last.cu``) is ``lstm_last_fused``: the
-    whole time loop in one launch, writing only h_{T-1};
-  * ``lstm_fwd`` (K2, ``csrc/lstm_train.cu``) and ``lstm_bwd`` (K3) are
-    ``_fwd_call`` and ``_bwd_call``: the full forward that writes hs (and
-    cs for the backward), and the reverse-time backward that emits dx and
-    dW_aug. K3 routes by dtype: f32 runs ``lstm_train.cu``'s one-launch
-    kernel; bf16 runs ``csrc/lstm_bwd_mma.cu``, three tensor-core parts
+  * ``lstm_last`` (K1) is ``lstm_last_fused``: the whole time loop in one
+    launch, writing only h_{T-1};
+  * ``lstm_fwd`` (K2) and ``lstm_bwd`` (K3) are ``_fwd_call`` and
+    ``_bwd_call``: the full forward that writes hs (and cs for the
+    backward), and the reverse-time backward that emits dx and dW_aug.
+    Each routes by dtype. K1 and K2 in f32 run ``csrc/lstm_last.cu`` and
+    ``csrc/lstm_train.cu::lstm_fwd_kernel``; in bf16 both run
+    ``csrc/lstm_fwd_mma.cu``, one tensor-core recurrence (last-only for
+    K1). K3 in f32 runs ``lstm_train.cu``'s one-launch kernel; in bf16
+    ``csrc/lstm_bwd_mma.cu``, three tensor-core parts
     with wrappers and plain twins of their own (``lstm_bwd_gates``,
     ``lstm_bwd_recurrence``, ``lstm_bwd_products``). ``LSTMFused`` ties K2
     and K3 into one ``torch.autograd.Function`` and ``lstm_fused`` is the
@@ -30,15 +33,18 @@ from remora_tpu_torch.kernels import _build
 from remora_tpu_torch.models import layers as L
 
 # kernel launches in this process: K1 (one per ``lstm_last`` call on CUDA),
-# K2 (one per ``lstm_fwd``) and K3 (one per ``lstm_bwd``, either dtype);
+# K2 (one per ``lstm_fwd``) and K3 (one per ``lstm_bwd``), either dtype;
 # K3's bf16 parts count apart, one per call of each part's wrapper
 LAUNCHES = 0
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 LAUNCHES_BWD_MMA = dict.fromkeys(("gates", "recurrence", "products"), 0)
 
-_DTYPES = {torch.float32: "lstm_last_f32", torch.bfloat16: "lstm_last_bf16"}
-_TRAIN_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the shapes ``csrc/lstm_fwd_mma.cu`` takes (its ``lstm_fwd_mma_max_c`` /
+# ``_max_h``): W_x's B fragments in registers, 4 hidden units a warp of 16
+FWD_MMA_MAX_C = 128
+FWD_MMA_MAX_H = 64
 
 
 def make_w_aug(params, dtype):
@@ -62,10 +68,8 @@ def _library():
     lib = _build.load("lstm_last")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in _DTYPES.values():
-            getattr(lib, fn).argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
-                                         ptr]
-            getattr(lib, fn).restype = i32
+        lib.lstm_last_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.lstm_last_f32.restype = i32
         for fn in ("lstm_last_max_c", "lstm_last_max_h"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i32
@@ -75,16 +79,48 @@ def _library():
     return lib
 
 
+def fwd_mma_shape_error(name, C, H):
+    """The ``ValueError`` message with which ``name`` refuses a bf16 call of
+    C inputs and H hidden units that ``csrc/lstm_fwd_mma.cu`` does not take,
+    or None."""
+    if 1 <= C <= FWD_MMA_MAX_C and 1 <= H <= FWD_MMA_MAX_H:
+        return None
+    return (f"{name}: the bf16 kernel takes 1 <= C <= {FWD_MMA_MAX_C} and "
+            f"1 <= H <= {FWD_MMA_MAX_H}, got C={C}, H={H}")
+
+
+def _fwd_mma_library(name, C, H):
+    """The library of K1's and K2's bf16 leg, after the shape check."""
+    msg = fwd_mma_shape_error(name, C, H)
+    if msg is not None:
+        raise ValueError(msg)
+    lib = _build.load("lstm_fwd_mma")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_fwd_mma.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.lstm_fwd_mma.restype = i32
+        lib.lstm_fwd_mma_last.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+        lib.lstm_fwd_mma_last.restype = i32
+        for fn in ("lstm_fwd_mma_max_c", "lstm_fwd_mma_max_h"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i32
+        lib.lstm_fwd_mma_error_string.argtypes = [i32]
+        lib.lstm_fwd_mma_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
 def lstm_last(params, x):
     """Final hidden state h_{T-1} of a forward LSTM over x (T, B, C): (B, H)
-    in x's dtype. f32 runs full-f32 arithmetic; bf16 takes bf16 operands
-    (h included) with f32 sums and f32 h/c carries."""
+    in x's dtype. f32 runs full-f32 arithmetic (``lstm_last.cu``); bf16
+    takes bf16 operands (h included) with f32 sums and f32 h/c carries on
+    the tensor cores (``lstm_fwd_mma.cu``, last-only)."""
     global LAUNCHES
     if x.device.type == "cpu":
         return lstm_last_reference(params, x)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_last: no kernel for device {x.device}")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"lstm_last: unsupported dtype {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("lstm_last: x must be a contiguous (T, B, C) tensor")
@@ -95,26 +131,26 @@ def lstm_last(params, x):
             f"lstm_last: w_ih {tuple(params['w_ih'].shape)} does not match "
             f"C={C}, H={H}"
         )
-    lib = _library()
-    if C > lib.lstm_last_max_c() or H > lib.lstm_last_max_h():
-        raise ValueError(
-            f"lstm_last: kernel takes C <= {lib.lstm_last_max_c()} and "
-            f"H <= {lib.lstm_last_max_h()}, got C={C}, H={H}"
-        )
+    if x.dtype == torch.bfloat16:
+        lib = _fwd_mma_library("lstm_last", C, H)
+        launch, error_string = lib.lstm_fwd_mma_last, \
+            lib.lstm_fwd_mma_error_string
+    else:
+        lib = _library()
+        if C > lib.lstm_last_max_c() or H > lib.lstm_last_max_h():
+            raise ValueError(
+                f"lstm_last: kernel takes C <= {lib.lstm_last_max_c()} and "
+                f"H <= {lib.lstm_last_max_h()}, got C={C}, H={H}"
+            )
+        launch, error_string = lib.lstm_last_f32, lib.lstm_last_error_string
     w_aug = make_w_aug(params, x.dtype)
     if w_aug.device != x.device:
         raise ValueError("lstm_last: params and x are on different devices")
     out = torch.empty((B, H), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = getattr(lib, _DTYPES[x.dtype])(
-            x.data_ptr(), w_aug.data_ptr(), out.data_ptr(), T, B, C, H,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "lstm_last kernel launch failed: "
-            f"{lib.lstm_last_error_string(err).decode()} (cudaError {err})"
-        )
+        err = launch(x.data_ptr(), w_aug.data_ptr(), out.data_ptr(), T, B, C,
+                     H, torch.cuda.current_stream().cuda_stream)
+    _raise_on(error_string, "lstm_last", err)
     LAUNCHES += 1
     return out
 
@@ -232,10 +268,8 @@ def _train_library():
     lib = _build.load("lstm_train")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for sfx in _TRAIN_SUFFIX.values():
-            fwd = getattr(lib, f"lstm_fwd_{sfx}")
-            fwd.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-            fwd.restype = i32
+        lib.lstm_fwd_f32.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.lstm_fwd_f32.restype = i32
         lib.lstm_bwd_f32.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
         lib.lstm_bwd_f32.restype = i32
         for fn in ("lstm_train_max_c", "lstm_train_max_h"):
@@ -256,7 +290,7 @@ def _check_cuda(name, x, w_aug, *seq):
     (T, B, C, H). ``seq`` are (T, B, H) tensors in x's dtype."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    if x.dtype not in _TRAIN_SUFFIX:
+    if x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{name}: unsupported dtype {x.dtype}")
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (T, B, C), got {tuple(x.shape)}")
@@ -291,26 +325,32 @@ def _raise_on(error_string, name, err):
 
 def lstm_fwd(x, w_aug, want_cs=True):
     """K2: (hs, cs) of a forward LSTM over x (T, B, C), each (T, B, H) in
-    x's dtype; cs is None unless ``want_cs``."""
+    x's dtype; cs is None unless ``want_cs``. f32 runs
+    ``lstm_train.cu::lstm_fwd_kernel``, bf16 ``lstm_fwd_mma.cu``."""
     global LAUNCHES_FWD
     if x.device.type == "cpu":
         return lstm_fwd_reference(x, w_aug, want_cs)
     T, B, C, H = _check_cuda("lstm_fwd", x, w_aug)
-    lib = _train_library()
-    if C > lib.lstm_train_max_c() or H > lib.lstm_train_max_h():
-        raise ValueError(
-            f"lstm_fwd: kernel takes C <= {lib.lstm_train_max_c()} and "
-            f"H <= {lib.lstm_train_max_h()}, got C={C}, H={H}"
-        )
+    if x.dtype == torch.bfloat16:
+        lib = _fwd_mma_library("lstm_fwd", C, H)
+        launch, error_string = lib.lstm_fwd_mma, lib.lstm_fwd_mma_error_string
+    else:
+        lib = _train_library()
+        if C > lib.lstm_train_max_c() or H > lib.lstm_train_max_h():
+            raise ValueError(
+                f"lstm_fwd: kernel takes C <= {lib.lstm_train_max_c()} and "
+                f"H <= {lib.lstm_train_max_h()}, got C={C}, H={H}"
+            )
+        launch, error_string = lib.lstm_fwd_f32, lib.lstm_train_error_string
     hs = torch.empty((T, B, H), dtype=x.dtype, device=x.device)
     cs = torch.empty_like(hs) if want_cs else None
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"lstm_fwd_{_TRAIN_SUFFIX[x.dtype]}")(
+        err = launch(
             x.data_ptr(), w_aug.data_ptr(), hs.data_ptr(),
             None if cs is None else cs.data_ptr(), T, B, C, H,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib.lstm_train_error_string, "lstm_fwd", err)
+    _raise_on(error_string, "lstm_fwd", err)
     LAUNCHES_FWD += 1
     return hs, cs
 

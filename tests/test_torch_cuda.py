@@ -72,6 +72,82 @@ def _w_aug(params):
     return K.make_w_aug(params, params["w_ih"].dtype)
 
 
+# K1's and K2's bf16 leg, one tensor-core kernel (lstm_fwd_mma.cu), against
+# the plain versions: the main path's batch, its last short batch and a
+# batch under one 16-row tile; the main widths and H = 12, C = 100 (the
+# element copies, zero-padded k tiles, masked units); one step and the
+# training length. bf16 rounds h every step (one bf16 step is 2**-8).
+@pytest.mark.parametrize("T", [1, 124])
+@pytest.mark.parametrize("C,H", [(64, 64), (100, 12)])
+@pytest.mark.parametrize("B", [2048, 1111, 7])
+def test_lstm_fwd_mma_matches_plain(cuda, T, B, C, H):
+    params, x = _case(T, B, C, H, torch.bfloat16, cuda)
+    w_aug = _w_aug(params)
+    launches = (K.LAUNCHES_FWD, K.LAUNCHES)
+    with full_f32():
+        hs, cs = K.lstm_fwd(x, w_aug)
+        hs_nocs, none = K.lstm_fwd(x, w_aug, want_cs=False)
+        last = K.lstm_last(params, x)
+        hs_ref, cs_ref = K.lstm_fwd_reference(x, w_aug)
+        last_ref = K.lstm_last_reference(params, x)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES_FWD, K.LAUNCHES) == (launches[0] + 2,
+                                            launches[1] + 1)
+    assert none is None and hs.shape == cs.shape == (T, B, H)
+    assert hs.dtype == cs.dtype == last.dtype == torch.bfloat16
+    assert last.shape == (B, H)
+    assert torch.equal(hs_nocs, hs)
+    assert torch.equal(last, hs[-1])
+    for got, want in ((hs, hs_ref), (cs, cs_ref), (last, last_ref)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2, err
+
+
+def test_lstm_fwd_mma_repeats_bit_for_bit(cuda):
+    params, x = _case(31, 1111, 64, 64, torch.bfloat16, cuda)
+    w_aug = _w_aug(params)
+    first = K.lstm_fwd(x, w_aug), K.lstm_last(params, x)
+    second = K.lstm_fwd(x, w_aug), K.lstm_last(params, x)
+    torch.cuda.synchronize()
+    for a, b in zip((*first[0], first[1]), (*second[0], second[1])):
+        assert torch.equal(a, b)
+
+
+def test_lstm_fwd_routes_by_dtype(cuda, monkeypatch):
+    """bf16 K1/K2 load lstm_fwd_mma's library, f32 lstm_last's and
+    lstm_train's; the library's limits are the wrapper's."""
+    from remora_tpu_torch.kernels import _build
+
+    loaded = []
+    load = _build.load
+
+    def spy(name):
+        loaded.append(name)
+        return load(name)
+
+    monkeypatch.setattr(_build, "load", spy)
+    for dtype, want in ((torch.bfloat16, ["lstm_fwd_mma"] * 2),
+                        (torch.float32, ["lstm_train", "lstm_last"])):
+        params, x = _case(5, 24, 64, 64, dtype, cuda)
+        loaded.clear()
+        K.lstm_fwd(x, _w_aug(params))
+        K.lstm_last(params, x)
+        torch.cuda.synchronize()
+        assert loaded == want
+    lib = load("lstm_fwd_mma")
+    assert (lib.lstm_fwd_mma_max_c(), lib.lstm_fwd_mma_max_h()) == (
+        K.FWD_MMA_MAX_C, K.FWD_MMA_MAX_H)
+
+
+@pytest.mark.parametrize("C,H", [(129, 64), (64, 65), (16, 72)])
+def test_lstm_fwd_mma_refuses_shapes(cuda, C, H):
+    params, x = _case(3, 16, C, H, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="the bf16 kernel takes"):
+        K.lstm_fwd(x, _w_aug(params))
+    with pytest.raises(ValueError, match="the bf16 kernel takes"):
+        K.lstm_last(params, x)
+
+
 def _rel(got, want):
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max()).item()

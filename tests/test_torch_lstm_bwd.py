@@ -4,7 +4,9 @@ kernel in interpret mode; the CUDA build's library key; and the port's
 fail-fast on an unknown ``REMORA_TPU_CONVBN``."""
 
 import os
+import shutil
 import stat
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -178,6 +180,24 @@ def test_build_rebuilds_when_its_inputs_change(monkeypatch, fake_nvcc,
     assert second != first and second.is_file() and first.is_file()
     assert len(ran()) == 2
     assert ("--fmad=false" in ran()[1]) == (change == "source_flags")
+
+
+@pytest.mark.parametrize("name", ["lstm_fwd_mma", "lstm_bwd_mma",
+                                  "convbn_bwd"])
+def test_build_key_covers_the_shared_header(fake_nvcc, name):
+    """The package's tensor-core sources, copied as they are, rebuild when
+    the header they share (``mma_sm90.cuh``) changes, and only then."""
+    csrc, ran = fake_nvcc
+    real = Path(_build.__file__).resolve().parent.parent / "csrc"
+    for f in (f"{name}.cu", "mma_sm90.cuh"):
+        shutil.copy(real / f, csrc / f)
+    assert '#include "mma_sm90.cuh"' in (csrc / f"{name}.cu").read_text()
+    first = _build.library_path(name)
+    assert _build.library_path(name) == first and len(ran()) == 1
+    with open(csrc / "mma_sm90.cuh", "a") as fh:
+        fh.write("// a changed helper\n")
+    second = _build.library_path(name)
+    assert second != first and second.is_file() and len(ran()) == 2
 
 
 # ---------------- REMORA_TPU_CONVBN: a deliberate difference ----------------
