@@ -89,28 +89,27 @@ def sass_mix(nvcc, lib, tag="ILb0ELb0ELb1E"):
     return 0, []
 
 
-def main():
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_lstm_fwd_variants: no CUDA device is available",
-              file=sys.stderr)
-        return 1
+def build_variants(source, variants, headers=()):
+    """Build ``csrc/<source>`` once per variant (name -> list of (old, new)
+    textual edits), one ``nvcc`` each, all started together, in a temporary
+    directory beside copies of ``headers``. Returns {name: (library path,
+    nvcc output)}. An edit that no longer matches stops the script."""
     sys.path.insert(0, REPO)
     from remora_tpu_torch.kernels import _build
 
     nvcc = _build._nvcc()
-    src = open(os.path.join(CSRC, "lstm_fwd_mma.cu")).read()
+    src = open(os.path.join(CSRC, source)).read()
     tmp = tempfile.mkdtemp()
-    with open(os.path.join(CSRC, "mma_sm90.cuh")) as fh:
-        open(os.path.join(tmp, "mma_sm90.cuh"), "w").write(fh.read())
+    for header in headers:
+        with open(os.path.join(CSRC, header)) as fh:
+            open(os.path.join(tmp, header), "w").write(fh.read())
     jobs = {}
-    for k, (name, edits) in enumerate(VARIANTS.items()):
+    for k, (name, edits) in enumerate(variants.items()):
         text = src
         for old, new in edits:
             if old not in text:
                 raise SystemExit(f"variant {name!r}: edit {old!r} no longer "
-                                 "matches lstm_fwd_mma.cu")
+                                 f"matches {source}")
             text = text.replace(old, new)
         path = os.path.join(tmp, f"v{k}.cu")
         open(path, "w").write(text)
@@ -118,12 +117,55 @@ def main():
         jobs[name] = lib, subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-o", lib, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    built = {}
     for name, (path, proc) in jobs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"variant {name!r} does not build:\n{out}")
+        built[name] = path, out
+    return nvcc, built
+
+
+def time_ms(fn, n=15, calls=5):
+    """Median device time of one ``fn`` call (CUDA events over ``calls``
+    calls a sample, ``n`` samples, two warm-ups)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def smi_line():
+    """The card's name, power limit and SM clocks from ``nvidia-smi``."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_lstm_fwd_variants: no CUDA device is available",
+              file=sys.stderr)
+        return 1
+    nvcc, built = build_variants("lstm_fwd_mma.cu", VARIANTS,
+                                 headers=("mma_sm90.cuh",))
+    libs = {}
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, (path, out) in built.items():
         regs = re.findall(r"Used (\d+) registers", out)
         n, mix = sass_mix(nvcc, path)
         print(f"{name}: registers {regs}; K1 16-byte form {n} SASS "
@@ -132,21 +174,6 @@ def main():
         lib.lstm_fwd_mma.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.lstm_fwd_mma_last.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
         libs[name] = lib
-
-    def time_ms(fn, n=15, calls=5):
-        for _ in range(2):
-            fn()
-        times = []
-        for _ in range(n):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(calls):
-                fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b) / calls)
-        return statistics.median(times)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, C, H = 2048, 64, 64
@@ -167,12 +194,8 @@ def main():
                 B, C, H, stream))
             print(f"T={T} {name}: K1 {last:.4f} ms ({last / T * 1e3:.3f} "
                   f"us a step), K2 with cs {seq:.4f} ms")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip())
+    print(smi_line())
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -14,9 +14,9 @@ printed):
    LSTM), and (3b) K2 and K3 (the training LSTM forward and backward) at
    T=124, B=2048, C=H=64, K3 in bf16 also part by part (gates,
    recurrence, products: each held to its plain twin and timed); K1 and
-   K2 in bf16 run one tensor-core kernel (``lstm_fwd_mma.cu``); no ptxas
-   spill allowed in it or in K3 bf16's, and K1-K3 repeated bit for bit in
-   both dtypes; (3c) K6 (the
+   K2 in bf16 run one tensor-core kernel (``lstm_fwd_mma.cu``), K3 in f32
+   one launch (``lstm_bwd_f32.cu``); no ptxas spill allowed in them or in
+   K3 bf16's, and K1-K3 repeated bit for bit in both dtypes; (3c) K6 (the
    conv+BN+swish backward) at the four stride-1 block shapes of the
    training path, f32 and bf16 (db against the plain math in f64), with
    ``ConvBNSwish.backward``'s cuDNN path as the library yardstick;
@@ -231,11 +231,12 @@ def lstm_chain_instrs(kind, C, H):
         return 1 + 1 + -(-H // 16) + 1 + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 \
             + 1
     if kind == "bwd":
-        # K3 f32 (lstm_train.cu::lstm_bwd_kernel): LDS the operand -> C + H
-        # FFMA (phase A) -> activations -> LDS, FADD dh -> dc (FMUL, FMUL,
-        # FADD) -> dgates (3 FMUL) -> STS dgates -> BAR -> 4H FFMA into one
-        # accumulator (phase C) -> STS dh -> BAR
-        return 1 + K + ACT_CHAIN + 2 + 3 + 3 + 2 + G + 2
+        # K3 f32 (lstm_bwd_f32.cu; the gate recompute and its activations
+        # need no carry and run a step ahead, dx and dW are off the chain):
+        # BAR -> LDS the two dh halves -> FADD them, FADD dhs -> dc (FMUL,
+        # FMUL, FADD) -> dgates (3 FMUL) -> STS dgates -> BAR -> LDS -> 2H
+        # FFMA into one accumulator (a half of dh = dgates . W_h^T) -> STS
+        return 1 + 1 + 2 + 3 + 3 + 1 + 1 + 1 + G // 2 + 1
     # K3 bf16 (lstm_bwd_mma.cu::lstm_bwd_recurrence_kernel; the other parts
     # have no serial dependence): BAR -> LDS a warp partial -> ceil(H / 8)
     # FADD (the partials in warp order) -> FADD dh -> dc (FMUL, FMUL, FADD)
@@ -454,7 +455,7 @@ def check_lstm_train(dtype, tol):
     fwd_src = ("remora_tpu_torch/csrc/lstm_fwd_mma.cu" if bf16
                else "remora_tpu_torch/csrc/lstm_train.cu")
     bwd_src = ("remora_tpu_torch/csrc/lstm_bwd_mma.cu" if bf16
-               else "remora_tpu_torch/csrc/lstm_train.cu")
+               else "remora_tpu_torch/csrc/lstm_bwd_f32.cu")
     records = []
     for kname, ms, plain_ms, lib_ms, flops, io_bytes, err, replaces, src, \
             chain in (
@@ -616,7 +617,9 @@ def check_convbn_compile():
 
 
 def check_lstm_bwd_compile():
-    """K3 bf16's kernels: registers logged, no spill."""
+    """K3's kernels, f32 and bf16: registers logged, no spill."""
+    check_compile("lstm_bwd_f32", "K3 f32", (
+        "lstm_bwd_f32_kernel", "lstm_bwd_f32_dw_reduce_kernel"))
     check_compile("lstm_bwd_mma", "K3 bf16", (
         "lstm_bwd_gates_kernel", "lstm_bwd_recurrence_kernel",
         "lstm_bwd_dx_kernel", "lstm_bwd_dw_reduce_kernel",
@@ -1144,9 +1147,9 @@ def _loaded_model(ckpt):
     return model.cuda(), meta
 
 
-# K3's kernels by name: lstm_train.cu's f32 pair and lstm_bwd_mma.cu's bf16
-# parts
-K3_KERNELS = r"lstm_bwd_\w*kernel|lstm_dw_reduce"
+# K3's kernels by name: lstm_bwd_f32.cu's f32 pair and lstm_bwd_mma.cu's
+# bf16 parts
+K3_KERNELS = r"lstm_bwd_\w*kernel"
 
 
 def profile_train_step(ckpt, bf16, tag, n_walls=10, convbn=None):

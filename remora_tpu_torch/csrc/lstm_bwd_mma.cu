@@ -5,7 +5,7 @@
 // (launched by _bwd_call): the reverse-time backward of a single-layer LSTM
 // over x (T, B, C) that recomputes the gates from the saved h and c, writes
 // dx and sums dW_aug = sum_t [x_t ; h_{t-1} ; 1]^T . dgates_t. The f32 leg
-// stays lstm_train.cu::lstm_bwd_kernel.
+// is lstm_bwd_f32.cu.
 //
 // Only a sixth of the work depends on the carry. The gates need only the
 // saved x and hs, and dx and dW need only dgates once they are written; the

@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy helpers shared by the kernels that run
-// bf16 products on mma.sync (convbn_bwd.cu, lstm_bwd_mma.cu), sm_90a.
+// bf16 products on mma.sync (convbn_bwd.cu, lstm_bwd_mma.cu,
+// lstm_fwd_mma.cu) and by lstm_bwd_f32.cu's cp.async staging, sm_90a.
 //
 // mma.sync.m16n8k16 fragment layouts (g = lane / 4, q = lane % 4; a 32-bit
 // register holds two bf16, the lower column or depth index in its low half):

@@ -10,7 +10,7 @@ Counterpart of ``remora_tpu/kernels/pallas_lstm.py``:
     Each routes by dtype. K1 and K2 in f32 run ``csrc/lstm_last.cu`` and
     ``csrc/lstm_train.cu::lstm_fwd_kernel``; in bf16 both run
     ``csrc/lstm_fwd_mma.cu``, one tensor-core recurrence (last-only for
-    K1). K3 in f32 runs ``lstm_train.cu``'s one-launch kernel; in bf16
+    K1). K3 in f32 runs ``csrc/lstm_bwd_f32.cu``, one launch; in bf16
     ``csrc/lstm_bwd_mma.cu``, three tensor-core parts
     with wrappers and plain twins of their own (``lstm_bwd_gates``,
     ``lstm_bwd_recurrence``, ``lstm_bwd_products``). ``LSTMFused`` ties K2
@@ -45,6 +45,12 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # ``_max_h``): W_x's B fragments in registers, 4 hidden units a warp of 16
 FWD_MMA_MAX_C = 128
 FWD_MMA_MAX_H = 64
+# the shapes ``csrc/lstm_bwd_f32.cu`` takes (its ``lstm_bwd_f32_fits``):
+# 8 hidden units for each of 8 warps, one 8 x 16 dW tile for each of 256
+# threads
+BWD_F32_MAX_C = 128
+BWD_F32_MAX_H = 64
+BWD_F32_MAX_TILES = 256
 
 
 def make_w_aug(params, dtype):
@@ -87,6 +93,21 @@ def fwd_mma_shape_error(name, C, H):
         return None
     return (f"{name}: the bf16 kernel takes 1 <= C <= {FWD_MMA_MAX_C} and "
             f"1 <= H <= {FWD_MMA_MAX_H}, got C={C}, H={H}")
+
+
+def bwd_f32_shape_error(C, H):
+    """The ``ValueError`` message with which ``lstm_bwd`` refuses an f32 call
+    of C inputs and H hidden units that ``csrc/lstm_bwd_f32.cu`` does not
+    take, or None: C <= 128, H <= 64, and one 8 x 16 tile of the (C + H) x
+    4H weight gradient for each of 256 threads."""
+    if 1 <= C <= BWD_F32_MAX_C and 1 <= H <= BWD_F32_MAX_H:
+        tiles = -(-(C + H) // 8) * -(-H // 4)
+        if tiles <= BWD_F32_MAX_TILES:
+            return None
+    return (f"lstm_bwd: the f32 kernel takes 1 <= C <= {BWD_F32_MAX_C}, "
+            f"1 <= H <= {BWD_F32_MAX_H} and ceil((C + H) / 8) * ceil(H / 4) "
+            f"<= {BWD_F32_MAX_TILES} weight-gradient tiles (C + H <= 128 at "
+            f"H = 64), got C={C}, H={H}")
 
 
 def _fwd_mma_library(name, C, H):
@@ -270,17 +291,31 @@ def _train_library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.lstm_fwd_f32.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.lstm_fwd_f32.restype = i32
-        lib.lstm_bwd_f32.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-        lib.lstm_bwd_f32.restype = i32
         for fn in ("lstm_train_max_c", "lstm_train_max_h"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i32
-        lib.lstm_train_blocks.argtypes = [i32]
-        lib.lstm_train_blocks.restype = i32
-        lib.lstm_bwd_fits.argtypes = [i32, i32]
-        lib.lstm_bwd_fits.restype = i32
         lib.lstm_train_error_string.argtypes = [i32]
         lib.lstm_train_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _bwd_f32_library(C, H):
+    """The library of K3's f32 leg, after the shape check."""
+    msg = bwd_f32_shape_error(C, H)
+    if msg is not None:
+        raise ValueError(msg)
+    lib = _build.load("lstm_bwd_f32")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_bwd_f32.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.lstm_bwd_f32.restype = i32
+        lib.lstm_bwd_f32_blocks.argtypes = [i32]
+        lib.lstm_bwd_f32_blocks.restype = i32
+        lib.lstm_bwd_f32_fits.argtypes = [i32, i32]
+        lib.lstm_bwd_f32_fits.restype = i32
+        lib.lstm_bwd_f32_error_string.argtypes = [i32]
+        lib.lstm_bwd_f32_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
@@ -385,7 +420,7 @@ def _mma_lib(name, ref, C, H):
     if ref.dtype != torch.bfloat16:
         raise ValueError(
             f"{name}: the tensor-core kernels take bf16, got {ref.dtype} "
-            "(lstm_bwd runs f32 on lstm_train.cu's kernel)"
+            "(lstm_bwd runs f32 on lstm_bwd_f32.cu's kernel)"
         )
     lib = _mma_library()
     if not lib.lstm_bwd_mma_fits(C, H):
@@ -485,7 +520,8 @@ def lstm_bwd_products(x, hs, w_aug, dg):
 def lstm_bwd(x, w_aug, hs, cs, dhs):
     """K3: (dx in x's dtype, dW_aug f32 (C + H + 1, 4H)) from the forward's
     saved hs and cs and the hidden-state cotangents dhs. bf16 runs the
-    three tensor-core parts, f32 ``lstm_train.cu``'s one-launch kernel."""
+    three tensor-core parts, f32 ``lstm_bwd_f32.cu``'s one-launch kernel
+    (a shape it does not take raises, ``bwd_f32_shape_error``)."""
     global LAUNCHES_BWD
     if x.device.type == "cpu":
         return lstm_bwd_reference(x, w_aug, hs, cs, dhs)
@@ -496,17 +532,10 @@ def lstm_bwd(x, w_aug, hs, cs, dhs):
         dx, dw = lstm_bwd_products(x, hs, w_aug, dg)
         LAUNCHES_BWD += 1
         return dx, dw
-    lib = _train_library()
-    if not lib.lstm_bwd_fits(C, H):
-        raise ValueError(
-            f"lstm_bwd: kernel takes C <= {lib.lstm_train_max_c()}, H <= "
-            f"{lib.lstm_train_max_h()} and a (C + H) x 4H weight gradient "
-            f"of at most 256 register tiles (C + H <= 128 at H = 64), got "
-            f"C={C}, H={H}"
-        )
+    lib = _bwd_f32_library(C, H)
     dx = torch.empty_like(x)
     partials = torch.empty(
-        (lib.lstm_train_blocks(B), C + H + 1, 4 * H), dtype=torch.float32,
+        (lib.lstm_bwd_f32_blocks(B), C + H + 1, 4 * H), dtype=torch.float32,
         device=x.device,
     )
     dw = torch.empty((C + H + 1, 4 * H), dtype=torch.float32,
@@ -518,7 +547,7 @@ def lstm_bwd(x, w_aug, hs, cs, dhs):
             dw.data_ptr(), T, B, C, H,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib.lstm_train_error_string, "lstm_bwd", err)
+    _raise_on(lib.lstm_bwd_f32_error_string, "lstm_bwd", err)
     LAUNCHES_BWD += 1
     return dx, dw
 

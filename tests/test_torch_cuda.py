@@ -154,13 +154,16 @@ def _rel(got, want):
 
 
 # K2/K3 against their plain versions at small, ragged shapes (batch not a
-# multiple of the 16-row tile, H not a multiple of 16, C != H); f32 is held
-# to full-f32 arithmetic, bf16 rounds h and dgates every step
+# multiple of the 16-row tile, H not a multiple of 16, C != H; for K3 f32's
+# tiles also C + H off its 8- and 16-row k tiles, C and H off 4 (the
+# 4-byte staging), one unit, and C + H = 128 at H = 32); f32 is held to
+# full-f32 arithmetic, bf16 rounds h and dgates every step
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize(
     "T,B,C,H",
-    [(1, 16, 64, 64), (13, 37, 64, 64), (24, 40, 24, 16), (9, 5, 100, 12)],
+    [(1, 16, 64, 64), (13, 37, 64, 64), (24, 40, 24, 16), (9, 5, 100, 12),
+     (5, 23, 13, 6), (3, 33, 1, 1), (4, 50, 96, 32)],
 )
 def test_lstm_train_kernels_match_plain(cuda, T, B, C, H, dtype, tol):
     params, x = _case(T, B, C, H, dtype, cuda)
@@ -199,6 +202,51 @@ def test_lstm_bwd_repeats_bit_for_bit(cuda):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# K3 f32 at shapes the bf16 leg does not take (C + H > 128): the largest
+# shared-memory layout (128, 44) and C = 128 at H = 32, ragged batches
+@pytest.mark.parametrize("T,B,C,H", [(3, 21, 128, 44), (2, 35, 128, 32)])
+def test_lstm_bwd_f32_wide_shapes_match_plain(cuda, T, B, C, H):
+    x, w_aug, hs, cs, dhs = _bwd_inputs(T, B, C, H, torch.float32, cuda)
+    with full_f32():
+        dx, dw = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        dx_ref, dw_ref = K.lstm_bwd_reference(x, w_aug, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert (dx - dx_ref).abs().max().item() <= 1e-5
+    assert _rel(dw, dw_ref) <= 1e-4
+
+
+def test_lstm_bwd_f32_routes_to_its_kernel(cuda, monkeypatch):
+    """f32 K3 loads lstm_bwd_f32's library and launches once (no bf16
+    part); the library's rule is ``bwd_f32_shape_error``'s, and a shape
+    outside it raises with that message."""
+    from remora_tpu_torch.kernels import _build
+
+    loaded = []
+    load = _build.load
+
+    def spy(name):
+        loaded.append(name)
+        return load(name)
+
+    x, w_aug, hs, cs, dhs = _bwd_inputs(6, 24, 64, 64, torch.float32, cuda)
+    monkeypatch.setattr(_build, "load", spy)
+    launches = K.LAUNCHES_BWD, dict(K.LAUNCHES_BWD_MMA)
+    K.lstm_bwd(x, w_aug, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert loaded == ["lstm_bwd_f32"]
+    assert K.LAUNCHES_BWD == launches[0] + 1
+    assert K.LAUNCHES_BWD_MMA == launches[1]
+    lib = load("lstm_bwd_f32")
+    for C in (1, 13, 64, 100, 120, 128, 129):
+        for H in (1, 12, 44, 45, 60, 64, 65):
+            assert bool(lib.lstm_bwd_f32_fits(C, H)) == (
+                K.bwd_f32_shape_error(C, H) is None), (C, H)
+    x, w_aug, hs, cs, dhs = _bwd_inputs(3, 16, 128, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="the f32 kernel takes"):
+        K.lstm_bwd(x, w_aug, hs, cs, dhs)
+    assert K.LAUNCHES_BWD == launches[0] + 1
 
 
 def test_lstm_fused_autograd_on_card(cuda):
@@ -271,7 +319,7 @@ def test_lstm_bwd_mma_parts_match_plain(cuda, T, B, C, H):
 
 
 def test_lstm_bwd_routes_by_dtype(cuda):
-    """bf16 goes to the tensor-core parts, f32 to lstm_train.cu's kernel;
+    """bf16 goes to the tensor-core parts, f32 to lstm_bwd_f32.cu's kernel;
     a part refuses f32 and a shape it does not take."""
     for dtype, parts in ((torch.bfloat16, 1), (torch.float32, 0)):
         x, w_aug, hs, cs, dhs = _bwd_inputs(9, 24, 64, 64, dtype, cuda)

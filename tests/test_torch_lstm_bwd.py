@@ -1,7 +1,7 @@
 """K3, the training LSTM backward, on the CPU: its three plain parts (gates,
 recurrence, products) against the composed plain version and the JAX
-kernel in interpret mode; the CUDA build's library key; and the port's
-fail-fast on an unknown ``REMORA_TPU_CONVBN``."""
+kernel in interpret mode; the f32 kernel's shape rule; the CUDA build's
+library key; and the port's fail-fast on an unknown ``REMORA_TPU_CONVBN``."""
 
 import os
 import shutil
@@ -111,6 +111,45 @@ def test_lstm_bwd_parts_refuse_devices_without_a_kernel():
             call()
 
 
+# ---------------- the f32 kernel's shapes ----------------
+
+
+@pytest.mark.parametrize("C,H,takes", [
+    (64, 64, True), (100, 12, True), (64, 16, True), (1, 1, True),
+    (129, 64, False), (64, 65, False), (0, 8, False),
+    # 16 x 16 = 256 dW tiles at C + H = 128; 24 x 16 past 256 here
+    (128, 64, False),
+])
+def test_bwd_f32_shape_rule(C, H, takes):
+    msg = K.bwd_f32_shape_error(C, H)
+    assert (msg is None) == takes
+    if not takes:
+        assert f"C={C}, H={H}" in msg and "the f32 kernel takes" in msg
+
+
+def test_bwd_f32_shape_rule_takes_every_shape_of_the_old_kernel():
+    """Every (C, H) the one-launch kernel of the earlier design took (C <=
+    128, H <= 64, at most 256 tiles of 8 k x 16 gate columns) is taken, and
+    nothing else."""
+    for C in range(1, 129):
+        for H in range(1, 65):
+            old = -(-(C + H) // 8) * -(-4 * H // 16) <= 256
+            assert (K.bwd_f32_shape_error(C, H) is None) == old, (C, H)
+
+
+@pytest.mark.parametrize("C,H", [(129, 64), (128, 64), (3, 70)])
+def test_lstm_bwd_takes_any_width_on_the_cpu(C, H):
+    """CPU tensors take the plain version whatever the kernel's rule says,
+    and launch nothing."""
+    x, w_aug, dhs = _case(3, 5, C, H, torch.float32)
+    hs, cs = K.lstm_fwd(x, w_aug)
+    launches = K.LAUNCHES_BWD, dict(K.LAUNCHES_BWD_MMA)
+    dx, dw = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+    want = K.lstm_bwd_reference(x, w_aug, hs, cs, dhs)
+    assert torch.equal(dx, want[0]) and torch.equal(dw, want[1])
+    assert (K.LAUNCHES_BWD, dict(K.LAUNCHES_BWD_MMA)) == launches
+
+
 # ---------------- the CUDA build's library key ----------------
 
 _FAKE_NVCC = """#!/bin/sh
@@ -183,10 +222,11 @@ def test_build_rebuilds_when_its_inputs_change(monkeypatch, fake_nvcc,
 
 
 @pytest.mark.parametrize("name", ["lstm_fwd_mma", "lstm_bwd_mma",
-                                  "convbn_bwd"])
+                                  "lstm_bwd_f32", "convbn_bwd"])
 def test_build_key_covers_the_shared_header(fake_nvcc, name):
-    """The package's tensor-core sources, copied as they are, rebuild when
-    the header they share (``mma_sm90.cuh``) changes, and only then."""
+    """The package's sources that include the shared header
+    (``mma_sm90.cuh``: the tensor-core and cp.async helpers), copied as they
+    are, rebuild when it changes, and only then."""
     csrc, ran = fake_nvcc
     real = Path(_build.__file__).resolve().parent.parent / "csrc"
     for f in (f"{name}.cu", "mma_sm90.cuh"):
