@@ -89,11 +89,12 @@ def sass_mix(nvcc, lib, tag="ILb0ELb0ELb1E"):
     return 0, []
 
 
-def build_variants(source, variants, headers=()):
+def build_variants(source, variants, headers=(), flags=()):
     """Build ``csrc/<source>`` once per variant (name -> list of (old, new)
-    textual edits), one ``nvcc`` each, all started together, in a temporary
-    directory beside copies of ``headers``. Returns {name: (library path,
-    nvcc output)}. An edit that no longer matches stops the script."""
+    textual edits), one ``nvcc`` each with the package's flags and
+    ``flags``, all started together, in a temporary directory beside
+    copies of ``headers``. Returns {name: (library path, nvcc output)}. An
+    edit that no longer matches stops the script."""
     sys.path.insert(0, REPO)
     from remora_tpu_torch.kernels import _build
 
@@ -115,7 +116,7 @@ def build_variants(source, variants, headers=()):
         open(path, "w").write(text)
         lib = os.path.join(tmp, f"libv{k}.so")
         jobs[name] = lib, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-o", lib, path],
+            [nvcc, *_build.NVCC_FLAGS, *flags, "-o", lib, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     built = {}
     for name, (path, proc) in jobs.items():

@@ -19,7 +19,13 @@ printed):
    K3 bf16's, and K1-K3 repeated bit for bit in both dtypes; (3c) K6 (the
    conv+BN+swish backward) at the four stride-1 block shapes of the
    training path, f32 and bf16 (db against the plain math in f64), with
-   ``ConvBNSwish.backward``'s cuDNN path as the library yardstick;
+   ``ConvBNSwish.backward``'s cuDNN path as the library yardstick; (3d)
+   the wide LSTM legs (``lstm_wide.cu``, the shapes the main-shape
+   kernels refuse) at T=124, B=2048 and C=H=96 (the shape 6e gives them;
+   these records take 6e's launches into the kernels line) and C=H=128
+   (a line of its own), K1, K2 and K3 in both dtypes against their plain
+   versions, with times, bounds, chains, ``torch.nn.LSTM`` times,
+   registers and spills;
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -44,11 +50,19 @@ printed):
    of 12 steps each, counts set to 0 first: K6 launches once per stride-1
    block and step (4 a step), K2/K3 once a step, finite losses, logs and
    checkpoints written, one pallas-mode step profiled by kernel; (6d) one
-   f32 pallas-mode step against the same step in fused mode;
+   f32 pallas-mode step against the same step in fused mode; (6e) the
+   wide LSTM legs on the model path: ``train_model`` at size 96 for 2
+   steps and its checkpoint through ``ModelHandle.load`` for one batch,
+   f32 and bf16, the wide K2/K3 once a step and K1 once a batch, logits
+   held to the plain LSTM, and one f32 size-96 train step held to the same
+   step with the plain LSTM versions (as 6b);
 8. the banded refinement DP: K4 (forward) and K5 (traceback) against
    their plain versions on the card (8 reads of 400 bases, W = 128) and
    against the native host DP on one micro-batch (64 synthetic reads of
-   4000 bases), Viterbi and dwell_penalty, with their times and bounds;
+   4000 bases), Viterbi and dwell_penalty, with their times and bounds,
+   and K4's time beside the parent design's (its block path, forced at W
+   = 128 by ``chip_dp_variants.build_block_path``, tb rows equal) timed
+   in turns, parent, change, change, parent;
    (8b) the refinement stage at full size: 256 such reads with labels and
    CG focus bases through ``SigMapRefiner.refine_reads_batch`` (device,
    micro-batches of 64, launch counts set to 0 first: K4/K5 launch as the
@@ -60,10 +74,10 @@ printed):
 9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --lstm-kernels`` runs phases 1-3b only (the build,
-K1-K3 against their plain versions with their times, registers and
-spills), for quick turns on the LSTM kernels; its ``kernels`` line has no
-launch counts.
+``python3 chip_smoke.py --lstm-kernels`` runs phases 1-3b and 3d only
+(the build, K1-K3 against their plain versions with their times,
+registers and spills, at the main shape and the wide one), for quick
+turns on the LSTM kernels; its ``kernels`` line has no launch counts.
 
 ``python3 chip_smoke.py --step-walls`` runs only the step profiles of
 phases 6 and 6c (fused and pallas mode, f32 and bf16; 20 unprofiled walls
@@ -104,6 +118,10 @@ N_STAGE_PASSES = 11  # the host's clock is noisy: a median of many passes
 # 2048-chunk test split, over two dataset members
 TRAIN_STEPS, TRAIN_EPOCHS = 12, 3
 TRAIN_LSTM_T = 124  # the LSTM's length at chunk 400
+# the wide LSTM legs (lstm_wide.cu): the model path at size WIDE_SIZE for
+# WIDE_STEPS train steps, its kernels held to their plain versions at that
+# shape and at C = H = WIDE, the widest they take
+WIDE, WIDE_SIZE, WIDE_STEPS = 128, 96, 2
 PALLAS_EPOCHS = 2  # the REMORA_TPU_CONVBN=pallas legs: 2 epochs of 12 steps
 
 
@@ -223,6 +241,18 @@ def lstm_chain_instrs(kind, C, H):
         # gates' activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) -> h =
         # o tanh(c) -> STS h -> BAR
         return 1 + K + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 2
+    if kind == "wide_fwd":
+        # K1/K2 wide (lstm_wide.cu::wide_fwd_kernel): BAR -> LDS the operand
+        # -> C + H FFMA into one accumulator a gate -> FADD bias -> the
+        # gates' activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) -> h =
+        # o tanh(c) -> STS h
+        return 1 + 1 + K + 1 + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1
+    if kind == "wide_bwd":
+        # K3 wide (lstm_wide.cu::wide_rec_kernel; the gate recompute and
+        # the products are other launches): BAR -> LDS dgates -> 4H FFMA
+        # into one accumulator (dh = dgates . W_h^T) -> FADD dhs -> dc
+        # (FMUL, FMUL, FADD) -> dgates (3 FMUL) -> STS dgates
+        return 1 + 1 + G + 1 + 3 + 3 + 1
     if kind == "fwd_mma":
         # K1/K2 bf16 (lstm_fwd_mma.cu; x_t . W_x is off the chain): BAR ->
         # LDSM h_{t-1} -> ceil(H / 16) dependent HMMA -> FADD bias -> the
@@ -263,16 +293,37 @@ def with_chain(record, chain_ms):
     return record
 
 
-def check_lstm_last(dtype, tol):
+def lstm_kernel_of(leg, dtype, C, H):
+    """(record name, source, chain kind) of the kernel that runs ``leg``
+    ("last", "fwd", "bwd") in ``dtype`` at C, H (``kernels.lstm.route``)."""
+    import torch
+
+    from remora_tpu_torch.kernels import lstm as K
+
+    bf16 = dtype == torch.bfloat16
+    sfx = "bf16" if bf16 else "f32"
+    if K.route(leg, dtype, C, H) == "wide":
+        return (f"lstm_{leg}_wide_{sfx}",
+                "remora_tpu_torch/csrc/lstm_wide.cu",
+                "wide_bwd" if leg == "bwd" else "wide_fwd")
+    src = {("last", False): "lstm_last.cu", ("fwd", False): "lstm_train.cu",
+           ("bwd", False): "lstm_bwd_f32.cu",
+           ("bwd", True): "lstm_bwd_mma.cu"}.get((leg, bf16),
+                                                  "lstm_fwd_mma.cu")
+    chain = {"bwd": "bwd_mma" if bf16 else "bwd"}.get(
+        leg, "fwd_mma" if bf16 else "fwd")
+    return f"lstm_{leg}_{sfx}", "remora_tpu_torch/csrc/" + src, chain
+
+
+def check_lstm_last(dtype, tol, C=SIZE, H=SIZE):
     import torch
 
     from remora_tpu_torch.infer.infer import full_f32
     from remora_tpu_torch.kernels import lstm as K
 
-    params, x = lstm_case(dtype)
+    params, x = lstm_case(dtype, C=C, H=H)
     T, B, C = x.shape
     H = params["w_hh"].shape[1]
-    bf16 = dtype == torch.bfloat16
     with full_f32():
         got = K.lstm_last(params, x)
         want = K.lstm_last_reference(params, x)
@@ -280,7 +331,8 @@ def check_lstm_last(dtype, tol):
         check(got.shape == (B, H) and got.dtype == dtype,
               f"lstm_last {dtype}: got {tuple(got.shape)} {got.dtype}")
         err = (got.float() - want.float()).abs().max().item()
-        log(f"lstm_last {dtype}: max |dh| = {err:.3e} (tolerance {tol})")
+        log(f"lstm_last {dtype} C={C} H={H}: max |dh| = {err:.3e} "
+            f"(tolerance {tol})")
         check(np.isfinite(err) and err <= tol,
               f"lstm_last {dtype}: kernel disagrees with the plain version "
               f"(max |dh| {err:.3e} > {tol})")
@@ -305,8 +357,8 @@ def check_lstm_last(dtype, tol):
     flops = 2.0 * T * B * (C + H) * 4 * H
     io_bytes = (x.numel() + (C + H + 1) * 4 * H + B * H) * x.element_size()
     bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
-    name = "lstm_last_" + ("bf16" if bf16 else "f32")
-    chain_ms = lstm_chain_bound_ms("fwd_mma" if bf16 else "fwd", T, C, H)
+    name, source, chain = lstm_kernel_of("last", dtype, C, H)
+    chain_ms = lstm_chain_bound_ms(chain, T, C, H)
     log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.nn.LSTM {library_ms} ms, bound {bound_ms:.4f}"
         f" ms ({flops / 1e9:.2f} GFLOP, {io_bytes / 1e6:.2f} MB), chain "
@@ -314,8 +366,7 @@ def check_lstm_last(dtype, tol):
     return with_chain({
         "name": name,
         "route": "cuda",
-        "source": "remora_tpu_torch/csrc/" + ("lstm_fwd_mma.cu" if bf16
-                                              else "lstm_last.cu"),
+        "source": source,
         "replaces": "remora_tpu/kernels/pallas_lstm.py:181",
         "launches": None,
         "max_abs_err": err,
@@ -364,26 +415,62 @@ def check_lstm_bwd_parts(x, w_aug, hs, cs, dhs):
     return ms
 
 
+def wide_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5):
+    """Device ms of each of ``lstm_wide.cu``'s K3 kernels (gate recompute,
+    recurrence, dx, dW, the ordered dW sum) a call, from torch.profiler
+    over ``calls`` calls."""
+    import torch
+
+    from remora_tpu_torch.kernels import lstm as K
+
+    K.lstm_bwd(x, w_aug, hs, cs, dhs)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(("gates", "recurrence", "dx", "dW", "dW sum"), 0.0)
+    for us, name, _count in kernel_rows(prof):
+        if "wide_rec_kernel" in name:
+            part = "recurrence"
+        elif re.search(K3_DW_SUM, name):
+            part = "dW sum"
+        else:
+            # the products' Op template argument (kGates, kDx, kDw), as
+            # the profiler demangles it or as mangled
+            op = re.search(r"Op\)(\d)|OpE(\d)E", name)
+            if "wide_gemm" not in name or op is None:
+                continue
+            part = ("gates", "dx", "dW")[int(op.group(1) or op.group(2))]
+        ms[part] += us / 1e3 / calls
+    log("lstm_bwd wide parts (torch.profiler): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items()))
+    return ms
+
+
 def rel_err(got, want):
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max()).item()
 
 
-def check_lstm_train(dtype, tol):
+def check_lstm_train(dtype, tol, C=SIZE, H=SIZE):
     """K2 (with cs) and K3 against their plain versions at the training
-    path's shape; returns their two kernel records."""
+    path's shape (or another C, H); returns their two kernel records."""
     import torch
 
     from remora_tpu_torch.infer.infer import full_f32
     from remora_tpu_torch.kernels import lstm as K
 
-    params, x = lstm_case(dtype, T=TRAIN_LSTM_T, seed=3)
+    params, x = lstm_case(dtype, T=TRAIN_LSTM_T, C=C, H=H, seed=3)
     T, B, C = x.shape
     H = params["w_hh"].shape[1]
     w_aug = K.make_w_aug(params, dtype)
     dhs = torch.from_numpy(np.random.default_rng(4).normal(
         size=(T, B, H)).astype(np.float32)).cuda().to(dtype)
     sfx = "f32" if dtype == torch.float32 else "bf16"
+    if (C, H) != (SIZE, SIZE):
+        sfx += f" C={C} H={H}"
     with full_f32():
         hs, cs = K.lstm_fwd(x, w_aug)
         hs_ref, cs_ref = K.lstm_fwd_reference(x, w_aug)
@@ -415,8 +502,11 @@ def check_lstm_train(dtype, tol):
               f"lstm_bwd {sfx}: a second call gave other bits")
         log(f"lstm_fwd/bwd {sfx}: a second call repeats hs, cs, dx and dW "
             "bit for bit; hs without cs is the same")
+        bwd_chain = lstm_kernel_of("bwd", dtype, C, H)[2]
         parts_ms = (check_lstm_bwd_parts(x, w_aug, hs, cs, dhs)
-                    if dtype == torch.bfloat16 else None)
+                    if bwd_chain == "bwd_mma" else
+                    wide_bwd_parts_ms(x, w_aug, hs, cs, dhs)
+                    if bwd_chain == "wide_bwd" else None)
 
         fwd_ms = time_ms(lambda: K.lstm_fwd(x, w_aug))
         fwd_plain_ms = time_ms(lambda: K.lstm_fwd_reference(x, w_aug), n=5,
@@ -451,30 +541,23 @@ def check_lstm_train(dtype, tol):
     # and dW written (each kernel's scratch is the design's)
     bwd_bytes = (2 * n_x + 3 * n_h) * isz + w_bytes \
         + (C + H + 1) * 4 * H * 4
-    bf16 = dtype == torch.bfloat16
-    fwd_src = ("remora_tpu_torch/csrc/lstm_fwd_mma.cu" if bf16
-               else "remora_tpu_torch/csrc/lstm_train.cu")
-    bwd_src = ("remora_tpu_torch/csrc/lstm_bwd_mma.cu" if bf16
-               else "remora_tpu_torch/csrc/lstm_bwd_f32.cu")
     records = []
-    for kname, ms, plain_ms, lib_ms, flops, io_bytes, err, replaces, src, \
-            chain in (
-        ("lstm_fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_flops, fwd_bytes,
+    for leg, ms, plain_ms, lib_ms, flops, io_bytes, err, replaces in (
+        ("fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_flops, fwd_bytes,
          max(errs["hs"], errs["cs"]),
-         "remora_tpu/kernels/pallas_lstm.py:137", fwd_src,
-         "fwd_mma" if bf16 else "fwd"),
-        ("lstm_bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_flops, bwd_bytes,
-         errs["dx"], "remora_tpu/kernels/pallas_lstm.py:251", bwd_src,
-         "bwd_mma" if bf16 else "bwd"),
+         "remora_tpu/kernels/pallas_lstm.py:137"),
+        ("bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_flops, bwd_bytes,
+         errs["dx"], "remora_tpu/kernels/pallas_lstm.py:251"),
     ):
+        name, src, chain = lstm_kernel_of(leg, dtype, C, H)
         bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
         chain_ms = lstm_chain_bound_ms(chain, T, C, H)
-        log(f"{kname}_{sfx}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"torch.nn.LSTM {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        log(f"{name} C={C} H={H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, torch.nn.LSTM {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}; {flops / 1e9:.2f} GFLOP, {io_bytes / 1e6:.2f} "
             f"MB), chain {chain_ms:.4f} ms")
         records.append(with_chain({
-            "name": f"{kname}_{sfx}",
+            "name": name,
             "route": "cuda",
             "source": src,
             "replaces": replaces,
@@ -619,10 +702,10 @@ def check_convbn_compile():
 def check_lstm_bwd_compile():
     """K3's kernels, f32 and bf16: registers logged, no spill."""
     check_compile("lstm_bwd_f32", "K3 f32", (
-        "lstm_bwd_f32_kernel", "lstm_bwd_f32_dw_reduce_kernel"))
+        "lstm_bwd_f32_kernel", "ordered_sum"))
     check_compile("lstm_bwd_mma", "K3 bf16", (
         "lstm_bwd_gates_kernel", "lstm_bwd_recurrence_kernel",
-        "lstm_bwd_dx_kernel", "lstm_bwd_dw_reduce_kernel",
+        "lstm_bwd_dx_kernel", "ordered_sum",
         "lstm_bwd_dw_kernel"))
 
 
@@ -630,6 +713,112 @@ def check_lstm_fwd_compile():
     """K1/K2 bf16's kernel, each instantiation: registers logged, no
     spill."""
     check_compile("lstm_fwd_mma", "K1/K2 bf16", ("lstm_fwd_mma_kernel",))
+
+
+def check_lstm_wide_compile():
+    """The wide LSTM legs' kernels (lstm_wide.cu), each instantiation:
+    registers logged, no spill."""
+    check_compile("lstm_wide", "wide LSTM", (
+        "wide_fwd_kernel", "wide_rec_kernel", "wide_gemm_f32_kernel",
+        "wide_gemm_bf16_kernel", "ordered_sum"))
+
+
+def check_lstm_wide():
+    """Phase 3d: K1, K2 and K3 on ``lstm_wide.cu`` against their plain
+    versions, each dtype, at T = 124, B = BATCH and C = H = WIDE_SIZE (the
+    shape phase 6e's model path gives them) and at C = H = WIDE. The
+    WIDE records are logged as a line of their own; returns the WIDE_SIZE
+    records (K1, K2, K3) by dtype, which take 6e's launches into the
+    kernels line."""
+    import torch
+
+    check_lstm_wide_compile()
+    records = {
+        width: {dtype: [check_lstm_last(dtype, tol, C=width, H=width),
+                        *check_lstm_train(dtype, tol, C=width, H=width)]
+                for dtype, tol in ((torch.float32, 1e-5),
+                                   (torch.bfloat16, 2e-2))}
+        for width in (WIDE_SIZE, WIDE)}
+    log(json.dumps({f"wide_lstm_at_{WIDE}": [
+        rec for recs in records[WIDE].values() for rec in recs]}))
+    return records[WIDE_SIZE]
+
+
+def wide_model_path(root, config, records):
+    """Phase 6e: ConvLSTM_w_ref at size WIDE_SIZE on the card, f32 and
+    bf16: ``train_model`` for WIDE_STEPS steps (K2 and K3 on lstm_wide.cu
+    once a step), then its checkpoint through ``ModelHandle.load`` for one
+    batch (K1 on lstm_wide.cu once), logits finite and held to the same
+    handle with the plain LSTM; the f32 checkpoint's train step held to the
+    same step with the plain K2/K3 (``check_train_step_vs_plain``). Sets
+    the wide records' launches from the train and serve runs."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import ModelHandle
+    from remora_tpu_torch.kernels import lstm as K
+    from remora_tpu_torch.train import optim
+    from remora_tpu_torch.train.train import train_model
+
+    arrs = synth_inputs(np.random.default_rng(8), BATCH)
+    for dtype, bf16 in ((torch.float32, False), (torch.bfloat16, True)):
+        tag = f"wide_size{WIDE_SIZE}_{'bf16' if bf16 else 'f32'}"
+        out = os.path.join(root, tag)
+        K.LAUNCHES_WIDE.update(dict.fromkeys(K.LAUNCHES_WIDE, 0))
+        t0 = time.monotonic()
+        train_model(
+            seed=1, out_path=out, remora_dataset_path=config,
+            chunk_context=None, kmer_context_bases=None, batch_size=BATCH,
+            model_name="ConvLSTM_w_ref", size=WIDE_SIZE,
+            train_opts=optim.TrainOpts(epochs=1,
+                                       lr_scheduler_str="constant",
+                                       learning_rate=2e-3),
+            chunks_per_epoch=WIDE_STEPS * BATCH, num_test_chunks=BATCH,
+            bf16_compute=bf16,
+        )
+        train_launches = dict(K.LAUNCHES_WIDE)
+        with open(os.path.join(out, "batch.log")) as fh:
+            losses = [float(line.split()[1]) for line in fh.readlines()[1:]]
+        log(f"{tag}: train_model {WIDE_STEPS} steps in "
+            f"{time.monotonic() - t0:.1f} s (with validation and "
+            f"checkpoints); wide launches {train_launches}; losses {losses}")
+        check(train_launches["fwd"] == train_launches["bwd"] == WIDE_STEPS,
+              f"{tag}: the wide K2/K3 launched {train_launches} times for "
+              f"{WIDE_STEPS} steps")
+        check(len(losses) == WIDE_STEPS and np.isfinite(losses).all(),
+              f"{tag}: batch.log losses {losses}")
+        handle = ModelHandle.load(
+            os.path.join(out, "model_final.checkpoint"),
+            compute_dtype=dtype if bf16 else None)
+        check(handle.device.type == "cuda", f"{tag}: handle on "
+              f"{handle.device}")
+        K.LAUNCHES_WIDE.update(dict.fromkeys(K.LAUNCHES_WIDE, 0))
+        logits = handle.eval_raw(*arrs).cpu().numpy()
+        last_launches = K.LAUNCHES_WIDE["last"]
+        with plain_lstm():
+            plain = handle.eval_raw(*arrs).cpu().numpy()
+        check(logits.shape == (BATCH, 2) and np.isfinite(logits).all(),
+              f"{tag}: logits {logits.shape}, finite "
+              f"{np.isfinite(logits).all()}")
+        check(last_launches == 1,
+              f"{tag}: the wide K1 launched {last_launches} times for one "
+              "batch")
+        if bf16:
+            diff = int(np.abs(ml_bytes(logits) - ml_bytes(plain)).max())
+            log(f"{tag}: ModelHandle batch of {BATCH}: ML bytes vs plain "
+                f"LSTM max |delta| {diff} (tolerance 1)")
+            check(diff <= 1, f"{tag}: ML bytes moved by more than 1")
+        else:
+            err = float(np.abs(logits - plain).max())
+            log(f"{tag}: ModelHandle batch of {BATCH}: max |logit - "
+                f"plain-LSTM logit| {err:.3e} (tolerance 1e-4)")
+            check(err <= 1e-4, f"{tag}: logits disagree with the plain LSTM")
+        k1, k2, k3 = records[dtype]
+        k1["launches"] = last_launches
+        k2["launches"] = train_launches["fwd"]
+        k3["launches"] = train_launches["bwd"]
+        if not bf16:
+            check_train_step_vs_plain(
+                os.path.join(out, "model_final.checkpoint"), wide=True)
 
 
 def check_convbn(dtype, tols):
@@ -1147,9 +1336,11 @@ def _loaded_model(ckpt):
     return model.cuda(), meta
 
 
-# K3's kernels by name: lstm_bwd_f32.cu's f32 pair and lstm_bwd_mma.cu's
-# bf16 parts
-K3_KERNELS = r"lstm_bwd_\w*kernel"
+# K3's kernels by name: lstm_bwd_f32.cu's f32 kernel and lstm_bwd_mma.cu's
+# bf16 parts, and the ordered dW sum each launches (mma_sm90.cuh's
+# ordered_sum<0>, demangled or mangled; K6's is ordered_sum<64>)
+K3_DW_SUM = r"ordered_sum(<0>|ILi0E)"
+K3_KERNELS = r"lstm_bwd_\w*kernel|" + K3_DW_SUM
 
 
 def profile_train_step(ckpt, bf16, tag, n_walls=10, convbn=None):
@@ -1233,10 +1424,11 @@ def plain_lstm_train():
         K.lstm_fwd, K.lstm_bwd = kernels
 
 
-def check_train_step_vs_plain(ckpt):
+def check_train_step_vs_plain(ckpt, wide=False):
     """One f32 train step (forward, loss, backward) with K2/K3 against the
     same step with their plain versions, from the same checkpoint and
-    batch: loss <= 1e-5, LSTM and fc gradients <= 1e-4 relative."""
+    batch: loss <= 1e-5, LSTM and fc gradients <= 1e-4 relative. ``wide``:
+    the kernels' step must run on lstm_wide.cu."""
     import torch
 
     from remora_tpu_torch.infer.infer import _put, full_f32
@@ -1253,6 +1445,7 @@ def check_train_step_vs_plain(ckpt):
         model, meta = _loaded_model(ckpt)
         loss_fn = T.make_loss_fn(model, channels_last=True)
         launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
+        wide_launches = dict(K.LAUNCHES_WIDE)
         with (plain_lstm_train() if plain else contextlib.nullcontext()), \
                 full_f32():
             bb, ab = meta["kmer_context_bases"]
@@ -1265,6 +1458,11 @@ def check_train_step_vs_plain(ckpt):
         ran = (K.LAUNCHES_FWD - launches[0], K.LAUNCHES_BWD - launches[1])
         check(ran == ((0, 0) if plain else (1, 1)),
               f"train step (plain={plain}) launched K2/K3 {ran} times")
+        ran_wide = tuple(K.LAUNCHES_WIDE[leg] - wide_launches[leg]
+                         for leg in ("fwd", "bwd"))
+        check(ran_wide == ((1, 1) if wide and not plain else (0, 0)),
+              f"train step (plain={plain}) launched the wide K2/K3 "
+              f"{ran_wide} times")
         grads = {name: p.grad for name, p in T.sorted_params(model)
                  if name.split("/")[0] in ("lstm1", "lstm2", "fc")
                  and p.grad is not None}
@@ -1274,7 +1472,8 @@ def check_train_step_vs_plain(ckpt):
     rel = {name: ((k_grads[name] - g).abs().max()
                   / g.abs().max().clamp(min=1e-30)).item()
            for name, g in p_grads.items()}
-    log(f"train step, kernels vs plain LSTM: loss {k_loss:.6f} vs "
+    log(f"train step{' (wide)' if wide else ''}, kernels vs plain LSTM: "
+        f"loss {k_loss:.6f} vs "
         f"{p_loss:.6f} (|d| {dloss:.3e}, tolerance 1e-5); worst relative "
         f"gradient gap {max(rel.values()):.3e} ({max(rel, key=rel.get)}; "
         f"tolerance 1e-4)")
@@ -1371,11 +1570,11 @@ STAGE_CHUNK_CONTEXT, STAGE_KMER_CONTEXT = (200, 200), (4, 4)
 STAGE_MAX_SEQ_LEN = 400 // 5  # prepare's chunk width // min samples/base
 STAGE_MAX_CHUNKS = 100_000  # above every read's site count: no RNG draw
 # dependent latency of one stay-fold step on the card, in SM cycles: the
-# chain cs -> FADD (stay = cs + base) -> FSETP (cand < stay) -> FSEL (cs =
-# take ? cand : stay) in the SASS of the fold loop (cuobjdump -sass of
-# libbanded_dp.so), 4 + 4 + 4 cycles for the three dependent f32 ops of
-# Hopper's FMA-pipe latency
-FOLD_STEP_CYCLES = 12
+# staged path's (W <= 128, banded_dp.cu::fold_rows) chain cs -> FADD (stay =
+# cs + base) -> FMNMX (cs = fminf(cand, stay)), 4 + 4 cycles of Hopper's
+# FMA-pipe latency; the code's select runs beside it. (The block path, W >
+# 128, selects the score: FADD -> FSETP -> FSEL, 12 cycles.)
+FOLD_STEP_CYCLES = 8
 # a stay-only row (dwell_penalty's past-band suffix): one dependent FADD
 STAY_STEP_CYCLES = 4
 
@@ -1468,6 +1667,7 @@ def check_banded_dp():
     path's (Viterbi's numbers are logged)."""
     import torch
 
+    from chip_dp_variants import build_block_path
     from remora_tpu_torch.io.native import banded_dp_path, get_lib
     from remora_tpu_torch.kernels import banded_dp as K
     from remora_tpu_torch.refine.refiner import DEFAULT_REFINE_SHORT_DWELL_PEN
@@ -1521,6 +1721,8 @@ def check_banded_dp():
     w_main = width_bucket(batch)
     sig, lvl, st, wd, sl = dp_tensors(batch, w_main, cuda)
     R, N = lvl.shape
+    # the parent design's kernel (the block path, forced at W = 128)
+    block = build_block_path()
     for algo in ("Viterbi", "dwell_penalty"):
         dwell = algo == "dwell_penalty"
         path, tb, _ = K.banded_dp_batch(sig, lvl, st, wd, sl, sdp, algo=algo,
@@ -1536,8 +1738,35 @@ def check_banded_dp():
               f"K4/K5 {algo}: {diffs} path entries differ from the native "
               "host DP")
         W = tb.shape[2]
-        fwd_ms = time_ms(lambda: K.dp_forward(sig, lvl, st, wd, sdp, dwell,
-                                              W))
+        tb_block = torch.empty_like(tb)
+
+        def parent():
+            err = block.banded_dp_forward(
+                sig.data_ptr(), lvl.data_ptr(), st.data_ptr(), wd.data_ptr(),
+                sdp.data_ptr(), sdp.numel(), int(dwell), R, N, sig.shape[1],
+                W, tb_block.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"K4 {algo} (block path): launch error {err}")
+
+        parent()
+        torch.cuda.synchronize()
+        check(torch.equal(tb_block, tb),
+              f"K4 {algo}: the block path's tb rows differ from the staged "
+              "path's")
+        # parent, change, change, parent on one card
+        turns = [(name, time_ms(fn)) for name, fn in (
+            ("parent", parent),
+            ("change", lambda: K.dp_forward(sig, lvl, st, wd, sdp, dwell,
+                                            W)),
+            ("change", lambda: K.dp_forward(sig, lvl, st, wd, sdp, dwell,
+                                            W)),
+            ("parent", parent))]
+        fwd_ms = statistics.mean(ms for name, ms in turns if name == "change")
+        parent_ms = statistics.mean(ms for name, ms in turns
+                                    if name == "parent")
+        log(f"K4 {algo} at the micro-batch, parent design (block path) vs "
+            f"this kernel (staged path), in turns: " + ", ".join(
+                f"{name} {ms:.4f} ms" for name, ms in turns)
+            + "; tb rows equal")
         tb_ms = time_ms(lambda: K.dp_traceback(tb, st, wd, sl))
         # K4's floor: the serial fold chain of the read that needs longest
         cycles, rows, suffix = dp_chain_cycles(st, wd, sdp.numel(), dwell)
@@ -1574,7 +1803,8 @@ def check_banded_dp():
              "source": "remora_tpu_torch/csrc/banded_dp.cu",
              "replaces": "remora_tpu/kernels/pallas_dp.py:240",
              "launches": None, "max_abs_err": plain_err[algo][0],
-             "ms": fwd_ms, "plain_ms": plain_ms[algo][0],
+             "ms": fwd_ms, "parent_ms": parent_ms,
+             "plain_ms": plain_ms[algo][0],
              "ms_at_plain_shape": small_ms[algo][0],
              "bound_ms": max(chain_ms, fwd_bytes_ms),
              "bound_by": "operations" if chain_ms >= fwd_bytes_ms
@@ -1949,10 +2179,11 @@ def main():
         torch.float32: check_lstm_train(torch.float32, 1e-5),
         torch.bfloat16: check_lstm_train(torch.bfloat16, 2e-2),
     }
+    wide_kernels = check_lstm_wide()
     if sys.argv[1:] == ["--lstm-kernels"]:
-        # phases 1-3b only: no main path ran, so no launch counts
+        # phases 1-3b and 3d only: no main path ran, so no launch counts
         records = list(kernels.values())
-        for recs in train_kernels.values():
+        for recs in (*train_kernels.values(), *wide_kernels.values()):
             records.extend(recs)
         return finish(records)
     # relative to each output's largest entry: f32 rounding everywhere but
@@ -2009,6 +2240,8 @@ def main():
                                bf16, tag, convbn="pallas")
         # 6d: a pallas-mode step against the fused-mode step
         check_pallas_step_vs_fused(final)
+        # 6e: the wide LSTM legs on the model path at size WIDE_SIZE
+        wide_model_path(tmp, config, wide_kernels)
 
     dp_kernels = check_banded_dp()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2025,8 +2258,8 @@ def main():
         **refine_rates,
     }}))
     records = list(kernels.values())
-    for recs in (*train_kernels.values(), *convbn_kernels.values(),
-                 dp_kernels):
+    for recs in (*train_kernels.values(), *wide_kernels.values(),
+                 *convbn_kernels.values(), dp_kernels):
         records.extend(recs)
     return finish(records)
 

@@ -243,6 +243,393 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------- K4 for bands of W <= kStagedMaxBand ----------------
+//
+// The block path above keeps every base's work between block barriers and
+// reads the base's metadata and signal from device memory at the top of
+// the base, on the chain between one fold and the next; and its fold runs
+// ~44 cycles a row against the 12 of its dependent ops (chip_dp_variants.py
+// splits it: 2.87 us a base at W = 128 on an H100, 1.83 of them the
+// folds). The staged path splits the block into two roles:
+//   * producers (3 warps): for a chunk of bases, one chunk ahead of the
+//     consumers, the band's start and width, its costs base[p] =
+//     (signal[st + p] - level)^2 (kBatch signal loads in flight a thread)
+//     and, in
+//     dwell_penalty mode, the dwell run sums run_d[p] = base[p] + base[p-1]
+//     + ... + base[p-d] (the block path's order), into a double-buffered
+//     ring in shared memory. One block barrier a chunk hands a buffer over;
+//     no device-memory load is on the consumers' chain.
+//   * consumers: a fold warp, whose thread 0 runs the folds, and 4 row
+//     warps, whose thread p owns band row p (W <= 128) for the parallel
+//     phases (the move candidates, the dwell candidates with the copy of
+//     the rows below p0c, the traceback row's store, coalesced); the
+//     consumers' own named barrier between phases. The short-dwell
+//     candidates need only the previous base's scores, so the row warps
+//     take them while the fold warp runs the first fold (in a warp of
+//     their own, the rows do not serialize with the fold). The
+//     carried scores are double-buffered by base, so the dwell candidates
+//     read the previous base's scores while the copy writes the new ones.
+//   * the fold (fold_rows) runs four rows a group with no per-row branch
+//     (rows w .. up to the next multiple of 8 fold on stale inputs and are
+//     never read), a group's scores and codes stored as one 16-byte store
+//     each, two groups' operands in flight; the carried score takes
+//     fminf(cand, stay), so the score chain is FADD -> FMNMX, and the
+//     code's select runs beside it. fminf is the strict-< select's value
+//     unless stay is NaN (no score is -0), and stay is NaN exactly from
+//     the base's first NaN band cost on (a NaN signal sample or level):
+//     the producers note that row (nan_row), and the move phase makes the
+//     candidates of the rows from it on NaN, where fminf gives NaN as the
+//     select does (the codes are unchanged: c < NaN is false either way).
+//     So tb stays the block path's and the plain twin's on any input.
+// The folds stay one serial pass in row order with the block path's
+// association: tb rows and paths are bit-identical to it.
+
+constexpr int kFoldThreads = 32;        // the fold's warp: thread 0 folds
+constexpr int kStagedMaxBand = 128;     // rows: one row thread each
+constexpr int kConsumerThreads = kFoldThreads + kStagedMaxBand;
+constexpr int kProducerThreads = 96;
+constexpr int kStagedThreads = kConsumerThreads + kProducerThreads;
+constexpr int kBatch = 8;              // a producer's signal loads in flight
+constexpr int kMaxChunk = 16;          // bases a ring buffer
+constexpr int kRingBudget = 160 * 1024;  // bytes of the two ring buffers
+
+// named barriers of one role's warps (barrier 0 is __syncthreads)
+__device__ __forceinline__ void producers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kProducerThreads) : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(kConsumerThreads) : "memory");
+}
+
+__host__ __device__ __forceinline__ int round4(int v) {
+  return (v + 3) & ~3;
+}
+
+// Rows g .. g+3 of the stay fold; see the note above. The group's scores
+// and codes leave as one 16-byte store each.
+__device__ __forceinline__ void fold_group(float& cs, int& ct, float4 b,
+                                           float4 c, int4 t, float* os,
+                                           int* ot) {
+  float4 so;
+  int4 to;
+  float stay = __fadd_rn(cs, b.x);
+  ct = c.x < stay ? t.x : ct + 1;
+  cs = fminf(c.x, stay);
+  so.x = cs;
+  to.x = ct;
+  stay = __fadd_rn(cs, b.y);
+  ct = c.y < stay ? t.y : ct + 1;
+  cs = fminf(c.y, stay);
+  so.y = cs;
+  to.y = ct;
+  stay = __fadd_rn(cs, b.z);
+  ct = c.z < stay ? t.z : ct + 1;
+  cs = fminf(c.z, stay);
+  so.z = cs;
+  to.z = ct;
+  stay = __fadd_rn(cs, b.w);
+  ct = c.w < stay ? t.w : ct + 1;
+  cs = fminf(c.w, stay);
+  so.w = cs;
+  to.w = ct;
+  *reinterpret_cast<float4*>(os) = so;
+  *reinterpret_cast<int4*>(ot) = to;
+}
+
+__device__ __forceinline__ void fold_rows(const float* base, const float* cand,
+                                          const int* ctb, float* out_s,
+                                          int* out_t, int w) {
+  float cs = __int_as_float(0x7f800000);  // +inf
+  int ct = 0;
+  // two groups' operands in flight, each set reloaded right after its rows
+  // fold. Rows up to the next multiple of 8 fold (W is one), on stale
+  // inputs past w.
+  const int g1 = 4 < w ? 4 : 0;
+  float4 ba = *reinterpret_cast<const float4*>(base);
+  float4 ca = *reinterpret_cast<const float4*>(cand);
+  int4 ta = *reinterpret_cast<const int4*>(ctb);
+  float4 bb = *reinterpret_cast<const float4*>(base + g1);
+  float4 cb = *reinterpret_cast<const float4*>(cand + g1);
+  int4 tb = *reinterpret_cast<const int4*>(ctb + g1);
+  for (int g = 0; g < w; g += 8) {
+    fold_group(cs, ct, ba, ca, ta, out_s + g, out_t + g);
+    const int ga = g + 8 < w ? g + 8 : 0;
+    ba = *reinterpret_cast<const float4*>(base + ga);
+    ca = *reinterpret_cast<const float4*>(cand + ga);
+    ta = *reinterpret_cast<const int4*>(ctb + ga);
+    fold_group(cs, ct, bb, cb, tb, out_s + g + 4, out_t + g + 4);
+    const int gb = g + 12 < w ? g + 12 : 0;
+    bb = *reinterpret_cast<const float4*>(base + gb);
+    cb = *reinterpret_cast<const float4*>(cand + gb);
+    tb = *reinterpret_cast<const int4*>(ctb + gb);
+  }
+}
+
+__device__ __forceinline__ float band_cost(const float* sig, int S, int col,
+                                           float level) {
+  const float s = (col >= 0 && col < S) ? sig[col] : 0.0f;
+  const float d = __fsub_rn(s, level);
+  return __fmul_rn(d, d);
+}
+
+// The ring: two buffers of `chunk` bases, each [st][w][nan_row] (ints,
+// padded to 4; nan_row is the base's first row with a NaN band cost, or
+// W) then run[base][d][Wp] (d < n_run; run[.][0] is the band cost).
+struct Ring {
+  int chunk, n_run, Wp, buf_words;
+  __device__ int* st(float* ring, int b) const {
+    return reinterpret_cast<int*>(ring + b * buf_words);
+  }
+  __device__ int* wd(float* ring, int b) const {
+    return st(ring, b) + round4(chunk);
+  }
+  __device__ int* nan_row(float* ring, int b) const {
+    return st(ring, b) + 2 * round4(chunk);
+  }
+  __device__ float* run(float* ring, int b, int k, int d) const {
+    return ring + b * buf_words + 3 * round4(chunk) +
+           (k * n_run + d) * Wp;
+  }
+};
+
+__host__ __device__ __forceinline__ int ring_buf_words(int chunk, int n_run,
+                                                       int Wp) {
+  return 3 * round4(chunk) + chunk * n_run * Wp;
+}
+
+template <bool kDwell>
+__global__ void __launch_bounds__(kStagedThreads)
+    dp_forward_staged_kernel(const float* __restrict__ signal,
+                           const float* __restrict__ levels,
+                           const int* __restrict__ starts,
+                           const int* __restrict__ widths,
+                           const float* __restrict__ sdp_g, int L, int N,
+                           int S, int W, int chunk,
+                           int16_t* __restrict__ tb) {
+  extern __shared__ __align__(16) float smem_s[];
+  const int Wp = round4(W);
+  float* prev_buf = smem_s;                        // 2 x Wp: carried scores
+  float* cand = prev_buf + 2 * Wp;                 // Wp
+  int* ctb = reinterpret_cast<int*>(cand + Wp);    // Wp
+  float* unpen = reinterpret_cast<float*>(ctb + Wp);  // Wp (dwell)
+  int* unpen_tb = reinterpret_cast<int*>(unpen + Wp);  // Wp (dwell)
+  float* ring = reinterpret_cast<float*>(unpen_tb + Wp);
+  __shared__ float sdp[kMaxDwell];
+  __shared__ float plv[kMaxChunk];  // the producers' chunk levels
+  const Ring rg{chunk, kDwell ? max(L, 1) : 1, Wp,
+                ring_buf_words(chunk, kDwell ? max(L, 1) : 1, Wp)};
+
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x;
+  const bool consumer = tid < kConsumerThreads;
+  const float* sig = signal + static_cast<int64_t>(r) * S;
+  const float* lvl = levels + static_cast<int64_t>(r) * N;
+  const int* st_r = starts + static_cast<int64_t>(r) * N;
+  const int* wd_r = widths + static_cast<int64_t>(r) * N;
+  int16_t* tb_r = tb + static_cast<int64_t>(r) * N * W;
+  const int n_chunks = (N + chunk - 1) / chunk;
+
+  // the producer warps stage chunk c into buffer c & 1: the bases' starts,
+  // widths and levels, then their band costs (kBatch signal loads in
+  // flight a thread), then in dwell_penalty mode the run sums from the
+  // staged costs; a named barrier of the producers between the phases
+  auto produce = [&](int c) {
+    const int b = c & 1;
+    const int n0 = c * chunk;
+    const int cnt = min(chunk, N - n0);
+    const int ptid = tid - kConsumerThreads;
+    int* mst = rg.st(ring, b);
+    int* mwd = rg.wd(ring, b);
+    int* mnan = rg.nan_row(ring, b);
+    if (ptid < cnt) {
+      mst[ptid] = st_r[n0 + ptid];
+      mwd[ptid] = min(max(wd_r[n0 + ptid], 1), W);
+      mnan[ptid] = W;
+      plv[ptid] = lvl[n0 + ptid];
+    }
+    producers_sync();
+    const int n_el = cnt * W;
+    for (int e0 = ptid; e0 < n_el; e0 += kProducerThreads * kBatch) {
+      float sv[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int e = e0 + i * kProducerThreads;
+        const int k = e / W, p = e - k * W;
+        const int col = e < n_el ? mst[k] + p : -1;
+        sv[i] = (e < n_el && p < mwd[k] && col >= 0 && col < S) ? sig[col]
+                                                                : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int e = e0 + i * kProducerThreads;
+        const int k = e / W, p = e - k * W;
+        if (e < n_el && p < mwd[k]) {
+          const float d = __fsub_rn(sv[i], plv[k]);
+          const float cost = __fmul_rn(d, d);
+          rg.run(ring, b, k, 0)[p] = cost;
+          if (isnan(cost)) atomicMin(&mnan[k], p);
+        }
+      }
+    }
+    if (rg.n_run > 1) {
+      producers_sync();
+      for (int e = ptid; e < n_el; e += kProducerThreads) {
+        const int k = e / W, p = e - k * W;
+        if (p >= mwd[k]) continue;
+        const float* cost = rg.run(ring, b, k, 0);
+        float run = cost[p];
+        for (int d = 1; d < rg.n_run; ++d) {
+          if (p - d >= 0) run = __fadd_rn(run, cost[p - d]);
+          rg.run(ring, b, k, d)[p] = run;
+        }
+      }
+    }
+  };
+
+  if (!consumer) {
+    produce(0);
+  } else {
+    if (kDwell && tid < L) sdp[tid] = sdp_g[tid];
+    for (int p = tid; p < W; p += kConsumerThreads)
+      prev_buf[p] = p == 0 ? 0.0f : kBig;
+  }
+  __syncthreads();
+
+  // consumer state; consumer thread kFoldThreads + p owns band row p
+  const int p = tid - kFoldThreads;
+  const bool row = p >= 0 && p < kStagedMaxBand;
+  int cur = 0, prev_start = 0, prev_valid = 1;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (!consumer) {
+      if (c + 1 < n_chunks) produce(c + 1);
+    } else {
+      const int b = c & 1;
+      const int n0 = c * chunk;
+      const int cnt = min(chunk, N - n0);
+      if (c == 0) {
+        // spoofed carry for the first base: bsd = 1, width w[0]
+        prev_start = rg.st(ring, 0)[0] - 1;
+        prev_valid = rg.wd(ring, 0)[0];
+      }
+      for (int k = 0; k < cnt; ++k) {
+        const int st = rg.st(ring, b)[k];
+        const int w = rg.wd(ring, b)[k];
+        const int nan_row = rg.nan_row(ring, b)[k];
+        const float* base = rg.run(ring, b, k, 0);
+        const float* prev = prev_buf + cur * Wp;
+        float* next = prev_buf + (cur ^ 1) * Wp;
+        const int bsd = st - prev_start;
+        const float prev_last = prev[prev_valid - 1];
+        const bool entry_bsd0 = bsd == 0;
+        const int move_limit = min(prev_valid - bsd, w - 1);
+
+        // move candidates (_move_entries)
+        if (row && p < w) {
+          const float bc = base[p];
+          const int src = p - 1 + bsd;
+          float mv = (src >= 0 && src < prev_valid)
+                         ? __fadd_rn(prev[src], bc)
+                         : kBig;
+          const bool at_entry = p == 0 && entry_bsd0;
+          if (at_entry) mv = __fadd_rn(kLargeScore, prev_last);
+          if (!(p <= move_limit || p == 0)) mv = kBig;
+          // from the first NaN cost on, fminf folds to NaN as the select
+          if (p >= nan_row) mv = __int_as_float(0x7fffffff);
+          cand[p] = mv;
+          ctb[p] = at_entry ? -1 : 0;
+        }
+        consumers_sync();
+        if (!kDwell) {
+          if (tid == 0) fold_rows(base, cand, ctb, next, ctb, w);
+        } else {
+          // thread 0 runs the unpenalized Viterbi pass (kept for the
+          // long-dwell candidate) while every thread takes its row's
+          // short-dwell candidates (_dwell_candidates), which need only the
+          // previous base's scores and the staged run sums
+          if (tid == 0) fold_rows(base, cand, ctb, unpen, unpen_tb, w);
+          const int p0 = prev_valid - bsd + L;
+          const int p0c = max(p0, 1);
+          float curr = __fadd_rn(kLargeScore, prev_last);
+          int pick = -1;
+          float run = 0.0f;
+          if (row && p < w) {
+            run = base[p];
+            for (int d = 0; d < L; ++d) {
+              run = rg.run(ring, b, k, d)[p];
+              const int prev_idx = p - d - 1 + bsd;
+              const bool valid = p < p0 && p >= d &&
+                                 !(entry_bsd0 && p == d) &&
+                                 !(p == 0 && entry_bsd0) && prev_idx >= 0 &&
+                                 prev_idx < prev_valid;
+              if (valid) {
+                const float cd =
+                    __fadd_rn(__fadd_rn(prev[prev_idx], run), sdp[d]);
+                if (cd < curr) {
+                  curr = cd;
+                  pick = d;
+                }
+              }
+            }
+          }
+          consumers_sync();
+          // the long-dwell candidate; rows below p0c take their candidate
+          // whatever the carry, so they are copied into the new scores here
+          if (row && p < w) {
+            if (p < p0 && p >= L) {
+              const float cd = __fadd_rn(unpen[p - L], run);
+              if (cd < curr) {
+                curr = cd;
+                pick = unpen_tb[p - L] + L;
+              }
+            }
+            cand[p] = curr;
+            ctb[p] = pick;
+            if (p < p0c) next[p] = curr;
+          }
+          consumers_sync();
+          // the past-band suffix: a stay-only running sum
+          if (tid == 0 && p0c < w) stay_suffix(base, cand, ctb, next, p0c, w);
+        }
+        consumers_sync();
+
+        // the base's traceback row; thread p rewrites its own cand and ctb
+        // rows next base, so no barrier follows
+        if (row && p < W) {
+          tb_r[static_cast<int64_t>(n0 + k) * W + p] =
+              p < w ? static_cast<int16_t>(ctb[p]) : int16_t(0);
+        }
+        prev_start = st;
+        prev_valid = w;
+        cur ^= 1;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <bool kDwell>
+int launch_staged(const float* signal, const float* levels, const int* starts,
+                const int* widths, const float* sdp, int L, int R, int N,
+                int S, int W, int16_t* tb, cudaStream_t s) {
+  const int Wp = round4(W);
+  const int n_run = kDwell ? max(L, 1) : 1;
+  const int per_base = static_cast<int>(sizeof(float)) * 2 *
+                       (ring_buf_words(1, n_run, Wp));
+  const int chunk = max(1, min(kMaxChunk, kRingBudget / per_base));
+  const size_t smem =
+      sizeof(float) * (6 * static_cast<size_t>(Wp) +
+                       2 * static_cast<size_t>(ring_buf_words(chunk, n_run,
+                                                              Wp)));
+  cudaError_t err = cudaFuncSetAttribute(
+      dp_forward_staged_kernel<kDwell>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dp_forward_staged_kernel<kDwell><<<R, kStagedThreads, smem, s>>>(
+      signal, levels, starts, widths, sdp, L, N, S, W, chunk, tb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 __global__ void dp_traceback_kernel(const int16_t* __restrict__ tb,
                                     const int* __restrict__ starts,
                                     const int* __restrict__ widths,
@@ -286,8 +673,15 @@ int banded_dp_forward(const float* signal, const float* levels,
   if (R <= 0 || N <= 0) return 0;
   if (W <= 0 || W > kMaxBand || L < 0 || L > kMaxDwell)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(W) * 4 * (dwell ? 6 : 4);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the staged path's folds write rows up to w's next multiple of 8
+  if (W <= kStagedMaxBand && W % 8 == 0) {
+    return dwell ? launch_staged<true>(signal, levels, starts, widths, sdp, L,
+                                     R, N, S, W, tb, s)
+                 : launch_staged<false>(signal, levels, starts, widths, sdp, L,
+                                      R, N, S, W, tb, s);
+  }
+  const size_t smem = static_cast<size_t>(W) * 4 * (dwell ? 6 : 4);
   cudaError_t err;
   if (dwell) {
     err = cudaFuncSetAttribute(dp_forward_kernel<true>,

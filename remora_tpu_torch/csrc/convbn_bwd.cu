@@ -305,27 +305,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// sum over parts of partials[part][e], in part order: runs of kRun parts
-// summed apart, then the runs (short chains keep the f32 error down)
+// the partial sums run in part order, runs of kRun parts summed apart and
+// then the runs (mma_sm90.cuh's ordered_sum<kRun>)
 constexpr int kRun = 64;
 
-__global__ void ordered_sum(const float* __restrict__ partials,
-                            float* __restrict__ out, int n_parts,
-                            int n_elems) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_elems) return;
-  float s = 0.f;
-  for (int p0 = 0; p0 < n_parts; p0 += kRun) {
-    const int p1 = min(n_parts, p0 + kRun);
-    float run = 0.f;
-    for (int p = p0; p < p1; ++p) run += partials[(size_t)p * n_elems + e];
-    s += run;
-  }
-  out[e] = s;
-}
-
-// ordered_sum for many parts: one block an element, each thread a run, the
-// runs then summed in order by one thread (the same sums as ordered_sum)
+// ordered_sum<kRun> for many parts: one block an element, each thread a
+// run, the runs then summed in order by one thread (the same sums)
 __global__ void ordered_sum_runs(const float* __restrict__ partials,
                                  float* __restrict__ out, int n_parts,
                                  int n_elems) {
@@ -1563,8 +1548,7 @@ cudaError_t launch_sum(const float* partials, float* out, int n_parts,
     ordered_sum_runs<<<n_elems, 64, n_runs * sizeof(float), stream>>>(
         partials, out, n_parts, n_elems);
   } else {
-    ordered_sum<<<(n_elems + 255) / 256, 256, 0, stream>>>(partials, out,
-                                                           n_parts, n_elems);
+    launch_ordered_sum<kRun>(partials, out, n_parts, n_elems, stream);
   }
   return cudaGetLastError();
 }

@@ -60,7 +60,7 @@
 //   activations and C's halves go through shared memory, so no value is
 //   carried across a barrier in registers but the carries.
 // Each block writes its partial dW_aug (bias row included) to an
-// (n_blocks, C+H+1, 4H) f32 scratch and lstm_bwd_f32_dw_reduce_kernel sums
+// (n_blocks, C+H+1, 4H) f32 scratch and ordered_sum (mma_sm90.cuh) sums
 // the partials in block order: no float atomics, and a repeated call gives
 // the same bits. The main path's shape (C = H = 64) is a compile-time
 // instantiation, so strides and trip counts fold into the instructions.
@@ -521,17 +521,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int e = tid; e < (K + 1) * G; e += kThreads) part[e] = out[e];
 }
 
-// dW = the sum over blocks of the partials, in block order
-__global__ void lstm_bwd_f32_dw_reduce_kernel(
-    const float* __restrict__ partials, float* __restrict__ dw, int n_blocks,
-    int n_elems) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_elems) return;
-  float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += partials[(size_t)b * n_elems + e];
-  dw[e] = s;
-}
-
 int n_blocks(int B) { return (B + kRows - 1) / kRows; }
 
 template <bool kVec, int kC, int kH>
@@ -585,8 +574,9 @@ int lstm_bwd_f32(const void* x, const void* w_aug, const void* hs,
   }
   if (err != cudaSuccess) return (int)err;
   const int n_elems = (C + H + 1) * 4 * H;
-  lstm_bwd_f32_dw_reduce_kernel<<<(n_elems + 255) / 256, 256, 0, s>>>(
-      pf, static_cast<float*>(dw), n_blocks(B), n_elems);
+  // dW = the sum over blocks of the partials, in block order
+  launch_ordered_sum<0>(pf, static_cast<float*>(dw), n_blocks(B), n_elems,
+                        s);
   return (int)cudaGetLastError();
 }
 

@@ -40,7 +40,7 @@
 //       bf16 once; lstm_bwd_dw_kernel: dW_aug = [x ; h_{t-1} ; 1]^T . dgates
 //       (M = C+H+1 padded to m16 tiles, N = 4H, K = T*B), the bias row the
 //       ones column of the staged XH. lstm_bwd_dw_kernel splits K over fixed
-//       row chunks into f32 partials that lstm_bwd_dw_reduce_kernel sums in
+//       row chunks into f32 partials that ordered_sum (mma_sm90.cuh) sums in
 //       chunk order: no float atomics, and two calls give the same bits.
 //
 // Numerics are lstm_bwd_reference's and the JAX kernel's: gates from f32
@@ -736,17 +736,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// dW = the chunks' partials summed in chunk order
-__global__ void lstm_bwd_dw_reduce_kernel(
-    const float* __restrict__ partials, float* __restrict__ dw, int n_chunks,
-    int n_elems) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_elems) return;
-  float s = 0.f;
-  for (int c = 0; c < n_chunks; ++c) s += partials[(size_t)c * n_elems + e];
-  dw[e] = s;
-}
-
 bool fits(int C, int H) {
   return C >= 1 && H >= 1 && H <= kMaxH && C + H <= kMaxK;
 }
@@ -852,10 +841,10 @@ int lstm_bwd_mma_products(const void* x, const void* hs, const void* w_aug,
     if (err != cudaSuccess) return (int)err;
     chunks = wc.chunks;
   }
-  lstm_bwd_dw_reduce_kernel<<<(n_elems + 255) / 256, 256, 0,
-                              (cudaStream_t)stream>>>(
-      static_cast<const float*>(partials), static_cast<float*>(dw), chunks,
-      n_elems);
+  // dW = the chunks' partials summed in chunk order
+  launch_ordered_sum<0>(static_cast<const float*>(partials),
+                        static_cast<float*>(dw), chunks, n_elems,
+                        (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,9 @@
 // Tensor-core and asynchronous-copy helpers shared by the kernels that run
 // bf16 products on mma.sync (convbn_bwd.cu, lstm_bwd_mma.cu,
-// lstm_fwd_mma.cu) and by lstm_bwd_f32.cu's cp.async staging, sm_90a.
+// lstm_fwd_mma.cu, lstm_wide.cu) and by lstm_bwd_f32.cu's cp.async
+// staging, and the ordered sum of per-block partials (ordered_sum) that
+// convbn_bwd.cu, lstm_bwd_f32.cu, lstm_bwd_mma.cu and lstm_wide.cu launch
+// in place of float atomics, sm_90a.
 //
 // mma.sync.m16n8k16 fragment layouts (g = lane / 4, q = lane % 4; a 32-bit
 // register holds two bf16, the lower column or depth index in its low half):
@@ -77,6 +80,38 @@ __device__ __forceinline__ void cp_async16z(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// out[e] = the sum over parts of partials[part][e] (n_elems floats a part),
+// in part order: no atomics, so a repeated call gives the same bits. kRun
+// > 0 sums runs of kRun parts apart, then the runs (short chains keep the
+// f32 error down); kRun = 0 sums the parts in one chain. One thread an
+// element.
+template <int kRun>
+__global__ void ordered_sum(const float* __restrict__ partials,
+                            float* __restrict__ out, int n_parts,
+                            int n_elems) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_elems) return;
+  float s = 0.f;
+  if constexpr (kRun == 0) {
+    for (int p = 0; p < n_parts; ++p) s += partials[(size_t)p * n_elems + e];
+  } else {
+    for (int p0 = 0; p0 < n_parts; p0 += kRun) {
+      const int p1 = min(n_parts, p0 + kRun);
+      float run = 0.f;
+      for (int p = p0; p < p1; ++p) run += partials[(size_t)p * n_elems + e];
+      s += run;
+    }
+  }
+  out[e] = s;
+}
+
+template <int kRun>
+void launch_ordered_sum(const float* partials, float* out, int n_parts,
+                        int n_elems, cudaStream_t stream) {
+  ordered_sum<kRun><<<(n_elems + 255) / 256, 256, 0, stream>>>(
+      partials, out, n_parts, n_elems);
 }
 
 }  // namespace

@@ -252,7 +252,9 @@ def dp_forward(signal, levels, starts, widths, sdp, dwell, W):
     """K4: traceback rows tb (R, N, W) int16 of the banded DP (Viterbi, or
     dwell_penalty when ``dwell``) for signal (R, S) f32, levels (R, N) f32,
     band starts and widths (R, N) int32 (every width in 1 .. W) and the
-    short-dwell penalties sdp (L,) f32."""
+    short-dwell penalties sdp (L,) f32. tb is the plain version's bit for
+    bit on any input, a NaN signal sample or level included (the native
+    host DP's paths agree with both on finite inputs only)."""
     global LAUNCHES_FWD
     if signal.device.type == "cpu":
         return dp_forward_reference(signal, levels, starts, widths, sdp,

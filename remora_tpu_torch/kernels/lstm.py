@@ -17,6 +17,12 @@ Counterpart of ``remora_tpu/kernels/pallas_lstm.py``:
     and K3 into one ``torch.autograd.Function`` and ``lstm_fused`` is the
     drop-in for ``layers.lstm``, as in the JAX package.
 
+Those kernels take the main shape (C = H = 64) and the shapes near it
+(``route``). Every other 1 <= C <= 128, 1 <= H <= 128 goes, in both dtypes
+and all three legs, to ``csrc/lstm_wide.cu``, written for the wider
+layers (W read through L2 on every step); above those limits every entry
+point raises.
+
 The source notes give each kernel's design and bound. Each entry point
 launches its kernel for a CUDA tensor and uses its plain version
 (``lstm_last_reference``, ``lstm_fwd_reference``, ``lstm_bwd_reference``
@@ -51,6 +57,21 @@ FWD_MMA_MAX_H = 64
 BWD_F32_MAX_C = 128
 BWD_F32_MAX_H = 64
 BWD_F32_MAX_TILES = 256
+# the shapes ``lstm_last.cu`` and ``lstm_train.cu`` take (f32 K1, K2)
+F32_FWD_MAX_C = 128
+F32_FWD_MAX_H = 64
+# the shapes ``lstm_bwd_mma.cu`` takes (its ``fits``: 8 hidden units for
+# each of 8 warps, C + H staged at most 128 deep)
+BWD_MMA_MAX_H = 64
+BWD_MMA_MAX_K = 128
+# the shapes ``lstm_wide.cu`` takes: every LSTM leg at C, H <= 128, each
+# in both dtypes (its kMaxC/kMaxH size its tiles; a launch beyond them is
+# refused)
+WIDE_MAX_C = 128
+WIDE_MAX_H = 128
+# launches of ``lstm_wide.cu`` (one per wide call of each leg; the leg's
+# own count above moves too)
+LAUNCHES_WIDE = dict.fromkeys(("last", "fwd", "bwd"), 0)
 
 
 def make_w_aug(params, dtype):
@@ -110,6 +131,76 @@ def bwd_f32_shape_error(C, H):
             f"H = 64), got C={C}, H={H}")
 
 
+def wide_shape_error(name, C, H):
+    """The ``ValueError`` message with which ``name`` refuses C inputs and
+    H hidden units that no kernel takes, or None."""
+    if 1 <= C <= WIDE_MAX_C and 1 <= H <= WIDE_MAX_H:
+        return None
+    return (f"{name}: no kernel takes C={C}, H={H}; the LSTM kernels take "
+            f"1 <= C <= {WIDE_MAX_C} and 1 <= H <= {WIDE_MAX_H}")
+
+
+def route(leg, dtype, C, H):
+    """The kernel of a CUDA call of ``leg`` ("last" K1, "fwd" K2, "bwd" K3)
+    in ``dtype`` at C inputs and H hidden units: "main" for the main-shape
+    kernel of that leg and dtype (``lstm_last.cu``/``lstm_train.cu``,
+    ``lstm_fwd_mma.cu``, ``lstm_bwd_f32.cu``, ``lstm_bwd_mma.cu``) where it
+    takes the shape, else "wide" (``lstm_wide.cu``); a shape no kernel
+    takes raises ``ValueError``."""
+    name = {"last": "lstm_last", "fwd": "lstm_fwd", "bwd": "lstm_bwd"}[leg]
+    msg = wide_shape_error(name, C, H)
+    if msg is not None:
+        raise ValueError(msg)
+    if dtype == torch.bfloat16:
+        main = (fwd_mma_shape_error(name, C, H) is None if leg != "bwd"
+                else H <= BWD_MMA_MAX_H and C + H <= BWD_MMA_MAX_K)
+    elif leg != "bwd":
+        main = C <= F32_FWD_MAX_C and H <= F32_FWD_MAX_H
+    else:
+        main = bwd_f32_shape_error(C, H) is None
+    return "main" if main else "wide"
+
+
+def interleave_gates(w_aug):
+    """W_aug[:C+H] (C + H, 4H) as (C + H, H, 4), each unit's four gate
+    weights of a row side by side: what ``lstm_wide.cu``'s forward loads
+    with one vector load."""
+    H = w_aug.shape[1] // 4
+    K = w_aug.shape[0] - 1
+    return w_aug[:K].reshape(K, 4, H).transpose(1, 2).contiguous()
+
+
+def _wide_launch(fn, dtype, w_aug):
+    """``lstm_wide.cu``'s forward launcher ``fn`` behind the main-shape
+    launchers' signature (x, W_aug, outputs..., T, B, C, H, stream): the
+    dtype flag first and the interleaved W after W_aug."""
+    w_il = interleave_gates(w_aug)
+    bf16 = int(dtype == torch.bfloat16)
+
+    def launch(x_ptr, w_ptr, *rest):
+        return fn(bf16, x_ptr, w_ptr, w_il.data_ptr(), *rest)
+
+    return launch
+
+
+def _wide_library():
+    lib = _build.load("lstm_wide")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_wide_fwd.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.lstm_wide_fwd.restype = i32
+        lib.lstm_wide_last.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.lstm_wide_last.restype = i32
+        lib.lstm_wide_bwd.argtypes = [i32] + [ptr] * 11 + [i32] * 4 + [ptr]
+        lib.lstm_wide_bwd.restype = i32
+        lib.lstm_wide_dw_chunks.argtypes = [i32, i32]
+        lib.lstm_wide_dw_chunks.restype = i32
+        lib.lstm_wide_error_string.argtypes = [i32]
+        lib.lstm_wide_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
 def _fwd_mma_library(name, C, H):
     """The library of K1's and K2's bf16 leg, after the shape check."""
     msg = fwd_mma_shape_error(name, C, H)
@@ -135,7 +226,8 @@ def lstm_last(params, x):
     """Final hidden state h_{T-1} of a forward LSTM over x (T, B, C): (B, H)
     in x's dtype. f32 runs full-f32 arithmetic (``lstm_last.cu``); bf16
     takes bf16 operands (h included) with f32 sums and f32 h/c carries on
-    the tensor cores (``lstm_fwd_mma.cu``, last-only)."""
+    the tensor cores (``lstm_fwd_mma.cu``, last-only). Shapes those
+    kernels refuse run ``lstm_wide.cu`` (``route``)."""
     global LAUNCHES
     if x.device.type == "cpu":
         return lstm_last_reference(params, x)
@@ -152,27 +244,29 @@ def lstm_last(params, x):
             f"lstm_last: w_ih {tuple(params['w_ih'].shape)} does not match "
             f"C={C}, H={H}"
         )
-    if x.dtype == torch.bfloat16:
+    w_aug = make_w_aug(params, x.dtype)
+    if w_aug.device != x.device:
+        raise ValueError("lstm_last: params and x are on different devices")
+    wide = route("last", x.dtype, C, H) == "wide"
+    if wide:
+        lib = _wide_library()
+        launch = _wide_launch(lib.lstm_wide_last, x.dtype, w_aug)
+        error_string = lib.lstm_wide_error_string
+    elif x.dtype == torch.bfloat16:
         lib = _fwd_mma_library("lstm_last", C, H)
         launch, error_string = lib.lstm_fwd_mma_last, \
             lib.lstm_fwd_mma_error_string
     else:
         lib = _library()
-        if C > lib.lstm_last_max_c() or H > lib.lstm_last_max_h():
-            raise ValueError(
-                f"lstm_last: kernel takes C <= {lib.lstm_last_max_c()} and "
-                f"H <= {lib.lstm_last_max_h()}, got C={C}, H={H}"
-            )
         launch, error_string = lib.lstm_last_f32, lib.lstm_last_error_string
-    w_aug = make_w_aug(params, x.dtype)
-    if w_aug.device != x.device:
-        raise ValueError("lstm_last: params and x are on different devices")
     out = torch.empty((B, H), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = launch(x.data_ptr(), w_aug.data_ptr(), out.data_ptr(), T, B, C,
                      H, torch.cuda.current_stream().cuda_stream)
     _raise_on(error_string, "lstm_last", err)
     LAUNCHES += 1
+    if wide:
+        LAUNCHES_WIDE["last"] += 1
     return out
 
 
@@ -361,21 +455,22 @@ def _raise_on(error_string, name, err):
 def lstm_fwd(x, w_aug, want_cs=True):
     """K2: (hs, cs) of a forward LSTM over x (T, B, C), each (T, B, H) in
     x's dtype; cs is None unless ``want_cs``. f32 runs
-    ``lstm_train.cu::lstm_fwd_kernel``, bf16 ``lstm_fwd_mma.cu``."""
+    ``lstm_train.cu::lstm_fwd_kernel``, bf16 ``lstm_fwd_mma.cu``; shapes
+    those kernels refuse ``lstm_wide.cu`` (``route``)."""
     global LAUNCHES_FWD
     if x.device.type == "cpu":
         return lstm_fwd_reference(x, w_aug, want_cs)
     T, B, C, H = _check_cuda("lstm_fwd", x, w_aug)
-    if x.dtype == torch.bfloat16:
+    wide = route("fwd", x.dtype, C, H) == "wide"
+    if wide:
+        lib = _wide_library()
+        launch = _wide_launch(lib.lstm_wide_fwd, x.dtype, w_aug)
+        error_string = lib.lstm_wide_error_string
+    elif x.dtype == torch.bfloat16:
         lib = _fwd_mma_library("lstm_fwd", C, H)
         launch, error_string = lib.lstm_fwd_mma, lib.lstm_fwd_mma_error_string
     else:
         lib = _train_library()
-        if C > lib.lstm_train_max_c() or H > lib.lstm_train_max_h():
-            raise ValueError(
-                f"lstm_fwd: kernel takes C <= {lib.lstm_train_max_c()} and "
-                f"H <= {lib.lstm_train_max_h()}, got C={C}, H={H}"
-            )
         launch, error_string = lib.lstm_fwd_f32, lib.lstm_train_error_string
     hs = torch.empty((T, B, H), dtype=x.dtype, device=x.device)
     cs = torch.empty_like(hs) if want_cs else None
@@ -387,6 +482,8 @@ def lstm_fwd(x, w_aug, want_cs=True):
         )
     _raise_on(error_string, "lstm_fwd", err)
     LAUNCHES_FWD += 1
+    if wide:
+        LAUNCHES_WIDE["fwd"] += 1
     return hs, cs
 
 
@@ -520,12 +617,15 @@ def lstm_bwd_products(x, hs, w_aug, dg):
 def lstm_bwd(x, w_aug, hs, cs, dhs):
     """K3: (dx in x's dtype, dW_aug f32 (C + H + 1, 4H)) from the forward's
     saved hs and cs and the hidden-state cotangents dhs. bf16 runs the
-    three tensor-core parts, f32 ``lstm_bwd_f32.cu``'s one-launch kernel
-    (a shape it does not take raises, ``bwd_f32_shape_error``)."""
+    three tensor-core parts, f32 ``lstm_bwd_f32.cu``'s one-launch kernel;
+    shapes those kernels refuse run ``lstm_wide.cu``'s parts (``route``;
+    above its limits the call raises)."""
     global LAUNCHES_BWD
     if x.device.type == "cpu":
         return lstm_bwd_reference(x, w_aug, hs, cs, dhs)
     T, B, C, H = _check_cuda("lstm_bwd", x, w_aug, hs, cs, dhs)
+    if route("bwd", x.dtype, C, H) == "wide":
+        return _lstm_bwd_wide(x, w_aug, hs, cs, dhs)
     if x.dtype == torch.bfloat16:
         z = lstm_bwd_gates(x, w_aug, hs)
         dg = lstm_bwd_recurrence(z, cs, dhs, w_aug)
@@ -549,6 +649,37 @@ def lstm_bwd(x, w_aug, hs, cs, dhs):
         )
     _raise_on(lib.lstm_bwd_f32_error_string, "lstm_bwd", err)
     LAUNCHES_BWD += 1
+    return dx, dw
+
+
+def _lstm_bwd_wide(x, w_aug, hs, cs, dhs):
+    """K3 through ``lstm_wide.cu``: the gate recompute, the reverse
+    recurrence (dh = dgates . W_h^T, W_h^T copied to (4H, H) so a unit's
+    column is contiguous) and the products with their ordered dW sum, one
+    call of the library (after ``_check_cuda``)."""
+    global LAUNCHES_BWD
+    T, B, C = x.shape
+    H = w_aug.shape[1] // 4
+    lib = _wide_library()
+    dev = x.device
+    w_ht = w_aug[C:C + H].t().contiguous()
+    z = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    dg = torch.empty((T, B, 4 * H), dtype=x.dtype, device=dev)
+    dx = torch.empty_like(x)
+    partials = torch.empty(
+        (lib.lstm_wide_dw_chunks(T, B), C + H + 1, 4 * H),
+        dtype=torch.float32, device=dev)
+    dw = torch.empty((C + H + 1, 4 * H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lstm_wide_bwd(
+            int(x.dtype == torch.bfloat16), x.data_ptr(), w_aug.data_ptr(),
+            w_ht.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+            z.data_ptr(), dg.data_ptr(), dx.data_ptr(), partials.data_ptr(),
+            dw.data_ptr(), T, B, C, H,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib.lstm_wide_error_string, "lstm_bwd", err)
+    LAUNCHES_BWD += 1
+    LAUNCHES_WIDE["bwd"] += 1
     return dx, dw
 
 

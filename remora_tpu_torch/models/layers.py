@@ -384,12 +384,13 @@ def lstm(params, x, reverse=False, impl=None):
     ``impl`` "fused" runs the K2/K3 kernel pair (``kernels.lstm``; hs in
     x's dtype), "scan" a step-by-step loop (the JAX package's ``lax.scan``;
     hs in f32): the input projection for all timesteps is one matmul, the
-    loop carries only h @ W_hh^T. None takes the kernels for a CUDA tensor
-    and the scan for a CPU one, as the JAX package takes its kernels on the
-    TPU and the scan on the CPU.
+    loop carries only h @ W_hh^T. None (or "auto") takes the kernels for a
+    CUDA tensor and the scan for a CPU one, as the JAX package takes its
+    kernels on the TPU and the scan on the CPU; REMORA_TPU_LSTM=fused|scan
+    overrides that (``lstm_impl``).
     """
-    if impl is None:
-        impl = "fused" if x.device.type == "cuda" else "scan"
+    if impl is None or impl == "auto":
+        impl = lstm_impl() or ("fused" if x.device.type == "cuda" else "scan")
     if impl == "fused":
         from remora_tpu_torch.kernels import lstm as lstm_kernel
 
@@ -417,10 +418,27 @@ def lstm(params, x, reverse=False, impl=None):
     return hs.flip(0) if reverse else hs
 
 
-def lstm_last(params, x):
-    """Final hidden state of a forward LSTM over (T, B, C): (B, H) in x's
-    dtype. Runs the last-only kernel on CUDA tensors (the plain scan on
-    CPU tensors); see ``kernels.lstm``."""
+def lstm_impl():
+    """The LSTM implementation REMORA_TPU_LSTM asks for: "fused", "scan",
+    or None (unset or any other value: auto), the rule of the JAX
+    package's ``pallas_lstm.default_to_fused``."""
+    mode = os.environ.get("REMORA_TPU_LSTM", "auto")
+    return mode if mode in ("fused", "scan") else None
+
+
+def lstm_last(params, x, impl=None):
+    """Final hidden state of a forward LSTM over (T, B, C): (B, H).
+
+    "fused" runs the last-only kernel (``kernels.lstm.lstm_last``; in x's
+    dtype, its plain scan for a CPU tensor), "scan" is ``lstm(params, x,
+    impl="scan")[-1]`` (f32) on any device. None (or "auto") takes
+    REMORA_TPU_LSTM's choice, else the kernel wrapper, which runs the
+    kernel for a CUDA tensor and the scan for a CPU one.
+    """
+    if impl is None or impl == "auto":
+        impl = lstm_impl() or "fused"
+    if impl == "scan":
+        return lstm(params, x, impl="scan")[-1]
     from remora_tpu_torch.kernels import lstm as lstm_kernel
 
     return lstm_kernel.lstm_last(params, x)

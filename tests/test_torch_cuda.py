@@ -63,7 +63,7 @@ def test_lstm_last_kernel_refuses_bad_inputs(cuda):
         K.lstm_last(params, x.transpose(0, 1))
     with pytest.raises(ValueError, match="dtype"):
         K.lstm_last(params, x.double())
-    wide, xw = _case(5, 16, 64, 96, torch.float32, cuda)
+    wide, xw = _case(5, 16, 64, 129, torch.float32, cuda)
     with pytest.raises(ValueError, match="kernel takes"):
         K.lstm_last(wide, xw)
 
@@ -139,12 +139,14 @@ def test_lstm_fwd_routes_by_dtype(cuda, monkeypatch):
         K.FWD_MMA_MAX_C, K.FWD_MMA_MAX_H)
 
 
-@pytest.mark.parametrize("C,H", [(129, 64), (64, 65), (16, 72)])
+# shapes above every kernel's limits (the bf16 kernel's refusals of H 65
+# to 128 now go to lstm_wide.cu)
+@pytest.mark.parametrize("C,H", [(129, 64), (64, 129), (16, 200)])
 def test_lstm_fwd_mma_refuses_shapes(cuda, C, H):
     params, x = _case(3, 16, C, H, torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="the bf16 kernel takes"):
+    with pytest.raises(ValueError, match="no kernel takes"):
         K.lstm_fwd(x, _w_aug(params))
-    with pytest.raises(ValueError, match="the bf16 kernel takes"):
+    with pytest.raises(ValueError, match="no kernel takes"):
         K.lstm_last(params, x)
 
 
@@ -243,9 +245,12 @@ def test_lstm_bwd_f32_routes_to_its_kernel(cuda, monkeypatch):
         for H in (1, 12, 44, 45, 60, 64, 65):
             assert bool(lib.lstm_bwd_f32_fits(C, H)) == (
                 K.bwd_f32_shape_error(C, H) is None), (C, H)
-    x, w_aug, hs, cs, dhs = _bwd_inputs(3, 16, 128, 64, torch.float32, cuda)
-    with pytest.raises(ValueError, match="the f32 kernel takes"):
-        K.lstm_bwd(x, w_aug, hs, cs, dhs)
+    # above every kernel's limits ((128, 64), which this kernel refuses,
+    # now runs lstm_wide.cu)
+    params, x = _case(3, 16, 129, 64, torch.float32, cuda)
+    hs = torch.zeros((3, 16, 64), device=cuda)
+    with pytest.raises(ValueError, match="no kernel takes"):
+        K.lstm_bwd(x, _w_aug(params), hs, hs, hs)
     assert K.LAUNCHES_BWD == launches[0] + 1
 
 
@@ -267,6 +272,88 @@ def test_lstm_fused_autograd_on_card(cuda):
         assert _rel(got, want) <= 1e-4
 
 
+# the wide legs (lstm_wide.cu) against their plain versions at the sizes
+# the main-shape kernels refuse: ConvLSTM_w_ref at 96 and 128, and C != H;
+# ragged batches (not a multiple of the 16-row block or the 128-row
+# product tile) and one step; today's tolerances
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,B,C,H", [(7, 37, 96, 96), (5, 133, 128, 128),
+                                     (1, 5, 128, 100), (9, 21, 128, 100)])
+def test_lstm_wide_legs_match_plain(cuda, T, B, C, H, dtype, tol):
+    params, x = _case(T, B, C, H, dtype, cuda)
+    w_aug = _w_aug(params)
+    dhs = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(T, B, H)).astype(np.float32)).to(cuda, dtype)
+    launches = dict(K.LAUNCHES_WIDE)
+    with full_f32():
+        last = K.lstm_last(params, x)
+        last_ref = K.lstm_last_reference(params, x)
+        hs, cs = K.lstm_fwd(x, w_aug)
+        hs_ref, cs_ref = K.lstm_fwd_reference(x, w_aug)
+        hs_nocs, _ = K.lstm_fwd(x, w_aug, want_cs=False)
+        dx, dw = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        dx_ref, dw_ref = K.lstm_bwd_reference(x, w_aug, hs, cs, dhs)
+        again = (K.lstm_last(params, x), *K.lstm_fwd(x, w_aug),
+                 *K.lstm_bwd(x, w_aug, hs, cs, dhs))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES_WIDE == {"last": launches["last"] + 2,
+                               "fwd": launches["fwd"] + 3,
+                               "bwd": launches["bwd"] + 2}
+    assert last.dtype == hs.dtype == cs.dtype == dx.dtype == dtype
+    assert dw.dtype == torch.float32 and dw.shape == (C + H + 1, 4 * H)
+    assert torch.equal(hs_nocs, hs)
+    for got, want in ((last, last_ref), (hs, hs_ref), (cs, cs_ref),
+                      (dx, dx_ref)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, err
+    assert _rel(dw, dw_ref) <= (1e-4 if dtype == torch.float32 else tol)
+    for a, b in zip(again, (last, hs, cs, dx, dw)):
+        assert torch.equal(a, b)
+
+
+def test_lstm_libraries_match_the_shape_rule(cuda):
+    """The limits behind ``route`` are the kernels': lstm_wide.cu refuses a
+    launch past WIDE_MAX_C/H before it reads a pointer, and the f32
+    forwards' and the bf16 backward's maxima are the main-shape rule's."""
+    from remora_tpu_torch.kernels import _build
+
+    K.lstm_last(*_case(2, 3, 96, 96, torch.float32, cuda))
+    wide = _build.load("lstm_wide")
+    for C, H in ((K.WIDE_MAX_C + 1, 8), (8, K.WIDE_MAX_H + 1), (0, 8)):
+        assert K.wide_shape_error("lstm_fwd", C, H) is not None
+        assert wide.lstm_wide_fwd(0, *[None] * 5, 1, 1, C, H, None) != 0
+    last, train = _build.load("lstm_last"), _build.load("lstm_train")
+    for lib, fn in ((last, "lstm_last"), (train, "lstm_train")):
+        assert (getattr(lib, fn + "_max_c")(),
+                getattr(lib, fn + "_max_h")()) == (K.F32_FWD_MAX_C,
+                                                   K.F32_FWD_MAX_H)
+    mma = _build.load("lstm_bwd_mma")
+    assert (mma.lstm_bwd_mma_max_h(), mma.lstm_bwd_mma_max_k()) == (
+        K.BWD_MMA_MAX_H, K.BWD_MMA_MAX_K)
+
+
+def test_lstm_fused_autograd_wide_on_card(cuda):
+    """LSTMFused at C = H = 96 (K2 and K3 on lstm_wide.cu) against
+    autograd through the plain scan, f32 on the card."""
+    params, x = _case(11, 19, 96, 96, torch.float32, cuda)
+    probe = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(11, 19, 96)).astype(np.float32)).to(cuda)
+    grads = []
+    launches = dict(K.LAUNCHES_WIDE)
+    with full_f32():
+        for impl in ("fused", "scan"):
+            p = {k: v.clone().requires_grad_() for k, v in params.items()}
+            xx = x.clone().requires_grad_()
+            hs = K.L.lstm(p, xx, impl=impl)
+            (hs * probe).sum().backward()
+            grads.append([xx.grad] + [p[k].grad for k in sorted(p)])
+    assert K.LAUNCHES_WIDE["fwd"] == launches["fwd"] + 1
+    assert K.LAUNCHES_WIDE["bwd"] == launches["bwd"] + 1
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-4
+
+
 def test_lstm_train_kernels_refuse_bad_inputs(cuda):
     params, x = _case(5, 16, 64, 64, torch.float32, cuda)
     w_aug = _w_aug(params)
@@ -274,11 +361,13 @@ def test_lstm_train_kernels_refuse_bad_inputs(cuda):
         K.lstm_fwd(x.transpose(0, 1).contiguous().transpose(0, 1), w_aug)
     with pytest.raises(ValueError, match="dtype"):
         K.lstm_fwd(x.double(), w_aug.double())
-    wide, xw = _case(5, 16, 128, 64, torch.float32, cuda)
+    wide, xw = _case(5, 16, 129, 64, torch.float32, cuda)
     ww = _w_aug(wide)
-    hs, cs = K.lstm_fwd(xw, ww)
     with pytest.raises(ValueError, match="kernel takes"):
-        K.lstm_bwd(xw, ww, hs, cs, hs)
+        K.lstm_fwd(xw, ww)
+    hs = torch.zeros((5, 16, 64), device=cuda)
+    with pytest.raises(ValueError, match="kernel takes"):
+        K.lstm_bwd(xw, ww, hs, hs, hs)
 
 
 def _bwd_inputs(T, B, C, H, dtype, device):
@@ -320,7 +409,8 @@ def test_lstm_bwd_mma_parts_match_plain(cuda, T, B, C, H):
 
 def test_lstm_bwd_routes_by_dtype(cuda):
     """bf16 goes to the tensor-core parts, f32 to lstm_bwd_f32.cu's kernel;
-    a part refuses f32 and a shape it does not take."""
+    a part refuses f32 and a shape it does not take, which ``lstm_bwd``
+    sends to lstm_wide.cu instead."""
     for dtype, parts in ((torch.bfloat16, 1), (torch.float32, 0)):
         x, w_aug, hs, cs, dhs = _bwd_inputs(9, 24, 64, 64, dtype, cuda)
         launches = dict(K.LAUNCHES_BWD_MMA), K.LAUNCHES_BWD
@@ -333,7 +423,12 @@ def test_lstm_bwd_routes_by_dtype(cuda):
         K.lstm_bwd_gates(x, w_aug, hs)
     x, w_aug, hs, cs, dhs = _bwd_inputs(3, 16, 72, 64, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="kernel takes"):
-        K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        K.lstm_bwd_gates(x, w_aug, hs)
+    launches = dict(K.LAUNCHES_BWD_MMA), K.LAUNCHES_WIDE["bwd"]
+    K.lstm_bwd(x, w_aug, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES_BWD_MMA, K.LAUNCHES_WIDE["bwd"]) == (
+        launches[0], launches[1] + 1)
 
 
 def test_lstm_bwd_bf16_repeats_bit_for_bit(cuda):
@@ -351,23 +446,29 @@ def test_lstm_bwd_bf16_repeats_bit_for_bit(cuda):
 # ---------------- K4 / K5: the banded refinement DP ----------------
 
 
-def _dp_case(seed, lengths, stall=False):
-    """Reads of ``lengths`` bases (one with a 220-sample stall when
-    ``stall``), bands as the refiner builds them; (reads, sdp, bucket)."""
+def _dp_case(seed, lengths, stall=False, stall_len=220, narrow=False):
+    """Reads of ``lengths`` bases (one with a ``stall_len``-sample stall
+    when ``stall``), bands as the refiner builds them, or when ``narrow``
+    bases of 2 or 3 samples in bands of the base's samples +- 2 (widths 4
+    to 8); (reads, sdp, bucket)."""
     from remora_tpu_torch.refine import band
     from remora_tpu_torch.refine.refiner import DEFAULT_REFINE_SHORT_DWELL_PEN
 
     rng = np.random.default_rng(seed)
     reads = []
     for k, n in enumerate(lengths):
-        spb = rng.integers(1, 12, n)
+        spb = rng.integers(2, 4, n) if narrow else rng.integers(1, 12, n)
         if stall and k == 1:
-            spb[n // 2] = 220
+            spb[n // 2] = stall_len
         bps = np.concatenate([[0], np.cumsum(spb)]).astype(np.int64)
         levels = rng.normal(size=n).astype(np.float32)
         signal = rng.normal(size=int(bps[-1])).astype(np.float32)
-        seq_band = band.convert_to_seq_band(
-            band.compute_sig_band(bps, levels, bhw=5))
+        if narrow:
+            seq_band = np.clip(np.stack([bps[:-1] - 2, bps[1:] + 2]), 0,
+                               bps[-1])
+        else:
+            seq_band = band.convert_to_seq_band(
+                band.compute_sig_band(bps, levels, bhw=5))
         band.adjust_seq_band(seq_band)
         reads.append((signal, levels, seq_band))
     w = max(16, max(int((b[1] - b[0]).max()) for _s, _l, b in reads))
@@ -414,6 +515,64 @@ def test_banded_dp_kernels_match_plain_and_native(cuda, algo, lengths,
     for r, (signal, levels, seq_band) in enumerate(reads):
         want = banded_dp_path(signal, levels, seq_band, sdp_np, algo)
         assert np.array_equal(got[r, : levels.size + 1], want)
+
+
+# the launch widths at the kernel's limits: W = 8 (narrow bands, the warp
+# path's smallest instantiation) and W = 4096 (a 3500-sample stall, the
+# block path at REFINE_DEVICE_MAX_BAND); held to the plain versions and
+# the native host DP
+@pytest.mark.parametrize("algo", ["Viterbi", "dwell_penalty"])
+@pytest.mark.parametrize("W,case", [
+    (8, dict(lengths=(60, 45, 70), narrow=True)),
+    (4096, dict(lengths=(20, 24), stall=True, stall_len=3500)),
+])
+def test_banded_dp_kernels_at_the_band_limits(cuda, algo, W, case):
+    from remora_tpu_torch.io.native import banded_dp_path
+    from remora_tpu_torch.kernels import banded_dp as DP
+
+    reads, sdp_np, _ = _dp_case(W, **case)
+    w_max = max(int((b[1] - b[0]).max()) for _s, _l, b in reads)
+    assert (DP.launch_width(w_max) == W if W == 8
+            else 2048 < w_max <= W)
+    sig, lvl, st, wd, sl = _dp_inputs(reads, w_max, cuda)
+    sdp = torch.from_numpy(sdp_np).to(cuda)
+    dwell = algo == "dwell_penalty"
+    tb = DP.dp_forward(sig, lvl, st, wd, sdp, dwell, W)
+    path = DP.dp_traceback(tb, st, wd, sl)
+    torch.cuda.synchronize()
+    tb_ref = DP.dp_forward_reference(sig, lvl, st, wd, sdp, dwell, W)
+    assert torch.equal(tb, tb_ref)
+    assert torch.equal(path, DP.dp_traceback_reference(tb_ref, st, wd, sl))
+    got = path.cpu().numpy()
+    for r, (signal, levels, seq_band) in enumerate(reads):
+        want = banded_dp_path(signal, levels, seq_band, sdp_np, algo)
+        assert np.array_equal(got[r, : levels.size + 1], want)
+
+
+# a NaN signal sample and a NaN level: the staged path (W <= 128) folds
+# such a base with the strict-< select, so both paths keep the plain
+# version's tb and path (the native host DP differs on such inputs)
+@pytest.mark.parametrize("algo", ["Viterbi", "dwell_penalty"])
+@pytest.mark.parametrize("lengths,stall", [((60, 80, 50), False),
+                                           ((40, 50, 30), True)])
+def test_banded_dp_kernels_follow_the_plain_version_on_nan(cuda, algo,
+                                                           lengths, stall):
+    from remora_tpu_torch.kernels import banded_dp as DP
+
+    reads, sdp_np, w_max = _dp_case(7, lengths, stall)
+    reads[1][0][100] = np.nan
+    reads[2][1][10] = np.nan
+    sig, lvl, st, wd, sl = _dp_inputs(reads, w_max, cuda)
+    sdp = torch.from_numpy(sdp_np).to(cuda)
+    dwell = algo == "dwell_penalty"
+    W = DP.launch_width(w_max)
+    assert (W <= 128) != stall
+    tb = DP.dp_forward(sig, lvl, st, wd, sdp, dwell, W)
+    path = DP.dp_traceback(tb, st, wd, sl)
+    torch.cuda.synchronize()
+    tb_ref = DP.dp_forward_reference(sig, lvl, st, wd, sdp, dwell, W)
+    assert torch.equal(tb, tb_ref)
+    assert torch.equal(path, DP.dp_traceback_reference(tb_ref, st, wd, sl))
 
 
 def test_banded_dp_kernels_repeat_bit_for_bit(cuda):

@@ -63,7 +63,8 @@ def test_port_imports_with_jax_blocked():
 @pytest.mark.parametrize(
     "path",
     [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",
-     REPO / "chip_lstm_fwd_variants.py", REPO / "chip_lstm_bwd_variants.py"],
+     REPO / "chip_lstm_fwd_variants.py", REPO / "chip_lstm_bwd_variants.py",
+     REPO / "chip_dp_variants.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_remora_tpu_import(path):
