@@ -89,8 +89,9 @@ def sass_mix(nvcc, lib, tag="ILb0ELb0ELb1E"):
     return 0, []
 
 
-def build_variants(source, variants, headers=(), flags=()):
-    """Build ``csrc/<source>`` once per variant (name -> list of (old, new)
+def build_variants(source, variants, headers=(), flags=(), csrc=CSRC):
+    """Build ``<csrc>/<source>`` (the package's ``csrc/`` unless another
+    checkout's is given) once per variant (name -> list of (old, new)
     textual edits), one ``nvcc`` each with the package's flags and
     ``flags``, all started together, in a temporary directory beside
     copies of ``headers``. Returns {name: (library path, nvcc output)}. An
@@ -99,10 +100,10 @@ def build_variants(source, variants, headers=(), flags=()):
     from remora_tpu_torch.kernels import _build
 
     nvcc = _build._nvcc()
-    src = open(os.path.join(CSRC, source)).read()
+    src = open(os.path.join(csrc, source)).read()
     tmp = tempfile.mkdtemp()
     for header in headers:
-        with open(os.path.join(CSRC, header)) as fh:
+        with open(os.path.join(csrc, header)) as fh:
             open(os.path.join(tmp, header), "w").write(fh.read())
     jobs = {}
     for k, (name, edits) in enumerate(variants.items()):

@@ -20,12 +20,14 @@ printed):
    conv+BN+swish backward) at the four stride-1 block shapes of the
    training path, f32 and bf16 (db against the plain math in f64), with
    ``ConvBNSwish.backward``'s cuDNN path as the library yardstick; (3d)
-   the wide LSTM legs (``lstm_wide.cu``, the shapes the main-shape
-   kernels refuse) at T=124, B=2048 and C=H=96 (the shape 6e gives them;
-   these records take 6e's launches into the kernels line) and C=H=128
-   (a line of its own), K1, K2 and K3 in both dtypes against their plain
-   versions, with times, bounds, chains, ``torch.nn.LSTM`` times,
-   registers and spills;
+   the wide LSTM legs (``lstm_wide.cu`` for K1/K2, ``lstm_wide_bwd.cu``
+   for K3, the shapes the main-shape kernels refuse) at T=124, B=2048
+   and C=H=96 (the shape 6e gives them; these records take 6e's launches
+   into the kernels line) and C=H=128 (a line of its own), K1, K2 and K3
+   in both dtypes against their plain versions, with times, bounds,
+   chains, ``torch.nn.LSTM`` times, registers and spills, the wide K3 by
+   part, and a line of the wide K3 beside cuDNN's backward at both
+   widths;
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -118,7 +120,7 @@ N_STAGE_PASSES = 11  # the host's clock is noisy: a median of many passes
 # 2048-chunk test split, over two dataset members
 TRAIN_STEPS, TRAIN_EPOCHS = 12, 3
 TRAIN_LSTM_T = 124  # the LSTM's length at chunk 400
-# the wide LSTM legs (lstm_wide.cu): the model path at size WIDE_SIZE for
+# the wide LSTM legs (lstm_wide.cu, lstm_wide_bwd.cu): the model path at size WIDE_SIZE for
 # WIDE_STEPS train steps, its kernels held to their plain versions at that
 # shape and at C = H = WIDE, the widest they take
 WIDE, WIDE_SIZE, WIDE_STEPS = 128, 96, 2
@@ -247,12 +249,26 @@ def lstm_chain_instrs(kind, C, H):
         # gates' activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) -> h =
         # o tanh(c) -> STS h
         return 1 + 1 + K + 1 + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1
-    if kind == "wide_bwd":
-        # K3 wide (lstm_wide.cu::wide_rec_kernel; the gate recompute and
-        # the products are other launches): BAR -> LDS dgates -> 4H FFMA
-        # into one accumulator (dh = dgates . W_h^T) -> FADD dhs -> dc
-        # (FMUL, FMUL, FADD) -> dgates (3 FMUL) -> STS dgates
-        return 1 + 1 + G + 1 + 3 + 3 + 1
+    if kind in ("wide_bwd", "wide_bwd_mma"):
+        # K3 wide (lstm_wide_bwd.cu::wide_rec_cluster_kernel; the gate
+        # recompute and the products are other launches), a CTA of the
+        # cluster: cluster BAR (wait) -> LDS the partner's dh sum -> FADD
+        # the own sum -> FADD dhs -> dc (FMUL, FFMA) -> dgates (3 FMUL) ->
+        # STS dgates -> BAR -> LDS -> the product's dependent chain (f32:
+        # the k split's FFMA into one accumulator, 4hh / nsplit deep; bf16:
+        # 4hh / 16 HMMA) -> BAR -> STS the split partial -> BAR -> LDS ->
+        # nsplit FADD (the splits in order) -> st.shared::cluster
+        half = -(-H // 2)
+        hh = -(-half // 8) * 8
+        if kind == "wide_bwd_mma":
+            depth, nsplit = 4 * hh // 16, 1
+        else:
+            span = 32 * (1 if H <= 32 else 2 if H <= 64 else 3 if H <= 96
+                         else 2)
+            nsplit = 8 // -(-H // span)
+            depth = 4 * hh // nsplit
+        return 1 + 1 + 1 + 1 + 2 + 3 + 1 + 1 + 1 + depth + 1 + 1 + 1 + 1 \
+            + nsplit + 1
     if kind == "fwd_mma":
         # K1/K2 bf16 (lstm_fwd_mma.cu; x_t . W_x is off the chain): BAR ->
         # LDSM h_{t-1} -> ceil(H / 16) dependent HMMA -> FADD bias -> the
@@ -303,9 +319,12 @@ def lstm_kernel_of(leg, dtype, C, H):
     bf16 = dtype == torch.bfloat16
     sfx = "bf16" if bf16 else "f32"
     if K.route(leg, dtype, C, H) == "wide":
+        if leg == "bwd":
+            return (f"lstm_bwd_wide_{sfx}",
+                    "remora_tpu_torch/csrc/lstm_wide_bwd.cu",
+                    "wide_bwd_mma" if bf16 else "wide_bwd")
         return (f"lstm_{leg}_wide_{sfx}",
-                "remora_tpu_torch/csrc/lstm_wide.cu",
-                "wide_bwd" if leg == "bwd" else "wide_fwd")
+                "remora_tpu_torch/csrc/lstm_wide.cu", "wide_fwd")
     src = {("last", False): "lstm_last.cu", ("fwd", False): "lstm_train.cu",
            ("bwd", False): "lstm_bwd_f32.cu",
            ("bwd", True): "lstm_bwd_mma.cu"}.get((leg, bf16),
@@ -416,9 +435,9 @@ def check_lstm_bwd_parts(x, w_aug, hs, cs, dhs):
 
 
 def wide_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5):
-    """Device ms of each of ``lstm_wide.cu``'s K3 kernels (gate recompute,
-    recurrence, dx, dW, the ordered dW sum) a call, from torch.profiler
-    over ``calls`` calls."""
+    """Device ms of each of ``lstm_wide_bwd.cu``'s K3 kernels (gate
+    recompute, recurrence, dx, dW, the ordered dW sum) a call, from
+    torch.profiler over ``calls`` calls."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -432,7 +451,7 @@ def wide_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5):
         torch.cuda.synchronize()
     ms = dict.fromkeys(("gates", "recurrence", "dx", "dW", "dW sum"), 0.0)
     for us, name, _count in kernel_rows(prof):
-        if "wide_rec_kernel" in name:
+        if "wide_rec_cluster_kernel" in name:
             part = "recurrence"
         elif re.search(K3_DW_SUM, name):
             part = "dW sum"
@@ -440,13 +459,35 @@ def wide_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5):
             # the products' Op template argument (kGates, kDx, kDw), as
             # the profiler demangles it or as mangled
             op = re.search(r"Op\)(\d)|OpE(\d)E", name)
-            if "wide_gemm" not in name or op is None:
+            if "wide_prod" not in name or op is None:
                 continue
             part = ("gates", "dx", "dW")[int(op.group(1) or op.group(2))]
         ms[part] += us / 1e3 / calls
     log("lstm_bwd wide parts (torch.profiler): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in ms.items()))
     return ms
+
+
+def wide_bwd_part_bounds(T, B, C, H, dtype):
+    """Bound ms of each part of the wide K3 as ``lstm_wide_bwd.cu`` splits
+    it (Z and dgates through device memory): the larger of its operations
+    over the dtype's peak and the bytes it must move (each input read
+    once, each output written once: the gates read [x ; h] and write Z in
+    f32; the recurrence reads Z, c and dh and writes dgates; dx reads
+    dgates and writes dx; dW reads [x ; h] and dgates)."""
+    import torch
+
+    tb, G, K = T * B, 4 * H, C + H
+    isz = 4 if dtype == torch.float32 else 2
+    parts = {
+        "gates": (2.0 * tb * K * G, tb * K * isz + tb * G * 4),
+        "recurrence": (2.0 * tb * G * H,
+                       tb * G * 4 + 2 * tb * H * isz + tb * G * isz),
+        "dx": (2.0 * tb * G * C, tb * G * isz + tb * C * isz),
+        "dW": (2.0 * tb * K * G, tb * K * isz + tb * G * isz),
+    }
+    return {name: lstm_bound(flops, io, dtype)[0]
+            for name, (flops, io) in parts.items()}
 
 
 def rel_err(got, want):
@@ -506,7 +547,7 @@ def check_lstm_train(dtype, tol, C=SIZE, H=SIZE):
         parts_ms = (check_lstm_bwd_parts(x, w_aug, hs, cs, dhs)
                     if bwd_chain == "bwd_mma" else
                     wide_bwd_parts_ms(x, w_aug, hs, cs, dhs)
-                    if bwd_chain == "wide_bwd" else None)
+                    if bwd_chain.startswith("wide_bwd") else None)
 
         fwd_ms = time_ms(lambda: K.lstm_fwd(x, w_aug))
         fwd_plain_ms = time_ms(lambda: K.lstm_fwd_reference(x, w_aug), n=5,
@@ -716,16 +757,17 @@ def check_lstm_fwd_compile():
 
 
 def check_lstm_wide_compile():
-    """The wide LSTM legs' kernels (lstm_wide.cu), each instantiation:
-    registers logged, no spill."""
-    check_compile("lstm_wide", "wide LSTM", (
-        "wide_fwd_kernel", "wide_rec_kernel", "wide_gemm_f32_kernel",
-        "wide_gemm_bf16_kernel", "ordered_sum"))
+    """The wide LSTM legs' kernels (lstm_wide.cu, lstm_wide_bwd.cu), each
+    instantiation: registers logged, no spill."""
+    check_compile("lstm_wide", "wide K1/K2", ("wide_fwd_kernel",))
+    check_compile("lstm_wide_bwd", "wide K3", (
+        "wide_rec_cluster_kernel", "wide_prod_f32_kernel",
+        "wide_prod_bf16_kernel", "ordered_sum"))
 
 
 def check_lstm_wide():
-    """Phase 3d: K1, K2 and K3 on ``lstm_wide.cu`` against their plain
-    versions, each dtype, at T = 124, B = BATCH and C = H = WIDE_SIZE (the
+    """Phase 3d: K1, K2 on ``lstm_wide.cu`` and K3 on ``lstm_wide_bwd.cu``
+    against their plain versions, each dtype, at T = 124, B = BATCH and C = H = WIDE_SIZE (the
     shape phase 6e's model path gives them) and at C = H = WIDE. The
     WIDE records are logged as a line of their own; returns the WIDE_SIZE
     records (K1, K2, K3) by dtype, which take 6e's launches into the
@@ -741,13 +783,24 @@ def check_lstm_wide():
         for width in (WIDE_SIZE, WIDE)}
     log(json.dumps({f"wide_lstm_at_{WIDE}": [
         rec for recs in records[WIDE].values() for rec in recs]}))
+    # the wide K3 beside cuDNN's backward (torch.nn.LSTM, data and
+    # weights) at both widths, from the records above
+    log(json.dumps({"wide_k3_vs_cudnn_bwd": {
+        f"C=H={width}": {
+            rec["name"]: {"ms": rec["ms"], "cudnn_bwd_ms": rec["library_ms"],
+                          "parts_ms": rec.get("parts_ms"),
+                          "parts_bound_ms": wide_bwd_part_bounds(
+                              TRAIN_LSTM_T, BATCH, width, width, dtype)}
+            for dtype, recs in records[width].items() for rec in recs
+            if rec["name"].startswith("lstm_bwd")}
+        for width in (WIDE_SIZE, WIDE)}}))
     return records[WIDE_SIZE]
 
 
 def wide_model_path(root, config, records):
     """Phase 6e: ConvLSTM_w_ref at size WIDE_SIZE on the card, f32 and
-    bf16: ``train_model`` for WIDE_STEPS steps (K2 and K3 on lstm_wide.cu
-    once a step), then its checkpoint through ``ModelHandle.load`` for one
+    bf16: ``train_model`` for WIDE_STEPS steps (K2 on lstm_wide.cu and K3
+    on lstm_wide_bwd.cu once a step), then its checkpoint through ``ModelHandle.load`` for one
     batch (K1 on lstm_wide.cu once), logits finite and held to the same
     handle with the plain LSTM; the f32 checkpoint's train step held to the
     same step with the plain K2/K3 (``check_train_step_vs_plain``). Sets
@@ -1428,7 +1481,8 @@ def check_train_step_vs_plain(ckpt, wide=False):
     """One f32 train step (forward, loss, backward) with K2/K3 against the
     same step with their plain versions, from the same checkpoint and
     batch: loss <= 1e-5, LSTM and fc gradients <= 1e-4 relative. ``wide``:
-    the kernels' step must run on lstm_wide.cu."""
+    the kernels' step must run on the wide kernels (lstm_wide.cu,
+    lstm_wide_bwd.cu)."""
     import torch
 
     from remora_tpu_torch.infer.infer import _put, full_f32

@@ -19,9 +19,11 @@ Counterpart of ``remora_tpu/kernels/pallas_lstm.py``:
 
 Those kernels take the main shape (C = H = 64) and the shapes near it
 (``route``). Every other 1 <= C <= 128, 1 <= H <= 128 goes, in both dtypes
-and all three legs, to ``csrc/lstm_wide.cu``, written for the wider
-layers (W read through L2 on every step); above those limits every entry
-point raises.
+and all three legs, to the kernels written for the wider layers:
+``csrc/lstm_wide.cu`` for K1 and K2 (W read through L2 on every step),
+``csrc/lstm_wide_bwd.cu`` for K3 (its recurrence on clusters of two CTAs,
+each holding a slice of W_h^T in shared memory); above those limits every
+entry point raises.
 
 The source notes give each kernel's design and bound. Each entry point
 launches its kernel for a CUDA tensor and uses its plain version
@@ -64,12 +66,12 @@ F32_FWD_MAX_H = 64
 # each of 8 warps, C + H staged at most 128 deep)
 BWD_MMA_MAX_H = 64
 BWD_MMA_MAX_K = 128
-# the shapes ``lstm_wide.cu`` takes: every LSTM leg at C, H <= 128, each
-# in both dtypes (its kMaxC/kMaxH size its tiles; a launch beyond them is
-# refused)
+# the shapes ``lstm_wide.cu`` (K1, K2) and ``lstm_wide_bwd.cu`` (K3) take:
+# every LSTM leg at C, H <= 128, each in both dtypes (their kMaxC/kMaxH size
+# their tiles; a launch beyond them is refused)
 WIDE_MAX_C = 128
 WIDE_MAX_H = 128
-# launches of ``lstm_wide.cu`` (one per wide call of each leg; the leg's
+# launches of the wide kernels (one per wide call of each leg; the leg's
 # own count above moves too)
 LAUNCHES_WIDE = dict.fromkeys(("last", "fwd", "bwd"), 0)
 
@@ -145,8 +147,8 @@ def route(leg, dtype, C, H):
     in ``dtype`` at C inputs and H hidden units: "main" for the main-shape
     kernel of that leg and dtype (``lstm_last.cu``/``lstm_train.cu``,
     ``lstm_fwd_mma.cu``, ``lstm_bwd_f32.cu``, ``lstm_bwd_mma.cu``) where it
-    takes the shape, else "wide" (``lstm_wide.cu``); a shape no kernel
-    takes raises ``ValueError``."""
+    takes the shape, else "wide" (``lstm_wide.cu``, K3 ``lstm_wide_bwd.cu``);
+    a shape no kernel takes raises ``ValueError``."""
     name = {"last": "lstm_last", "fwd": "lstm_fwd", "bwd": "lstm_bwd"}[leg]
     msg = wide_shape_error(name, C, H)
     if msg is not None:
@@ -191,14 +193,32 @@ def _wide_library():
         lib.lstm_wide_fwd.restype = i32
         lib.lstm_wide_last.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
         lib.lstm_wide_last.restype = i32
-        lib.lstm_wide_bwd.argtypes = [i32] + [ptr] * 11 + [i32] * 4 + [ptr]
-        lib.lstm_wide_bwd.restype = i32
-        lib.lstm_wide_dw_chunks.argtypes = [i32, i32]
-        lib.lstm_wide_dw_chunks.restype = i32
         lib.lstm_wide_error_string.argtypes = [i32]
         lib.lstm_wide_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _wide_bwd_library():
+    lib = _build.load("lstm_wide_bwd")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_wide_bwd.argtypes = [i32] + [ptr] * 12 + [i32] * 4 + [ptr]
+        lib.lstm_wide_bwd.restype = i32
+        lib.lstm_wide_bwd_dw_chunks.argtypes = [i32, i32]
+        lib.lstm_wide_bwd_dw_chunks.restype = i32
+        lib.lstm_wide_bwd_error_string.argtypes = [i32]
+        lib.lstm_wide_bwd_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def wide_bwd_weights(w_aug, C):
+    """(W_h^T (4H, H), W_x^T (4H, C)) of W_aug (C + H + 1, 4H), contiguous:
+    what ``lstm_wide_bwd.cu`` reads, the recurrence's slice of W_h^T's rows
+    per CTA and dx's B operand with its columns contiguous."""
+    H = w_aug.shape[1] // 4
+    return (w_aug[C:C + H].t().contiguous(), w_aug[:C].t().contiguous())
 
 
 def _fwd_mma_library(name, C, H):
@@ -618,8 +638,8 @@ def lstm_bwd(x, w_aug, hs, cs, dhs):
     """K3: (dx in x's dtype, dW_aug f32 (C + H + 1, 4H)) from the forward's
     saved hs and cs and the hidden-state cotangents dhs. bf16 runs the
     three tensor-core parts, f32 ``lstm_bwd_f32.cu``'s one-launch kernel;
-    shapes those kernels refuse run ``lstm_wide.cu``'s parts (``route``;
-    above its limits the call raises)."""
+    shapes those kernels refuse run ``lstm_wide_bwd.cu``'s parts
+    (``route``; above its limits the call raises)."""
     global LAUNCHES_BWD
     if x.device.type == "cpu":
         return lstm_bwd_reference(x, w_aug, hs, cs, dhs)
@@ -653,31 +673,32 @@ def lstm_bwd(x, w_aug, hs, cs, dhs):
 
 
 def _lstm_bwd_wide(x, w_aug, hs, cs, dhs):
-    """K3 through ``lstm_wide.cu``: the gate recompute, the reverse
-    recurrence (dh = dgates . W_h^T, W_h^T copied to (4H, H) so a unit's
-    column is contiguous) and the products with their ordered dW sum, one
-    call of the library (after ``_check_cuda``)."""
+    """K3 through ``lstm_wide_bwd.cu``: the gate recompute, the reverse
+    recurrence on clusters of two CTAs (dh = dgates . W_h^T, each CTA's
+    slice of W_h^T in shared memory) and the products with their ordered dW
+    sum, one call of the library (after ``_check_cuda``). A cluster the card
+    cannot hold raises."""
     global LAUNCHES_BWD
     T, B, C = x.shape
     H = w_aug.shape[1] // 4
-    lib = _wide_library()
+    lib = _wide_bwd_library()
     dev = x.device
-    w_ht = w_aug[C:C + H].t().contiguous()
+    w_ht, w_xt = wide_bwd_weights(w_aug, C)
     z = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     dg = torch.empty((T, B, 4 * H), dtype=x.dtype, device=dev)
     dx = torch.empty_like(x)
     partials = torch.empty(
-        (lib.lstm_wide_dw_chunks(T, B), C + H + 1, 4 * H),
+        (lib.lstm_wide_bwd_dw_chunks(T, B), C + H + 1, 4 * H),
         dtype=torch.float32, device=dev)
     dw = torch.empty((C + H + 1, 4 * H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.lstm_wide_bwd(
             int(x.dtype == torch.bfloat16), x.data_ptr(), w_aug.data_ptr(),
-            w_ht.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-            z.data_ptr(), dg.data_ptr(), dx.data_ptr(), partials.data_ptr(),
-            dw.data_ptr(), T, B, C, H,
+            w_ht.data_ptr(), w_xt.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            dhs.data_ptr(), z.data_ptr(), dg.data_ptr(), dx.data_ptr(),
+            partials.data_ptr(), dw.data_ptr(), T, B, C, H,
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib.lstm_wide_error_string, "lstm_bwd", err)
+    _raise_on(lib.lstm_wide_bwd_error_string, "lstm_bwd", err)
     LAUNCHES_BWD += 1
     LAUNCHES_WIDE["bwd"] += 1
     return dx, dw

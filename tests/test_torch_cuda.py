@@ -272,14 +272,18 @@ def test_lstm_fused_autograd_on_card(cuda):
         assert _rel(got, want) <= 1e-4
 
 
-# the wide legs (lstm_wide.cu) against their plain versions at the sizes
-# the main-shape kernels refuse: ConvLSTM_w_ref at 96 and 128, and C != H;
-# ragged batches (not a multiple of the 16-row block or the 128-row
-# product tile) and one step; today's tolerances
+# the wide legs (lstm_wide.cu, K3 lstm_wide_bwd.cu) against their plain
+# versions at the sizes the main-shape kernels refuse: ConvLSTM_w_ref at 96
+# and 128, and C != H; ragged batches (not a multiple of the 16-row block,
+# the recurrence cluster's 32 rows or the 128-row product tile) and one
+# step; at the cluster split's edges, odd H (the second CTA holds fewer
+# units), C = 1 and C, H off the 16-byte staging; today's tolerances
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,B,C,H", [(7, 37, 96, 96), (5, 133, 128, 128),
-                                     (1, 5, 128, 100), (9, 21, 128, 100)])
+                                     (1, 5, 128, 100), (9, 21, 128, 100),
+                                     (5, 17, 1, 65), (1, 33, 96, 97),
+                                     (6, 33, 128, 127), (3, 64, 7, 127)])
 def test_lstm_wide_legs_match_plain(cuda, T, B, C, H, dtype, tol):
     params, x = _case(T, B, C, H, dtype, cuda)
     w_aug = _w_aug(params)
@@ -310,6 +314,30 @@ def test_lstm_wide_legs_match_plain(cuda, T, B, C, H, dtype, tol):
     assert _rel(dw, dw_ref) <= (1e-4 if dtype == torch.float32 else tol)
     for a, b in zip(again, (last, hs, cs, dx, dw)):
         assert torch.equal(a, b)
+
+
+# K3 alone at wide shapes whose forward is a main-shape kernel's (H <= 64:
+# the recurrence's smaller unit classes), both dtypes, ragged batches; a
+# repeated call repeats the bits
+@pytest.mark.parametrize("dtype,T,B,C,H", [
+    (torch.float32, 3, 21, 128, 48), (torch.float32, 4, 45, 104, 52),
+    (torch.float32, 2, 19, 65, 64),
+    (torch.bfloat16, 3, 17, 128, 8), (torch.bfloat16, 2, 33, 100, 40),
+    (torch.bfloat16, 5, 40, 72, 64), (torch.bfloat16, 1, 7, 127, 3)])
+def test_lstm_wide_bwd_small_units_match_plain(cuda, dtype, T, B, C, H):
+    assert K.route("bwd", dtype, C, H) == "wide"
+    x, w_aug, hs, cs, dhs = _bwd_inputs(T, B, C, H, dtype, cuda)
+    launches = K.LAUNCHES_WIDE["bwd"]
+    with full_f32():
+        dx, dw = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        dx_ref, dw_ref = K.lstm_bwd_reference(x, w_aug, hs, cs, dhs)
+        again = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES_WIDE["bwd"] == launches + 2
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (dx.float() - dx_ref.float()).abs().max().item() <= tol
+    assert _rel(dw, dw_ref) <= (1e-4 if dtype == torch.float32 else tol)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
 
 
 def test_lstm_libraries_match_the_shape_rule(cuda):
@@ -410,7 +438,7 @@ def test_lstm_bwd_mma_parts_match_plain(cuda, T, B, C, H):
 def test_lstm_bwd_routes_by_dtype(cuda):
     """bf16 goes to the tensor-core parts, f32 to lstm_bwd_f32.cu's kernel;
     a part refuses f32 and a shape it does not take, which ``lstm_bwd``
-    sends to lstm_wide.cu instead."""
+    sends to lstm_wide_bwd.cu instead."""
     for dtype, parts in ((torch.bfloat16, 1), (torch.float32, 0)):
         x, w_aug, hs, cs, dhs = _bwd_inputs(9, 24, 64, 64, dtype, cuda)
         launches = dict(K.LAUNCHES_BWD_MMA), K.LAUNCHES_BWD

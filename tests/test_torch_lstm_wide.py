@@ -4,7 +4,8 @@ logits and one train step at sizes 96 and 128, against the JAX package
 run through its Pallas kernels in interpret mode; the REMORA_TPU_LSTM
 override in ``layers.lstm`` and ``layers.lstm_last``; and the shape rule
 that sends a CUDA call to the main-shape kernels, to ``csrc/lstm_wide.cu``
-or to a ``ValueError``."""
+(K3: ``csrc/lstm_wide_bwd.cu``) or to a ``ValueError``; the weight layouts
+the wide backward reads."""
 
 import functools
 
@@ -224,7 +225,7 @@ F32, BF16 = torch.float32, torch.bfloat16
     ("fwd", BF16, 128, 64, "main"), ("bwd", F32, 64, 64, "main"),
     ("bwd", F32, 128, 44, "main"), ("bwd", BF16, 64, 64, "main"),
     ("bwd", BF16, 100, 28, "main"),
-    # wider layers go to lstm_wide.cu
+    # wider layers go to lstm_wide.cu (K3 to lstm_wide_bwd.cu)
     ("last", F32, 64, 65, "wide"), ("last", BF16, 96, 96, "wide"),
     ("fwd", F32, 128, 128, "wide"), ("fwd", BF16, 128, 100, "wide"),
     ("bwd", F32, 128, 64, "wide"), ("bwd", F32, 96, 96, "wide"),
@@ -273,3 +274,21 @@ def test_interleave_gates_layout():
         for u in range(H):
             for g in range(4):
                 assert w_il[k, u, g] == w_aug[k, g * H + u]
+
+
+@pytest.mark.parametrize("C,H", [(5, 3), (1, 65), (7, 4)])
+def test_wide_bwd_weights_layout(C, H):
+    """``lstm_wide_bwd.cu`` reads W_h^T (4H, H), element [g][u] =
+    W_aug[C + u][g], whose rows of a CTA's own gate columns (gate * H + the
+    CTA's units) make its shared slice, and W_x^T (4H, C), element [g][c] =
+    W_aug[c][g]: dx's B operand, columns contiguous."""
+    w_aug = torch.arange((C + H + 1) * 4 * H, dtype=torch.float32).reshape(
+        C + H + 1, 4 * H)
+    w_ht, w_xt = K.wide_bwd_weights(w_aug, C)
+    assert w_ht.shape == (4 * H, H) and w_ht.is_contiguous()
+    assert w_xt.shape == (4 * H, C) and w_xt.is_contiguous()
+    for g in range(4 * H):
+        for u in range(H):
+            assert w_ht[g, u] == w_aug[C + u, g]
+        for c in range(C):
+            assert w_xt[g, c] == w_aug[c, g]
