@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the step time of K1/K2's bf16 kernel goes, on one NVIDIA GPU.
+"""Where the step time of K1/K2's kernels goes, on one NVIDIA GPU.
 
     python3 chip_lstm_fwd_variants.py
+    python3 chip_lstm_fwd_variants.py --wide
+    python3 chip_lstm_fwd_variants.py --compare-parent DIR
 
 Builds ``remora_tpu_torch/csrc/lstm_fwd_mma.cu`` as it is and in variants
 that each take one piece of a step away or make it cheaper (textual edits
@@ -12,6 +14,18 @@ purpose: they are timings, never results. Prints the card's name, power
 limit and SM clocks, each variant's registers, and the SASS instruction
 mix of K1's 16-byte form. An edit that no longer matches the source stops
 the script: update it with the kernel.
+
+``--wide`` splits the step of the wide forward instead
+(``lstm_wide.cu``'s ``wide_fwd_f32_kernel`` and ``wide_fwd_bf16_kernel``,
+K2 with cs at T = 124, B = 2048, C = H = 96 and 128): as it is, without
+the x product, without the h product, without the DSMEM exchange and the
+cluster barrier (a CTA barrier in its place), without the gate math, and
+without the hs/cs stores; registers and spills per variant.
+``--compare-parent DIR`` times the wide K1 and K2 (with cs) of the parent
+checkout at DIR and of this one in one call, parent / this / this /
+parent, beside cuDNN's forward (``torch.nn.LSTM``), at C = H = 96 and 128,
+f32 and bf16, each design's library called on preallocated buffers and
+weight layouts, and prints how far the two designs' outputs differ.
 
 Imports nothing of JAX or of the JAX package ``remora_tpu``.
 """
@@ -156,6 +170,228 @@ def smi_line():
         timeout=60).stdout.strip()
 
 
+WIDE_SOURCE = "lstm_wide.cu"
+_BF16_GATES = (
+    "          const float ig = sigmoid(acc[0][2 * s] + bias[0]);\n"
+    "          const float fg = sigmoid(acc[0][2 * s + 1] + bias[1]);\n"
+    "          const float gg = tanhf(acc[1][2 * s] + bias[2]);\n"
+    "          const float og = sigmoid(acc[1][2 * s + 1] + bias[3]);\n")
+_F32_GATES = (
+    "          const float ig = sigmoid(z[4 * v] + bias[4 * v]);\n"
+    "          const float fg = sigmoid(z[4 * v + 1] + bias[4 * v + 1]);\n"
+    "          const float gg = tanhf(z[4 * v + 2] + bias[4 * v + 2]);\n"
+    "          const float og = sigmoid(z[4 * v + 3] + bias[4 * v + 3]);\n")
+# (old, new) textual edits of lstm_wide.cu; each edits both kernels where
+# both have the piece
+WIDE_EDITS = {
+    "no_x_product": [
+        ("      x_product(t + 1, accx);\n", ""),
+        ("      tile_fma<true>(accx, xs + ((t + 1) % kStagesF32) * x_tile",
+         "      if (false) tile_fma<true>(accx, xs + ((t + 1) % kStagesF32) "
+         "* x_tile")],
+    "no_h_product": [
+        ("            mma_16816(acc[0], a, wh[kt][0]);\n"
+         "            mma_16816(acc[1], a, wh[kt][1]);\n",
+         "            acc[0][0] += __uint_as_float(a[0]);\n"),
+        ("      tile_fma<false>(acc, hb + (t & 1) * h_tile + r0 * ldh, ldh, "
+         "wh, ldw,", "      if (false) tile_fma<false>(acc, hb + (t & 1) * "
+         "h_tile + r0 * ldh, ldh, wh, ldw,")],
+    "no_exchange": [
+        ("h_dst[r] = cluster.map_shared_rank(hb, r);", "h_dst[r] = hb;"),
+        ("h_dst[r] = map_rank(smem_u32(hb), r);",
+         "h_dst[r] = map_rank(smem_u32(hb), rank);"),
+        ("    cluster_arrive();\n", ""),
+        ("    cluster_wait();  // h_t of every unit is in this CTA's tile",
+         "    __syncthreads();")],
+    "no_gate_math": [
+        (_BF16_GATES,
+         "          const float ig = acc[0][2 * s] * 1e-3f;\n"
+         "          const float fg = acc[0][2 * s + 1] * 1e-3f;\n"
+         "          const float gg = acc[1][2 * s] * 1e-3f;\n"
+         "          const float og = acc[1][2 * s + 1] * 1e-3f;\n"),
+        ("to_bf16(og * tanhf(cc))", "to_bf16(og * cc)"),
+        (_F32_GATES,
+         "          const float ig = z[4 * v] * 1e-3f;\n"
+         "          const float fg = z[4 * v + 1] * 1e-3f;\n"
+         "          const float gg = z[4 * v + 2] * 1e-3f;\n"
+         "          const float og = z[4 * v + 3] * 1e-3f;\n"),
+        ("h[v] = og * tanhf(c[i][v]);", "h[v] = og * c[i][v];")],
+    "no_stores": [
+        ("    if (kSeq && t > 0) copy_out(t - 1, (long long)(t - 1) * B + "
+         "b0);\n", ""),
+        ("        if (kSeq && row < B && u0 < H) {",
+         "        if (false) {")],
+}
+WIDE_VARIANTS = {
+    "as is": [],
+    "no x product": WIDE_EDITS["no_x_product"],
+    "no h product": WIDE_EDITS["no_h_product"],
+    "no DSMEM exchange, no cluster barrier": WIDE_EDITS["no_exchange"],
+    "no gate math": WIDE_EDITS["no_gate_math"],
+    "no hs/cs stores": WIDE_EDITS["no_stores"],
+}
+
+
+def ptxas_lines(out, kernel):
+    """'registers / spill bytes' of each instantiation of ``kernel`` in an
+    ``nvcc -Xptxas=-v`` output."""
+    found, name = [], None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line) or \
+            re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or kernel not in name:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            found.append(f"spill {m.group(1)} B")
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.append(f"{m.group(1)} regs")
+    return ", ".join(found)
+
+
+def _typed_wide(lib):
+    """``lib`` (an ``lstm_wide.cu`` library) with its two launchers typed."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_wide_fwd.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.lstm_wide_fwd.restype = i32
+    lib.lstm_wide_last.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.lstm_wide_last.restype = i32
+    return lib
+
+
+def split_wide():
+    """Each variant of the wide forward, K2 with cs, both dtypes, at T =
+    124, B = 2048, C = H = 96 and 128."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import lstm as K
+
+    _, built = build_variants(WIDE_SOURCE, WIDE_VARIANTS,
+                              headers=("mma_sm90.cuh",))
+    stream = torch.cuda.current_stream().cuda_stream
+    libs = {name: (_typed_wide(ctypes.CDLL(path)), out)
+            for name, (path, out) in built.items()}
+    T, B = 124, 2048
+    for width in (96, 128):
+        for dtype, flag in ((torch.float32, 0), (torch.bfloat16, 1)):
+            gen = torch.Generator(device="cuda").manual_seed(width)
+            x = torch.randn((T, B, width), device="cuda",
+                            generator=gen).to(dtype)
+            w = ((torch.rand((2 * width + 1, 4 * width), device="cuda",
+                             generator=gen) * 2 - 1) / width ** 0.5).to(dtype)
+            w_il = None if flag else K.wide_fwd_weights(w, width)
+            w_il_ptr = None if w_il is None else w_il.data_ptr()
+            hs = torch.empty((T, B, width), device="cuda", dtype=dtype)
+            cs = torch.empty_like(hs)
+            sfx = "bf16" if flag else "f32"
+            for name, (lib, out) in libs.items():
+                def call(lib=lib, name=name):
+                    err = lib.lstm_wide_fwd(
+                        flag, x.data_ptr(), w.data_ptr(), w_il_ptr,
+                        hs.data_ptr(), cs.data_ptr(), T, B, width, width,
+                        stream)
+                    if err != 0:
+                        raise SystemExit(f"{name!r}: launch error {err}")
+                ms = time_ms(call)
+                print(f"wide K2 {sfx} T={T} C=H={width} {name}: {ms:.4f} ms "
+                      f"({ms / T * 1e3:.3f} us a step); "
+                      f"{ptxas_lines(out, f'wide_fwd_{sfx}_kernel')}",
+                      flush=True)
+
+
+def compare_wide(parent_dir):
+    """The wide K1 and K2 (with cs) in one call, parent / this design / this
+    design / parent, beside cuDNN's forward (``torch.nn.LSTM``, all T hidden
+    states; a yardstick the port never calls), at T = 124, B = 2048 and C =
+    H = 96 and 128, f32 and bf16; each design's library called directly on
+    preallocated buffers and its own weight layout (the parent's: W_aug[:C +
+    H] interleaved by unit, (C + H, H, 4))."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import lstm as K
+
+    _, built = build_variants(WIDE_SOURCE, {"parent": []},
+                              headers=("mma_sm90.cuh",), csrc=os.path.join(
+                                  parent_dir, "remora_tpu_torch", "csrc"))
+    parent = _typed_wide(ctypes.CDLL(built["parent"][0]))
+    change = K._wide_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    T, B = 124, 2048
+    for width in (96, 128):
+        C = H = width
+        for dtype in (torch.float32, torch.bfloat16):
+            flag = int(dtype == torch.bfloat16)
+            gen = torch.Generator(device="cuda").manual_seed(width)
+            bound = 1.0 / H ** 0.5
+            lib_lstm = torch.nn.LSTM(C, H).cuda()
+            with torch.no_grad():
+                for prm in lib_lstm.parameters():
+                    prm.uniform_(-bound, bound, generator=gen)
+            lib_lstm = lib_lstm.to(dtype)
+            lib_lstm.flatten_parameters()
+            params = {"w_ih": lib_lstm.weight_ih_l0.detach(),
+                      "w_hh": lib_lstm.weight_hh_l0.detach(),
+                      "b_ih": lib_lstm.bias_ih_l0.detach(),
+                      "b_hh": lib_lstm.bias_hh_l0.detach()}
+            x = torch.randn((T, B, C), device="cuda", generator=gen).to(dtype)
+            w = K.make_w_aug(params, dtype)
+            layouts = {
+                "parent": w[:C + H].reshape(C + H, 4, H).transpose(
+                    1, 2).contiguous(),
+                "change": None if flag else K.wide_fwd_weights(w, C)}
+            outs = {}
+            for name, lib in (("parent", parent), ("change", change)):
+                w_il = layouts[name]
+                w_il_ptr = None if w_il is None else w_il.data_ptr()
+                hs = torch.empty((T, B, H), device="cuda", dtype=dtype)
+                cs = torch.empty_like(hs)
+                last = torch.empty((B, H), device="cuda", dtype=dtype)
+
+                def k2(lib=lib, w_il_ptr=w_il_ptr, hs=hs, cs=cs):
+                    err = lib.lstm_wide_fwd(flag, x.data_ptr(), w.data_ptr(),
+                                            w_il_ptr, hs.data_ptr(),
+                                            cs.data_ptr(), T, B, C, H, stream)
+                    if err != 0:
+                        raise SystemExit(f"launch error {err}")
+
+                def k1(lib=lib, w_il_ptr=w_il_ptr, last=last):
+                    err = lib.lstm_wide_last(flag, x.data_ptr(),
+                                             w.data_ptr(), w_il_ptr,
+                                             last.data_ptr(), T, B, C, H,
+                                             stream)
+                    if err != 0:
+                        raise SystemExit(f"launch error {err}")
+                outs[name] = k1, k2, hs, cs, last
+            ms = {}
+            for leg, idx in (("K1", 0), ("K2", 1)):
+                for name in ("parent", "change", "change", "parent"):
+                    ms.setdefault((leg, name), []).append(
+                        time_ms(outs[name][idx]))
+            with torch.no_grad():
+                cudnn = time_ms(lambda: lib_lstm(x))
+            for name in ("parent", "change"):
+                outs[name][0]()
+                outs[name][1]()
+            torch.cuda.synchronize()
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(outs["parent"][2:], outs["change"][2:]))
+            sfx = "f32" if flag == 0 else "bf16"
+            for leg in ("K1", "K2"):
+                p, c = ms[(leg, "parent")], ms[(leg, "change")]
+                print(f"wide {leg} {sfx} C=H={width}: parent / change / "
+                      f"change / parent {p[0]:.4f} / {c[0]:.4f} / "
+                      f"{c[1]:.4f} / {p[1]:.4f} ms; cuDNN forward "
+                      f"{cudnn:.4f} ms", flush=True)
+            print(f"wide {sfx} C=H={width}: the designs' hs, cs, h_(T-1) "
+                  f"differ by at most {diff:.3e}", flush=True)
+
+
 def main():
     import torch
 
@@ -163,6 +399,15 @@ def main():
         print("chip_lstm_fwd_variants: no CUDA device is available",
               file=sys.stderr)
         return 1
+    args = sys.argv[1:]
+    if args[:1] == ["--compare-parent"]:
+        compare_wide(args[1])
+        print(smi_line())
+        return 0
+    if args[:1] == ["--wide"]:
+        split_wide()
+        print(smi_line())
+        return 0
     nvcc, built = build_variants("lstm_fwd_mma.cu", VARIANTS,
                                  headers=("mma_sm90.cuh",))
     libs = {}

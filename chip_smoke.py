@@ -26,8 +26,8 @@ printed):
    into the kernels line) and C=H=128 (a line of its own), K1, K2 and K3
    in both dtypes against their plain versions, with times, bounds,
    chains, ``torch.nn.LSTM`` times, registers and spills, the wide K3 by
-   part, and a line of the wide K3 beside cuDNN's backward at both
-   widths;
+   part, and lines of the wide K1/K2 beside cuDNN's forward and of the
+   wide K3 beside cuDNN's backward at both widths;
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -56,8 +56,9 @@ printed):
    wide LSTM legs on the model path: ``train_model`` at size 96 for 2
    steps and its checkpoint through ``ModelHandle.load`` for one batch,
    f32 and bf16, the wide K2/K3 once a step and K1 once a batch, logits
-   held to the plain LSTM, and one f32 size-96 train step held to the same
-   step with the plain LSTM versions (as 6b);
+   held to the plain LSTM, one train step and one served batch profiled
+   by kernel, and one f32 size-96 train step held to the same step with
+   the plain LSTM versions (as 6b);
 8. the banded refinement DP: K4 (forward) and K5 (traceback) against
    their plain versions on the card (8 reads of 400 bases, W = 128) and
    against the native host DP on one micro-batch (64 synthetic reads of
@@ -244,11 +245,20 @@ def lstm_chain_instrs(kind, C, H):
         # o tanh(c) -> STS h -> BAR
         return 1 + K + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 2
     if kind == "wide_fwd":
-        # K1/K2 wide (lstm_wide.cu::wide_fwd_kernel): BAR -> LDS the operand
-        # -> C + H FFMA into one accumulator a gate -> FADD bias -> the
-        # gates' activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) -> h =
-        # o tanh(c) -> STS h
-        return 1 + 1 + K + 1 + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1
+        # K1/K2 wide f32 (lstm_wide.cu::wide_fwd_f32_kernel; x_t . W_x is
+        # off the chain): cluster BAR (wait) -> LDS h_{t-1} -> H FFMA into
+        # one accumulator a gate -> FADD bias -> the gates' activations -> c
+        # = f c + i g (FMUL, FFMA) -> tanh(c) -> h = o tanh(c) ->
+        # st.shared::cluster h -> cluster BAR (arrive)
+        return 1 + 1 + H + 1 + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 + 1
+    if kind == "wide_fwd_mma":
+        # K1/K2 wide bf16 (lstm_wide.cu::wide_fwd_bf16_kernel): cluster BAR
+        # (wait) -> LDSM h_{t-1} -> ceil(H / 16) dependent HMMA -> FADD bias
+        # -> the gates' activations -> c = f c + i g (FMUL, FFMA) -> tanh(c)
+        # -> h = o tanh(c) -> pack to bf16 -> st.shared::cluster h -> cluster
+        # BAR (arrive)
+        return 1 + 1 + -(-H // 16) + 1 + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 \
+            + 1 + 1
     if kind in ("wide_bwd", "wide_bwd_mma"):
         # K3 wide (lstm_wide_bwd.cu::wide_rec_cluster_kernel; the gate
         # recompute and the products are other launches), a CTA of the
@@ -324,7 +334,8 @@ def lstm_kernel_of(leg, dtype, C, H):
                     "remora_tpu_torch/csrc/lstm_wide_bwd.cu",
                     "wide_bwd_mma" if bf16 else "wide_bwd")
         return (f"lstm_{leg}_wide_{sfx}",
-                "remora_tpu_torch/csrc/lstm_wide.cu", "wide_fwd")
+                "remora_tpu_torch/csrc/lstm_wide.cu",
+                "wide_fwd_mma" if bf16 else "wide_fwd")
     src = {("last", False): "lstm_last.cu", ("fwd", False): "lstm_train.cu",
            ("bwd", False): "lstm_bwd_f32.cu",
            ("bwd", True): "lstm_bwd_mma.cu"}.get((leg, bf16),
@@ -759,7 +770,8 @@ def check_lstm_fwd_compile():
 def check_lstm_wide_compile():
     """The wide LSTM legs' kernels (lstm_wide.cu, lstm_wide_bwd.cu), each
     instantiation: registers logged, no spill."""
-    check_compile("lstm_wide", "wide K1/K2", ("wide_fwd_kernel",))
+    check_compile("lstm_wide", "wide K1/K2", (
+        "wide_fwd_f32_kernel", "wide_fwd_bf16_kernel"))
     check_compile("lstm_wide_bwd", "wide K3", (
         "wide_rec_cluster_kernel", "wide_prod_f32_kernel",
         "wide_prod_bf16_kernel", "ordered_sum"))
@@ -783,6 +795,17 @@ def check_lstm_wide():
         for width in (WIDE_SIZE, WIDE)}
     log(json.dumps({f"wide_lstm_at_{WIDE}": [
         rec for recs in records[WIDE].values() for rec in recs]}))
+    # the wide K1/K2 beside cuDNN's forward (torch.nn.LSTM, all T hidden
+    # states) at both widths, with their bounds and chains
+    log(json.dumps({"wide_fwd_vs_cudnn": {
+        f"C=H={width}": {
+            rec["name"]: {"ms": rec["ms"], "cudnn_fwd_ms": rec["library_ms"],
+                          "bound_ms": rec["bound_ms"],
+                          "bound_by": rec["bound_by"],
+                          "chain_bound_ms": rec["chain_bound_ms"]}
+            for dtype, recs in records[width].items() for rec in recs
+            if not rec["name"].startswith("lstm_bwd")}
+        for width in (WIDE_SIZE, WIDE)}}))
     # the wide K3 beside cuDNN's backward (torch.nn.LSTM, data and
     # weights) at both widths, from the records above
     log(json.dumps({"wide_k3_vs_cudnn_bwd": {
@@ -797,14 +820,45 @@ def check_lstm_wide():
     return records[WIDE_SIZE]
 
 
+def profile_serve(handle, arrs, tag, n_walls=5):
+    """Device time by kernel over one ``ModelHandle.eval_raw`` batch
+    (torch.profiler), against the median unprofiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(n_walls):
+        t0 = time.perf_counter()
+        handle.eval_raw(*arrs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        handle.eval_raw(*arrs)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    if not rows:
+        log(f"  {tag} profile: the profiler recorded no device time "
+            "(device breakdown not measured)")
+        return
+    busy_s = sum(r[0] for r in rows) / 1e6
+    log(f"  {tag} profile of one served batch: kernels busy "
+        f"{busy_s * 1e3:.4f} ms; unprofiled median wall {wall * 1e3:.4f} ms "
+        f"({busy_s / wall:.1%} busy)")
+    for dev_us, key, count in rows[:8]:
+        log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+
+
 def wide_model_path(root, config, records):
     """Phase 6e: ConvLSTM_w_ref at size WIDE_SIZE on the card, f32 and
     bf16: ``train_model`` for WIDE_STEPS steps (K2 on lstm_wide.cu and K3
     on lstm_wide_bwd.cu once a step), then its checkpoint through ``ModelHandle.load`` for one
     batch (K1 on lstm_wide.cu once), logits finite and held to the same
-    handle with the plain LSTM; the f32 checkpoint's train step held to the
-    same step with the plain K2/K3 (``check_train_step_vs_plain``). Sets
-    the wide records' launches from the train and serve runs."""
+    handle with the plain LSTM; one train step and one served batch
+    profiled by kernel; the f32 checkpoint's train step held to the same
+    step with the plain K2/K3 (``check_train_step_vs_plain``). Sets the
+    wide records' launches from the train and serve runs."""
     import torch
 
     from remora_tpu_torch.infer.infer import ModelHandle
@@ -839,6 +893,8 @@ def wide_model_path(root, config, records):
               f"{WIDE_STEPS} steps")
         check(len(losses) == WIDE_STEPS and np.isfinite(losses).all(),
               f"{tag}: batch.log losses {losses}")
+        profile_train_step(os.path.join(out, "model_final.checkpoint"), bf16,
+                           f"{tag} step", n_walls=5)
         handle = ModelHandle.load(
             os.path.join(out, "model_final.checkpoint"),
             compute_dtype=dtype if bf16 else None)
@@ -855,6 +911,7 @@ def wide_model_path(root, config, records):
         check(last_launches == 1,
               f"{tag}: the wide K1 launched {last_launches} times for one "
               "batch")
+        profile_serve(handle, arrs, tag)
         if bf16:
             diff = int(np.abs(ml_bytes(logits) - ml_bytes(plain)).max())
             log(f"{tag}: ModelHandle batch of {BATCH}: ML bytes vs plain "
@@ -1393,7 +1450,8 @@ def _loaded_model(ckpt):
 # bf16 parts, and the ordered dW sum each launches (mma_sm90.cuh's
 # ordered_sum<0>, demangled or mangled; K6's is ordered_sum<64>)
 K3_DW_SUM = r"ordered_sum(<0>|ILi0E)"
-K3_KERNELS = r"lstm_bwd_\w*kernel|" + K3_DW_SUM
+K3_KERNELS = (r"lstm_bwd_\w*kernel|wide_rec_cluster_kernel|wide_prod_\w*|"
+              + K3_DW_SUM)
 
 
 def profile_train_step(ckpt, bf16, tag, n_walls=10, convbn=None):

@@ -20,10 +20,11 @@ Counterpart of ``remora_tpu/kernels/pallas_lstm.py``:
 Those kernels take the main shape (C = H = 64) and the shapes near it
 (``route``). Every other 1 <= C <= 128, 1 <= H <= 128 goes, in both dtypes
 and all three legs, to the kernels written for the wider layers:
-``csrc/lstm_wide.cu`` for K1 and K2 (W read through L2 on every step),
-``csrc/lstm_wide_bwd.cu`` for K3 (its recurrence on clusters of two CTAs,
-each holding a slice of W_h^T in shared memory); above those limits every
-entry point raises.
+``csrc/lstm_wide.cu`` for K1 and K2 and ``csrc/lstm_wide_bwd.cu`` for K3,
+each walking time on clusters of two CTAs that split the hidden units,
+hold their units' slice of W on chip and swap h_t (K3: partial dh sums)
+through distributed shared memory; above those limits every entry point
+raises.
 
 The source notes give each kernel's design and bound. Each entry point
 launches its kernel for a CUDA tensor and uses its plain version
@@ -163,24 +164,41 @@ def route(leg, dtype, C, H):
     return "main" if main else "wide"
 
 
-def interleave_gates(w_aug):
-    """W_aug[:C+H] (C + H, 4H) as (C + H, H, 4), each unit's four gate
-    weights of a row side by side: what ``lstm_wide.cu``'s forward loads
-    with one vector load."""
+def wide_fwd_units(H):
+    """Hidden units each CTA of ``lstm_wide.cu``'s forward cluster owns at H
+    (its ``lstm_wide_fwd_units``): half of H, rounded up to 16."""
+    half = -(-H // 2)
+    return -(-half // 16) * 16
+
+
+def wide_fwd_weights(w_aug, C):
+    """``lstm_wide.cu``'s f32 layout of W_aug (C + H + 1, 4H): (cp + hp, 2
+    ``wide_fwd_units(H)``, 4), cp and hp C and H rounded up to 4. Row k < C
+    is W_x's row k and row cp + k (k < H) W_h's, each unit's four gate
+    weights side by side ([u][g] = W_aug[row][g * H + u]); the rows and units
+    between are zero. A CTA's slice of a row, all four gates of its units,
+    is then one contiguous run, and a k quad never reaches past W_x."""
     H = w_aug.shape[1] // 4
-    K = w_aug.shape[0] - 1
-    return w_aug[:K].reshape(K, 4, H).transpose(1, 2).contiguous()
+    cp, hp = -(-C // 4) * 4, -(-H // 4) * 4
+    w = w_aug[:C + H].reshape(C + H, 4, H).transpose(1, 2)
+    out = w_aug.new_zeros((cp + hp, 2 * wide_fwd_units(H), 4))
+    out[:C, :H] = w[:C]
+    out[cp:cp + H, :H] = w[C:]
+    return out
 
 
-def _wide_launch(fn, dtype, w_aug):
+def _wide_launch(fn, dtype, w_aug, C):
     """``lstm_wide.cu``'s forward launcher ``fn`` behind the main-shape
     launchers' signature (x, W_aug, outputs..., T, B, C, H, stream): the
-    dtype flag first and the interleaved W after W_aug."""
-    w_il = interleave_gates(w_aug)
+    dtype flag first and, after W_aug, the f32 kernel's layout
+    (``wide_fwd_weights``; none for bf16, which gathers its slices from
+    W_aug)."""
     bf16 = int(dtype == torch.bfloat16)
+    w_il = None if bf16 else wide_fwd_weights(w_aug, C)
 
     def launch(x_ptr, w_ptr, *rest):
-        return fn(bf16, x_ptr, w_ptr, w_il.data_ptr(), *rest)
+        return fn(bf16, x_ptr, w_ptr,
+                  None if w_il is None else w_il.data_ptr(), *rest)
 
     return launch
 
@@ -193,6 +211,8 @@ def _wide_library():
         lib.lstm_wide_fwd.restype = i32
         lib.lstm_wide_last.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
         lib.lstm_wide_last.restype = i32
+        lib.lstm_wide_fwd_units.argtypes = [i32]
+        lib.lstm_wide_fwd_units.restype = i32
         lib.lstm_wide_error_string.argtypes = [i32]
         lib.lstm_wide_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -270,7 +290,7 @@ def lstm_last(params, x):
     wide = route("last", x.dtype, C, H) == "wide"
     if wide:
         lib = _wide_library()
-        launch = _wide_launch(lib.lstm_wide_last, x.dtype, w_aug)
+        launch = _wide_launch(lib.lstm_wide_last, x.dtype, w_aug, C)
         error_string = lib.lstm_wide_error_string
     elif x.dtype == torch.bfloat16:
         lib = _fwd_mma_library("lstm_last", C, H)
@@ -484,7 +504,7 @@ def lstm_fwd(x, w_aug, want_cs=True):
     wide = route("fwd", x.dtype, C, H) == "wide"
     if wide:
         lib = _wide_library()
-        launch = _wide_launch(lib.lstm_wide_fwd, x.dtype, w_aug)
+        launch = _wide_launch(lib.lstm_wide_fwd, x.dtype, w_aug, C)
         error_string = lib.lstm_wide_error_string
     elif x.dtype == torch.bfloat16:
         lib = _fwd_mma_library("lstm_fwd", C, H)

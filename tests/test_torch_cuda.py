@@ -274,16 +274,19 @@ def test_lstm_fused_autograd_on_card(cuda):
 
 # the wide legs (lstm_wide.cu, K3 lstm_wide_bwd.cu) against their plain
 # versions at the sizes the main-shape kernels refuse: ConvLSTM_w_ref at 96
-# and 128, and C != H; ragged batches (not a multiple of the 16-row block,
-# the recurrence cluster's 32 rows or the 128-row product tile) and one
-# step; at the cluster split's edges, odd H (the second CTA holds fewer
-# units), C = 1 and C, H off the 16-byte staging; today's tolerances
+# and 128, and C != H; ragged batches (not a multiple of the clusters' 32
+# rows or the 128-row product tile, fewer rows than one cluster, one row)
+# and one step; at the cluster split's edges, H whose second CTA holds
+# fewer units (65, 97, 113, 127), H off 8 and 16 (90, 100), C = 1, C odd and
+# C, H off the 16-byte staging; today's tolerances
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,B,C,H", [(7, 37, 96, 96), (5, 133, 128, 128),
                                      (1, 5, 128, 100), (9, 21, 128, 100),
                                      (5, 17, 1, 65), (1, 33, 96, 97),
-                                     (6, 33, 128, 127), (3, 64, 7, 127)])
+                                     (6, 33, 128, 127), (3, 64, 7, 127),
+                                     (2, 31, 33, 90), (4, 65, 126, 113),
+                                     (3, 32, 120, 66), (2, 1, 128, 128)])
 def test_lstm_wide_legs_match_plain(cuda, T, B, C, H, dtype, tol):
     params, x = _case(T, B, C, H, dtype, cuda)
     w_aug = _w_aug(params)
@@ -342,8 +345,9 @@ def test_lstm_wide_bwd_small_units_match_plain(cuda, dtype, T, B, C, H):
 
 def test_lstm_libraries_match_the_shape_rule(cuda):
     """The limits behind ``route`` are the kernels': lstm_wide.cu refuses a
-    launch past WIDE_MAX_C/H before it reads a pointer, and the f32
-    forwards' and the bf16 backward's maxima are the main-shape rule's."""
+    launch past WIDE_MAX_C/H before it reads a pointer and splits the units
+    as ``wide_fwd_units`` says, and the f32 forwards' and the bf16
+    backward's maxima are the main-shape rule's."""
     from remora_tpu_torch.kernels import _build
 
     K.lstm_last(*_case(2, 3, 96, 96, torch.float32, cuda))
@@ -351,6 +355,10 @@ def test_lstm_libraries_match_the_shape_rule(cuda):
     for C, H in ((K.WIDE_MAX_C + 1, 8), (8, K.WIDE_MAX_H + 1), (0, 8)):
         assert K.wide_shape_error("lstm_fwd", C, H) is not None
         assert wide.lstm_wide_fwd(0, *[None] * 5, 1, 1, C, H, None) != 0
+    # the wide forward's split of the units, which its f32 weight layout
+    # (wide_fwd_weights) follows
+    for H in range(1, K.WIDE_MAX_H + 1):
+        assert wide.lstm_wide_fwd_units(H) == K.wide_fwd_units(H)
     last, train = _build.load("lstm_last"), _build.load("lstm_train")
     for lib, fn in ((last, "lstm_last"), (train, "lstm_train")):
         assert (getattr(lib, fn + "_max_c")(),

@@ -4,8 +4,9 @@ logits and one train step at sizes 96 and 128, against the JAX package
 run through its Pallas kernels in interpret mode; the REMORA_TPU_LSTM
 override in ``layers.lstm`` and ``layers.lstm_last``; and the shape rule
 that sends a CUDA call to the main-shape kernels, to ``csrc/lstm_wide.cu``
-(K3: ``csrc/lstm_wide_bwd.cu``) or to a ``ValueError``; the weight layouts
-the wide backward reads."""
+(K3: ``csrc/lstm_wide_bwd.cu``) or to a ``ValueError``; the wide forward's
+split of the units over its cluster and the weight layouts the wide
+kernels read."""
 
 import functools
 
@@ -262,18 +263,37 @@ def test_route_keeps_every_shape_of_the_main_kernels():
                     "main" if main else "wide"), (leg, dtype, C, H)
 
 
-def test_interleave_gates_layout():
-    """``lstm_wide.cu``'s forward reads W_aug[:C+H] interleaved by unit:
-    element [k][u][g] is W_aug[k][g * H + u]."""
-    C, H = 5, 3
-    w_aug = torch.arange((C + H + 1) * 4 * H, dtype=torch.float32).reshape(
-        C + H + 1, 4 * H)
-    w_il = K.interleave_gates(w_aug)
-    assert w_il.shape == (C + H, H, 4) and w_il.is_contiguous()
+def test_wide_fwd_units_split_the_layer():
+    """Each CTA of the wide forward's cluster of two owns a run of
+    ``wide_fwd_units(H)`` units: a multiple of 16 (the f32 kernel's
+    quarter-warps of 8 unit pairs, the bf16 kernel's 4 warps of 4 units),
+    the two runs cover H, and no smaller multiple of 16 would."""
+    for H in range(1, 129):
+        hh = K.wide_fwd_units(H)
+        assert hh % 16 == 0 and 2 * hh >= H > 2 * (hh - 16), H
+        assert hh <= K.WIDE_MAX_H // 2
+
+
+@pytest.mark.parametrize("C,H", [(5, 3), (1, 65), (7, 97), (96, 96),
+                                 (128, 127), (3, 128)])
+def test_wide_fwd_weights_layout(C, H):
+    """``lstm_wide.cu``'s f32 forward reads W_aug as (cp + hp, 2 hh, 4): row
+    k < C is W_x's, row cp + k < cp + H W_h's, [u][g] = W_aug[row][g * H +
+    u], zero in the rows and units between (cp, hp: C, H rounded up to 4;
+    hh = ``wide_fwd_units(H)``); rebuilt here in numpy."""
+    rng = np.random.default_rng(C * 1000 + H)
+    w_aug = rng.normal(size=(C + H + 1, 4 * H)).astype(np.float32)
+    got = K.wide_fwd_weights(torch.from_numpy(w_aug), C)
+    cp, hp, hh = -(-C // 4) * 4, -(-H // 4) * 4, K.wide_fwd_units(H)
+    want = np.zeros((cp + hp, 2 * hh, 4), np.float32)
     for k in range(C + H):
+        row = k if k < C else cp + k - C
         for u in range(H):
             for g in range(4):
-                assert w_il[k, u, g] == w_aug[k, g * H + u]
+                want[row, u, g] = w_aug[k, g * H + u]
+    assert got.shape == want.shape and got.is_contiguous()
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("C,H", [(5, 3), (1, 65), (7, 4)])
