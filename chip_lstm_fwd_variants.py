@@ -3,6 +3,7 @@
 
     python3 chip_lstm_fwd_variants.py
     python3 chip_lstm_fwd_variants.py --wide
+    python3 chip_lstm_fwd_variants.py --f32
     python3 chip_lstm_fwd_variants.py --compare-parent DIR
 
 Builds ``remora_tpu_torch/csrc/lstm_fwd_mma.cu`` as it is and in variants
@@ -21,11 +22,19 @@ K2 with cs at T = 124, B = 2048, C = H = 96 and 128): as it is, without
 the x product, without the h product, without the DSMEM exchange and the
 cluster barrier (a CTA barrier in its place), without the gate math, and
 without the hs/cs stores; registers and spills per variant.
-``--compare-parent DIR`` times the wide K1 and K2 (with cs) of the parent
+``--f32`` splits the step of K1/K2's f32 kernel (``lstm_fwd_f32.cu``, K2
+with cs and K1 at the main shape): as it is, without the x product,
+without the h product, without the ring that adds the k groups' sums,
+without the gate math, without the hs/cs stores, and with the sigmoid's
+reciprocal by ``__frcp_rn`` (whose out-of-range branch the kernel
+avoids).
+``--compare-parent DIR`` times the main-shape f32 K1 and K2 (with cs; T =
+124, B = 2048, C = H = 64) and the wide K1 and K2 (with cs) of the parent
 checkout at DIR and of this one in one call, parent / this / this /
-parent, beside cuDNN's forward (``torch.nn.LSTM``), at C = H = 96 and 128,
-f32 and bf16, each design's library called on preallocated buffers and
-weight layouts, and prints how far the two designs' outputs differ.
+parent, beside cuDNN's forward (``torch.nn.LSTM``), the wide legs at C = H
+= 96 and 128, f32 and bf16, each design's library called on preallocated
+buffers and weight layouts, and prints how far the two designs' outputs
+differ.
 
 Imports nothing of JAX or of the JAX package ``remora_tpu``.
 """
@@ -392,6 +401,204 @@ def compare_wide(parent_dir):
                   f"differ by at most {diff:.3e}", flush=True)
 
 
+F32_SOURCE = "lstm_fwd_f32.cu"
+# (old, new) textual edits of lstm_fwd_f32.cu
+# (old, new) textual edits of lstm_fwd_f32.cu
+_F32_NO_X = (
+    "            pass_fma<true>(acc, a, w, bias);  // the bias once, in row kg\n",
+    "            for (int j = 0; j < 8; ++j) {\n"
+    "              acc[0][j] = bias[j];\n"
+    "              acc[1][j] = acc[2][j] = acc[3][j] = 0.f;\n"
+    "            }\n")
+_F32_NO_H = (
+    "        pass_fma<true>(acc, a, w, xsum);\n",
+    "        for (int j = 0; j < 8; ++j) {\n"
+    "          acc[0][j] = xsum[j];\n"
+    "          acc[1][j] = acc[2][j] = acc[3][j] = 0.f;\n"
+    "        }\n")
+# (old, new) textual edits of lstm_fwd_f32.cu
+F32_EDITS = {
+    "no_x_product": [("          pass_fma(acc, a, w);\n", "")],
+    "no_h_product": [("kKs * kg;\n      pass_fma(acc, a, w);\n",
+                      "kKs * kg;\n")],
+    "no_ring": [
+        ("        ring_reduce(acc, s, src);\n",
+         "        for (int j = 0; j < 8; ++j)\n"
+         "          s[j] = acc[0][j] + acc[1][j] + acc[2][j] + acc[3][j];\n"),
+        ("      ring_reduce(acc, z[3], src);\n",
+         "      for (int j = 0; j < 8; ++j)\n"
+         "        z[3][j] = acc[0][j] + acc[1][j] + acc[2][j] + acc[3][j];\n")],
+    "no_gate_math": [
+        ("        const float ig = sigmoid(z[ps][4 * v]);\n"
+         "        const float fg = sigmoid(z[ps][4 * v + 1]);\n"
+         "        const float gg = tanhf(z[ps][4 * v + 2]);\n"
+         "        const float og = sigmoid(z[ps][4 * v + 3]);\n",
+         "        const float ig = z[ps][4 * v] * 1e-3f;\n"
+         "        const float fg = z[ps][4 * v + 1] * 1e-3f;\n"
+         "        const float gg = z[ps][4 * v + 2] * 1e-3f;\n"
+         "        const float og = z[ps][4 * v + 3] * 1e-3f;\n"),
+        ("h[v] = og * tanhf(c[ps][v]);", "h[v] = og * c[ps][v];")],
+    "frcp_rn": [
+        ("  const float x = fminf(1.0f + expf(-z), 0x1.fffffep125f);\n"
+         "  float r;\n"
+         "  asm(\"rcp.approx.ftz.f32 %0, %1;\" : \"=f\"(r) : \"f\"(x));\n"
+         "  return fmaf(r, -fmaf(x, r, -1.0f), r);\n",
+         "  return __frcp_rn(1.0f + expf(-z));\n")],
+    "no_stores": [
+        ("      if (kSeq && t >= 2) {\n"
+         "        const size_t o = ((size_t)(t - 2) * B + b0) * H;",
+         "      if (false) {\n"
+         "        const size_t o = ((size_t)(t - 2) * B + b0) * H;")],
+}
+F32_VARIANTS = {
+    "as is": [],
+    "no x product": F32_EDITS["no_x_product"],
+    "no h product": F32_EDITS["no_h_product"],
+    "no ring of k-group sums": F32_EDITS["no_ring"],
+    "no gate math": F32_EDITS["no_gate_math"],
+    "no hs/cs stores": F32_EDITS["no_stores"],
+    "sigmoid by __frcp_rn": F32_EDITS["frcp_rn"],
+}
+
+
+def _typed_f32(lib):
+    """``lib`` (an ``lstm_fwd_f32.cu`` library) with its launchers typed."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_fwd_f32.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.lstm_fwd_f32.restype = i32
+    lib.lstm_fwd_f32_last.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.lstm_fwd_f32_last.restype = i32
+    return lib
+
+
+def split_f32(variants=None, csrc=CSRC):
+    """Each variant of K1/K2's f32 kernel (``lstm_fwd_f32.cu``), K2 with cs
+    and K1, at the main shape (T = 124, B = 2048, C = H = 64)."""
+    import torch
+
+    _, built = build_variants(F32_SOURCE, variants or F32_VARIANTS,
+                              headers=("mma_sm90.cuh",), csrc=csrc)
+    stream = torch.cuda.current_stream().cuda_stream
+    T, B, C, H = 124, 2048, 64, 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((T, B, C), device="cuda", generator=gen)
+    w = (torch.rand((C + H + 1, 4 * H), device="cuda", generator=gen) * 2
+         - 1) / H ** 0.5
+    hs = torch.empty((T, B, H), device="cuda")
+    cs = torch.empty_like(hs)
+    out = torch.empty((B, H), device="cuda")
+    for name, (path, log) in built.items():
+        lib = _typed_f32(ctypes.CDLL(path))
+
+        def k2(lib=lib):
+            err = lib.lstm_fwd_f32(x.data_ptr(), w.data_ptr(), hs.data_ptr(),
+                                   cs.data_ptr(), T, B, C, H, stream)
+            if err != 0:
+                raise SystemExit(f"{name!r}: launch error {err}")
+
+        def k1(lib=lib):
+            err = lib.lstm_fwd_f32_last(x.data_ptr(), w.data_ptr(),
+                                        out.data_ptr(), T, B, C, H, stream)
+            if err != 0:
+                raise SystemExit(f"{name!r}: launch error {err}")
+        ms2, ms1 = time_ms(k2), time_ms(k1)
+        regs = ptxas_lines(log, "lstm_fwd_f32_kernelILi64ELi64E")
+        print(f"f32 K2 T={T} C=H={C} {name}: {ms2:.4f} ms ({ms2 / T * 1e3:.3f}"
+              f" us a step); K1 {ms1:.4f} ms; main shape's instantiations "
+              f"{regs}", flush=True)
+
+
+def _parent_f32_launchers(parent_dir):
+    """(K2 with cs, K1) launchers of the parent checkout's f32 forward, each
+    (x, w_aug, out(s)..., T, B, C, H, stream): ``lstm_fwd_f32.cu`` where the
+    parent has it, else the two kernels it replaced (``lstm_train.cu``'s
+    ``lstm_fwd_f32``, ``lstm_last.cu``'s ``lstm_last_f32``)."""
+    csrc = os.path.join(parent_dir, "remora_tpu_torch", "csrc")
+    if os.path.exists(os.path.join(csrc, F32_SOURCE)):
+        _, built = build_variants(F32_SOURCE, {"parent": []},
+                                  headers=("mma_sm90.cuh",), csrc=csrc)
+        lib = _typed_f32(ctypes.CDLL(built["parent"][0]))
+        return lib.lstm_fwd_f32, lib.lstm_fwd_f32_last
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = []
+    for source, fn, n_ptr in (("lstm_train.cu", "lstm_fwd_f32", 4),
+                              ("lstm_last.cu", "lstm_last_f32", 3)):
+        _, built = build_variants(source, {"parent": []}, csrc=csrc)
+        launcher = getattr(ctypes.CDLL(built["parent"][0]), fn)
+        launcher.argtypes = [ptr] * n_ptr + [i32] * 4 + [ptr]
+        launcher.restype = i32
+        libs.append(launcher)
+    return tuple(libs)
+
+
+def compare_main(parent_dir):
+    """The main-shape f32 K2 (with cs) and K1 (T = 124, B = 2048, C = H =
+    64) in one call, parent / this design / this design / parent, beside
+    cuDNN's forward (``torch.nn.LSTM``, all T hidden states; a yardstick the
+    port never calls), each design's launcher called on preallocated
+    buffers and W_aug; prints how far the designs' outputs differ."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import lstm as K
+
+    launchers = {"parent": _parent_f32_launchers(parent_dir)}
+    lib = K._f32_fwd_library()
+    launchers["change"] = lib.lstm_fwd_f32, lib.lstm_fwd_f32_last
+    stream = torch.cuda.current_stream().cuda_stream
+    T, B, C, H = 124, 2048, 64, 64
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    bound = 1.0 / H ** 0.5
+    lib_lstm = torch.nn.LSTM(C, H).cuda()
+    with torch.no_grad():
+        for prm in lib_lstm.parameters():
+            prm.uniform_(-bound, bound, generator=gen)
+    lib_lstm.flatten_parameters()
+    params = {"w_ih": lib_lstm.weight_ih_l0.detach(),
+              "w_hh": lib_lstm.weight_hh_l0.detach(),
+              "b_ih": lib_lstm.bias_ih_l0.detach(),
+              "b_hh": lib_lstm.bias_hh_l0.detach()}
+    x = torch.randn((T, B, C), device="cuda", generator=gen)
+    w = K.make_w_aug(params, torch.float32)
+    outs = {}
+    for name, (k2_fn, k1_fn) in launchers.items():
+        hs = torch.empty((T, B, H), device="cuda")
+        cs = torch.empty_like(hs)
+        last = torch.empty((B, H), device="cuda")
+
+        def k2(fn=k2_fn, hs=hs, cs=cs):
+            err = fn(x.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                     T, B, C, H, stream)
+            if err != 0:
+                raise SystemExit(f"launch error {err}")
+
+        def k1(fn=k1_fn, last=last):
+            err = fn(x.data_ptr(), w.data_ptr(), last.data_ptr(), T, B, C, H,
+                     stream)
+            if err != 0:
+                raise SystemExit(f"launch error {err}")
+        outs[name] = k1, k2, hs, cs, last
+    ms = {}
+    for leg, idx in (("K1", 0), ("K2", 1)):
+        for name in ("parent", "change", "change", "parent"):
+            ms.setdefault((leg, name), []).append(time_ms(outs[name][idx]))
+    with torch.no_grad():
+        cudnn = time_ms(lambda: lib_lstm(x))
+    for name in ("parent", "change"):
+        outs[name][0]()
+        outs[name][1]()
+    torch.cuda.synchronize()
+    diff = max((a - b).abs().max().item()
+               for a, b in zip(outs["parent"][2:], outs["change"][2:]))
+    for leg in ("K1", "K2"):
+        p, c = ms[(leg, "parent")], ms[(leg, "change")]
+        print(f"main {leg} f32 C=H={C}: parent / change / change / parent "
+              f"{p[0]:.4f} / {c[0]:.4f} / {c[1]:.4f} / {p[1]:.4f} ms; cuDNN "
+              f"forward {cudnn:.4f} ms", flush=True)
+    print(f"main f32 C=H={C}: the designs' hs, cs, h_(T-1) differ by at most "
+          f"{diff:.3e}", flush=True)
+
+
 def main():
     import torch
 
@@ -401,11 +608,16 @@ def main():
         return 1
     args = sys.argv[1:]
     if args[:1] == ["--compare-parent"]:
+        compare_main(args[1])
         compare_wide(args[1])
         print(smi_line())
         return 0
     if args[:1] == ["--wide"]:
         split_wide()
+        print(smi_line())
+        return 0
+    if args[:1] == ["--f32"]:
+        split_f32()
         print(smi_line())
         return 0
     nvcc, built = build_variants("lstm_fwd_mma.cu", VARIANTS,

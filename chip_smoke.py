@@ -14,9 +14,10 @@ printed):
    LSTM), and (3b) K2 and K3 (the training LSTM forward and backward) at
    T=124, B=2048, C=H=64, K3 in bf16 also part by part (gates,
    recurrence, products: each held to its plain twin and timed); K1 and
-   K2 in bf16 run one tensor-core kernel (``lstm_fwd_mma.cu``), K3 in f32
-   one launch (``lstm_bwd_f32.cu``); no ptxas spill allowed in them or in
-   K3 bf16's, and K1-K3 repeated bit for bit in both dtypes; (3c) K6 (the
+   K2 run one kernel a dtype (f32 ``lstm_fwd_f32.cu`` on the FP32 pipes,
+   bf16 ``lstm_fwd_mma.cu`` on the tensor cores), K3 in f32 one launch
+   (``lstm_bwd_f32.cu``); no ptxas spill allowed in them or in K3 bf16's,
+   and K1-K3 repeated bit for bit in both dtypes; (3c) K6 (the
    conv+BN+swish backward) at the four stride-1 block shapes of the
    training path, f32 and bf16 (db against the plain math in f64), with
    ``ConvBNSwish.backward``'s cuDNN path as the library yardstick; (3d)
@@ -233,17 +234,21 @@ def lstm_bound(flops, io_bytes, dtype):
 # is at least ACT_CHAIN of them (ex2 -> add -> rcp -> mul).
 DEP_LATENCY_CYCLES = 4
 ACT_CHAIN = 4
+# k a lane of lstm_fwd_f32.cu sums into one accumulator (its kKs)
+FWD_F32_KS = 16
 
 
 def lstm_chain_instrs(kind, C, H):
     """Dependent instructions of one step of an LSTM kernel's chain."""
-    K, G = C + H, 4 * H
+    G = 4 * H
     if kind == "fwd":
-        # K1 f32 (lstm_last.cu), K2 f32 (lstm_train.cu::lstm_fwd_kernel):
-        # LDS the operand -> C + H FFMA into one accumulator a gate -> the
-        # gates' activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) -> h =
-        # o tanh(c) -> STS h -> BAR
-        return 1 + K + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 2
+        # K1/K2 f32 (lstm_fwd_f32.cu; x_t . W_x + b runs on the x role's
+        # warps, off the chain): BAR -> LDS h_{t-1} -> FWD_F32_KS dependent
+        # FFMA (a k group's slice, whatever H) -> 3 x (SHFL, FADD) (the four
+        # k groups' ring) -> FADD the x sums -> the gates' activations -> c =
+        # f c + i g (FMUL, FFMA) -> tanh(c) -> h = o tanh(c) -> STS h
+        return 1 + 1 + FWD_F32_KS + 3 * 2 + 1 + ACT_CHAIN + 2 + ACT_CHAIN \
+            + 1 + 1
     if kind == "wide_fwd":
         # K1/K2 wide f32 (lstm_wide.cu::wide_fwd_f32_kernel; x_t . W_x is
         # off the chain): cluster BAR (wait) -> LDS h_{t-1} -> H FFMA into
@@ -336,7 +341,8 @@ def lstm_kernel_of(leg, dtype, C, H):
         return (f"lstm_{leg}_wide_{sfx}",
                 "remora_tpu_torch/csrc/lstm_wide.cu",
                 "wide_fwd_mma" if bf16 else "wide_fwd")
-    src = {("last", False): "lstm_last.cu", ("fwd", False): "lstm_train.cu",
+    src = {("last", False): "lstm_fwd_f32.cu",
+           ("fwd", False): "lstm_fwd_f32.cu",
            ("bwd", False): "lstm_bwd_f32.cu",
            ("bwd", True): "lstm_bwd_mma.cu"}.get((leg, bf16),
                                                   "lstm_fwd_mma.cu")
@@ -762,8 +768,10 @@ def check_lstm_bwd_compile():
 
 
 def check_lstm_fwd_compile():
-    """K1/K2 bf16's kernel, each instantiation: registers logged, no
-    spill."""
+    """K1/K2's kernels, f32 and bf16, each instantiation (f32: the main
+    shape's and the generic one, last-only and with hs, with and without
+    cs): registers logged, no spill."""
+    check_compile("lstm_fwd_f32", "K1/K2 f32", ("lstm_fwd_f32_kernel",))
     check_compile("lstm_fwd_mma", "K1/K2 bf16", ("lstm_fwd_mma_kernel",))
 
 

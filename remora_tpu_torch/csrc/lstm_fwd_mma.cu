@@ -7,8 +7,8 @@
 // and ::_fwd_kernel_last (launched by _fwd_last_call; K1, the inference
 // forward that returns only h_{T-1}). One kernel template serves both:
 // kStoreSeq writes hs_t (and cs_t when kCs) every step, and without it
-// (K1's last-only form) only h_{T-1} leaves the block. The f32 legs stay
-// lstm_train.cu::lstm_fwd_kernel and lstm_last.cu.
+// (K1's last-only form) only h_{T-1} leaves the block. The f32 legs are
+// lstm_fwd_f32.cu, one FP32 template of the same two forms.
 //
 //   gates_t = [x_t ; h_{t-1}] @ W_aug[:C+H] + W_aug[C+H]     (B, 4H), i|f|g|o
 //   c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)

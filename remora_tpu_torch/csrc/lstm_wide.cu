@@ -6,8 +6,8 @@
 // Replaces, at those widths, remora_tpu/kernels/pallas_lstm.py::
 // _fwd_kernel_last (K1) and _fwd_kernel / _fwd_kernel_nocs (K2), which the
 // JAX package runs at any width (_tile_plan shrinks its batch tile for wider
-// layers). The main-shape kernels (lstm_last.cu, lstm_train.cu,
-// lstm_fwd_mma.cu) keep every shape they take; kernels/lstm.py routes only
+// layers). The main-shape kernels (lstm_fwd_f32.cu, lstm_fwd_mma.cu) keep
+// every shape they take; kernels/lstm.py routes only
 // the shapes they refuse here (ConvLSTM_w_ref at size 65 .. 128).
 //
 //   gates_t = [x_t ; h_{t-1}] . W_aug[:C+H] + W_aug[C+H]    (B, 4H), i|f|g|o

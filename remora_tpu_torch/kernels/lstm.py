@@ -7,10 +7,10 @@ Counterpart of ``remora_tpu/kernels/pallas_lstm.py``:
   * ``lstm_fwd`` (K2) and ``lstm_bwd`` (K3) are ``_fwd_call`` and
     ``_bwd_call``: the full forward that writes hs (and cs for the
     backward), and the reverse-time backward that emits dx and dW_aug.
-    Each routes by dtype. K1 and K2 in f32 run ``csrc/lstm_last.cu`` and
-    ``csrc/lstm_train.cu::lstm_fwd_kernel``; in bf16 both run
-    ``csrc/lstm_fwd_mma.cu``, one tensor-core recurrence (last-only for
-    K1). K3 in f32 runs ``csrc/lstm_bwd_f32.cu``, one launch; in bf16
+    Each routes by dtype. K1 and K2 in f32 run ``csrc/lstm_fwd_f32.cu``,
+    one FP32 recurrence with the x product off its chain; in bf16
+    ``csrc/lstm_fwd_mma.cu``, one tensor-core recurrence (each last-only
+    for K1). K3 in f32 runs ``csrc/lstm_bwd_f32.cu``, one launch; in bf16
     ``csrc/lstm_bwd_mma.cu``, three tensor-core parts
     with wrappers and plain twins of their own (``lstm_bwd_gates``,
     ``lstm_bwd_recurrence``, ``lstm_bwd_products``). ``LSTMFused`` ties K2
@@ -60,7 +60,8 @@ FWD_MMA_MAX_H = 64
 BWD_F32_MAX_C = 128
 BWD_F32_MAX_H = 64
 BWD_F32_MAX_TILES = 256
-# the shapes ``lstm_last.cu`` and ``lstm_train.cu`` take (f32 K1, K2)
+# the shapes ``lstm_fwd_f32.cu`` takes (f32 K1, K2; its
+# ``lstm_fwd_f32_max_c`` / ``_max_h``): 32 unit pairs a role
 F32_FWD_MAX_C = 128
 F32_FWD_MAX_H = 64
 # the shapes ``lstm_bwd_mma.cu`` takes (its ``fits``: 8 hidden units for
@@ -94,17 +95,20 @@ def lstm_last_reference(params, x):
     return L.lstm(params, x, impl="scan")[-1].to(x.dtype)
 
 
-def _library():
-    lib = _build.load("lstm_last")
+def _f32_fwd_library():
+    """The library of K1's and K2's f32 leg (``csrc/lstm_fwd_f32.cu``)."""
+    lib = _build.load("lstm_fwd_f32")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_last_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-        lib.lstm_last_f32.restype = i32
-        for fn in ("lstm_last_max_c", "lstm_last_max_h"):
+        lib.lstm_fwd_f32.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.lstm_fwd_f32.restype = i32
+        lib.lstm_fwd_f32_last.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+        lib.lstm_fwd_f32_last.restype = i32
+        for fn in ("lstm_fwd_f32_max_c", "lstm_fwd_f32_max_h"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i32
-        lib.lstm_last_error_string.argtypes = [i32]
-        lib.lstm_last_error_string.restype = ctypes.c_char_p
+        lib.lstm_fwd_f32_error_string.argtypes = [i32]
+        lib.lstm_fwd_f32_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
@@ -146,8 +150,8 @@ def wide_shape_error(name, C, H):
 def route(leg, dtype, C, H):
     """The kernel of a CUDA call of ``leg`` ("last" K1, "fwd" K2, "bwd" K3)
     in ``dtype`` at C inputs and H hidden units: "main" for the main-shape
-    kernel of that leg and dtype (``lstm_last.cu``/``lstm_train.cu``,
-    ``lstm_fwd_mma.cu``, ``lstm_bwd_f32.cu``, ``lstm_bwd_mma.cu``) where it
+    kernel of that leg and dtype (``lstm_fwd_f32.cu``, ``lstm_fwd_mma.cu``,
+    ``lstm_bwd_f32.cu``, ``lstm_bwd_mma.cu``) where it
     takes the shape, else "wide" (``lstm_wide.cu``, K3 ``lstm_wide_bwd.cu``);
     a shape no kernel takes raises ``ValueError``."""
     name = {"last": "lstm_last", "fwd": "lstm_fwd", "bwd": "lstm_bwd"}[leg]
@@ -264,7 +268,7 @@ def _fwd_mma_library(name, C, H):
 
 def lstm_last(params, x):
     """Final hidden state h_{T-1} of a forward LSTM over x (T, B, C): (B, H)
-    in x's dtype. f32 runs full-f32 arithmetic (``lstm_last.cu``); bf16
+    in x's dtype. f32 runs full-f32 arithmetic (``lstm_fwd_f32.cu``); bf16
     takes bf16 operands (h included) with f32 sums and f32 h/c carries on
     the tensor cores (``lstm_fwd_mma.cu``, last-only). Shapes those
     kernels refuse run ``lstm_wide.cu`` (``route``)."""
@@ -297,8 +301,9 @@ def lstm_last(params, x):
         launch, error_string = lib.lstm_fwd_mma_last, \
             lib.lstm_fwd_mma_error_string
     else:
-        lib = _library()
-        launch, error_string = lib.lstm_last_f32, lib.lstm_last_error_string
+        lib = _f32_fwd_library()
+        launch, error_string = lib.lstm_fwd_f32_last, \
+            lib.lstm_fwd_f32_error_string
     out = torch.empty((B, H), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = launch(x.data_ptr(), w_aug.data_ptr(), out.data_ptr(), T, B, C,
@@ -419,21 +424,6 @@ def lstm_bwd_reference(x, w_aug, hs, cs, dhs):
     return lstm_bwd_products_reference(x, hs, w_aug, dg)
 
 
-def _train_library():
-    lib = _build.load("lstm_train")
-    if not getattr(lib, "_typed", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_fwd_f32.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-        lib.lstm_fwd_f32.restype = i32
-        for fn in ("lstm_train_max_c", "lstm_train_max_h"):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = i32
-        lib.lstm_train_error_string.argtypes = [i32]
-        lib.lstm_train_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
 def _bwd_f32_library(C, H):
     """The library of K3's f32 leg, after the shape check."""
     msg = bwd_f32_shape_error(C, H)
@@ -495,7 +485,7 @@ def _raise_on(error_string, name, err):
 def lstm_fwd(x, w_aug, want_cs=True):
     """K2: (hs, cs) of a forward LSTM over x (T, B, C), each (T, B, H) in
     x's dtype; cs is None unless ``want_cs``. f32 runs
-    ``lstm_train.cu::lstm_fwd_kernel``, bf16 ``lstm_fwd_mma.cu``; shapes
+    ``lstm_fwd_f32.cu``, bf16 ``lstm_fwd_mma.cu``; shapes
     those kernels refuse ``lstm_wide.cu`` (``route``)."""
     global LAUNCHES_FWD
     if x.device.type == "cpu":
@@ -510,8 +500,8 @@ def lstm_fwd(x, w_aug, want_cs=True):
         lib = _fwd_mma_library("lstm_fwd", C, H)
         launch, error_string = lib.lstm_fwd_mma, lib.lstm_fwd_mma_error_string
     else:
-        lib = _train_library()
-        launch, error_string = lib.lstm_fwd_f32, lib.lstm_train_error_string
+        lib = _f32_fwd_library()
+        launch, error_string = lib.lstm_fwd_f32, lib.lstm_fwd_f32_error_string
     hs = torch.empty((T, B, H), dtype=x.dtype, device=x.device)
     cs = torch.empty_like(hs) if want_cs else None
     with torch.cuda.device(x.device):

@@ -114,8 +114,8 @@ def test_lstm_fwd_mma_repeats_bit_for_bit(cuda):
 
 
 def test_lstm_fwd_routes_by_dtype(cuda, monkeypatch):
-    """bf16 K1/K2 load lstm_fwd_mma's library, f32 lstm_last's and
-    lstm_train's; the library's limits are the wrapper's."""
+    """bf16 K1/K2 load lstm_fwd_mma's library, f32 lstm_fwd_f32's (one
+    kernel for both); each library's limits are the wrapper's."""
     from remora_tpu_torch.kernels import _build
 
     loaded = []
@@ -127,7 +127,7 @@ def test_lstm_fwd_routes_by_dtype(cuda, monkeypatch):
 
     monkeypatch.setattr(_build, "load", spy)
     for dtype, want in ((torch.bfloat16, ["lstm_fwd_mma"] * 2),
-                        (torch.float32, ["lstm_train", "lstm_last"])):
+                        (torch.float32, ["lstm_fwd_f32"] * 2)):
         params, x = _case(5, 24, 64, 64, dtype, cuda)
         loaded.clear()
         K.lstm_fwd(x, _w_aug(params))
@@ -137,6 +137,46 @@ def test_lstm_fwd_routes_by_dtype(cuda, monkeypatch):
     lib = load("lstm_fwd_mma")
     assert (lib.lstm_fwd_mma_max_c(), lib.lstm_fwd_mma_max_h()) == (
         K.FWD_MMA_MAX_C, K.FWD_MMA_MAX_H)
+    lib = load("lstm_fwd_f32")
+    assert (lib.lstm_fwd_f32_max_c(), lib.lstm_fwd_f32_max_h()) == (
+        K.F32_FWD_MAX_C, K.F32_FWD_MAX_H)
+
+
+# K1's and K2's f32 leg (lstm_fwd_f32.cu) against the plain versions: the
+# main shape (the main path's batch and its last short batch, T = 124) on
+# the compile-time instantiation; the generic one at the main shape with x
+# off 16-byte alignment (4-byte staging), at C = 128 (two 64-k chunks of
+# W_x), at C and H off 4 and 16, and at T = 0 (K1 gives zeros). Each
+# repeats bit for bit, hs is the same with and without cs, and K1's
+# h_(T-1) is K2's last hs.
+@pytest.mark.parametrize("T,B,C,H,offset", [
+    (124, 2048, 64, 64, 0), (124, 1111, 64, 64, 0), (17, 40, 64, 64, 1),
+    (6, 21, 128, 64, 0), (4, 17, 66, 61, 0), (0, 16, 64, 64, 0)])
+def test_lstm_fwd_f32_matches_plain_and_repeats(cuda, T, B, C, H, offset):
+    params, xc = _case(T, B, C, H, torch.float32, cuda)
+    # a contiguous x at ``offset`` floats into its buffer
+    x = torch.empty(xc.numel() + offset, device=cuda)[offset:].view(T, B, C)
+    x.copy_(xc)
+    w_aug = _w_aug(params)
+    launches = (K.LAUNCHES_FWD, K.LAUNCHES)
+    with full_f32():
+        hs, cs = K.lstm_fwd(x, w_aug)
+        hs_nocs, _ = K.lstm_fwd(x, w_aug, want_cs=False)
+        last = K.lstm_last(params, x)
+        again = K.lstm_fwd(x, w_aug), K.lstm_last(params, x)
+        hs_ref, cs_ref = K.lstm_fwd_reference(x, w_aug)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES_FWD, K.LAUNCHES) == (launches[0] + 3,
+                                            launches[1] + 2)
+    assert torch.equal(again[0][0], hs) and torch.equal(again[0][1], cs)
+    assert torch.equal(again[1], last) and torch.equal(hs_nocs, hs)
+    if T == 0:
+        assert torch.equal(last, torch.zeros((B, H), device=cuda))
+        return
+    assert torch.equal(last, hs[-1])
+    for got, want in ((hs, hs_ref), (cs, cs_ref)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5, err
 
 
 # shapes above every kernel's limits (the bf16 kernel's refusals of H 65
@@ -359,11 +399,9 @@ def test_lstm_libraries_match_the_shape_rule(cuda):
     # (wide_fwd_weights) follows
     for H in range(1, K.WIDE_MAX_H + 1):
         assert wide.lstm_wide_fwd_units(H) == K.wide_fwd_units(H)
-    last, train = _build.load("lstm_last"), _build.load("lstm_train")
-    for lib, fn in ((last, "lstm_last"), (train, "lstm_train")):
-        assert (getattr(lib, fn + "_max_c")(),
-                getattr(lib, fn + "_max_h")()) == (K.F32_FWD_MAX_C,
-                                                   K.F32_FWD_MAX_H)
+    f32 = _build.load("lstm_fwd_f32")
+    assert (f32.lstm_fwd_f32_max_c(), f32.lstm_fwd_f32_max_h()) == (
+        K.F32_FWD_MAX_C, K.F32_FWD_MAX_H)
     mma = _build.load("lstm_bwd_mma")
     assert (mma.lstm_bwd_mma_max_h(), mma.lstm_bwd_mma_max_k()) == (
         K.BWD_MMA_MAX_H, K.BWD_MMA_MAX_K)

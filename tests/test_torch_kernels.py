@@ -32,9 +32,11 @@ def _lstm_case(T, B, C, H, seed=0):
 
 
 # ragged tails, an exact multiple of the time chunk, one chunk; C == H and
-# C != H both ways
+# C != H both ways; the f32 kernel's own widths (C = H = 64, the main
+# shape, and C = 128 at H = 64, its two 64-k chunks of W_x)
 @pytest.mark.parametrize(
-    "T,C,H", [(7, 16, 16), (13, 24, 16), (24, 16, 32), (13, 8, 8)]
+    "T,C,H", [(7, 16, 16), (13, 24, 16), (24, 16, 32), (13, 8, 8),
+              (7, 64, 64), (9, 128, 64)]
 )
 def test_lstm_last_plain_matches_pallas_and_scan(monkeypatch, T, C, H):
     B = 16
@@ -67,9 +69,11 @@ def _w_aug(params):
 
 # Pallas in interpret mode on a small plan: two batch tiles, time chunks of
 # 4 with a ragged tail (T not a multiple of KT), and one exact multiple;
-# C == H and C != H both ways
+# C == H and C != H both ways; the f32 forward kernel's own widths (C = H
+# = 64 and C = 128 at H = 64)
 @pytest.mark.parametrize(
-    "T,C,H", [(7, 16, 16), (13, 24, 16), (12, 16, 32)]
+    "T,C,H", [(7, 16, 16), (13, 24, 16), (12, 16, 32), (7, 64, 64),
+              (9, 128, 64)]
 )
 def test_lstm_train_plain_matches_pallas(monkeypatch, T, C, H):
     B = 16
@@ -204,7 +208,7 @@ def test_lstm_last_refuses_devices_without_a_kernel():
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    assert {"lstm_last", "lstm_train"} <= set(_build.sources())
+    assert "lstm_fwd_f32" in _build.sources()
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RemoraError, match="nvcc not found"):

@@ -223,7 +223,8 @@ def test_build_rebuilds_when_its_inputs_change(monkeypatch, fake_nvcc,
 
 @pytest.mark.parametrize("name", ["lstm_fwd_mma", "lstm_bwd_mma",
                                   "lstm_bwd_f32", "convbn_bwd",
-                                  "lstm_wide", "lstm_wide_bwd"])
+                                  "lstm_wide", "lstm_wide_bwd",
+                                  "lstm_fwd_f32"])
 def test_build_key_covers_the_shared_header(fake_nvcc, name):
     """The package's sources that include the shared header
     (``mma_sm90.cuh``: the tensor-core and cp.async helpers), copied as they

@@ -1,7 +1,10 @@
-"""K1 and K2's bf16 leg on the CPU: the shapes the tensor-core kernel
-(``csrc/lstm_fwd_mma.cu``) takes, and the plain versions it is held to on
-the card against the JAX kernels in interpret mode, at the kernel's own
-test shapes (a batch under one 16-row tile, H = 12, C = 100)."""
+"""K1 and K2 on the CPU: the shapes the bf16 tensor-core kernel
+(``csrc/lstm_fwd_mma.cu``) and the f32 kernel (``csrc/lstm_fwd_f32.cu``)
+take, and the bf16 plain versions the kernel is held to on the card
+against the JAX kernels in interpret mode, at the kernel's own test shapes
+(a batch under one 16-row tile, H = 12, C = 100). The f32 plain versions
+meet the JAX kernels at the f32 kernel's widths in
+``test_torch_kernels.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +43,20 @@ def test_fwd_mma_refuses_other_shapes(C, H):
     )
     with pytest.raises(ValueError, match="the bf16 kernel takes"):
         K._fwd_mma_library("lstm_last", C, H)
+
+
+def test_f32_fwd_shape_rule_takes_every_shape_of_the_old_kernels():
+    """f32 K1 and K2 keep the shape rule of the kernels ``lstm_fwd_f32.cu``
+    replaces (``lstm_last.cu``, ``lstm_train.cu``: 1 <= C <= 128, 1 <= H <=
+    64): every such shape routes to the main-shape kernel, every wider one
+    up to 128 to the wide kernels, and the limits are the new kernel's (32
+    unit pairs a role, two 64-k chunks of W_x)."""
+    assert (K.F32_FWD_MAX_C, K.F32_FWD_MAX_H) == (128, 64)
+    for C in range(1, 129):
+        for H in range(1, 129):
+            want = "main" if H <= 64 else "wide"
+            for leg in ("last", "fwd"):
+                assert K.route(leg, torch.float32, C, H) == want, (leg, C, H)
 
 
 def test_cpu_tensors_take_the_plain_version_at_any_width():
