@@ -61,12 +61,15 @@ printed):
    by kernel, and one f32 size-96 train step held to the same step with
    the plain LSTM versions (as 6b);
 8. the banded refinement DP: K4 (forward) and K5 (traceback) against
-   their plain versions on the card (8 reads of 400 bases, W = 128) and
-   against the native host DP on one micro-batch (64 synthetic reads of
-   4000 bases), Viterbi and dwell_penalty, with their times and bounds,
-   and K4's time beside the parent design's (its block path, forced at W
-   = 128 by ``chip_dp_variants.build_block_path``, tb rows equal) timed
-   in turns, parent, change, change, parent;
+   their plain versions on the card (8 reads of 400 bases, W = 128), K5
+   also on rows no DP wrote (W = 8, 128 and 4096; steps of any int16
+   value; seq_lens 1 and N), and against the native host DP on one
+   micro-batch (64 synthetic reads of 4000 bases), Viterbi and
+   dwell_penalty, with their times and bounds (K4's and K5's the larger
+   of bytes and serial chain), and K4's time beside the parent design's
+   (its block path, forced at W = 128 by
+   ``chip_dp_variants.build_block_path``, tb rows equal) timed in turns,
+   parent, change, change, parent;
    (8b) the refinement stage at full size: 256 such reads with labels and
    CG focus bases through ``SigMapRefiner.refine_reads_batch`` (device,
    micro-batches of 64, launch counts set to 0 first: K4/K5 launch as the
@@ -1697,6 +1700,17 @@ STAGE_MAX_CHUNKS = 100_000  # above every read's site count: no RNG draw
 FOLD_STEP_CYCLES = 8
 # a stay-only row (dwell_penalty's past-band suffix): one dependent FADD
 STAY_STEP_CYCLES = 4
+# dependent latency of one K5 walk step at its floor, in SM cycles: one
+# dependent shared-memory load (LDS_CYCLES: 23.00 cycles for u32 and s16
+# words, the pointer chase of ``chip_dp_variants.py --traceback`` on an
+# H100 80GB HBM3 at 700 W) and the one dependent add that turns the loaded
+# step into the next index (4 cycles, the pipe latency above)
+LDS_CYCLES = 23
+TB_STEP_CYCLES = LDS_CYCLES + 4
+# K5 held bit for bit to its plain version on rows no DP wrote: (W, reads,
+# bases) at three shapes of its ring (banded_dp.cu::tb_ring: 8 stages of
+# 256 rows, 3 of 128, 3 of 4), each walk long enough to wrap the ring
+TB_ROW_CASES = ((8, 8, 2500), (128, 8, 700), (4096, 4, 40))
 
 
 def synth_read(rng, n_bases, levels_of=None):
@@ -1770,6 +1784,52 @@ def dp_chain_cycles(starts, widths, n_dwell, dwell):
     return int(cycles[r]), int(folded[r]), int(suffix[r])
 
 
+def tb_row_case(seed, R, N, W, kind, device):
+    """K5 inputs that no DP wrote: ``codes`` entries -1 .. W + 3 (a DP's
+    codes, and steps wider than the band), ``wild`` the whole int16 range
+    (negative steps, paths far off the band); band starts rising 0 to 6
+    samples a base from anywhere in -50 .. 50, widths 1 .. W; seq_lens 1,
+    N and between."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if kind == "codes":
+        tb = rng.integers(-1, W + 4, (R, N, W))
+    else:
+        tb = rng.integers(-2 ** 15, 2 ** 15, (R, N, W))
+    starts = (rng.integers(-50, 50, (R, 1))
+              + np.cumsum(rng.integers(0, 7, (R, N)), 1))
+    widths = rng.integers(1, W + 1, (R, N))
+    seq_lens = rng.integers(1, N + 1, R)
+    seq_lens[:2] = 1, N
+    return [torch.from_numpy(a.astype(dt)).to(device) for a, dt in (
+        (tb, np.int16), (starts, np.int32), (widths, np.int32),
+        (seq_lens, np.int32))]
+
+
+def check_traceback_rows():
+    """K5 against its plain version, bit for bit, on arbitrary rows at W =
+    8, 128 and 4096 (``TB_ROW_CASES``)."""
+    import torch
+
+    from remora_tpu_torch.kernels import banded_dp as K
+
+    cuda = torch.device("cuda")
+    for W, R, N in TB_ROW_CASES:
+        for kind in ("codes", "wild"):
+            tb, st, wd, sl = tb_row_case(W + N, R, N, W, kind, cuda)
+            path = K.dp_traceback(tb, st, wd, sl)
+            want = K.dp_traceback_reference(tb, st, wd, sl)
+            torch.cuda.synchronize()
+            check(torch.equal(path, want),
+                  f"K5 on arbitrary rows (W={W}, {kind}): "
+                  f"{int((path != want).sum())} path entries differ from "
+                  "the plain version")
+    log(f"K5 on arbitrary rows (W, reads, bases: {TB_ROW_CASES}; DP codes "
+        "and the whole int16 range; seq_lens 1 and N): paths equal to the "
+        "plain version, bit for bit")
+
+
 def max_sm_clock_hz():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -1837,6 +1897,8 @@ def check_banded_dp():
             f"{small_ms[algo][1]:.4f} ms, plain {plain_ms[algo][0]:.1f} / "
             f"{plain_ms[algo][1]:.1f} ms")
 
+    check_traceback_rows()
+
     batch = dp_reads(9, DP_READS, DP_BASES)
     w_main = width_bucket(batch)
     sig, lvl, st, wd, sl = dp_tensors(batch, w_main, cuda)
@@ -1888,15 +1950,22 @@ def check_banded_dp():
                 f"{name} {ms:.4f} ms" for name, ms in turns)
             + "; tb rows equal")
         tb_ms = time_ms(lambda: K.dp_traceback(tb, st, wd, sl))
+        # K5's floor: the longest walk's dependent steps, or its bytes
+        walked = sl.clamp(1, N).long() - 1
+        tb_chain_ms = (int(walked.max()) * TB_STEP_CYCLES
+                       / max_sm_clock_hz() * 1e3)
         # K4's floor: the serial fold chain of the read that needs longest
         cycles, rows, suffix = dp_chain_cycles(st, wd, sdp.numel(), dwell)
         chain_ms = cycles / max_sm_clock_hz() * 1e3
         fwd_bytes = (sig.numel() * 4 + 3 * R * N * 4 + sdp.numel() * 4
                      + tb.numel() * 2)
         fwd_bytes_ms = fwd_bytes / PEAK_BYTES_PER_S * 1e3
-        # K5 needs one int16 of each base's row, the bands and the path
+        # K5 needs one int16 of each base's row, the bands and the path;
+        # it streams each walked base's whole row and start
         tb_bytes = R * N * 2 + 2 * R * N * 4 + R * 4 + path.numel() * 4
         tb_bytes_ms = tb_bytes / PEAK_BYTES_PER_S * 1e3
+        streamed = (int(walked.sum()) * (W * 2 + 4) + 2 * R * 4
+                    + path.numel() * 4)
         n_bases = sum(lv.size for _s, lv, _b in batch)
         log(f"banded DP {algo}, {R} reads of {DP_BASES} bases (bucket "
             f"W={W}): paths equal to the native host DP; K4 {fwd_ms:.4f} "
@@ -1906,8 +1975,12 @@ def check_banded_dp():
             f"{rows} folded rows x {FOLD_STEP_CYCLES} cycles + {suffix} "
             f"suffix rows x {STAY_STEP_CYCLES} cycles = {chain_ms:.4f} ms, "
             f"bytes {fwd_bytes / 1e6:.2f} MB = "
-            f"{fwd_bytes_ms:.4f} ms; K5 bytes {tb_bytes / 1e6:.3f} MB = "
-            f"{tb_bytes_ms:.4f} ms")
+            f"{fwd_bytes_ms:.4f} ms; K5 floor: serial chain "
+            f"{int(walked.max())} walked bases x {TB_STEP_CYCLES} cycles = "
+            f"{tb_chain_ms:.4f} ms, bytes {tb_bytes / 1e6:.3f} MB = "
+            f"{tb_bytes_ms:.4f} ms; K5 streams {streamed / 1e6:.2f} MB = "
+            f"{streamed / PEAK_BYTES_PER_S * 1e3:.4f} ms at "
+            f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
         if not dwell:
             continue
         # ms and bound_ms at the micro-batch; plain_ms, ms_at_plain_shape
@@ -1936,7 +2009,9 @@ def check_banded_dp():
              "launches": None, "max_abs_err": plain_err[algo][1],
              "ms": tb_ms, "plain_ms": plain_ms[algo][1],
              "ms_at_plain_shape": small_ms[algo][1],
-             "bound_ms": tb_bytes_ms, "bound_by": "bytes",
+             "bound_ms": max(tb_chain_ms, tb_bytes_ms),
+             "bound_by": "operations" if tb_chain_ms >= tb_bytes_ms
+             else "bytes",
              "library_ms": None, **shapes},
         ]
     return records

@@ -38,7 +38,10 @@
 //     kernel's signal staging windows, sublane shifts, 128-lane padding or
 //     traceback DMA staging exists here. Each base's tb row is stored from
 //     shared memory by all threads, coalesced.
-//   * K5: one thread per read, one int16 load per base.
+//   * K5: one thread block per read; a producer warp streams the read's
+//     traceback rows into a ring in shared memory by TMA bulk copies, in
+//     descending base order, ahead of one walker thread, so the walk's
+//     serial chain holds no device-memory load (see the K5 section).
 //   * Numerics: every sum and product is an explicit __fadd_rn / __fmul_rn
 //     (never contracted into an FMA; the build also passes --fmad=false),
 //     in the association of the native C++ DP and the Pallas kernels: the
@@ -50,8 +53,10 @@
 // Bound: no roofline applies. K4's floor is its serial chain: the folded
 // rows of every base x the dependent latency of one fold step (an f32 add,
 // a compare and a select), plus in dwell mode the past-band suffix rows x
-// the latency of one f32 add. K5 moves N x 2 bytes a read. chip_smoke.py
-// phase 8 states both.
+// the latency of one f32 add. K5's floor is its walk: the longest read's
+// walked bases x one dependent shared-memory load and one add. K5 needs
+// N x 2 bytes of tb a read, but streams whole rows. chip_smoke.py phase 8
+// states both floors.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -630,28 +635,267 @@ int launch_staged(const float* signal, const float* levels, const int* starts,
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void dp_traceback_kernel(const int16_t* __restrict__ tb,
-                                    const int* __restrict__ starts,
-                                    const int* __restrict__ widths,
-                                    const int* __restrict__ seq_lens, int R,
-                                    int N, int W, int* __restrict__ path) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+// ---------------- K5, the traceback walk ----------------
+//
+// Replaces pallas_dp.py::_traceback_kernel, which prefetches each base's
+// row by DMA into a two-deep VMEM buffer while the previous base is
+// walked. The walk is one serial chain per read: row i's entry depends on
+// the value row i + 1's entry gave. Its first design (one thread a read,
+// two dependent device-memory loads a step) paid ~1,000 cycles a step.
+// Here one block walks one read:
+//   * a producer warp (warp 1) fills a ring of `stages` stages in shared
+//     memory, a chunk of `chunk` rows a stage in descending base order:
+//     the rows by one TMA 1-D bulk copy (cp.async.bulk ...
+//     mbarrier::complete_tx), the chunk's band starts by 4-byte cp.async
+//     whose completion arrives on the same full mbarrier
+//     (cp.async.mbarrier.arrive.noinc), so no lane of the warp waits on
+//     device memory. The first chunk ends at row sl - 1, so no padding
+//     row is streamed; row 0 is never read. Stage slot j holds row top -
+//     j of its chunk (slot 0 the chunk's top row). The warp also writes
+//     each chunk's path out once the walker releases it (its empty
+//     mbarrier), and the path's ends (path[0] = 0, path[i] = the signal
+//     end for i >= sl);
+//   * one walker thread (lane 0 of warp 0) waits once a chunk on its full
+//     barrier, walks its rows from shared memory alone, four a group
+//     (each group's starts one 16-byte load a group ahead, its path
+//     values one 16-byte store), and arrives once a chunk on its empty
+//     barrier. A last chunk of fewer rows is walked to the next multiple
+//     of 4 on stale slots of its own stage, whose values are never
+//     written out; each stage's starts end in 4 pad slots, so the last
+//     group's look-ahead load stays in its stage too.
+// The step, with lookup = path[i + 1] - 1, d = lookup - start[i]:
+//     off = clamp(d, 0, W - 1); v = tb[i][off]; path[i] = lookup - v;
+//     lookup' = lookup - v - 1; d' = (lookup - (start[i - 1] + 1)) - v.
+// Everything but v is known a step ahead, so the dependent chain is
+//     LDS.S16 v -> IADD3 d' -> clamp (VIMNMX.RELU, __vimin_s32_relu, one
+//     DPX instruction) -> LEA or IMAD (the row's address + 2 off) ->
+//     LDS.S16,
+// 23 cycles for the LDS (a dependent shared-memory load on an H100) and
+// ~4-5 for each of the three integer ops, against a floor of one LDS and
+// one add, 27 cycles (chip_dp_variants.py --traceback measures the LDS,
+// splits the kernel and prints the loop's SASS). Int32 arithmetic wraps
+// as the plain version's does, so paths equal it bit for bit on any
+// input: an int16 step of any sign or size, a path that leaves the band,
+// sl clamped to [1, N].
+
+constexpr int kTbThreads = 64;              // warp 0 walks, warp 1 stages
+constexpr int kTbStageBytes = 32 * 1024;    // tb bytes a stage holds
+constexpr int kTbRingBytes = 96 * 1024;     // tb bytes of the ring
+constexpr int kTbMaxChunk = 256;            // rows a stage
+constexpr int kTbMaxStages = 8;
+
+struct TbRing {
+  int chunk, stages;
+};
+
+// rows a stage (a multiple of 4) and stages of the ring for rows of W
+// int16 (a multiple of 16 bytes); at W = 128, 3 stages of 128 rows
+__host__ __device__ __forceinline__ TbRing tb_ring(int W) {
+  const int row = 2 * W;
+  const int chunk = max(4, min(kTbMaxChunk, kTbStageBytes / row) & ~3);
+  return {chunk, max(2, min(kTbMaxStages, kTbRingBytes / (chunk * row)))};
+}
+
+// start slots past a stage's last row: the walker's last group reads one
+// group of starts ahead, and that read stays inside its own stage
+constexpr int kTbStartPad = 4;
+
+// tb rows, then the starts (with their pad) and the path values of each
+// stage
+__host__ __forceinline__ size_t tb_smem_bytes(TbRing ring, int W) {
+  return static_cast<size_t>(ring.stages) *
+         (ring.chunk * (2 * static_cast<size_t>(W) + 2 * sizeof(int)) +
+          kTbStartPad * sizeof(int));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// an arrival on `bar` once this thread's earlier cp.async copies land
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA 1-D bulk copy, global -> shared; completes `bytes` on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ int lds_s16(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.s16 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// One walk step on the row at shared address `row`: see the note above.
+// `next_start` is the start of the row walked next.
+__device__ __forceinline__ int walk_step(uint32_t row, int next_start,
+                                         int W, int& d, uint32_t& lookup) {
+  const uint32_t ahead = lookup - (static_cast<uint32_t>(next_start) + 1u);
+  const int off = __vimin_s32_relu(d, W - 1);
+  const int v = lds_s16(row + 2 * off);
+  const uint32_t value = lookup - static_cast<uint32_t>(v);
+  d = static_cast<int>(ahead - static_cast<uint32_t>(v));
+  lookup = value - 1u;
+  return static_cast<int>(value);
+}
+
+__global__ void __launch_bounds__(kTbThreads)
+    dp_traceback_staged_kernel(const int16_t* __restrict__ tb,
+                               const int* __restrict__ starts,
+                               const int* __restrict__ widths,
+                               const int* __restrict__ seq_lens, int N, int W,
+                               int chunk, int stages,
+                               int* __restrict__ path) {
+  extern __shared__ __align__(128) unsigned char tb_smem[];
+  __shared__ __align__(8) uint64_t full[kTbMaxStages];
+  __shared__ __align__(8) uint64_t empty[kTbMaxStages];
+  const int row_bytes = 2 * W;
+  const int stage_bytes = chunk * row_bytes;
+  const int st_stride = chunk + kTbStartPad;
+  int* st_buf = reinterpret_cast<int*>(tb_smem + stages * stage_bytes);
+  int* path_buf = st_buf + stages * st_stride;
+
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int* st_r = starts + static_cast<int64_t>(r) * N;
   const int* wd_r = widths + static_cast<int64_t>(r) * N;
-  const int16_t* tb_r = tb + static_cast<int64_t>(r) * N * W;
+  const unsigned char* tb_r =
+      reinterpret_cast<const unsigned char*>(tb + static_cast<int64_t>(r) *
+                                                      N * W);
   int* path_r = path + static_cast<int64_t>(r) * (N + 1);
   const int sl = min(max(seq_lens[r], 1), N);
-  const int sig_end = st_r[sl - 1] + wd_r[sl - 1];
-  for (int i = sl; i <= N; ++i) path_r[i] = sig_end;
-  int nxt = sig_end;
-  for (int i = sl - 1; i >= 1; --i) {
-    const int lookup = nxt - 1;
-    const int off = min(max(lookup - st_r[i], 0), W - 1);
-    nxt = lookup - static_cast<int>(tb_r[static_cast<int64_t>(i) * W + off]);
-    path_r[i] = nxt;
+  // rows sl - 1 .. 1 are walked, `chunk` a stage from the top
+  const int n_chunks = (sl - 1 + chunk - 1) / chunk;
+
+  if (tid < stages * kTbStartPad)
+    st_buf[(tid / kTbStartPad) * st_stride + chunk + tid % kTbStartPad] = 0;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], 1);  // the walker
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  path_r[0] = 0;
+  __syncthreads();
+
+  if (tid >= 32) {
+    // the producer warp
+    const int sig_end = st_r[sl - 1] + wd_r[sl - 1];
+    for (int i = sl + lane; i <= N; i += 32) path_r[i] = sig_end;
+    if (lane == 0) path_r[0] = 0;
+    for (int c = 0; c < n_chunks + stages; ++c) {
+      if (c >= stages) {
+        // chunk c - stages is walked: write its path out, free its stage
+        const int done = c - stages;
+        const int s = done % stages;
+        mbar_wait(&empty[s], (done / stages) & 1);
+        const int top = sl - 1 - done * chunk;
+        const int cnt = min(chunk, top);
+        for (int j = lane; j < cnt; j += 32)
+          path_r[top - j] = path_buf[s * chunk + j];
+      }
+      if (c >= n_chunks) continue;
+      const int s = c % stages;
+      const int top = sl - 1 - c * chunk;
+      const int cnt = min(chunk, top);
+      if (lane == 0) {
+        // rows top - cnt + 1 .. top into the stage's last cnt slots' rows
+        const uint32_t bytes = static_cast<uint32_t>(cnt * row_bytes);
+        mbar_expect_tx(&full[s], bytes);
+        bulk_copy(tb_smem + s * stage_bytes + (chunk - cnt) * row_bytes,
+                  tb_r + static_cast<int64_t>(top - cnt + 1) * row_bytes,
+                  bytes, &full[s]);
+      }
+      for (int j = lane; j < cnt; j += 32)
+        cp_async4(st_buf + s * st_stride + j, st_r + top - j);
+      mbar_arrive_cp_async(&full[s]);
+    }
+  } else if (tid == 0) {
+    // the walker: shared memory alone on its chain
+    uint32_t lookup =
+        static_cast<uint32_t>(st_r[sl - 1] + wd_r[sl - 1]) - 1u;
+    const uint32_t ring = smem_u32(tb_smem);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = c % stages;
+      const int cnt = min(chunk, sl - 1 - c * chunk);
+      const int4* st4 =
+          reinterpret_cast<const int4*>(st_buf + s * st_stride);
+      int4* path4 = reinterpret_cast<int4*>(path_buf + s * chunk);
+      // slot j's row: the stage's last row minus j rows
+      uint32_t row = ring + s * stage_bytes + (chunk - 1) * row_bytes;
+      mbar_wait(&full[s], (c / stages) & 1);
+      int4 cur = st4[0];
+      int d = static_cast<int>(lookup - static_cast<uint32_t>(cur.x));
+      for (int g = 0; g < cnt; g += 4) {
+        // the next group's starts; the last group's read lands in the
+        // stage's pad or its stale slots, and its d is recomputed at the
+        // next chunk's head
+        const int4 ahead = st4[g / 4 + 1];
+        int4 out;
+        out.x = walk_step(row, cur.y, W, d, lookup);
+        out.y = walk_step(row - row_bytes, cur.z, W, d, lookup);
+        out.z = walk_step(row - 2 * row_bytes, cur.w, W, d, lookup);
+        out.w = walk_step(row - 3 * row_bytes, ahead.x, W, d, lookup);
+        path4[g / 4] = out;
+        row -= 4 * row_bytes;
+        cur = ahead;
+      }
+      mbar_arrive(&empty[s]);
+    }
+  }
 }
 
 }  // namespace
@@ -701,16 +945,25 @@ int banded_dp_forward(const float* signal, const float* levels,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5. tb (R, N, W) int16, starts / widths (R, N), seq_lens (R,) -> path
-// (R, N + 1) int32.
+// K5. tb (R, N, W) int16 (16-byte aligned, W a multiple of 8), starts /
+// widths (R, N), seq_lens (R,) -> path (R, N + 1) int32. Returns a
+// cudaError_t (0 on a clean launch).
 int banded_dp_traceback(const int16_t* tb, const int* starts,
                         const int* widths, const int* seq_lens, int R, int N,
                         int W, int* path, void* stream) {
   if (R <= 0) return 0;
-  constexpr int kTbThreads = 64;
-  dp_traceback_kernel<<<(R + kTbThreads - 1) / kTbThreads, kTbThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      tb, starts, widths, seq_lens, R, N, W, path);
+  if (N <= 0 || W <= 0 || W > kMaxBand || W % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(tb) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TbRing ring = tb_ring(W);
+  const size_t smem = tb_smem_bytes(ring, W);
+  cudaError_t err = cudaFuncSetAttribute(
+      dp_traceback_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dp_traceback_staged_kernel<<<R, kTbThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      tb, starts, widths, seq_lens, N, W, ring.chunk, ring.stages, path);
   return static_cast<int>(cudaGetLastError());
 }
 

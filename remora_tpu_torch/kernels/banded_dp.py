@@ -176,11 +176,12 @@ def dp_forward_reference(signal, levels, starts, widths, sdp, dwell, W):
 
 def dp_traceback_reference(tb, starts, widths, seq_lens):
     """Plain version of K5: paths (R, N + 1) int32 from tb (R, N, W); path[0]
-    = 0, path[i] = the read's signal end for i >= seq_len."""
+    = 0, path[i] = the read's signal end for i >= seq_len (clamped to 1 ..
+    N). Int32 arithmetic wraps, as the kernel's does."""
     R, N, W = tb.shape
     dev = tb.device
     ridx = torch.arange(R, device=dev)
-    sl = seq_lens.clamp(min=1).long()
+    sl = seq_lens.clamp(1, N).long()
     sig_end = starts[ridx, sl - 1] + widths[ridx, sl - 1]
     path = torch.zeros((R, N + 1), dtype=torch.int32, device=dev)
     path[:, N] = sig_end
@@ -294,7 +295,10 @@ def dp_forward(signal, levels, starts, widths, sdp, dwell, W):
 def dp_traceback(tb, starts, widths, seq_lens):
     """K5: paths (R, N + 1) int32 from the traceback rows tb (R, N, W)
     int16, band starts and widths (R, N) int32 and seq_lens (R,) int32
-    (each in 1 .. N)."""
+    (each in 1 .. N). On CUDA the kernel copies whole rows by TMA, so tb
+    must start on a 16-byte boundary and W be a multiple of 8 (rows of a
+    multiple of 16 bytes, as ``launch_width`` makes them); anything else
+    raises."""
     global LAUNCHES_TB
     if tb.device.type == "cpu":
         return dp_traceback_reference(tb, starts, widths, seq_lens)
@@ -304,6 +308,18 @@ def dp_traceback(tb, starts, widths, seq_lens):
     _checked("starts", starts, torch.int32, (R, N), device)
     _checked("widths", widths, torch.int32, (R, N), device)
     _checked("seq_lens", seq_lens, torch.int32, (R,), device)
+    if tb.data_ptr() % 16 != 0:
+        raise RemoraError(
+            "dp_traceback: tb must start on a 16-byte boundary (the kernel "
+            f"copies its rows by TMA); its data pointer is "
+            f"{tb.data_ptr() % 16} bytes past one"
+        )
+    if N < 1 or W % 8 != 0 or W > REFINE_DEVICE_MAX_BAND:
+        raise RemoraError(
+            f"dp_traceback: tb of {N} bases and rows of W = {W}; the kernel "
+            f"takes N >= 1 and W a multiple of 8 up to "
+            f"{REFINE_DEVICE_MAX_BAND}"
+        )
     lib = _load_library("dp_traceback")
     path = torch.empty((R, N + 1), dtype=torch.int32, device=device)
     with torch.cuda.device(device):

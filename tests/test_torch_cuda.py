@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import tb_row_case
 from remora_tpu_torch.infer.infer import full_f32
 from remora_tpu_torch.kernels import lstm as K
 
@@ -677,6 +678,51 @@ def test_banded_dp_kernels_refuse_bad_inputs(cuda):
         DP.dp_forward(sig, lvl.cpu(), st, wd, sdp, True, w_max)
     with pytest.raises(RemoraError, match="launch width"):
         DP.banded_dp_batch(sig, lvl, st, wd, sl, sdp, w_max=8)
+
+
+# K5 on rows no DP wrote, bit for bit: the ring's shapes at W = 8 (8
+# stages of 256 rows), 128 (3 of 128) and 4096 (3 of 4), walks that wrap
+# the ring and end on a partial chunk, and reads of 1 and N bases
+@pytest.mark.parametrize("kind", ["codes", "wild"])
+@pytest.mark.parametrize("W,R,N", [(8, 6, 2301), (128, 6, 601),
+                                   (4096, 3, 23)])
+def test_dp_traceback_kernel_on_arbitrary_rows(cuda, W, R, N, kind):
+    from remora_tpu_torch.kernels import banded_dp as DP
+
+    tb, st, wd, sl = tb_row_case(W + N, R, N, W, kind, cuda)
+    launches = DP.LAUNCHES_TB
+    path = DP.dp_traceback(tb, st, wd, sl)
+    torch.cuda.synchronize()
+    assert DP.LAUNCHES_TB == launches + 1
+    assert torch.equal(path, DP.dp_traceback_reference(tb, st, wd, sl))
+
+
+def test_dp_traceback_kernel_more_reads_than_sms(cuda):
+    from remora_tpu_torch.kernels import banded_dp as DP
+
+    tb, st, wd, sl = tb_row_case(3, 300, 50, 128, "codes", cuda)
+    assert 300 > torch.cuda.get_device_properties(cuda).multi_processor_count
+    runs = [DP.dp_traceback(tb, st, wd, sl) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], DP.dp_traceback_reference(tb, st, wd, sl))
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_dp_traceback_kernel_refuses_what_it_cannot_copy(cuda):
+    from remora_tpu_torch import RemoraError
+    from remora_tpu_torch.kernels import banded_dp as DP
+
+    tb, st, wd, sl = tb_row_case(4, 2, 30, 16, "codes", cuda)
+    launches = DP.LAUNCHES_TB
+    buf = torch.zeros(tb.numel() + 8, dtype=torch.int16, device=cuda)
+    shifted = buf[1:1 + tb.numel()].view(tb.shape)
+    shifted.copy_(tb)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(RemoraError, match="16-byte boundary"):
+        DP.dp_traceback(shifted, st, wd, sl)
+    with pytest.raises(RemoraError, match="multiple of 8"):
+        DP.dp_traceback(tb[:, :, :12].contiguous(), st, wd, sl)
+    assert DP.LAUNCHES_TB == launches
 
 
 def test_refine_reads_batch_on_card_matches_cpu(cuda):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import tb_row_case
 from remora_tpu import RemoraError as JaxRemoraError
 from remora_tpu.io import native as jax_native
 from remora_tpu.kernels.pallas_dp import refine_batch_pallas
@@ -233,3 +234,88 @@ def test_dp_wrappers_refuse_other_devices():
     with pytest.raises(RemoraError, match="no kernel for device"):
         K.dp_traceback(torch.zeros((1, 2, 8), dtype=torch.int16,
                                    device="meta"), x.int(), x.int(), x[0])
+
+
+# ---------------- K5's plain version against the Pallas walk ----------
+
+
+def _pallas_traceback(tb, starts, widths, seq_lens, K=8):
+    """The Pallas ``_traceback_kernel`` in interpret mode on (R, N, W)
+    traceback rows, launched as ``_dp_jit`` launches it (the (N, W, R)
+    layout, reads padded to ``LANES`` and bases to K) and its path
+    assembled as ``_dp_jit`` assembles it."""
+    from functools import partial
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from remora_tpu.kernels.pallas_dp import LANES, _traceback_kernel
+
+    R0, N0, W = tb.shape
+    R = -(-R0 // LANES) * LANES
+    NC = -(-N0 // K)
+    N = NC * K
+    tb_p = np.zeros((N, W, R), np.int16)
+    tb_p[:N0, :, :R0] = tb.transpose(1, 2, 0)
+    st_p = np.zeros((R, N), np.int32)
+    st_p[:R0, :N0] = starts
+    st_p[:R0, N0:] = starts[:, -1:]
+    wd_p = np.ones((R, N), np.int32)
+    wd_p[:R0, :N0] = widths
+    sl_p = np.ones(R, np.int32)
+    sl_p[:R0] = np.maximum(seq_lens, 1)
+    ridx = np.arange(R)
+    ends = (st_p[ridx, sl_p - 1] + wd_p[ridx, sl_p - 1]).astype(np.int32)
+    path_mid = pl.pallas_call(
+        partial(_traceback_kernel, K=K, W=W, NC=NC),
+        grid=(R // LANES, NC),
+        in_specs=[
+            pl.BlockSpec(memory_space=pl.ANY),
+            pl.BlockSpec((K, LANES), lambda r, c: (NC - 1 - c, r),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, LANES), lambda r, c: (0, r),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, LANES), lambda r, c: (0, r),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((K, LANES), lambda r, c: (NC - 1 - c, r),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((N, R), jnp.int32),
+        scratch_shapes=[
+            pltpu.VMEM((8, LANES), jnp.int32),
+            pltpu.VMEM((2, W, LANES), jnp.int16),
+            pltpu.SemaphoreType.DMA((2,)),
+        ],
+        interpret=True,
+    )(jnp.asarray(tb_p), jnp.asarray(st_p.T), jnp.asarray(sl_p[None, :]),
+      jnp.asarray(ends[None, :]))
+    path = np.concatenate([np.zeros((R, 1), np.int32),
+                           np.asarray(path_mid).T[:, 1:N0],
+                           np.zeros((R, 1), np.int32)], 1)
+    path[ridx, sl_p] = ends
+    return path[:R0], ends[:R0]
+
+
+@pytest.mark.parametrize("kind", ["codes", "wild"])
+@pytest.mark.parametrize("W", [8, 16])
+def test_plain_traceback_matches_pallas_on_arbitrary_rows(W, kind):
+    """The plain K5 (what ``dp_traceback`` runs on CPU tensors) against the
+    Pallas walk, exactly, on the rows ``chip_smoke.py`` holds the kernel to
+    (``tb_row_case``): entries clamped to the row, steps of either sign and
+    wider than W, paths that leave the band, seq_lens 1 and N."""
+    case = tb_row_case(W + (kind == "wild"), 5, 37, W, kind, "cpu")
+    launches = K.LAUNCHES_TB
+    got = K.dp_traceback(*case).numpy()
+    assert K.LAUNCHES_TB == launches
+    tb, starts, widths, seq_lens = (t.numpy() for t in case)
+    want, ends = _pallas_traceback(tb, starts, widths, seq_lens)
+    N = tb.shape[1]
+    # the Pallas assembly leaves column N at 0 past seq_len (callers read
+    # path[:seq_len + 1]); the port writes the signal end there
+    assert np.array_equal(got[:, :N], want[:, :N])
+    assert np.array_equal(got[:, N], ends)
+    assert np.array_equal(want[seq_lens == N, N], ends[seq_lens == N])
+    walked = np.concatenate([got[r, 1:n] for r, n in enumerate(seq_lens)])
+    assert np.unique(walked).size > N  # the walks really moved
