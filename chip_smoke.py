@@ -37,6 +37,19 @@ printed):
    of the path; logits are held to the same handle with the plain LSTM
    and to a CPU run, one pass is profiled by kernel (busy and idle share),
    and MM/ML tags are formatted for a few synthetic reads;
+5. streaming inference, the main path: 256 synthetic reads of 4000
+   bases (a BAM written by the port's ``BamWriter`` and indexed by its
+   native scan; the signal served by ``MemoryPod5`` in place of the POD5
+   container reader, which needs pyarrow and zstandard) through
+   ``infer_from_pod5_and_bam`` with phase 4's checkpoint at batch 2048,
+   f32 and bf16, launch counts set to 0 before each run: K1 launches
+   once per batch of 2048 calls (these counts are K1's in the kernels
+   line), every read is written; reads/s, chunks/s and the stage
+   occupancy summary; one f32 run profiled (device busy and idle share);
+   a 16-read subset against the same driver with the handle on the CPU
+   (MM identical, ML within 1); a checkpoint carrying phase 8b's level
+   table through the device refiner (K4/K5 launch as planned, none
+   routed to the host) and the native one, tags identical;
 6. the training path at full width: a synthetic two-member dataset
    (26,624 chunks, written with the package's own ``CoreDataset``) and
    ``train_model`` on ConvLSTM_w_ref (size 64, batch 2048, 12 steps per
@@ -1071,10 +1084,11 @@ def calibrate(model, arrs):
         h.remove()
 
 
-def seeded_checkpoint(path, seed=1):
+def seeded_checkpoint(path, seed=1, refine=None):
     """Save a ConvLSTM_w_ref with numpy-seeded weights (fan-in uniform
     bounds, BatchNorm statistics calibrated on seeded synthetic chunks)
-    via ``save_model``."""
+    via ``save_model``; ``refine`` = (9-mer level table, centre) puts a
+    SigMapRefiner (rough rescale, no scale iterations) in its metadata."""
     from remora_tpu_torch.models import conv_lstm_model, model_io
 
     rng = np.random.default_rng(seed)
@@ -1109,7 +1123,13 @@ def seeded_checkpoint(path, seed=1):
         "offset": 0,
         "pa_scaling": None,
     }
-    model_io.save_model(path, model, meta)
+    arrays = None
+    if refine is not None:
+        table, center = refine
+        meta.update(refine_kmer_center_idx=center,
+                    refine_do_rough_rescale=True, refine_scale_iters=0)
+        arrays = {"refine_kmer_levels": table}
+    model_io.save_model(path, model, meta, arrays)
 
 
 def make_batches(seed=2):
@@ -1297,6 +1317,325 @@ def format_tags(logits, n_reads=3, seed=3):
         check(len(ml) == len(poss), "ML tag length != number of calls")
         mm_str, ml_str = mods_tags_to_str([mm], ml)
         log(f"read{r}: {len(poss)} calls  {mm_str[:60]}...  {ml_str[:60]}...")
+
+
+# ---------------- phase 5: streaming inference, POD5 + BAM -> modBAM -----
+
+# the reads: 4000 bases each, signal following phase 8b's 9-mer table;
+# the CPU leg runs the first STREAM_SUBSET of them
+STREAM_READS, STREAM_BASES, STREAM_SUBSET = 256, 4000, 16
+
+
+class MemoryPod5:
+    """Stands in for the POD5 container reader (``io.pod5.DatasetReader``;
+    the card's machine has no zstandard to decode a POD5 file's signal):
+    the port's own ``Pod5Read`` records in memory, keyed by the path the
+    driver is given. Everything after the reader runs as shipped."""
+
+    SETS = {}
+
+    def __init__(self, path):
+        self._reads = MemoryPod5.SETS[str(path)]
+
+    @property
+    def read_ids(self):
+        return list(self._reads)
+
+    def reads(self, selection=None, preload=None):
+        for rid in self._reads if selection is None else selection:
+            if rid in self._reads:
+                yield self._reads[rid]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+@contextlib.contextmanager
+def memory_pod5():
+    from remora_tpu_torch.infer import infer
+    from remora_tpu_torch.io import pod5
+
+    saved = pod5.DatasetReader, infer.DatasetReader
+    pod5.DatasetReader = infer.DatasetReader = MemoryPod5
+    try:
+        yield
+    finally:
+        pod5.DatasetReader, infer.DatasetReader = saved
+
+
+def write_stream_set(root, name, n_reads, table, center, seed=12):
+    """``benchmarks/synth_set.py::write_synth_set``'s reads (forward
+    strand, move table, sm/sd and MD tags), their signal following the
+    9-mer table: the BAM written with the port's ``BamWriter`` and indexed
+    by the port's native scan, the signal registered with ``MemoryPod5``.
+    Returns (pod5 key, BAM path)."""
+    from remora_tpu_torch.core.seq import int_to_seq
+    from remora_tpu_torch.io import native
+    from remora_tpu_torch.io.bam import BamHeader, BamRecord, BamWriter
+    from remora_tpu_torch.io.pod5 import Calibration, Pod5Read
+    from remora_tpu_torch.io.read_index import ReadIndexedBam
+    from remora_tpu_torch.refine.levels import extract_levels
+
+    rng = np.random.default_rng(seed)
+    pod5_key = os.path.join(root, f"{name}.pod5")
+    bam_path = os.path.join(root, f"{name}.bam")
+    ref_len = (STREAM_BASES + 1000) * n_reads
+    header = BamHeader(
+        text=f"@HD\tVN:1.6\tSO:unknown\n@SQ\tSN:ctg1\tLN:{ref_len}\n",
+        references=["ctg1"], lengths=[ref_len],
+    )
+    reads = {}
+    with BamWriter(bam_path, header) as bw:
+        for ri in range(n_reads):
+            rid = f"00000000-0000-4000-8000-{seed:04d}{ri:08d}"
+            int_seq, s2s, dacs = synth_read(
+                rng, STREAM_BASES,
+                lambda s: extract_levels(s, table, 9, center))
+            reads[rid] = Pod5Read(rid, dacs, Calibration(90.0, 20.0),
+                                  sample_rate=5000, num_samples=dacs.size)
+            mv = np.zeros(int(s2s[-1]), dtype=np.uint8)
+            mv[s2s[:-1]] = 1
+            seq = int_to_seq(int_seq)
+            bw.write(BamRecord(
+                query_name=rid, flag=0, reference_id=0,
+                reference_start=(STREAM_BASES + 1000) * ri, mapq=60,
+                cigartuples=[(0, len(seq))], query_sequence=seq,
+                query_qualities=np.full(len(seq), 30, np.uint8),
+                tags=[("MD", "Z", str(len(seq))), ("sm", "f", 0.0),
+                      ("sd", "f", 1.0),
+                      ("mv", "Bc", np.concatenate([[1], mv]).astype(
+                          np.int8))],
+                header=header,
+            ))
+    MemoryPod5.SETS[pod5_key] = reads
+    scan = native.bam_scan_index(bam_path, ("mv",))
+    check(scan is not None, "the native BAM scan is unavailable")
+    idx = ReadIndexedBam(bam_path, req_tags={"mv"})
+    check(sorted(idx.read_ids) == sorted(reads)
+          and list(scan[0]) == sorted(o for rid in reads for o in idx[rid]),
+          "the BAM index disagrees with the native scan")
+    return pod5_key, bam_path
+
+
+class _LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def stream_leg(pod5_key, bam_path, handle, out_path, tag, **kwargs):
+    """One run of ``infer_from_pod5_and_bam`` with the launch counts set
+    to 0 first; returns ({(read id, flag, start): (MM, ML)}, counts,
+    wall seconds, the driver's log lines)."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import infer_from_pod5_and_bam
+    from remora_tpu_torch.io.bam import FastBamScanner
+    from remora_tpu_torch.kernels import banded_dp as DP
+    from remora_tpu_torch.kernels import lstm as K
+    from remora_tpu_torch.refine import refiner as RF
+
+    handler = _LogLines()
+    logger = logging.getLogger("RemoraTPUTorch")
+    logger.addHandler(handler)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    K.LAUNCHES = DP.LAUNCHES_FWD = DP.LAUNCHES_TB = 0
+    RF.PLANNED_LAUNCHES = RF.HOST_ROUTED_READS = 0
+    t0 = time.perf_counter()
+    try:
+        with memory_pod5():
+            n_written = infer_from_pod5_and_bam(
+                pod5_key, bam_path, [handle], out_path, batch_size=BATCH,
+                **kwargs)
+    finally:
+        logger.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    counts = {"k1": K.LAUNCHES, "k4": DP.LAUNCHES_FWD, "k5": DP.LAUNCHES_TB,
+              "planned": RF.PLANNED_LAUNCHES,
+              "host_routed": RF.HOST_ROUTED_READS, "written": n_written}
+    tags = {}
+    for rec in FastBamScanner(out_path):
+        td = rec.tag_dict()
+        tags[(rec.query_name, rec.flag, rec.reference_start)] = (
+            td.get("MM"), np.asarray(td.get("ML"), np.uint8))
+    check(len(tags) == n_written, f"{tag}: {len(tags)} records read back, "
+          f"{n_written} written")
+    return tags, counts, wall, handler.lines
+
+
+def tag_diff(got, want):
+    """(MM strings that differ, ML bytes that differ, max |ML delta|) over
+    the records of ``want``."""
+    mm = ml = worst = 0
+    for key, (w_mm, w_ml) in want.items():
+        g_mm, g_ml = got[key]
+        mm += g_mm != w_mm
+        if g_ml.size != w_ml.size:
+            ml += max(g_ml.size, w_ml.size)
+            continue
+        delta = np.abs(g_ml.astype(int) - w_ml.astype(int))
+        ml += int((delta > 0).sum())
+        worst = max(worst, int(delta.max(initial=0)))
+    return mm, ml, worst
+
+
+def profile_stream(pod5_key, bam_path, path, root):
+    """The device's busy and idle share over one f32 streaming run
+    (torch.profiler; the forked stages never touch the card), and its
+    kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from remora_tpu_torch.infer.infer import ModelHandle
+
+    handle = ModelHandle.load(path)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _tags, counts, wall, _ = stream_leg(
+            pod5_key, bam_path, handle,
+            os.path.join(root, "stream_profiled.bam"), "stream profiled")
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    if not rows:
+        log("  stream profile: the profiler recorded no device time "
+            "(device busy share not measured)")
+        return
+    busy_s = sum(r[0] for r in rows) / 1e6
+    log(f"  stream f32 profiled run: {counts['written']} reads in "
+        f"{wall:.3f} s; kernels busy {busy_s * 1e3:.4f} ms ("
+        f"{busy_s / wall:.1%} busy, {1 - busy_s / wall:.1%} idle)")
+    for dev_us, key, count in rows[:8]:
+        log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+
+
+def stream_infer(root, path, refine_path, smi):
+    """Phase 5: the port's ``infer_from_pod5_and_bam`` on the card, f32
+    and bf16, then a CPU run of a 16-read subset and a refiner checkpoint
+    through the device DP and the native DP. Returns (K1 launches by
+    dtype, rates)."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import ModelHandle
+
+    # every index from the native scan, none cached under $HOME; no tqdm
+    # bars in the log
+    os.environ["REMORA_TPU_BAM_INDEX_CACHE"] = "0"
+    os.environ["LOG_SAFE"] = "1"
+    table, center = synth_level_table()
+    pod5_key, bam_path = write_stream_set(root, "stream", STREAM_READS,
+                                          table, center)
+    sub_key, sub_bam = write_stream_set(root, "subset", STREAM_SUBSET,
+                                        table, center)
+    results, launches, rates = {}, {}, {}
+    for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
+        handle = ModelHandle.load(path, compute_dtype=dtype)
+        check(handle.device.type == "cuda", f"stream {tag}: handle on "
+              f"{handle.device}")
+        tags, counts, wall, lines = stream_leg(
+            pod5_key, bam_path, handle,
+            os.path.join(root, f"stream_{tag}.bam"), f"stream {tag}")
+        n_calls = sum(ml.size for _mm, ml in tags.values())
+        n_batches = -(-n_calls // BATCH)
+        log(f"stream {tag}: {counts['written']} of {STREAM_READS} reads "
+            f"({STREAM_BASES} bases), {n_calls} calls in {wall:.3f} s = "
+            f"{STREAM_READS / wall:.1f} reads/s, {n_calls / wall:.1f} "
+            f"chunks/s; K1 launches {counts['k1']} for {n_batches} "
+            f"batches of {BATCH} [{smi}]")
+        for line in lines:
+            if line.startswith(("Device stage:", "Stage queue occupancy")):
+                for part in line.splitlines():
+                    log(f"  {part}")
+        check(counts["written"] == STREAM_READS,
+              f"stream {tag}: {counts['written']} reads written of "
+              f"{STREAM_READS}")
+        check(all(mm and ml.size for mm, ml in tags.values()),
+              f"stream {tag}: a record without calls")
+        check(counts["k1"] == n_batches, f"stream {tag}: K1 launched "
+              f"{counts['k1']} times for {n_batches} batches")
+        check(n_calls % BATCH != 0, f"stream {tag}: the last batch is full")
+        results[tag], launches[tag] = tags, counts["k1"]
+        rates[f"stream_{tag}_reads_per_s"] = STREAM_READS / wall
+        rates[f"stream_{tag}_chunks_per_s"] = n_calls / wall
+    mm, ml, worst = tag_diff(results["bf16"], results["f32"])
+    log(f"stream bf16 vs f32: MM strings that differ {mm}, ML bytes that "
+        f"differ {ml}, max |delta| {worst}")
+    check(mm == 0, "stream bf16: MM strings differ from f32")
+    profile_stream(pod5_key, bam_path, path, root)
+
+    # the same driver with the handle on the CPU, 16 reads
+    cpu = ModelHandle.load(path, device="cpu")
+    cpu_tags, counts, cpu_wall, _ = stream_leg(
+        sub_key, sub_bam, cpu, os.path.join(root, "subset_cpu.bam"),
+        "subset cpu")
+    card_tags, _c, _w, _l = stream_leg(
+        sub_key, sub_bam, ModelHandle.load(path),
+        os.path.join(root, "subset_f32.bam"), "subset f32")
+    check(counts["k1"] == 0, "the CPU leg launched K1")
+    check(card_tags.keys() == cpu_tags.keys()
+          and len(cpu_tags) == STREAM_SUBSET, "subset: records differ")
+    mm, ml, worst = tag_diff(card_tags, cpu_tags)
+    n_calls = sum(v.size for _m, v in cpu_tags.values())
+    log(f"stream f32 card vs CPU, {STREAM_SUBSET} reads ({n_calls} calls, "
+        f"CPU {cpu_wall:.3f} s): MM strings that differ {mm}, ML bytes "
+        f"that differ {ml}, max |delta| {worst} (tolerance 1)")
+    check(mm == 0, "subset: MM differs between the card and the CPU")
+    check(worst <= 1, "subset: ML moved by more than 1 between the card "
+          "and the CPU")
+
+    # a refiner checkpoint: the device DP (K4/K5) against the native DP
+    refine_tags = {}
+    for backend in ("device", "native"):
+        handle = ModelHandle.load(refine_path)
+        tags, counts, wall, _ = stream_leg(
+            pod5_key, bam_path, handle,
+            os.path.join(root, f"refine_{backend}.bam"),
+            f"refine {backend}", refine_backend=backend)
+        log(f"stream refine {backend}: {counts['written']} reads in "
+            f"{wall:.3f} s = {STREAM_READS / wall:.1f} reads/s; K1 "
+            f"{counts['k1']}, K4/K5 launches ({counts['k4']}, "
+            f"{counts['k5']}), planned {counts['planned']}, reads routed "
+            f"to the host {counts['host_routed']}")
+        check(counts["written"] == STREAM_READS,
+              f"refine {backend}: {counts['written']} reads written")
+        if backend == "device":
+            check(counts["k4"] == counts["k5"] == counts["planned"] > 0,
+                  f"refine device: K4/K5 launched ({counts['k4']}, "
+                  f"{counts['k5']}), the refiner planned "
+                  f"{counts['planned']}")
+            check(counts["host_routed"] == 0, "refine device: reads were "
+                  "routed to the host DP")
+            from remora_tpu_torch.refine.refiner import _refine_dp_devices
+
+            dp_devs = _refine_dp_devices(
+                handle.metadata["sig_map_refiner"].dp_device)
+            check(dp_devs == [handle.device], f"refine device: the DP "
+                  f"spreads over {dp_devs}, not the models' "
+                  f"{handle.device} alone")
+        else:
+            check(counts["k4"] == counts["k5"] == 0,
+                  "refine native: K4/K5 launched")
+        refine_tags[backend] = tags
+        rates[f"stream_refine_{backend}_reads_per_s"] = STREAM_READS / wall
+    mm, ml, worst = tag_diff(refine_tags["device"], refine_tags["native"])
+    log(f"stream refine device vs native: MM strings that differ {mm}, ML "
+        f"bytes that differ {ml}")
+    check(refine_tags["device"].keys() == refine_tags["native"].keys()
+          and mm == ml == 0, "refine: the device DP's tags differ from the "
+          "native DP's")
+    mm, ml, worst = tag_diff(refine_tags["device"], results["f32"])
+    log(f"stream refine vs no refiner: ML bytes that differ {ml}")
+    check(ml > 0, "refine: the refiner changed no call")
+    rates.update(stream_reads=STREAM_READS, stream_bases=STREAM_BASES,
+                 stream_batch=BATCH)
+    return launches, rates
 
 
 # ---------------- phase 6: the training path ----------------
@@ -2398,12 +2737,20 @@ def main():
         path = os.path.join(tmp, "convlstm_size64.npz")
         seeded_checkpoint(path)
         logits, launches, f32_rate = run_leg(path, batches, None, "f32")
-        kernels[torch.float32]["launches"] = launches
+        log(f"phase 4 f32: lstm_last launches {launches}")
         _, launches, bf16_rate = run_leg(path, batches, torch.bfloat16,
                                          "bf16")
-        kernels[torch.bfloat16]["launches"] = launches
+        log(f"phase 4 bf16: lstm_last launches {launches}")
         check_cpu_agreement(path, batches, logits)
-    format_tags(np.concatenate(logits))
+        format_tags(np.concatenate(logits))
+        # phase 5: the streaming driver, the main path; its launch counts
+        # are K1's in the kernels line
+        refine_path = os.path.join(tmp, "convlstm_size64_refine.npz")
+        seeded_checkpoint(refine_path, refine=synth_level_table())
+        stream_launches, stream_rates = stream_infer(tmp, path, refine_path,
+                                                     smi)
+        kernels[torch.float32]["launches"] = stream_launches["f32"]
+        kernels[torch.bfloat16]["launches"] = stream_launches["bf16"]
 
     train_rates = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2450,6 +2797,7 @@ def main():
         "train_epoch_chunks_per_s": train_rates,
         "train_steps_per_epoch": TRAIN_STEPS, "train_epochs": TRAIN_EPOCHS,
         "train_pallas_epochs": PALLAS_EPOCHS,
+        **stream_rates,
         **refine_rates,
     }}))
     records = list(kernels.values())

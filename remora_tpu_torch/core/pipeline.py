@@ -1,15 +1,28 @@
-"""Host-side queues that connect the inference stages.
+"""Host-side streaming pipeline fabric (copy of
+``remora_tpu/core/pipeline.py``).
 
-The part of ``remora_tpu/core/pipeline.py`` the device stage needs:
-bounded, named queues with sentinel shutdown, and blocking put/get that
-poll so KeyboardInterrupt stays deliverable. The stage runners
-(``source_stage``, ``map_stage``, ...) come with the streaming driver.
+Stages connected by bounded, named queues with sentinel shutdown, each
+stage either a background producer (``source_stage``) or a pool of
+worker tasks mapping a function over the upstream queue (``map_stage``,
+``batch_map_stage``). Threads or processes selectable per stage; per-item
+exceptions are logged and swallowed so one bad read cannot stall the
+pipeline. Blocking put/get poll so KeyboardInterrupt stays deliverable.
+
+A process stage forks; its worker function must not touch CUDA, since
+the parent may already hold a CUDA context (the inference driver keeps
+every CUDA call in the parent's threads).
 """
 
 import multiprocessing as mp
 import os
 import queue as queue_mod
+import traceback
 from functools import partial
+from threading import Thread
+
+from remora_tpu_torch import log
+
+LOGGER = log.get_logger()
 
 # fork keeps callers that build pipelines at script top level working;
 # REMORA_TPU_MP_CONTEXT=spawn|forkserver switches, as in remora_tpu
@@ -89,3 +102,204 @@ def queue_iter(in_q, num_producers=1):
             live_producers -= 1
             continue
         yield item
+
+
+def _log_swallowed(tag, name, err, with_tb=True):
+    detail = f"\n{traceback.format_exc()}" if with_tb else ""
+    LOGGER.debug(f"{tag} in {name}: '{err}'{detail}")
+
+
+def _run_guarded(tag, name, fn, with_tb=True):
+    """Run ``fn``, swallowing (but logging) everything except SIGINT."""
+    try:
+        fn()
+    except KeyboardInterrupt:
+        pass
+    except Exception as e:
+        _log_swallowed(tag, name, e, with_tb=with_tb)
+
+
+def _pump(items, sink):
+    """Forward every item into ``sink``; True on clean exhaustion."""
+    for item in items:
+        put_item(item, sink)
+    return True
+
+
+def _fill_queue(iterator, in_q, num_receivers):
+    """Drain an in-process iterator into a stage's input queue."""
+    _run_guarded(
+        "PIPELINE_FILLER_ERROR", "filler", lambda: _pump(iterator, in_q)
+    )
+    for _ in range(num_receivers):
+        put_item(_STOP, in_q)
+
+
+def _worker_loop(name, func, prep_func, in_q, out_q, args, kwargs):
+    LOGGER.debug(f"{name}: worker up")
+
+    def run():
+        nonlocal args, kwargs
+        if prep_func is not None:
+            # per-worker state constructed post-fork (file handles etc.)
+            args, kwargs = prep_func(*args, **kwargs)
+        for item in queue_iter(in_q):
+            _run_guarded(
+                "PIPELINE_ITEM_ERROR",
+                name,
+                lambda: put_item(func(item, *args, **kwargs), out_q),
+            )
+
+    _run_guarded("PIPELINE_WORKER_ERROR", name, run, with_tb=False)
+    LOGGER.debug(f"{name}: worker done")
+    put_item(_STOP, out_q)
+
+
+def _batch_iter(iterator, batch_size):
+    """Group an iterator into lists of up to ``batch_size`` items."""
+    buf = []
+    for item in iterator:
+        buf.append(item)
+        if len(buf) >= batch_size:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
+def _batch_worker_loop(name, func, in_q, out_q, args, kwargs):
+    LOGGER.debug(f"{name}: batch worker up")
+
+    def run():
+        for batch in queue_iter(in_q):
+            _run_guarded(
+                "PIPELINE_ITEM_ERROR",
+                name,
+                lambda b=batch: _pump(func(b, *args, **kwargs), out_q),
+            )
+
+    _run_guarded("PIPELINE_WORKER_ERROR", name, run, with_tb=False)
+    LOGGER.debug(f"{name}: batch worker done")
+    put_item(_STOP, out_q)
+
+
+def _producer_loop(name, func, out_q, args, kwargs):
+    LOGGER.debug(f"{name}: producer up")
+    _run_guarded(
+        "PIPELINE_PRODUCER_ERROR",
+        name,
+        lambda: _pump(func(*args, **kwargs), out_q),
+    )
+    LOGGER.debug(f"{name}: producer done")
+    put_item(_STOP, out_q)
+
+
+def _launch(target, target_args, name, use_process):
+    runner_cls = _MP.Process if use_process else Thread
+    runner_cls(target=target, args=target_args, name=name, daemon=True).start()
+
+
+class _Stage:
+    """Common consumer side: iterate to drain the stage's output queue."""
+
+    name = "stage"
+    out_q = None
+    _n_senders = 1
+
+    def __iter__(self):
+        try:
+            yield from queue_iter(self.out_q, self._n_senders)
+        except KeyboardInterrupt:
+            LOGGER.debug(f"{self.name}: consumer interrupted")
+
+
+class source_stage(_Stage):
+    """Run a generator function in a background thread/process.
+
+    Iterate this object to consume its output queue.
+    """
+
+    def __init__(self, func, args=(), kwargs=None, *, name="source",
+                 q_maxsize=DEFAULT_QUEUE_SIZE, use_mp_queue=True,
+                 use_process=False):
+        self.name = name
+        self.out_q = StageQueue(
+            q_maxsize, name + ":out", cross_process=use_mp_queue
+        )
+        _launch(
+            _producer_loop,
+            (name, func, self.out_q, args, kwargs or {}),
+            f"{name}_producer",
+            use_process,
+        )
+
+
+class map_stage(_Stage):
+    """Map ``func`` over an upstream iterable with N worker tasks.
+
+    ``prep_func(*args, **kwargs) -> (args, kwargs)`` runs once inside each
+    worker for state that must be constructed post-fork (e.g. BAM handles).
+    """
+
+    def __init__(self, func, iterator, *, num_workers=1, prep_func=None,
+                 args=(), kwargs=None, name="map",
+                 q_maxsize=DEFAULT_QUEUE_SIZE, use_mp_queue=True,
+                 use_process=False):
+        self.name = name
+        self._n_senders = self.num_workers = num_workers
+        make_q = partial(StageQueue, q_maxsize, cross_process=use_mp_queue)
+        self.out_q = make_q(name=name + ":out")
+        in_q = make_q(name=name + ":in")
+        # the filler is always a thread: it drains an in-process iterator
+        # (often a generator or upstream stage) that cannot be pickled
+        # into a spawned process
+        filler = Thread(
+            target=_fill_queue,
+            args=(iterator, in_q, num_workers),
+            name=f"{name}_filler",
+            daemon=True,
+        )
+        filler.start()
+        for idx in range(num_workers):
+            _launch(
+                _worker_loop,
+                (name, func, prep_func, in_q, self.out_q, list(args),
+                 kwargs or {}),
+                f"{name}_{idx}",
+                use_process,
+            )
+
+
+class batch_map_stage(_Stage):
+    """Map ``func`` over MICRO-BATCHES of upstream items.
+
+    ``func`` receives a list of up to ``batch_size`` items and returns
+    one output per item; the outputs are re-flattened into the stage's
+    output queue, so consumers see the same per-item stream that
+    ``map_stage`` would produce. Runs a single worker — built for
+    stages that own an accelerator (e.g. the device banded-DP refine
+    path) where batching amortizes kernel launches/transfers and a
+    single process must hold the device.
+    """
+
+    def __init__(self, func, iterator, batch_size, *, args=(), kwargs=None,
+                 name="batch_map", q_maxsize=DEFAULT_QUEUE_SIZE,
+                 use_mp_queue=True, use_process=False):
+        self.name = name
+        self._n_senders = 1
+        make_q = partial(StageQueue, q_maxsize, cross_process=use_mp_queue)
+        self.out_q = make_q(name=name + ":out")
+        in_q = make_q(name=name + ":in")
+        filler = Thread(
+            target=_fill_queue,
+            args=(_batch_iter(iterator, batch_size), in_q, 1),
+            name=f"{name}_filler",
+            daemon=True,
+        )
+        filler.start()
+        _launch(
+            _batch_worker_loop,
+            (name, func, in_q, self.out_q, list(args), kwargs or {}),
+            f"{name}_0",
+            use_process,
+        )

@@ -1,6 +1,6 @@
 """Nucleotide encoding and IUPAC motifs (copy of the parts of
-``remora_tpu/core/seq.py`` that the dataset, its metadata, reads and
-chunk extraction use).
+``remora_tpu/core/seq.py`` that the dataset, its metadata, reads, chunk
+extraction, the BAM readers and the inference driver use).
 
 Integer base encoding A=0 C=1 G=2 T=3 (other = -1); every IUPAC code is
 a 4-bit mask over ACGT, so superset tests and merge-exactness reduce to
@@ -32,6 +32,13 @@ for _i, _b in enumerate(CAN_ALPHABET):
     _BYTE_TO_INT[ord(_b)] = _i
     _BYTE_TO_INT[ord(_b.lower())] = _i
 
+_COMP_TABLE = str.maketrans("ACGTBVDHKMRYacgtbvdhkmry", "TGCAVBHDMKYRtgcavbhdmkyr")
+_U_TO_T = str.maketrans("Uu", "Tt")
+_T_TO_U = str.maketrans("Tt", "Uu")
+
+# integer complement (canonical bases only): A<->T, C<->G
+INT_COMP = np.arange(3, -1, -1)
+
 
 def seq_to_int(seq):
     """Encode string sequence as int8 array (A=0 C=1 G=2 T=3, other=-1)."""
@@ -49,6 +56,30 @@ def int_to_seq(int_seq, alphabet=CONV_ALPHABET):
         raise RemoraError(f"Invalid value in int sequence ({hi})")
     lut = np.frombuffer(alphabet.encode("ascii"), dtype=np.uint8)
     return lut[int_seq].tobytes().decode("ascii")
+
+
+def comp(seq):
+    return seq.translate(_COMP_TABLE)
+
+
+def revcomp(seq):
+    return seq.upper().translate(_COMP_TABLE)[::-1]
+
+
+def comp_int(int_seq):
+    return INT_COMP[int_seq]
+
+
+def revcomp_int(int_seq):
+    return comp_int(int_seq)[::-1]
+
+
+def u_to_t(seq):
+    return seq.translate(_U_TO_T)
+
+
+def t_to_u(seq):
+    return seq.translate(_T_TO_U)
 
 
 def _int_seq_masks(int_seq):
@@ -217,3 +248,46 @@ def find_focus_bases(int_seq, motifs):
         ),
         dtype=np.int64,
     )
+
+
+def get_can_converter(alphabet, collapse_alphabet):
+    """Map full-alphabet integer codes to canonical-alphabet integer codes."""
+    canonical = [cb for mb, cb in zip(alphabet, collapse_alphabet) if mb == cb]
+    lut = [canonical.index(cb) if cb in canonical else -1
+           for cb in collapse_alphabet]
+    return np.array(lut, dtype=np.int8)
+
+
+def get_mod_bases(alphabet, collapse_alphabet):
+    return [mb for mb, cb in zip(alphabet, collapse_alphabet) if mb != cb]
+
+
+def validate_mod_bases(mod_bases, motifs, alphabet, collapse_alphabet,
+                       control=False):
+    """Check mutual consistency; return label conversion (alphabet idx ->
+    class). Class 0 is the canonical focus base; classes 1..n are
+    mod_bases in order; every other alphabet member maps to -1."""
+    if len(mod_bases) != len(set(mod_bases)):
+        raise RemoraError("Single letter modified base codes must be unique.")
+    focus_bases = {mot.focus_base for mot in motifs}
+    if len(focus_bases) != 1:
+        raise RemoraError(
+            "All motifs must be alternatives to the same canonical base"
+        )
+    (can_base,) = focus_bases
+    label_conv = np.full(len(alphabet), -1, dtype=np.int8)
+    label_conv[alphabet.find(can_base)] = 0
+    if control:
+        return label_conv
+    for cls, mod_base in enumerate(mod_bases, start=1):
+        mod_idx = alphabet.find(mod_base)
+        if mod_idx == -1:
+            raise RemoraError("Modified base provided not found in alphabet")
+        equiv = collapse_alphabet[mod_idx]
+        if equiv != can_base:
+            raise RemoraError(
+                f"Motif canonical base ({can_base}) differs from the "
+                f"canonical equivalent of modified base {mod_base} ({equiv})"
+            )
+        label_conv[mod_idx] = cls
+    return label_conv

@@ -1,11 +1,13 @@
 """ctypes bindings for the port's native host helpers in ``csrc/host/``.
 
-Counterpart of the banded-DP and Theil–Sen part of
+Counterpart of the banded-DP, Theil–Sen and BAM-scan part of
 ``remora_tpu/io/native.py``. The port builds its own copies of
-``banded_dp.cpp`` and ``rescale.cpp`` (``remora_tpu_torch/csrc/host/``)
-with ``g++`` at first use, into the gitignored ``csrc/build/``. When no
-compiler is available the callers take their NumPy paths, as in the JAX
-package (``banded_dp_path`` and ``theil_sen_slope`` return None).
+``banded_dp.cpp``, ``rescale.cpp`` and ``bam_scan.cpp``
+(``remora_tpu_torch/csrc/host/``) with ``g++`` at first use, into the
+gitignored ``csrc/build/``. When no compiler is available the callers
+take their NumPy or Python paths, as in the JAX package
+(``banded_dp_path``, ``theil_sen_slope`` and ``bam_scan_index`` return
+None).
 """
 
 import ctypes
@@ -20,6 +22,21 @@ import numpy as np
 from remora_tpu_torch import log
 
 LOGGER = log.get_logger()
+
+
+class ScanResult(ctypes.Structure):
+    _fields_ = [
+        ("n_records", ctypes.c_int64),
+        ("offsets", ctypes.POINTER(ctypes.c_int64)),
+        ("flags", ctypes.POINTER(ctypes.c_uint16)),
+        ("name_offs", ctypes.POINTER(ctypes.c_uint32)),
+        ("pi_offs", ctypes.POINTER(ctypes.c_uint32)),
+        ("has_req", ctypes.POINTER(ctypes.c_uint8)),
+        ("name_blob", ctypes.POINTER(ctypes.c_char)),
+        ("blob_size", ctypes.c_int64),
+        ("body_start", ctypes.c_int64),
+    ]
+
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "host"
 _LIB = None
@@ -52,7 +69,7 @@ def _build_library(lib_path):
     for arch_flags in (["-march=native"], []):
         cmd = [
             "g++", "-O3", *arch_flags, "-ffp-contract=off", "-std=c++17",
-            "-shared", "-fPIC", *srcs, "-o", str(tmp),
+            "-shared", "-fPIC", *srcs, "-o", str(tmp), "-lz",
         ]
         LOGGER.debug(f"Building native library: {' '.join(cmd)}")
         try:
@@ -88,6 +105,13 @@ def get_lib():
             ctypes.c_int32,        # use_dwell
             i32p,                  # path out
         ]
+        lib.bam_scan_index.restype = ctypes.c_int
+        lib.bam_scan_index.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+            ctypes.c_int32, ctypes.POINTER(ScanResult),
+        ]
+        lib.bam_scan_free.restype = None
+        lib.bam_scan_free.argtypes = [ctypes.POINTER(ScanResult)]
         f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         lib.theil_sen_median_slope.restype = ctypes.c_double
         lib.theil_sen_median_slope.argtypes = [f64p, f64p, ctypes.c_int64]
@@ -133,3 +157,47 @@ def theil_sen_slope(event_means, model_means):
     e = np.ascontiguousarray(event_means, np.float64)
     m = np.ascontiguousarray(model_means, np.float64)
     return float(lib.theil_sen_median_slope(e, m, np.int64(e.size)))
+
+
+def bam_scan_index(path, req_tags=()):
+    """Native whole-file BAM index scan.
+
+    Returns (offsets i64, flags u16, names list[str], pi list[str|None],
+    has_req bool array) or None when the native library is unavailable.
+    Offsets index into the decompressed stream (FastBamScanner space).
+    """
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "bam_scan_index"):
+        return None
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if any(len(t) != 2 for t in req_tags):
+        raise ValueError(f"BAM tags are two characters: {req_tags!r}")
+    req = "".join(req_tags)
+    res = ScanResult()
+    rc = lib.bam_scan_index(
+        data, len(data), req.encode("ascii"), len(req_tags),
+        ctypes.byref(res),
+    )
+    if rc != 0:
+        LOGGER.debug(f"native bam scan failed rc={rc}")
+        return None
+    try:
+        n = res.n_records
+        offsets = np.ctypeslib.as_array(res.offsets, (n,)).copy()
+        flags = np.ctypeslib.as_array(res.flags, (n,)).copy()
+        name_offs = np.ctypeslib.as_array(res.name_offs, (n,)).copy()
+        pi_offs = np.ctypeslib.as_array(res.pi_offs, (n,)).copy()
+        has_req = np.ctypeslib.as_array(res.has_req, (n,)).copy().astype(bool)
+        blob = ctypes.string_at(res.name_blob, res.blob_size)
+    finally:
+        lib.bam_scan_free(ctypes.byref(res))
+
+    def at(off):
+        end = blob.index(b"\x00", off)
+        return blob[off:end].decode("ascii")
+
+    names = [at(o) for o in name_offs]
+    no_pi = np.uint32(0xFFFFFFFF)
+    pis = [None if o == no_pi else at(o) for o in pi_offs]
+    return offsets, flags, names, pis, has_req

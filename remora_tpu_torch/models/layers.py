@@ -18,6 +18,16 @@ Matmuls that the JAX package runs with ``preferred_element_type=f32``
 upcast their operands to f32 here: a bf16 product is exact in f32, so
 the result is the f32-accumulated product of the bf16 operands.
 
+Reduced-precision inference on the CPU follows the JAX package's CPU
+backend (XLA) op for op (``rounds_per_op``): every op rounds to the
+tensor's dtype, a conv's bias is added after the conv, BatchNorm's and
+the logistic's transcendentals (1 / (1 + exp(-x)) in ``swish``) are taken
+in f32 and rounded, and the LSTMs run the f32 scan. torch's own bf16 CPU
+ops round a fused op once and its bf16 ``rsqrt`` is not correctly
+rounded, which moves a sensitive head's ML bytes by several units. CUDA
+tensors, and a forward that autograd records, keep torch's fused ops
+(torch's backward rules round elsewhere than JAX's transposes anyway).
+
 Train mode: ``batchnorm(train=True)`` and ``conv_bn_swish(train=True)``
 return the new running statistics beside the output, as the JAX functions
 do (the models write them into their BatchNorm buffers under
@@ -37,7 +47,17 @@ from torch import nn
 from remora_tpu_torch import RemoraError
 
 
+def rounds_per_op(x):
+    """True where the layers compute as the JAX package's CPU backend does
+    (module docstring): a reduced-precision CPU tensor outside autograd."""
+    return (x.device.type == "cpu" and x.dtype != torch.float32
+            and not torch.is_grad_enabled())
+
+
 def swish(x):
+    if rounds_per_op(x):
+        e = torch.exp(-x.float()).to(x.dtype)
+        return x * torch.reciprocal((e + 1).float()).to(x.dtype)
     return x * torch.sigmoid(x)
 
 
@@ -71,6 +91,9 @@ def conv1d(params, x, stride=1):
     that ``F.conv1d`` takes and returns, so a chain of convs with
     elementwise ops between them moves no extra bytes.
     """
+    if rounds_per_op(x):
+        out = F.conv1d(x.transpose(1, 2), params["w"], stride=stride)
+        return out.transpose(1, 2) + params["b"]
     out = F.conv1d(x.transpose(1, 2), params["w"], params["b"], stride=stride)
     return out.transpose(1, 2)
 
@@ -108,8 +131,11 @@ def batchnorm(params, state, x, train=False, momentum=0.1, eps=1e-5):
     else:
         mean, var = state["mean"], state["var"]
         new_state = state
-    inv = torch.rsqrt(var + eps) * params["gamma"]
-    return (x - mean) * inv + params["beta"], new_state
+    if rounds_per_op(x):
+        inv = torch.rsqrt((var + eps).float()).to(var.dtype)
+    else:
+        inv = torch.rsqrt(var + eps)
+    return (x - mean) * (inv * params["gamma"]) + params["beta"], new_state
 
 
 # ------------- fused Conv1d + BatchNorm1d(train) + swish -------------
@@ -430,13 +456,14 @@ def lstm_last(params, x, impl=None):
     """Final hidden state of a forward LSTM over (T, B, C): (B, H).
 
     "fused" runs the last-only kernel (``kernels.lstm.lstm_last``; in x's
-    dtype, its plain scan for a CPU tensor), "scan" is ``lstm(params, x,
-    impl="scan")[-1]`` (f32) on any device. None (or "auto") takes
-    REMORA_TPU_LSTM's choice, else the kernel wrapper, which runs the
-    kernel for a CUDA tensor and the scan for a CPU one.
+    dtype, its plain version for a CPU tensor), "scan" is ``lstm(params,
+    x, impl="scan")[-1]`` (f32) on any device. None (or "auto") takes
+    REMORA_TPU_LSTM's choice, else the kernel for a CUDA tensor and the
+    scan for a CPU one, as ``lstm`` and the JAX package's ``lstm_last``
+    pick.
     """
     if impl is None or impl == "auto":
-        impl = lstm_impl() or "fused"
+        impl = lstm_impl() or ("fused" if x.device.type == "cuda" else "scan")
     if impl == "scan":
         return lstm(params, x, impl="scan")[-1]
     from remora_tpu_torch.kernels import lstm as lstm_kernel

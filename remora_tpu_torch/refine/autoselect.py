@@ -5,9 +5,9 @@ backend means "host native C++ (NumPy fallback)" unless the link to the
 GPU is fast enough that the batched device DP (K4/K5) wins: the routing
 is a MEASURED property of the link. The probe times one 3 MiB host-to-
 device copy and a small device-to-host read back with ``torch.cuda``, once
-per process, in a subprocess that imports neither JAX nor ``remora_tpu``
+per process: in a subprocess that imports neither JAX nor ``remora_tpu``
 (so a wedged device degrades to the host path instead of hanging the
-caller).
+caller), or in-process for callers that already hold a CUDA context.
 
 Reference anchor for the DP being routed:
 ``src/remora/refine_signal_map.py:778`` (the reference has exactly one
@@ -40,7 +40,7 @@ _PROBE_SRC = (
 _probe_cache = {}
 
 
-def _time_roundtrip():
+def _time_roundtrip(device="cuda"):
     """Seconds of one 3 MiB h2d copy and a 16 KiB d2h read back."""
     import time
 
@@ -48,11 +48,11 @@ def _time_roundtrip():
     import torch
 
     payload = torch.from_numpy(np.zeros(3 << 18, np.float32))  # 3 MiB
-    x = payload.to("cuda")  # warm: context init + alloc
+    x = payload.to(device)  # warm: context init + alloc
     x[:4096].cpu()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    x = payload.to("cuda")
+    x = payload.to(device)
     x[:4096].cpu()  # d2h leg
     return time.perf_counter() - t0
 
@@ -67,14 +67,31 @@ def probe_main():
         print("PROBE none")
 
 
+def probe_device_roundtrip_inprocess(device):
+    """In-process h2d+d2h round-trip seconds to ``device``, or None when
+    it is not a GPU.
+
+    For callers that already hold a CUDA context on ``device`` (the
+    inference driver, whose models are on the GPU before the backend is
+    resolved and whose device DP would run in the same process): timing
+    the round trip there opens nothing new. Cached per process (shared
+    cache with the subprocess probe)."""
+    import torch
+
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    if "t" not in _probe_cache:
+        _probe_cache["t"] = _time_roundtrip(device)
+    return _probe_cache["t"]
+
+
 def probe_device_roundtrip(timeout_s=120.0):
     """Measured h2d+d2h round-trip seconds to the default GPU, or None
     when there is no GPU / the probe fails or times out.
 
     Runs in a subprocess, so a refinement pipeline never hangs on a routing
     decision and does not open a CUDA context just to make one. Cached
-    per process. (The JAX package's in-process probe, for callers that
-    already hold a device client, has no caller in this package yet.)"""
+    per process."""
     if "t" in _probe_cache:
         return _probe_cache["t"]
     result = None

@@ -1,5 +1,6 @@
-"""remora_tpu_torch stands alone: no JAX, nothing of remora_tpu, and no
-silent CPU run when no GPU is present."""
+"""remora_tpu_torch stands alone: no JAX, nothing of remora_tpu, no
+pyarrow, zstandard or tqdm needed to import it, and no silent CPU run
+when no GPU is present."""
 
 import ast
 import subprocess
@@ -51,6 +52,27 @@ def test_port_imports_with_jax_blocked():
         "assert not any(m == 'remora_tpu' or m.startswith('remora_tpu.')\n"
         "               for m in sys.modules)\n"
         "print('ok', len(sys.modules))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_port_imports_without_optional_host_packages():
+    """Every module of the port imports where pyarrow, zstandard and tqdm
+    are absent: the POD5 reader and the driver's progress bar import them
+    only when they run (the GPU machine has no zstandard)."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'pyarrow', 'zstandard', 'tqdm'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print('ok')\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -177,8 +177,8 @@ def _spy(monkeypatch, name):
 def test_remora_tpu_lstm_routes(monkeypatch, env, want):
     """fused and scan force the implementation in ``lstm`` and
     ``lstm_last``; unset or any other value is auto: the scan for a CPU
-    tensor in ``lstm``, the kernel wrapper (its plain scan on the CPU) in
-    ``lstm_last``, as before the override existed."""
+    tensor in both, as the JAX package's auto picks its scan on the
+    CPU."""
     if env is None:
         monkeypatch.delenv("REMORA_TPU_LSTM", raising=False)
     else:
@@ -192,7 +192,7 @@ def test_remora_tpu_lstm_routes(monkeypatch, env, want):
     hs = L.lstm(params, x)
     h_last = L.lstm_last(params, x)
     assert fused == (["lstm_fused"] if want == "fused" else [])
-    assert last == ([] if want == "scan" else ["lstm_last"])
+    assert last == (["lstm_last"] if want == "fused" else [])
     scan = L.lstm(params, x, impl="scan")
     assert torch.allclose(hs, scan, atol=1e-6, rtol=0)
     assert torch.allclose(h_last, scan[-1], atol=1e-6, rtol=0)
