@@ -50,6 +50,24 @@ printed):
    (MM identical, ML within 1); a checkpoint carrying phase 8b's level
    table through the device refiner (K4/K5 launch as planned, none
    routed to the host) and the native one, tags identical;
+   (5b) duplex inference: 64 synthetic pairs of 4000 bases
+   (``write_duplex_set``: the complement is the template's reverse
+   complement with 4 edits, mapped reverse; duplex records ``tid;cid``,
+   every fourth mapped reverse; one pair without a duplex record, one
+   without its complement's signal) through ``infer_duplex`` with phase
+   4's checkpoint and 4 prep workers, f32 then bf16, launch counts set to
+   0 first: K1 launches once per ``eval_fn`` call (these counts join phase
+   5's in the kernels line), every resolvable pair is written, the skip
+   tally names the pair without signal (the one without a duplex record
+   is filtered before the stages, as in the JAX driver), bf16 MM equals
+   f32's and bf16 ML is within 1 of it; pairs/s and strand calls/s; a
+   pair's time by the driver's stage functions run one after another
+   (reads, alignment, forward, staging); on the first 8 pairs, the handle
+   on the CPU against the f32 card leg (MM identical, ML within 1) and
+   phase 5's refining checkpoint through the device DP (K4/K5 once per
+   strand read, as planned, none routed to the host) and the native one,
+   tags identical; K1 against its plain version at every bucket size 1,
+   2, 4, ..., 2048, both dtypes, at phase 3's tolerances;
 6. the training path at full width: a synthetic two-member dataset
    (26,624 chunks, written with the package's own ``CoreDataset``) and
    ``train_model`` on ConvLSTM_w_ref (size 64, batch 2048, 12 steps per
@@ -91,6 +109,17 @@ printed):
    scale_iters=2 leg held to the same call on the CPU; the K4/K5 busy
    share of one micro-batch (CUDA events), and one micro-batch by kernel
    under torch.profiler in a child process (``--profile-refine``);
+   (8c) the prepare driver, ``extract_chunk_dataset``, over phase 5's 256
+   reads with phase 8b's refiner (CG sites, chunk context (200, 200),
+   ``max_chunks_per_read`` 15), after one micro-batch of warm-up: the
+   device backend first (launch counts set to 0: K4/K5 launch as planned,
+   no read goes to the host; their busy share by CUDA events), then the
+   native backend with one chunk worker, identical arrays and metadata;
+   on the first 32 reads, where no read draws its sites, the device and
+   native datasets shuffled under one seed are identical, and 4 chunk
+   workers give one worker's dataset once sorted by (read id, focus
+   base); reads/s, chunks/s and the skip tally of each run (these K4/K5
+   launches and phase 5b's join phase 8b's in the kernels line);
 9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -1355,15 +1384,21 @@ class MemoryPod5:
 
 @contextlib.contextmanager
 def memory_pod5():
+    """``MemoryPod5`` in place of ``io.pod5.DatasetReader`` and of the
+    drivers' imported names (the stages that fork inherit it; the duplex
+    pair builder and ``iter_signal`` import it from ``io.pod5``)."""
+    from remora_tpu_torch import prepare
     from remora_tpu_torch.infer import infer
     from remora_tpu_torch.io import pod5
 
-    saved = pod5.DatasetReader, infer.DatasetReader
+    saved = pod5.DatasetReader, infer.DatasetReader, prepare.DatasetReader
     pod5.DatasetReader = infer.DatasetReader = MemoryPod5
+    prepare.DatasetReader = MemoryPod5
     try:
         yield
     finally:
-        pod5.DatasetReader, infer.DatasetReader = saved
+        (pod5.DatasetReader, infer.DatasetReader,
+         prepare.DatasetReader) = saved
 
 
 def write_stream_set(root, name, n_reads, table, center, seed=12):
@@ -1636,6 +1671,424 @@ def stream_infer(root, path, refine_path, smi):
     rates.update(stream_reads=STREAM_READS, stream_bases=STREAM_BASES,
                  stream_batch=BATCH)
     return launches, rates
+
+
+# ---------------- phase 5b: duplex inference ----------------------------
+
+# 64 pairs of 4000 bases; the CPU and refiner legs run the first
+# DUPLEX_SMALL_PAIRS resolvable pairs of the same set. The full legs align
+# in DUPLEX_PREP_WORKERS forked workers (the driver's
+# num_duplex_prep_workers).
+# Pair DUPLEX_NO_DUPLEX has no duplex record, pair DUPLEX_NO_SIGNAL no
+# complement signal; every fourth duplex record is mapped reverse.
+DUPLEX_PAIRS, DUPLEX_BASES, DUPLEX_SMALL_PAIRS = 64, 4000, 8
+DUPLEX_PREP_WORKERS = 4
+DUPLEX_NO_DUPLEX, DUPLEX_NO_SIGNAL = 1, 2
+
+
+def edit_seq(rng, seq, n_edits):
+    """``seq`` with ``n_edits`` interior substitutions, insertions and
+    deletions in turn."""
+    out = list(seq)
+    sites = sorted(rng.choice(np.arange(10, len(seq) - 10), n_edits,
+                              replace=False), reverse=True)
+    for k, pos in enumerate(sites):
+        base = "ACGT"[int(rng.integers(4))]
+        if k % 3 == 0:
+            out[pos] = base
+        elif k % 3 == 1:
+            out.insert(pos, base)
+        else:
+            del out[pos]
+    return "".join(out)
+
+
+def strand_record(bam, header, rid, seq, s2s, *, flag=0, ref_start=0,
+                  with_moves=True):
+    """A BAM record of ``bam`` (either package's BAM module) for basecalls
+    ``seq`` in read orientation; stored reverse-complemented for a reverse
+    ``flag``. With moves: the move table, sm/sd and MD tags of
+    ``write_stream_set``'s records."""
+    from remora_tpu_torch.core.seq import revcomp
+
+    stored = revcomp(seq) if flag & 16 else seq
+    tags = [("MD", "Z", str(len(seq)))]
+    if with_moves:
+        mv = np.zeros(int(s2s[-1]), dtype=np.uint8)
+        mv[s2s[:-1]] = 1
+        tags += [("sm", "f", 0.0), ("sd", "f", 1.0),
+                 ("mv", "Bc", np.concatenate([[1], mv]).astype(np.int8))]
+    return bam.BamRecord(
+        query_name=rid, flag=flag, reference_id=0,
+        reference_start=ref_start, mapq=60,
+        cigartuples=[(0, len(seq))], query_sequence=stored,
+        query_qualities=np.full(len(seq), 30, np.uint8),
+        tags=tags, header=header,
+    )
+
+
+def write_duplex_set(root, n_pairs, n_bases, bam, add_signal,
+                     levels_of=None, seed=21):
+    """A synthetic duplex set: per pair a template (mapped forward) and a
+    complement, the template's reverse complement with 4 edits (mapped
+    reverse), in a simplex BAM with moves; a duplex BAM whose records,
+    named ``tid;cid``, carry the template with 2 edits (every fourth
+    mapped reverse); and a pairs file of every pair. ``bam`` is either
+    package's BAM module; ``add_signal(read_id, dacs)`` stores a strand's
+    signal. Returns (simplex BAM, duplex BAM, pairs file)."""
+    from remora_tpu_torch.core.seq import int_to_seq, revcomp, seq_to_int
+
+    rng = np.random.default_rng(seed)
+    ref_len = (n_bases + 1000) * n_pairs
+    header = bam.BamHeader(
+        text=f"@HD\tVN:1.6\tSO:unknown\n@SQ\tSN:ctg1\tLN:{ref_len}\n",
+        references=["ctg1"], lengths=[ref_len],
+    )
+    simplex, duplex, pairs = [], [], []
+    for i in range(n_pairs):
+        tid = f"00000000-0000-4000-8000-{seed:04d}{2 * i:08d}"
+        cid = f"00000000-0000-4000-8000-{seed:04d}{2 * i + 1:08d}"
+        t_int = rng.integers(0, 4, n_bases)
+        t_s2s, t_dacs = strand_signal(rng, t_int, levels_of)
+        t_seq = int_to_seq(t_int)
+        c_seq = edit_seq(rng, revcomp(t_seq), 4)
+        c_s2s, c_dacs = strand_signal(rng, seq_to_int(c_seq), levels_of)
+        d_seq = edit_seq(rng, t_seq, 2)
+        start = (n_bases + 1000) * i
+        add_signal(tid, t_dacs)
+        if i != DUPLEX_NO_SIGNAL:
+            add_signal(cid, c_dacs)
+        simplex.append(strand_record(bam, header, tid, t_seq, t_s2s,
+                                     ref_start=start))
+        simplex.append(strand_record(bam, header, cid, c_seq, c_s2s,
+                                     flag=16, ref_start=start))
+        if i != DUPLEX_NO_DUPLEX:
+            duplex.append(strand_record(
+                bam, header, f"{tid};{cid}", d_seq, None,
+                flag=16 if i % 4 == 3 else 0, ref_start=start,
+                with_moves=False))
+        pairs.append(f"{tid} {cid}\n")
+    paths = [os.path.join(root, name)
+             for name in ("simplex.bam", "duplex.bam", "pairs.txt")]
+    for path, records in zip(paths, (simplex, duplex)):
+        with bam.BamWriter(path, header) as bw:
+            for rec in records:
+                bw.write(rec)
+    with open(paths[2], "w") as fh:
+        fh.writelines(pairs)
+    return paths
+
+
+def skip_tally(messages):
+    """{reason: count} of a driver's skip tally, from the log messages of
+    either package: the inference drivers' 'Unsuccessful read reasons'
+    and the prepare driver's 'Unsuccessful read/chunk reasons'."""
+    tally = {}
+    for msg in messages:
+        if msg.startswith(("Unsuccessful read reasons:",
+                           "Unsuccessful read/chunk reasons:")):
+            for line in msg.splitlines()[1:]:
+                num, why = line.split(" : ", 1)
+                tally[why.strip()] = int(num.replace(",", ""))
+    return tally
+
+
+def duplex_leg(key, paths, handle, out_path, tag, **kwargs):
+    """One ``infer_duplex`` run with the launch counts set to 0 first and
+    the handle's ``eval_fn`` calls counted; returns ({duplex read id:
+    (MM, ML)}, counts, wall seconds, the driver's log lines)."""
+    import torch
+
+    from remora_tpu_torch.infer.duplex_infer import infer_duplex
+    from remora_tpu_torch.io.bam import FastBamScanner
+    from remora_tpu_torch.kernels import banded_dp as DP
+    from remora_tpu_torch.kernels import lstm as K
+    from remora_tpu_torch.refine import refiner as RF
+
+    inner, buckets = handle.eval_fn, []
+
+    def counted(sigs, enc_kmers):
+        buckets.append(sigs.shape[0])
+        return inner(sigs, enc_kmers)
+
+    handle._eval = counted
+    handler = _LogLines()
+    logger = logging.getLogger("RemoraTPUTorch")
+    logger.addHandler(handler)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    K.LAUNCHES = DP.LAUNCHES_FWD = DP.LAUNCHES_TB = 0
+    RF.PLANNED_LAUNCHES = RF.HOST_ROUTED_READS = 0
+    simplex_bam, duplex_bam, pairs = paths
+    t0 = time.perf_counter()
+    try:
+        with memory_pod5():
+            n_written = infer_duplex(
+                simplex_pod5_path=key, simplex_bam_path=simplex_bam,
+                duplex_bam_path=duplex_bam, pairs_path=pairs,
+                models=[handle], out_bam=out_path, **kwargs)
+    finally:
+        logger.removeHandler(handler)
+        handle._eval = inner
+    wall = time.perf_counter() - t0
+    counts = {"k1": K.LAUNCHES, "k4": DP.LAUNCHES_FWD, "k5": DP.LAUNCHES_TB,
+              "planned": RF.PLANNED_LAUNCHES,
+              "host_routed": RF.HOST_ROUTED_READS, "written": n_written,
+              "eval_calls": len(buckets), "buckets": sorted(set(buckets))}
+    tags = {}
+    for rec in FastBamScanner(out_path):
+        td = rec.tag_dict()
+        tags[rec.query_name] = (td.get("MM"),
+                                np.asarray(td.get("ML"), np.uint8))
+    check(len(tags) == n_written, f"{tag}: {len(tags)} records read back, "
+          f"{n_written} written")
+    return tags, counts, wall, handler.lines
+
+
+def check_lstm_last_buckets():
+    """K1 against its plain version at every power-of-two batch that
+    ``RemoraRead.run_model`` pads a strand's calls to, 1 to 2048, both
+    dtypes, at phase 3's tolerances (T = 124, C = H = 64)."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import full_f32
+    from remora_tpu_torch.kernels import lstm as K
+
+    worst = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        errs = []
+        for b in (1 << k for k in range(12)):
+            params, x = lstm_case(dtype, B=b, seed=b)
+            with full_f32():
+                got = K.lstm_last(params, x)
+                want = K.lstm_last_reference(params, x)
+            torch.cuda.synchronize()
+            check(got.shape == (b, SIZE) and got.dtype == dtype,
+                  f"lstm_last {dtype} B={b}: got {tuple(got.shape)}")
+            err = (got.float() - want.float()).abs().max().item()
+            check(np.isfinite(err) and err <= tol,
+                  f"lstm_last {dtype} B={b}: kernel disagrees with the "
+                  f"plain version (max |dh| {err:.3e} > {tol})")
+            errs.append(err)
+        worst[dtype] = max(errs)
+        log(f"lstm_last {dtype} at B = 1, 2, 4, ..., 2048: max |dh| by B "
+            f"{[f'{e:.2e}' for e in errs]} (tolerance {tol})")
+    return worst
+
+
+def duplex_split(key, paths, handle, n_pairs=4):
+    """Where a duplex pair's time goes: the driver's own stage functions
+    run one after another in this process for the first ``n_pairs``
+    resolvable pairs (host wall; the card synchronized after each
+    forward): BuildDuplexedIoReads (the pair's reads from signal and
+    BAM), MakeDuplexReads (the strands' alignment to the duplex
+    basecall) and InferMods, split into its forwards (``eval_fn``) and
+    the rest (chunk staging and tags). Returns the mean ms a pair of
+    each."""
+    import torch
+
+    from remora_tpu_torch.infer import duplex_infer as D
+    from remora_tpu_torch.io.read_index import ReadIndexedBam
+
+    simplex_bam, duplex_bam, pairs = paths
+    simplex_idx = ReadIndexedBam(simplex_bam, req_tags={"mv"})
+    duplex_idx = ReadIndexedBam(duplex_bam, req_tags=set(),
+                                read_id_converter=D.DelimIdConverter(";"))
+    forward = [0.0]
+
+    def timed_eval(sigs, enc_kmers):
+        t0 = time.perf_counter()
+        out = handle.eval_fn(sigs, enc_kmers)
+        torch.cuda.synchronize()
+        forward[0] += time.perf_counter() - t0
+        return out
+
+    caller = D.DuplexReadModCaller(timed_eval, handle.metadata)
+    totals = dict.fromkeys(("reads", "align", "forward", "staging"), 0.0)
+    done = 0
+    with memory_pod5(), open(pairs) as fh:
+        (builder,), _ = D.prep_duplex_read_builder(simplex_idx, key)
+        for line in fh:
+            if done == n_pairs:
+                break
+            t0 = time.perf_counter()
+            pair = D.iter_duplexed_io_reads(tuple(line.split()), builder)
+            t1 = time.perf_counter()
+            duplex_read = D.make_duplex_reads(pair, duplex_idx)
+            if duplex_read[1] is not None:
+                continue
+            t2 = time.perf_counter()
+            forward[0] = 0.0
+            _record, err = D.add_mod_mappings_to_alignment(duplex_read,
+                                                           caller)
+            check(err is None, f"duplex split: {err}")
+            t3 = time.perf_counter()
+            for name, secs in (("reads", t1 - t0), ("align", t2 - t1),
+                               ("forward", forward[0]),
+                               ("staging", t3 - t2 - forward[0])):
+                totals[name] += secs
+            done += 1
+    split = {name: secs / done * 1e3 for name, secs in totals.items()}
+    log(f"  duplex split, mean of {done} pairs through the driver's stage "
+        f"functions one after another (host wall, ms a pair): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    return split
+
+
+def duplex_infer(root, path, refine_path, smi):
+    """Phase 5b: ``infer_duplex`` on the card with phase 4's checkpoint,
+    f32 then bf16; the first resolvable pairs through the same driver
+    with the handle on the CPU, and with phase 5's refining checkpoint
+    through the device DP and the native one; K1 against its plain
+    version at every bucket size. Returns (K1 launches by dtype, K4/K5
+    launches, rates)."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import ModelHandle
+    from remora_tpu_torch.io import bam
+    from remora_tpu_torch.io.pod5 import Calibration, Pod5Read
+    from remora_tpu_torch.refine.levels import extract_levels
+
+    # every index from the native scan, none cached under $HOME; no tqdm
+    # bars in the log
+    os.environ["REMORA_TPU_BAM_INDEX_CACHE"] = "0"
+    os.environ["LOG_SAFE"] = "1"
+    log(f"duplex: {host_memory()}")
+    table, center = synth_level_table()
+    sub = os.path.join(root, "duplex")
+    os.makedirs(sub)
+    reads = {}
+
+    def add_signal(rid, dacs):
+        reads[rid] = Pod5Read(rid, dacs, Calibration(90.0, 20.0),
+                              sample_rate=5000, num_samples=dacs.size)
+
+    paths = write_duplex_set(
+        sub, DUPLEX_PAIRS, DUPLEX_BASES, bam, add_signal,
+        levels_of=lambda s: extract_levels(s, table, 9, center))
+    key = os.path.join(sub, "simplex.pod5")
+    MemoryPod5.SETS[key] = reads
+    # the pair without a duplex record is filtered before the stages; the
+    # one without its complement's signal is among the first resolvable
+    want_written = DUPLEX_PAIRS - 2
+    small_written = DUPLEX_SMALL_PAIRS - 1
+    want_tally = {"duplex pair read id(s) missing from pod5": 1}
+    results, launches, rates, handles = {}, {}, {}, {}
+    for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
+        handle = handles[tag] = ModelHandle.load(path, compute_dtype=dtype)
+        check(handle.device.type == "cuda", f"duplex {tag}: handle on "
+              f"{handle.device}")
+        tags, counts, wall, lines = duplex_leg(
+            key, paths, handle, os.path.join(root, f"duplex_{tag}.bam"),
+            f"duplex {tag}", num_duplex_prep_workers=DUPLEX_PREP_WORKERS)
+        n_calls = sum(ml.size for _mm, ml in tags.values())
+        log(f"duplex {tag}: {counts['written']} of {DUPLEX_PAIRS} pairs "
+            f"({DUPLEX_BASES} bases a strand, {DUPLEX_PREP_WORKERS} prep "
+            f"workers), {n_calls} calls in {wall:.3f} s = "
+            f"{counts['written'] / wall:.2f} pairs/s, "
+            f"{2 * counts['written'] / wall:.2f} strand calls/s, "
+            f"{n_calls / wall:.1f} chunks/s; eval_fn calls "
+            f"{counts['eval_calls']} (buckets {counts['buckets']}), K1 "
+            f"launches {counts['k1']} [{smi}]")
+        tally = skip_tally(lines)
+        log(f"  duplex {tag} skip tally: {tally}")
+        check(counts["written"] == want_written,
+              f"duplex {tag}: {counts['written']} pairs written, not "
+              f"{want_written}")
+        check(tally == want_tally, f"duplex {tag}: skip tally {tally}")
+        check(all(mm and "C+m" in mm and "G-m" in mm and ml.size
+                  for mm, ml in tags.values()),
+              f"duplex {tag}: a record without calls on both strands")
+        check(counts["k1"] == counts["eval_calls"] == 2 * want_written,
+              f"duplex {tag}: K1 launched {counts['k1']} times for "
+              f"{counts['eval_calls']} eval_fn calls")
+        results[tag], launches[tag] = tags, counts["k1"]
+        rates[f"duplex_{tag}_pairs_per_s"] = counts["written"] / wall
+        rates[f"duplex_{tag}_strand_calls_per_s"] = (
+            2 * counts["written"] / wall)
+        rates[f"duplex_{tag}_chunks_per_s"] = n_calls / wall
+    # bf16 is held to f32 by the bf16 contract, an ML byte within 1; MM
+    # (call positions and sequence only) shows the same records were
+    # written
+    check(results["f32"].keys() == results["bf16"].keys(),
+          "duplex bf16: records differ from f32")
+    mm, ml, worst = tag_diff(results["bf16"], results["f32"])
+    log(f"duplex bf16 vs f32: MM strings that differ {mm}, ML bytes that "
+        f"differ {ml}, max |delta| {worst} (tolerance 1)")
+    check(mm == 0, "duplex bf16: MM strings differ from f32")
+    check(worst <= 1, "duplex bf16: ML moved by more than 1 from f32")
+    check(ml > 0, "duplex bf16: ML equals f32's byte for byte (the bf16 "
+          "forward did not run)")
+    # the f32 handle, warm from its leg
+    rates.update({f"duplex_split_{k}_ms": v for k, v in duplex_split(
+        key, paths, handles["f32"]).items()})
+
+    # the first resolvable pairs through the same driver with the handle
+    # on the CPU, against the f32 card leg's records
+    cpu_tags, counts, cpu_wall, _ = duplex_leg(
+        key, paths, ModelHandle.load(path, device="cpu"),
+        os.path.join(root, "duplex_cpu.bam"), "duplex cpu",
+        num_reads=DUPLEX_SMALL_PAIRS)
+    check(counts["k1"] == 0, "the CPU duplex leg launched K1")
+    check(len(cpu_tags) == small_written,
+          f"duplex CPU leg: {len(cpu_tags)} records, not {small_written}")
+    card_tags = {rid: results["f32"][rid] for rid in cpu_tags}
+    mm, ml, worst = tag_diff(card_tags, cpu_tags)
+    log(f"duplex f32 card vs CPU, {len(cpu_tags)} pairs (CPU "
+        f"{cpu_wall:.3f} s): MM strings that differ {mm}, ML bytes that "
+        f"differ {ml}, max |delta| {worst} (tolerance 1)")
+    check(mm == 0, "duplex: MM differs between the card and the CPU")
+    check(worst <= 1, "duplex: ML moved by more than 1 between the card "
+          "and the CPU")
+
+    # the refining checkpoint on the same pairs: the device DP (K4/K5,
+    # one strand read a call) against the native DP
+    refine_tags, dp_launches = {}, (0, 0)
+    for backend in ("device", "native"):
+        handle = ModelHandle.load(refine_path)
+        tags, counts, wall, _ = duplex_leg(
+            key, paths, handle,
+            os.path.join(root, f"duplex_refine_{backend}.bam"),
+            f"duplex refine {backend}", refine_backend=backend,
+            num_reads=DUPLEX_SMALL_PAIRS)
+        log(f"duplex refine {backend}: {counts['written']} pairs in "
+            f"{wall:.3f} s = {counts['written'] / wall:.2f} pairs/s; K1 "
+            f"{counts['k1']}, K4/K5 launches ({counts['k4']}, "
+            f"{counts['k5']}), planned {counts['planned']}, reads routed "
+            f"to the host {counts['host_routed']}")
+        check(counts["written"] == small_written,
+              f"duplex refine {backend}: {counts['written']} pairs written")
+        if backend == "device":
+            check(counts["k4"] == counts["k5"] == counts["planned"]
+                  == 2 * small_written,
+                  f"duplex refine device: K4/K5 launched ({counts['k4']}, "
+                  f"{counts['k5']}), planned {counts['planned']}, for "
+                  f"{2 * small_written} strands")
+            check(counts["host_routed"] == 0, "duplex refine device: "
+                  "reads were routed to the host DP")
+            dp_launches = (counts["k4"], counts["k5"])
+        else:
+            check(counts["k4"] == counts["k5"] == 0,
+                  "duplex refine native: K4/K5 launched")
+        refine_tags[backend] = tags
+        rates[f"duplex_refine_{backend}_pairs_per_s"] = (
+            counts["written"] / wall)
+    mm, ml, worst = tag_diff(refine_tags["device"], refine_tags["native"])
+    log(f"duplex refine device vs native: MM strings that differ {mm}, ML "
+        f"bytes that differ {ml}")
+    check(refine_tags["device"].keys() == refine_tags["native"].keys()
+          and mm == ml == 0, "duplex refine: the device DP's tags differ "
+          "from the native DP's")
+    _mm, ml, _w = tag_diff(refine_tags["device"], card_tags)
+    check(ml > 0, "duplex refine: the refiner changed no call")
+
+    k1_errs = check_lstm_last_buckets()
+    log(f"duplex done: {host_memory()}")
+    rates.update(duplex_pairs=DUPLEX_PAIRS, duplex_bases=DUPLEX_BASES,
+                 duplex_prep_workers=DUPLEX_PREP_WORKERS,
+                 duplex_k1_bucket_max_err_f32=k1_errs[torch.float32],
+                 duplex_k1_bucket_max_err_bf16=k1_errs[torch.bfloat16])
+    return launches, dp_launches, rates
 
 
 # ---------------- phase 6: the training path ----------------
@@ -2057,15 +2510,20 @@ def synth_read(rng, n_bases, levels_of=None):
     11 samples, level + N(0, 0.1) noise, int16 DACs at shift 90, scale 20.
     ``levels_of`` maps the bases to their levels (default ``BASE_LVL``)."""
     int_seq = rng.integers(0, 4, n_bases)
+    return (int_seq, *strand_signal(rng, int_seq, levels_of))
+
+
+def strand_signal(rng, int_seq, levels_of=None):
+    """(s2s, int16 DACs) of ``synth_read``'s recipe for given bases."""
     if levels_of is None:
         levels = np.array([BASE_LVL[int(b)] for b in int_seq])
     else:
         levels = levels_of(int_seq)
-    dwells = rng.integers(4, 12, n_bases)
+    dwells = rng.integers(4, 12, int_seq.size)
     s2s = np.concatenate([[0], np.cumsum(dwells)])
     norm = np.repeat(levels, dwells) + rng.normal(0, 0.1, s2s[-1])
     dacs = np.clip(norm * 20 + 90, -500, 3000).astype(np.int16)
-    return int_seq, s2s, dacs
+    return s2s, dacs
 
 
 def dp_reads(seed, n_reads, n_bases):
@@ -2670,6 +3128,209 @@ def refine_stage(root):
     return launches, rates
 
 
+# ---------------- phase 8c: the prepare driver at full size --------------
+
+PREPARE_MAX_CHUNKS = 15  # max_chunks_per_read: every read draws its sites
+# a read has at most one site a base, so no read draws; the driver
+# allocates reads x this many rows (sparse files, but reads through a
+# hole on tmpfs allocate pages)
+PREPARE_ALL_SITES = STREAM_BASES
+# the first reads of the set, for the worker-count and shuffle legs (host
+# pipeline properties, held to the JAX package on the CPU by
+# tests/test_torch_prepare.py); one micro-batch warms the device stage
+PREPARE_SUBSET, PREPARE_WARM = 32, 64
+
+
+def host_memory():
+    """The host's memory: this process's resident set, what the machine
+    has available, and what the temporary directory holds."""
+    import shutil
+
+    def fields(path, names):
+        out = {}
+        with open(path) as fh:
+            for line in fh:
+                key, _, rest = line.partition(":")
+                if key in names:
+                    out[key] = int(rest.split()[0]) / 2 ** 20
+        return out
+
+    rss = fields("/proc/self/status", ("VmRSS",)).get("VmRSS", 0)
+    avail = fields("/proc/meminfo", ("MemAvailable",)).get("MemAvailable", 0)
+    tmp = shutil.disk_usage(tempfile.gettempdir()).used / 2 ** 30
+    return (f"RSS {rss:.1f} GiB, available {avail:.1f} GiB, temp dir "
+            f"holds {tmp:.1f} GiB")
+
+
+def prepare_leg(key, bam_path, out, refiner, tag, seed, max_chunks,
+                workers=1, shuffle=False, intervals=None,
+                n_reads=STREAM_READS):
+    """One ``extract_chunk_dataset`` run over the first ``n_reads`` reads
+    (CG sites of 5mC, chunk context (200, 200), 9-mer context, 5 samples
+    a base) with the launch counts set to 0 and the NumPy RNG seeded
+    first; returns (dataset, counts, wall seconds, skip tally)."""
+    import torch
+
+    from remora_tpu_torch.core.seq import Motif
+    from remora_tpu_torch.kernels import banded_dp as DP
+    from remora_tpu_torch.prepare import extract_chunk_dataset
+    from remora_tpu_torch.refine import refiner as RF
+
+    handler = _LogLines()
+    logger = logging.getLogger("RemoraTPUTorch")
+    logger.addHandler(handler)
+    torch.cuda.synchronize()
+    DP.LAUNCHES_FWD = DP.LAUNCHES_TB = 0
+    RF.PLANNED_LAUNCHES = RF.HOST_ROUTED_READS = 0
+    np.random.seed(seed)
+    timed = (timed_dp_kernels(intervals) if intervals is not None
+             else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    try:
+        with memory_pod5(), timed:
+            dataset = extract_chunk_dataset(
+                bam_path, key, out, ("m", "5mC"), False, [Motif("CG", 0)],
+                None, STAGE_CHUNK_CONTEXT, 5, max_chunks, None, refiner,
+                STAGE_KMER_CONTEXT, False, 0, n_reads,
+                num_extract_chunks_workers=workers,
+                skip_shuffle=not shuffle)
+            torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    counts = {"k4": DP.LAUNCHES_FWD, "k5": DP.LAUNCHES_TB,
+              "planned": RF.PLANNED_LAUNCHES,
+              "host_routed": RF.HOST_ROUTED_READS}
+    tally = skip_tally(handler.lines)
+    log(f"  prepare {tag} skip tally: {tally}")
+    log(f"prepare {tag}: {n_reads} reads of {STREAM_BASES} bases, "
+        f"{dataset.size} chunks in {wall:.3f} s = "
+        f"{n_reads / wall:.1f} reads/s, {dataset.size / wall:.1f} "
+        f"chunks/s; K4/K5 launches ({counts['k4']}, {counts['k5']}), "
+        f"planned {counts['planned']}, reads routed to the host "
+        f"{counts['host_routed']}; {host_memory()}")
+    return dataset, counts, wall, tally
+
+
+def dataset_diff(got, want, sort=False):
+    """Names of the arrays that differ between two datasets (each sorted
+    by read id and focus base first when ``sort``), and whether their
+    metadata files differ."""
+    from remora_tpu_torch.data.dataset import CoreDataset
+
+    def arrays(ds):
+        ds = CoreDataset(ds.data_path, infinite_iter=False)
+        out = {n: np.asarray(getattr(ds, n)[:ds.size])
+               for n in ds.array_names}
+        if sort:
+            order = np.lexsort((out["read_focus_bases"], out["read_ids"]))
+            out = {n: a[order] for n, a in out.items()}
+        return out
+
+    a, b = arrays(got), arrays(want)
+    differ = [n for n in b if n not in a or a[n].dtype != b[n].dtype
+              or not np.array_equal(a[n], b[n])]
+    meta = [os.path.join(ds.data_path, "metadata.jsn") for ds in (got, want)]
+    with open(meta[0], "rb") as fa, open(meta[1], "rb") as fb:
+        same_meta = fa.read() == fb.read()
+    return differ, same_meta
+
+
+def prepare_stage(root, smi):
+    """Phase 8c: ``extract_chunk_dataset`` over phase 5's 256 reads of 4000
+    bases with phase 8b's 9-mer refiner (rough rescale, one DP round),
+    after one micro-batch of warm-up. The device backend first (K4/K5 in
+    micro-batches of 64, launched as the refiner planned, no read to the
+    host; its busy share by CUDA events), then the native backend with
+    one chunk worker: identical arrays and metadata, in order. At
+    ``max_chunks_per_read`` 15 every read draws its sites from the NumPy
+    RNG, and each forked worker starts from the parent's state, so the
+    worker-count and shuffle comparisons run on the first
+    ``PREPARE_SUBSET`` reads where no read draws (``PREPARE_ALL_SITES``):
+    the device and native datasets shuffled under one seed are identical,
+    and 4 native workers give the single worker's dataset once sorted by
+    (read id, focus base). Returns (K4/K5 launches, rates)."""
+    import torch
+
+    from remora_tpu_torch.refine import refiner as RF
+
+    os.environ["REMORA_TPU_BAM_INDEX_CACHE"] = "0"
+    os.environ["LOG_SAFE"] = "1"
+    log(f"prepare: {host_memory()}")
+    table, center = synth_level_table()
+    key, bam_path = write_stream_set(root, "prepare", STREAM_READS, table,
+                                     center)
+
+    def refiner(backend):
+        return RF.SigMapRefiner(
+            _levels_array=table, center_idx=center, do_rough_rescale=True,
+            scale_iters=0, backend=backend)
+
+    # no device named: the stage spreads over every visible GPU, here one
+    devs = RF._refine_dp_devices(refiner("device").dp_device)
+    check(devs == [torch.device("cuda", 0)],
+          f"prepare: the device stage runs on {devs}, not the one card")
+    prepare_leg(key, bam_path, os.path.join(root, "warm"),
+                refiner("device"), "warm-up", 1, PREPARE_MAX_CHUNKS,
+                n_reads=PREPARE_WARM)
+    legs, launches, rates, intervals = {}, [0, 0], {}, []
+    for tag, backend, max_chunks, workers, shuffle, seed, n_reads in (
+            ("device", "device", PREPARE_MAX_CHUNKS, 1, False, 7,
+             STREAM_READS),
+            ("native", "native", PREPARE_MAX_CHUNKS, 1, False, 7,
+             STREAM_READS),
+            ("device all sites shuffled", "device", PREPARE_ALL_SITES, 1,
+             True, 9, PREPARE_SUBSET),
+            ("native all sites shuffled", "native", PREPARE_ALL_SITES, 1,
+             True, 9, PREPARE_SUBSET),
+            ("native all sites 4 workers", "native", PREPARE_ALL_SITES, 4,
+             True, 9, PREPARE_SUBSET)):
+        ds, counts, wall, tally = prepare_leg(
+            key, bam_path, os.path.join(root, tag.replace(" ", "_")),
+            refiner(backend), tag, seed, max_chunks, workers, shuffle,
+            intervals if tag == "device" else None, n_reads)
+        check(ds.size > 0, f"prepare {tag}: no chunks")
+        if backend == "device":
+            check(counts["k4"] == counts["k5"] == counts["planned"] > 0,
+                  f"prepare {tag}: K4/K5 launched ({counts['k4']}, "
+                  f"{counts['k5']}), the refiner planned "
+                  f"{counts['planned']}")
+            check(counts["host_routed"] == 0,
+                  f"prepare {tag}: reads were routed to the host DP")
+            launches[0] += counts["k4"]
+            launches[1] += counts["k5"]
+        else:
+            check(counts["k4"] == counts["k5"] == 0,
+                  f"prepare {tag}: K4/K5 launched")
+        legs[tag] = (ds, tally)
+        slug = tag.replace(" ", "_")
+        rates[f"prepare_{slug}_reads_per_s"] = n_reads / wall
+        rates[f"prepare_{slug}_chunks_per_s"] = ds.size / wall
+        rates[f"prepare_{slug}_chunks"] = int(ds.size)
+    dev_wall = STREAM_READS / rates["prepare_device_reads_per_s"]
+    busy_s = sum(a.elapsed_time(b) for a, b in intervals) / 1e3
+    log(f"prepare device: K4/K5 busy {busy_s * 1e3:.4f} ms of "
+        f"{dev_wall * 1e3:.4f} ms wall ({busy_s / dev_wall:.1%} busy, "
+        f"{1 - busy_s / dev_wall:.1%} idle; {len(intervals)} launches, "
+        f"CUDA events) [{smi}]")
+    rates["prepare_device_dp_busy_share"] = busy_s / dev_wall
+    for got, want, sort in (
+            ("device", "native", False),
+            ("device all sites shuffled", "native all sites shuffled",
+             False),
+            ("native all sites 4 workers", "native all sites shuffled",
+             True)):
+        differ, same_meta = dataset_diff(legs[got][0], legs[want][0], sort)
+        log(f"prepare {got} vs {want}{' (sorted)' if sort else ''}: "
+            f"arrays that differ {differ}, metadata identical {same_meta}")
+        check(not differ and same_meta and legs[got][1] == legs[want][1],
+              f"prepare: {got} differs from {want}")
+    rates.update(prepare_reads=STREAM_READS, prepare_bases=STREAM_BASES,
+                 prepare_subset_reads=PREPARE_SUBSET,
+                 prepare_max_chunks_per_read=PREPARE_MAX_CHUNKS)
+    return tuple(launches), rates
+
+
 def main():
     import torch
 
@@ -2749,8 +3410,16 @@ def main():
         seeded_checkpoint(refine_path, refine=synth_level_table())
         stream_launches, stream_rates = stream_infer(tmp, path, refine_path,
                                                      smi)
-        kernels[torch.float32]["launches"] = stream_launches["f32"]
-        kernels[torch.bfloat16]["launches"] = stream_launches["bf16"]
+        # phase 5b: duplex inference; K1's launches there join phase 5's
+        t_phase = time.monotonic()
+        duplex_launches, duplex_dp, duplex_rates = duplex_infer(
+            tmp, path, refine_path, smi)
+        duplex_rates["duplex_phase_s"] = time.monotonic() - t_phase
+        log(f"phase 5b wall {duplex_rates['duplex_phase_s']:.1f} s")
+        kernels[torch.float32]["launches"] = (stream_launches["f32"]
+                                              + duplex_launches["f32"])
+        kernels[torch.bfloat16]["launches"] = (stream_launches["bf16"]
+                                               + duplex_launches["bf16"])
 
     train_rates = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2785,11 +3454,18 @@ def main():
         # 6e: the wide LSTM legs on the model path at size WIDE_SIZE
         wide_model_path(tmp, config, wide_kernels)
 
+    log(f"phase 8: {host_memory()}")
     dp_kernels = check_banded_dp()
     with tempfile.TemporaryDirectory() as tmp:
         launches, refine_rates = refine_stage(tmp)
-    for rec, n in zip(dp_kernels, launches):
-        rec["launches"] = n
+        # phase 8c: the prepare driver; K4/K5's launches there and in
+        # phase 5b's device-refiner leg join phase 8b's
+        t_phase = time.monotonic()
+        prepare_launches, prepare_rates = prepare_stage(tmp, smi)
+        prepare_rates["prepare_phase_s"] = time.monotonic() - t_phase
+        log(f"phase 8c wall {prepare_rates['prepare_phase_s']:.1f} s")
+    for rec, *ns in zip(dp_kernels, launches, duplex_dp, prepare_launches):
+        rec["launches"] = sum(ns)
     log(json.dumps({"slice": {
         "f32_chunks_per_s": f32_rate, "bf16_chunks_per_s": bf16_rate,
         "batches": N_BATCHES, "batch": BATCH, "last_batch": LAST_BATCH,
@@ -2798,7 +3474,9 @@ def main():
         "train_steps_per_epoch": TRAIN_STEPS, "train_epochs": TRAIN_EPOCHS,
         "train_pallas_epochs": PALLAS_EPOCHS,
         **stream_rates,
+        **duplex_rates,
         **refine_rates,
+        **prepare_rates,
     }}))
     records = list(kernels.values())
     for recs in (*train_kernels.values(), *wide_kernels.values(),

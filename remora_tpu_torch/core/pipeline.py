@@ -43,6 +43,12 @@ class StageQueue:
         self.maxsize = maxsize
         if cross_process:
             self.queue = _MP.Queue(maxsize=maxsize)
+            # a driver drains every queue before it returns; one that
+            # raised mid-run leaves items no process will read, and the
+            # creating process must not block at exit flushing them into
+            # a full pipe (a forked or spawned copy resets this and still
+            # flushes what it put)
+            self.queue.cancel_join_thread()
             self._gauge = _MP.Value("i", 0)
         else:
             self.queue = queue_mod.Queue(maxsize=maxsize)
@@ -109,14 +115,17 @@ def _log_swallowed(tag, name, err, with_tb=True):
     LOGGER.debug(f"{tag} in {name}: '{err}'{detail}")
 
 
-def _run_guarded(tag, name, fn, with_tb=True):
-    """Run ``fn``, swallowing (but logging) everything except SIGINT."""
+def _run_guarded(tag, name, fn, with_tb=True, errors=None):
+    """Run ``fn``, swallowing (but logging) everything except SIGINT; a
+    swallowed exception is appended to ``errors`` when one is given."""
     try:
         fn()
     except KeyboardInterrupt:
         pass
     except Exception as e:
         _log_swallowed(tag, name, e, with_tb=with_tb)
+        if errors is not None:
+            errors.append(e)
 
 
 def _pump(items, sink):
@@ -135,7 +144,8 @@ def _fill_queue(iterator, in_q, num_receivers):
         put_item(_STOP, in_q)
 
 
-def _worker_loop(name, func, prep_func, in_q, out_q, args, kwargs):
+def _worker_loop(name, func, prep_func, in_q, out_q, args, kwargs,
+                 errors):
     LOGGER.debug(f"{name}: worker up")
 
     def run():
@@ -148,9 +158,11 @@ def _worker_loop(name, func, prep_func, in_q, out_q, args, kwargs):
                 "PIPELINE_ITEM_ERROR",
                 name,
                 lambda: put_item(func(item, *args, **kwargs), out_q),
+                errors=errors,
             )
 
-    _run_guarded("PIPELINE_WORKER_ERROR", name, run, with_tb=False)
+    _run_guarded("PIPELINE_WORKER_ERROR", name, run, with_tb=False,
+                 errors=errors)
     LOGGER.debug(f"{name}: worker done")
     put_item(_STOP, out_q)
 
@@ -167,7 +179,7 @@ def _batch_iter(iterator, batch_size):
         yield buf
 
 
-def _batch_worker_loop(name, func, in_q, out_q, args, kwargs):
+def _batch_worker_loop(name, func, in_q, out_q, args, kwargs, errors):
     LOGGER.debug(f"{name}: batch worker up")
 
     def run():
@@ -175,10 +187,12 @@ def _batch_worker_loop(name, func, in_q, out_q, args, kwargs):
             _run_guarded(
                 "PIPELINE_ITEM_ERROR",
                 name,
-                lambda b=batch: _pump(func(b, *args, **kwargs), out_q),
+                lambda: _pump(func(batch, *args, **kwargs), out_q),
+                errors=errors,
             )
 
-    _run_guarded("PIPELINE_WORKER_ERROR", name, run, with_tb=False)
+    _run_guarded("PIPELINE_WORKER_ERROR", name, run, with_tb=False,
+                 errors=errors)
     LOGGER.debug(f"{name}: batch worker done")
     put_item(_STOP, out_q)
 
@@ -239,6 +253,10 @@ class map_stage(_Stage):
 
     ``prep_func(*args, **kwargs) -> (args, kwargs)`` runs once inside each
     worker for state that must be constructed post-fork (e.g. BAM handles).
+
+    An item whose ``func`` raises is logged and dropped; with thread
+    workers its exception is also appended to ``errors``, so a driver can
+    raise after draining (a process worker's exceptions are only logged).
     """
 
     def __init__(self, func, iterator, *, num_workers=1, prep_func=None,
@@ -247,6 +265,7 @@ class map_stage(_Stage):
                  use_process=False):
         self.name = name
         self._n_senders = self.num_workers = num_workers
+        self.errors = []
         make_q = partial(StageQueue, q_maxsize, cross_process=use_mp_queue)
         self.out_q = make_q(name=name + ":out")
         in_q = make_q(name=name + ":in")
@@ -264,7 +283,7 @@ class map_stage(_Stage):
             _launch(
                 _worker_loop,
                 (name, func, prep_func, in_q, self.out_q, list(args),
-                 kwargs or {}),
+                 kwargs or {}, None if use_process else self.errors),
                 f"{name}_{idx}",
                 use_process,
             )
@@ -280,6 +299,12 @@ class batch_map_stage(_Stage):
     stages that own an accelerator (e.g. the device banded-DP refine
     path) where batching amortizes kernel launches/transfers and a
     single process must hold the device.
+
+    A batch whose ``func`` raises is logged and dropped, as a failed item
+    of ``map_stage`` is, and its exception is appended to ``errors`` (an
+    in-process worker's list; the port's drivers raise after draining
+    when it is not empty, so a device failure never passes for a smaller
+    output).
     """
 
     def __init__(self, func, iterator, batch_size, *, args=(), kwargs=None,
@@ -287,6 +312,7 @@ class batch_map_stage(_Stage):
                  use_mp_queue=True, use_process=False):
         self.name = name
         self._n_senders = 1
+        self.errors = []
         make_q = partial(StageQueue, q_maxsize, cross_process=use_mp_queue)
         self.out_q = make_q(name=name + ":out")
         in_q = make_q(name=name + ":in")
@@ -299,7 +325,8 @@ class batch_map_stage(_Stage):
         filler.start()
         _launch(
             _batch_worker_loop,
-            (name, func, in_q, self.out_q, list(args), kwargs or {}),
+            (name, func, in_q, self.out_q, list(args), kwargs or {},
+             self.errors),
             f"{name}_0",
             use_process,
         )

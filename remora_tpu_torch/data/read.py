@@ -1,7 +1,8 @@
 """Training/inference read container and chunk extraction (copy of
-``remora_tpu/data/read.py`` without ``prepare_batches`` and
-``run_model``, which belong to the per-read inference path that this
-package does not port yet).
+``remora_tpu/data/read.py``). ``prepare_batches`` and ``run_model`` are
+the per-read inference path that duplex calling takes
+(``infer/duplex_infer.py``); ``run_model`` brings each batch's logits to
+the host once, wherever the model runs.
 
 Reference analogs: ``RemoraRead`` (``src/remora/data_chunks.py:126–540``)
 and ``Chunk`` (``:543–641``). Semantics (edge padding, searchsorted
@@ -389,3 +390,87 @@ class RemoraRead:
             )
             if chunk is not None:
                 yield chunk
+
+    def prepare_batches(self, model_metadata, batch_size):
+        """Prepare device-ready batches of this read's chunks.
+
+        Reference analog ``data_chunks.py:468–514`` — builds an in-memory
+        dataset so chunk tensor assembly is identical to training prep.
+        """
+        from remora_tpu_torch.data.dataset import CoreDataset
+        from remora_tpu_torch.data.metadata import DatasetMetadata
+
+        md = model_metadata
+        self.batches = []
+        self.refine_signal_mapping(md["sig_map_refiner"])
+        chunk_list = list(
+            self.iter_chunks(
+                md["chunk_context"],
+                md["kmer_context_bases"],
+                base_start_justify=md["base_start_justify"],
+                offset=md["offset"],
+            )
+        )
+        if not chunk_list:
+            return
+        motif_seqs, motif_offsets = zip(*md["motifs"])
+        widest = max(c.seq_len for c in chunk_list)
+        staging_meta = DatasetMetadata(
+            allocate_size=len(chunk_list),
+            mod_bases=md["mod_bases"],
+            mod_long_names=md["mod_long_names"],
+            max_seq_len=widest,
+            kmer_context_bases=md["kmer_context_bases"],
+            chunk_context=md["chunk_context"],
+            motif_sequences=list(motif_seqs),
+            motif_offsets=list(motif_offsets),
+            extra_arrays={"read_focus_bases": ("int64", "")},
+        )
+        staging = CoreDataset(
+            mode="w",
+            metadata=staging_meta,
+            batch_size=batch_size,
+            super_batch_size=len(chunk_list),
+            infinite_iter=False,
+        )
+        for chunk in chunk_list:
+            staging.write_chunk(chunk)
+        cols = ("signal", "enc_kmers", "labels", "read_focus_bases")
+        self.batches = [
+            tuple(batch[c] for c in cols) for batch in staging
+        ]
+
+    def run_model(self, eval_fn):
+        """Call modified bases over prepared batches.
+
+        Args:
+            eval_fn: callable (sigs, enc_kmers) -> logits, a tensor on the
+                model's device (``ModelHandle.eval_fn``), brought to the
+                host once a batch. Ragged batches are padded to
+                power-of-two bucket shapes, as in the JAX package, so a
+                batch's shape is one of a bounded set.
+
+        Returns:
+            (outputs (ncalls, nlab), labels, read positions)
+        """
+        per_batch = []
+        for sigs, enc_kmers, labels, positions in self.batches:
+            n = sigs.shape[0]
+            bucket = 1 << max(0, (n - 1)).bit_length()
+            if bucket != n:
+                pad_s = np.zeros((bucket,) + sigs.shape[1:], sigs.dtype)
+                pad_k = np.zeros(
+                    (bucket,) + enc_kmers.shape[1:], enc_kmers.dtype
+                )
+                pad_s[:n] = sigs
+                pad_k[:n] = enc_kmers
+                out = eval_fn(pad_s, pad_k).cpu().numpy()[:n]
+            else:
+                out = eval_fn(sigs, enc_kmers).cpu().numpy()
+            per_batch.append((out, labels, positions))
+        outs, labs, poss = zip(*per_batch)
+        return (
+            np.concatenate(outs, axis=0),
+            np.concatenate(labs),
+            np.concatenate(poss),
+        )

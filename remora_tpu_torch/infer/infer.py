@@ -848,6 +848,9 @@ def infer_from_pod5_and_bam(
     # join is safe to abandon) — never hang the driver on it
     batch_reads_t.join(timeout=None if not stage_errors else 10)
     call_batches_t.join(timeout=None if not stage_errors else 10)
+    if device_refine and prepped_reads.errors:
+        # the device refinement raised: its micro-batch of reads is gone
+        stage_errors.setdefault("PrepReadData", prepped_reads.errors[0])
     if stage_errors:
         name, err = next(iter(stage_errors.items()))
         raise RemoraError(

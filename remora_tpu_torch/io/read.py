@@ -5,12 +5,10 @@ the three scaling domains (pA, zero-centered pA, norm), parses move
 table + trim/scaling BAM tags, computes ref_to_signal through the CIGAR,
 and bridges into the data-layer RemoraRead.
 
-Copy of ``remora_tpu/io/read.py``, importing this package's modules,
-without ``Read.with_duplex_alignment`` (duplex inference is not
-ported yet).
+Copy of ``remora_tpu/io/read.py``, importing this package's modules.
 """
 
-from copy import deepcopy
+from copy import copy, deepcopy
 from dataclasses import dataclass
 from typing import Optional
 
@@ -559,6 +557,30 @@ class Read:
                 padded[name] = row
             metric_values = padded
         return metric_values
+
+    def with_duplex_alignment(self, duplex_read_alignment, duplex_orientation):
+        """Copy re-anchored onto a duplex basecall (see remora_tpu_torch.io.duplex)."""
+        from remora_tpu_torch.io import duplex as duplex_mod
+
+        if self.query_to_signal is None:
+            raise RemoraError("requires query_to_signal")
+        duplex_seq = duplex_read_alignment.query_sequence
+        if not duplex_seq:
+            raise RemoraError("duplex record carries no basecalls")
+        if not duplex_orientation:
+            duplex_seq = sequtil.revcomp(duplex_seq)
+
+        read = copy(self)
+        mapping = duplex_mod.map_simplex_to_duplex(
+            simplex_seq=read.seq, duplex_seq=duplex_seq
+        )
+        read.query_to_signal = coords.map_ref_to_signal(
+            query_to_signal=read.query_to_signal,
+            ref_to_query_knots=mapping.duplex_to_simplex_mapping,
+        )
+        read.seq = mapping.trimmed_duplex_seq
+        read.ref_seq = read.ref_to_signal = read.ref_reg = None
+        return read, mapping.duplex_offset
 
 
 def iter_signal(pod5_path, *, num_reads=None, read_ids=None, rev_sig=False,

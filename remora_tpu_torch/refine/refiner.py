@@ -49,9 +49,10 @@ from remora_tpu_torch.refine import rescale as rescale_mod
 
 LOGGER = log.get_logger()
 
-# what the device DP stage did in this process: the K4/K5 launches it
-# planned (one forward and one traceback each) and the reads it routed to
-# the host DP instead (per-read routing and DeviceDPRouteError reroutes)
+# what the device DP did in this process: the K4/K5 launches it planned
+# (one forward and one traceback each; the batched stage's and the
+# single-read path's) and the reads the batched stage routed to the host
+# DP instead (per-read routing and DeviceDPRouteError reroutes)
 PLANNED_LAUNCHES = 0
 HOST_ROUTED_READS = 0
 
@@ -201,6 +202,7 @@ def refine_signal_mapping(
     the batched entry point that amortizes launches/transfers across
     reads).
     """
+    global PLANNED_LAUNCHES
     # rebase everything so base 0 starts at signal index 0
     origin = int(seq_to_sig_map[0])
     signal = signal[origin : seq_to_sig_map[-1]]
@@ -218,6 +220,7 @@ def refine_signal_mapping(
     lvl_f32 = np.nan_to_num(levels, nan=0.0).astype(np.float32)
 
     if backend == REFINE_BACKEND_DEVICE:
+        PLANNED_LAUNCHES += 1
         (path,) = _device_dp_paths(
             [(sig_f32, lvl_f32, seq_band)], short_dwell_pen, refine_algo,
             device,

@@ -758,6 +758,62 @@ def test_refine_reads_batch_on_card_matches_cpu(cuda):
             assert a.shift == b.shift and a.scale == b.scale
 
 
+# ---------------- duplex inference: K1 at every bucket size ------------
+
+
+# RemoraRead.run_model pads a strand's calls to a power of two, 1 to 2048:
+# B = 1, 2, 4 and 8 are partial blocks of the f32 kernel's 16 rows
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_lstm_last_at_every_duplex_bucket(cuda, dtype, tol):
+    for b in (1 << k for k in range(12)):
+        params, x = _case(124, b, 64, 64, dtype, cuda, seed=b)
+        launches = K.LAUNCHES
+        with full_f32():
+            got = K.lstm_last(params, x)
+            want = K.lstm_last_reference(params, x)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == launches + 1
+        assert got.shape == (b, 64) and got.dtype == dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (b, err)
+
+
+def test_infer_duplex_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``infer_duplex`` on 4 pairs (one without a duplex record, one
+    without its complement's signal) with the handle on the card against
+    the CPU: the same records, MM identical, ML within 1, K1 once an
+    eval_fn call on the card and never on the CPU."""
+    import chip_smoke as cs
+    from remora_tpu_torch.infer.infer import ModelHandle
+    from remora_tpu_torch.io import bam
+    from remora_tpu_torch.io.pod5 import Calibration, Pod5Read
+
+    monkeypatch.setenv("REMORA_TPU_BAM_INDEX_CACHE", "0")
+    monkeypatch.setenv("LOG_SAFE", "1")
+    path = str(tmp_path / "model.npz")
+    cs.seeded_checkpoint(path)
+    reads = {}
+    paths = cs.write_duplex_set(
+        str(tmp_path), 4, 600, bam,
+        lambda rid, dacs: reads.__setitem__(
+            rid, Pod5Read(rid, dacs, Calibration(90.0, 20.0))))
+    key = str(tmp_path / "simplex.pod5")
+    cs.MemoryPod5.SETS[key] = reads
+    got = {}
+    for device in ("cuda", "cpu"):
+        handle = ModelHandle.load(path, device=device)
+        tags, counts, _wall, _lines = cs.duplex_leg(
+            key, paths, handle, str(tmp_path / f"{device}.bam"), device)
+        assert counts["written"] == 2
+        want_k1 = counts["eval_calls"] if device == "cuda" else 0
+        assert counts["k1"] == want_k1 and counts["eval_calls"] == 4
+        got[device] = tags
+    assert got["cuda"].keys() == got["cpu"].keys()
+    mm, _ml, worst = cs.tag_diff(got["cuda"], got["cpu"])
+    assert mm == 0 and worst <= 1
+
+
 # ---------------- K6: the conv+BN(train)+swish backward ----------------
 
 

@@ -13,6 +13,7 @@ bf16's epsilon), and the record counts and skip tallies are equal. The host stag
 to the JAX package's one by one. Every driver run is time-bounded."""
 
 import contextlib
+import faulthandler
 import logging
 import signal
 import uuid
@@ -23,7 +24,7 @@ import pytest
 import torch
 
 import bench
-from chip_smoke import calibrate, synth_level_table
+from chip_smoke import calibrate, skip_tally, synth_level_table
 from remora_tpu.infer import infer as jax_infer
 from remora_tpu.io.bam import BamHeader, BamRecord, BamWriter, FastBamScanner
 from remora_tpu.io.pod5_write import Pod5Writer
@@ -38,6 +39,7 @@ from remora_tpu_torch.refine import refiner as port_refiner
 
 from tests.test_synthetic_rna import _synth_read as rna_read
 from tests.test_torch_io import _plain, _record_fields, write_test_set
+from tests.test_torch_io import jax_native_loaded  # noqa: F401 (autouse)
 from tests.test_torch_models import _numpy_trees
 
 SIZE, KMER_LEN, CTX, BATCH = 16, 9, (50, 50), 64
@@ -51,6 +53,8 @@ def time_limit(seconds=RUN_LIMIT_S):
     the main thread; forked stage children do not inherit the alarm)."""
 
     def on_alarm(_signum, _frame):
+        # where every thread of this process stood, for the report
+        faulthandler.dump_traceback(all_threads=True)
         raise TimeoutError(f"pipeline run exceeded {seconds} s")
 
     old = signal.signal(signal.SIGALRM, on_alarm)
@@ -80,17 +84,6 @@ def captured(logger_name):
         yield handler.messages
     finally:
         logger.removeHandler(handler)
-
-
-def skip_tally(messages):
-    """{reason: count} from the driver's 'Unsuccessful read reasons' log."""
-    tally = {}
-    for msg in messages:
-        if msg.startswith("Unsuccessful read reasons:"):
-            for line in msg.splitlines()[1:]:
-                num, why = line.split(" : ", 1)
-                tally[why.strip()] = int(num)
-    return tally
 
 
 def write_model(out_dir, name, reverse_signal=False, refiner=None,
@@ -416,6 +409,24 @@ def test_device_stage_failure_raises(data_set, model_path, workdir):
                                       batch_size=BATCH)
 
 
+def test_device_refine_failure_raises(data_set, workdir, refine_model_path,
+                                     monkeypatch):
+    """A kernel that fails in the device refine stage (the DP wrapper
+    raises) makes the driver raise RemoraError after draining, instead of
+    writing a BAM short of the micro-batch's reads."""
+    pod5, bam = data_set
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("simulated kernel launch failure")
+
+    monkeypatch.setattr(port_dp, "banded_dp_batch", boom)
+    handle = infer.ModelHandle.load(refine_model_path, device="cpu")
+    with time_limit(), pytest.raises(RemoraError, match="PrepReadData"):
+        infer.infer_from_pod5_and_bam(
+            pod5, bam, [handle], str(workdir / "refine_broken.bam"),
+            batch_size=BATCH, refine_backend="device")
+
+
 def test_driver_takes_model_handles_only(data_set, model_path, workdir):
     """The JAX driver's legacy (eval_fn, metadata) pairs, which featurize
     on the host, are refused before any stage starts."""
@@ -516,3 +527,34 @@ def test_batch_and_unbatch_match_jax(data_set, model_path):
                 for rd, calls, err in queue_iter(out_q)]
 
     assert joined(infer, "port") == joined(jax_infer, "jax")
+
+
+ABANDONED_PIPELINE = """
+import time
+import numpy as np
+from remora_tpu_torch.core.pipeline import map_stage
+
+def stuck(item):
+    time.sleep(60)
+
+# 20 MB of items for a forked worker that never takes a second one: the
+# parent's queue buffer outgrows the pipe
+items = (np.zeros(100_000, np.uint8) for _ in range(200))
+stage = map_stage(stuck, items, use_process=True, q_maxsize=100)
+time.sleep(2)
+"""
+
+
+def test_abandoned_pipeline_does_not_block_exit():
+    """A process that leaves a pipeline undrained (a driver run that
+    raised or timed out mid-run) exits: its stage queues do not wait at
+    exit to flush items into a pipe no process reads."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    done = subprocess.run([sys.executable, "-c", ABANDONED_PIPELINE],
+                          cwd=repo, capture_output=True, text=True,
+                          timeout=45)
+    assert done.returncode == 0, done.stderr

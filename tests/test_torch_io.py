@@ -13,6 +13,7 @@ mismatch; a split-read child with ``pi``/``sp``; a record without
 
 import dataclasses
 import shutil
+import time
 import uuid
 
 import numpy as np
@@ -35,6 +36,32 @@ from remora_tpu_torch.io import bam, bgzf, native, pod5, read, read_index
 from remora_tpu_torch.io import refregion
 
 N_READS, N_BASES = 8, 600
+
+
+def load_jax_native(wait_s=300):
+    """Load the JAX package's host library in this process. Its loader
+    compiles in place, and the test processes each build it when they
+    find none; one that opens the file while another process is still
+    writing it caches the failure for good (and takes the NumPy paths,
+    or a forked stage loads the half-written file). Retry until the
+    finished file loads."""
+    from remora_tpu.io import native as jax_native
+
+    deadline = time.monotonic() + wait_s
+    while jax_native.get_lib() is None:
+        if time.monotonic() > deadline:
+            raise RuntimeError("the JAX package's host library does not "
+                               "load")
+        time.sleep(1.0)
+        jax_native._BUILD_FAILED = False
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_loaded():
+    """Every module that compares with the JAX package's host library, or
+    runs its drivers (whose forked stages inherit the loaded library),
+    imports this fixture."""
+    load_jax_native()
 
 
 def _record(header, rid, seq, s2s, *, flag=0, ref_start=0, cigar=None,

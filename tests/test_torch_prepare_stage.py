@@ -36,6 +36,7 @@ from remora_tpu_torch.data.read import RemoraRead as PortRead
 from remora_tpu_torch.kernels import banded_dp as K
 from remora_tpu_torch.refine import autoselect as port_autoselect
 from remora_tpu_torch.refine import refiner as port_refiner
+from tests.test_torch_io import jax_native_loaded  # noqa: F401 (autouse)
 from tests.test_torch_refine import ALGOS, _dp_read, _kmer_table
 
 

@@ -29,6 +29,8 @@ from remora_tpu_torch.refine import dp as port_dp
 from remora_tpu_torch.refine import levels as port_levels
 from remora_tpu_torch.refine import rescale as port_rescale
 
+from tests.test_torch_io import jax_native_loaded  # noqa: F401 (autouse)
+
 ALGOS = ["Viterbi", "dwell_penalty"]
 SDP = jax_refiner.compute_dwell_pen_array(4, 3, 0.5)
 
