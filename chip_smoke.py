@@ -120,6 +120,31 @@ printed):
    workers give one worker's dataset once sorted by (read id, focus
    base); reads/s, chunks/s and the skip tally of each run (these K4/K5
    launches and phase 5b's join phase 8b's in the kernels line);
+7. the command line (run after phase 8c, on the checkpoint, reads and
+   datasets of phases 4, 5, 5b, 6 and 8b): ``remora_tpu_torch.cli.main.
+   run(argv)`` in-process at full width, no ``--device`` (the card), the
+   launch counts set to 0 before each subcommand, ``memory_pod5()`` for
+   those that read POD5: (a) ``model train`` on phase 6's dataset, one
+   epoch of 4 steps of 2048, f32 then ``--bf16`` (K2/K3 once a step, K3's
+   bf16 parts only in bf16, finite losses, checkpoint and logs written);
+   (b) ``model export`` of phase 4's checkpoint as a Dorado directory and
+   as TorchScript (its weights the checkpoint's); (c) ``infer
+   from_pod5_and_bam`` on phase 5's 256 reads at ``--batch-size 2048``
+   with the npz in f32 (tags equal to phase 5's driver run), the exported
+   ``.pt`` in f32 (tags equal to the npz's) and the npz under ``--bf16``
+   (MM equal, ML within 1), K1 once a batch, every read written, and
+   phase 5's refining checkpoint with ``--refine-backend device`` (K4/K5
+   as planned, no read to the host, tags equal to phase 5's); (d)
+   ``infer duplex_from_pod5_and_bam`` on phase 5b's first 8 pairs (K1
+   once a strand call, tags equal to phase 5b's f32 run); (e) ``dataset
+   prepare --refine-backend device`` with phase 8b's level table (as a
+   file) on the first 32 reads, every CG site (K4/K5 as planned, no read
+   to the host), identical to ``--refine-backend native``; (f)
+   ``validate from_remora_dataset`` on (e)'s dataset (K1 once a batch)
+   and ``validate from_modbams`` on (c)'s BAM against a BED of its CG
+   sites. Each subcommand's wall and reads/s or chunks/s are logged; a
+   subcommand that raises fails the run. These launches join the kernels
+   line (K1, K2/K3, K4/K5);
 9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -1147,6 +1172,7 @@ def seeded_checkpoint(path, seed=1, refine=None):
         "num_motifs": 1,
         "mod_bases": ["m"],
         "mod_long_names": ["5mC"],
+        "modified_base_labels": True,
         "reverse_signal": False,
         "base_start_justify": False,
         "offset": 0,
@@ -1464,6 +1490,19 @@ class _LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
+def bam_tags(path, by_name=False):
+    """{(read id, flag, start) or read id: (MM, ML)} of a BAM."""
+    from remora_tpu_torch.io.bam import FastBamScanner
+
+    tags = {}
+    for rec in FastBamScanner(path):
+        td = rec.tag_dict()
+        key = (rec.query_name if by_name else
+               (rec.query_name, rec.flag, rec.reference_start))
+        tags[key] = (td.get("MM"), np.asarray(td.get("ML"), np.uint8))
+    return tags
+
+
 def stream_leg(pod5_key, bam_path, handle, out_path, tag, **kwargs):
     """One run of ``infer_from_pod5_and_bam`` with the launch counts set
     to 0 first; returns ({(read id, flag, start): (MM, ML)}, counts,
@@ -1471,7 +1510,6 @@ def stream_leg(pod5_key, bam_path, handle, out_path, tag, **kwargs):
     import torch
 
     from remora_tpu_torch.infer.infer import infer_from_pod5_and_bam
-    from remora_tpu_torch.io.bam import FastBamScanner
     from remora_tpu_torch.kernels import banded_dp as DP
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.refine import refiner as RF
@@ -1495,11 +1533,7 @@ def stream_leg(pod5_key, bam_path, handle, out_path, tag, **kwargs):
     counts = {"k1": K.LAUNCHES, "k4": DP.LAUNCHES_FWD, "k5": DP.LAUNCHES_TB,
               "planned": RF.PLANNED_LAUNCHES,
               "host_routed": RF.HOST_ROUTED_READS, "written": n_written}
-    tags = {}
-    for rec in FastBamScanner(out_path):
-        td = rec.tag_dict()
-        tags[(rec.query_name, rec.flag, rec.reference_start)] = (
-            td.get("MM"), np.asarray(td.get("ML"), np.uint8))
+    tags = bam_tags(out_path)
     check(len(tags) == n_written, f"{tag}: {len(tags)} records read back, "
           f"{n_written} written")
     return tags, counts, wall, handler.lines
@@ -1551,11 +1585,12 @@ def profile_stream(pod5_key, bam_path, path, root):
         log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
 
 
-def stream_infer(root, path, refine_path, smi):
+def stream_infer(root, path, refine_path, smi, sets):
     """Phase 5: the port's ``infer_from_pod5_and_bam`` on the card, f32
     and bf16, then a CPU run of a 16-read subset and a refiner checkpoint
     through the device DP and the native DP. Returns (K1 launches by
-    dtype, rates)."""
+    dtype, rates); the reads and the f32 run's tags go into ``sets``
+    (phase 7's)."""
     import torch
 
     from remora_tpu_torch.infer.infer import ModelHandle
@@ -1670,6 +1705,9 @@ def stream_infer(root, path, refine_path, smi):
     check(ml > 0, "refine: the refiner changed no call")
     rates.update(stream_reads=STREAM_READS, stream_bases=STREAM_BASES,
                  stream_batch=BATCH)
+    sets.update(pod5=pod5_key, bam=bam_path, stream_f32_tags=results["f32"],
+                refine_ckpt=refine_path,
+                stream_refine_tags=refine_tags["device"])
     return launches, rates
 
 
@@ -1800,7 +1838,6 @@ def duplex_leg(key, paths, handle, out_path, tag, **kwargs):
     import torch
 
     from remora_tpu_torch.infer.duplex_infer import infer_duplex
-    from remora_tpu_torch.io.bam import FastBamScanner
     from remora_tpu_torch.kernels import banded_dp as DP
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.refine import refiner as RF
@@ -1835,11 +1872,7 @@ def duplex_leg(key, paths, handle, out_path, tag, **kwargs):
               "planned": RF.PLANNED_LAUNCHES,
               "host_routed": RF.HOST_ROUTED_READS, "written": n_written,
               "eval_calls": len(buckets), "buckets": sorted(set(buckets))}
-    tags = {}
-    for rec in FastBamScanner(out_path):
-        td = rec.tag_dict()
-        tags[rec.query_name] = (td.get("MM"),
-                                np.asarray(td.get("ML"), np.uint8))
+    tags = bam_tags(out_path, by_name=True)
     check(len(tags) == n_written, f"{tag}: {len(tags)} records read back, "
           f"{n_written} written")
     return tags, counts, wall, handler.lines
@@ -1935,13 +1968,14 @@ def duplex_split(key, paths, handle, n_pairs=4):
     return split
 
 
-def duplex_infer(root, path, refine_path, smi):
+def duplex_infer(root, path, refine_path, smi, sets):
     """Phase 5b: ``infer_duplex`` on the card with phase 4's checkpoint,
     f32 then bf16; the first resolvable pairs through the same driver
     with the handle on the CPU, and with phase 5's refining checkpoint
     through the device DP and the native one; K1 against its plain
     version at every bucket size. Returns (K1 launches by dtype, K4/K5
-    launches, rates)."""
+    launches, rates); the set and the f32 run's tags go into ``sets``
+    (phase 7's)."""
     import torch
 
     from remora_tpu_torch.infer.infer import ModelHandle
@@ -2088,6 +2122,8 @@ def duplex_infer(root, path, refine_path, smi):
                  duplex_prep_workers=DUPLEX_PREP_WORKERS,
                  duplex_k1_bucket_max_err_f32=k1_errs[torch.float32],
                  duplex_k1_bucket_max_err_bf16=k1_errs[torch.bfloat16])
+    sets.update(duplex_pod5=key, duplex_paths=paths,
+                duplex_f32_tags=results["f32"])
     return launches, dp_launches, rates
 
 
@@ -3331,7 +3367,332 @@ def prepare_stage(root, smi):
     return tuple(launches), rates
 
 
+# ---------------- phase 7: the command line ----------------------------
+
+# (a) trains CLI_TRAIN_STEPS steps of phase 6's batch on its dataset; (d)
+# takes the first DUPLEX_SMALL_PAIRS pairs of phase 5b's set; (e) the first
+# PREPARE_SUBSET reads of phase 5's set, every CG site drawn
+CLI_TRAIN_STEPS = 4
+
+
+def cli_leg(argv, tag, pod5=False):
+    """``remora_tpu_torch.cli.main.run(argv)`` in-process, with every
+    launch count set to 0 first (under ``memory_pod5()`` for a subcommand
+    that reads POD5). Returns (counts, wall seconds, the log lines); a
+    subcommand that raises fails the phase."""
+    import torch
+
+    from remora_tpu_torch.cli import main as cli_main
+    from remora_tpu_torch.kernels import banded_dp as DP
+    from remora_tpu_torch.kernels import lstm as K
+    from remora_tpu_torch.refine import refiner as RF
+
+    handler = _LogLines()
+    logger = logging.getLogger("RemoraTPUTorch")
+    logger.addHandler(handler)
+    torch.cuda.synchronize()
+    K.LAUNCHES = K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+    K.LAUNCHES_BWD_MMA.update(dict.fromkeys(K.LAUNCHES_BWD_MMA, 0))
+    DP.LAUNCHES_FWD = DP.LAUNCHES_TB = 0
+    RF.PLANNED_LAUNCHES = RF.HOST_ROUTED_READS = 0
+    argv = [str(a) for a in argv]
+    t0 = time.perf_counter()
+    try:
+        with memory_pod5() if pod5 else contextlib.nullcontext():
+            cli_main.run(argv)
+        torch.cuda.synchronize()
+    except Exception as err:
+        raise SmokeFailure(f"cli {tag}: {' '.join(argv[:2])} raised "
+                           f"{type(err).__name__}: {err}") from err
+    finally:
+        logger.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    counts = {"k1": K.LAUNCHES, "k2": K.LAUNCHES_FWD, "k3": K.LAUNCHES_BWD,
+              "k3_parts": dict(K.LAUNCHES_BWD_MMA), "k4": DP.LAUNCHES_FWD,
+              "k5": DP.LAUNCHES_TB, "planned": RF.PLANNED_LAUNCHES,
+              "host_routed": RF.HOST_ROUTED_READS}
+    return counts, wall, handler.lines
+
+
+def write_level_file(path, table):
+    """A k-mer level table as ``--refine-kmer-level-table`` reads it."""
+    from remora_tpu_torch.refine.levels import all_kmers
+
+    kmer_len = (table.size - 1).bit_length() // 2
+    with open(path, "w") as fh:
+        fh.writelines(f"{kmer}\t{level!r}\n" for kmer, level in
+                      zip(all_kmers(kmer_len), table.tolist()))
+    return path
+
+
+def write_cg_bed(path, bam_path):
+    """A ground-truth BED of every CG site of a forward-read BAM's
+    records: 5mC on every other read, C on the rest."""
+    from remora_tpu_torch.io.bam import FastBamScanner
+
+    with open(path, "w") as fh:
+        for i, rec in enumerate(FastBamScanner(bam_path)):
+            mod = "m" if i % 2 == 0 else "C"
+            seq = rec.query_sequence
+            for pos in (m.start() for m in re.finditer("CG", seq)):
+                start = rec.reference_start + pos
+                fh.write(f"{rec.reference_name}\t{start}\t{start + 1}\t"
+                         f"{mod}\t0\t+\n")
+    return path
+
+
+def cli_phase(root, sets, smi):
+    """Phase 7: the port's command line in-process on the card at full
+    width (ConvLSTM_w_ref size 64, 9-mer, chunk context (200, 200), batch
+    2048), on the checkpoint, reads and datasets of phases 4, 5, 5b, 6 and
+    8b (``sets``), the launch counts set to 0 before each subcommand:
+    (a) ``model train`` f32 then ``--bf16`` (K2/K3 once a step); (b)
+    ``model export`` dorado and torchscript; (c) ``infer
+    from_pod5_and_bam`` with the npz in f32 (tags equal to phase 5's
+    driver run), the exported ``.pt`` in f32 (tags equal to the npz's)
+    and the npz under ``--bf16`` (MM equal, ML within 1), K1 once a
+    batch, and phase 5's refining checkpoint through the device refiner
+    (K4/K5 as planned, tags equal to phase 5's); (d) ``infer
+    duplex_from_pod5_and_bam`` on the first pairs (K1 once a strand call,
+    tags equal to phase 5b's f32 run); (e) ``dataset
+    prepare --refine-backend device`` with phase 8b's level table on the
+    first reads (K4/K5 as planned, no read to the host) against
+    ``--refine-backend native``; (f) ``validate from_remora_dataset`` on
+    (e)'s dataset (K1 once a batch) and ``validate from_modbams`` on
+    (c)'s BAM against a BED of its CG sites. Returns (launches, rates)."""
+    from remora_tpu_torch.data.dataset import CoreDataset
+    from remora_tpu_torch.models import model_io
+
+    path, pod5_key, bam_path = (sets[k] for k in ("ckpt", "pod5", "bam"))
+    rates, launches = {}, {"k1_f32": 0, "k1_bf16": 0, "k2_f32": 0,
+                           "k3_f32": 0, "k2_bf16": 0, "k3_bf16": 0,
+                           "k4": 0, "k5": 0}
+
+    # (a) model train, one epoch of CLI_TRAIN_STEPS steps a leg
+    for dtype, flags in (("f32", []), ("bf16", ["--bf16"])):
+        out = os.path.join(root, f"cli_train_{dtype}")
+        counts, wall, _ = cli_leg(
+            ["model", "train", sets["train_config"], "--output-path", out,
+             "--size", SIZE, "--batch-size", BATCH, "--epochs", 1,
+             "--chunks-per-epoch", CLI_TRAIN_STEPS * BATCH,
+             "--num-test-chunks", BATCH, "--scheduler", "constant",
+             "--lr", 2e-3, "--seed", 1, *flags], f"train {dtype}")
+        with open(os.path.join(out, "batch.log")) as fh:
+            losses = [float(line.split()[1]) for line in fh.readlines()[1:]]
+        log(f"cli model train {dtype}: {CLI_TRAIN_STEPS} steps of {BATCH} "
+            f"in {wall:.3f} s (with validation and checkpoints) = "
+            f"{CLI_TRAIN_STEPS * BATCH / wall:.1f} chunks/s; K2/K3 "
+            f"launches ({counts['k2']}, {counts['k3']}), K3 bf16 parts "
+            f"{counts['k3_parts']}; losses {losses} [{smi}]")
+        check((counts["k2"], counts["k3"]) == (CLI_TRAIN_STEPS,) * 2,
+              f"cli train {dtype}: K2/K3 launched ({counts['k2']}, "
+              f"{counts['k3']}) times for {CLI_TRAIN_STEPS} steps")
+        want_parts = CLI_TRAIN_STEPS if dtype == "bf16" else 0
+        check(counts["k3_parts"] == dict.fromkeys(counts["k3_parts"],
+                                                  want_parts),
+              f"cli train {dtype}: K3 bf16 parts {counts['k3_parts']}")
+        check(len(losses) == CLI_TRAIN_STEPS and np.isfinite(losses).all(),
+              f"cli train {dtype}: batch.log losses {losses}")
+        for name in ("model_final.checkpoint", "validation.log",
+                     "epoch_summary.txt"):
+            check(os.path.isfile(os.path.join(out, name)),
+                  f"cli train {dtype}: {name} not written")
+        launches[f"k2_{dtype}"] += counts["k2"]
+        launches[f"k3_{dtype}"] += counts["k3"]
+        rates[f"cli_train_{dtype}_s"] = wall
+
+    # (b) model export, both formats
+    dorado = os.path.join(root, "cli_dorado")
+    pt_path = os.path.join(root, "cli_model.pt")
+    for fmt, dest in (("dorado", dorado), ("torchscript", pt_path)):
+        _c, wall, _ = cli_leg(["model", "export", path, dest, "--format",
+                               fmt], f"export {fmt}")
+        rates[f"cli_export_{fmt}_s"] = wall
+        log(f"cli model export {fmt}: {wall:.3f} s")
+    names = sorted(os.listdir(dorado))
+    check(len(names) == 23 and "config.toml" in names,
+          f"cli export dorado: {len(names)} files {names}")
+    model, meta = model_io.load_torchscript_model(pt_path)
+    ref, _meta = model_io.load_model(path)
+    check(all(np.array_equal(v.numpy(), ref.state_dict()[k].numpy())
+              for k, v in model.state_dict().items()),
+          "cli export torchscript: the .pt's weights differ from the npz's")
+
+    # (c) infer from_pod5_and_bam: npz f32, .pt f32, npz bf16
+    results = {}
+    for tag, model_file, flags in (("f32", path, []),
+                                   ("pt_f32", pt_path, []),
+                                   ("bf16", path, ["--bf16"])):
+        out = os.path.join(root, f"cli_infer_{tag}.bam")
+        counts, wall, _ = cli_leg(
+            ["infer", "from_pod5_and_bam", pod5_key, bam_path, "--model",
+             model_file, "--out-bam", out, "--batch-size", BATCH, *flags],
+            f"infer {tag}", pod5=True)
+        tags = results[tag] = bam_tags(out)
+        n_calls = sum(ml.size for _mm, ml in tags.values())
+        n_batches = -(-n_calls // BATCH)
+        log(f"cli infer from_pod5_and_bam {tag}: {len(tags)} of "
+            f"{STREAM_READS} reads, {n_calls} calls in {wall:.3f} s = "
+            f"{STREAM_READS / wall:.1f} reads/s, {n_calls / wall:.1f} "
+            f"chunks/s; K1 launches {counts['k1']} for {n_batches} batches "
+            f"of {BATCH} [{smi}]")
+        check(len(tags) == STREAM_READS, f"cli infer {tag}: {len(tags)} "
+              f"reads written of {STREAM_READS}")
+        check(counts["k1"] == n_batches, f"cli infer {tag}: K1 launched "
+              f"{counts['k1']} times for {n_batches} batches")
+        launches["k1_bf16" if tag == "bf16" else "k1_f32"] += counts["k1"]
+        rates[f"cli_infer_{tag}_reads_per_s"] = STREAM_READS / wall
+        rates[f"cli_infer_{tag}_chunks_per_s"] = n_calls / wall
+    for got, want, what in (("f32", "phase5_f32", "phase 5's driver run"),
+                            ("pt_f32", "f32", "the npz's")):
+        want_tags = sets["stream_f32_tags"] if want == "phase5_f32" else (
+            results[want])
+        mm, ml, worst = tag_diff(results[got], want_tags)
+        log(f"cli infer {got} vs {what}: MM strings that differ {mm}, ML "
+            f"bytes that differ {ml}")
+        check(results[got].keys() == want_tags.keys() and mm == ml == 0,
+              f"cli infer {got}: tags differ from {what}")
+    mm, ml, worst = tag_diff(results["bf16"], results["f32"])
+    log(f"cli infer bf16 vs f32: MM strings that differ {mm}, ML bytes "
+        f"that differ {ml}, max |delta| {worst} (tolerance 1)")
+    check(mm == 0 and worst <= 1, "cli infer bf16: MM differs or ML moved "
+          "by more than 1 from f32")
+    check(ml > 0, "cli infer bf16: ML equals f32's byte for byte (the "
+          "bf16 forward did not run)")
+    # phase 5's refining checkpoint through the device refiner (K4/K5)
+    out = os.path.join(root, "cli_infer_refine.bam")
+    counts, wall, _ = cli_leg(
+        ["infer", "from_pod5_and_bam", pod5_key, bam_path, "--model",
+         sets["refine_ckpt"], "--out-bam", out, "--batch-size", BATCH,
+         "--refine-backend", "device"], "infer refine", pod5=True)
+    tags = bam_tags(out)
+    mm, ml, _w = tag_diff(tags, sets["stream_refine_tags"])
+    log(f"cli infer from_pod5_and_bam refine device: {len(tags)} reads in "
+        f"{wall:.3f} s = {STREAM_READS / wall:.1f} reads/s; K1 "
+        f"{counts['k1']}, K4/K5 launches ({counts['k4']}, {counts['k5']}), "
+        f"planned {counts['planned']}, reads routed to the host "
+        f"{counts['host_routed']}; vs phase 5's device-refiner run: MM "
+        f"strings that differ {mm}, ML bytes that differ {ml}")
+    check(counts["k4"] == counts["k5"] == counts["planned"] > 0,
+          f"cli infer refine: K4/K5 launched ({counts['k4']}, "
+          f"{counts['k5']}), the refiner planned {counts['planned']}")
+    check(counts["host_routed"] == 0,
+          "cli infer refine: reads were routed to the host DP")
+    check(tags.keys() == sets["stream_refine_tags"].keys() and mm == ml == 0,
+          "cli infer refine: tags differ from phase 5's device-refiner run")
+    launches["k1_f32"] += counts["k1"]
+    launches["k4"] += counts["k4"]
+    launches["k5"] += counts["k5"]
+    rates["cli_infer_refine_reads_per_s"] = STREAM_READS / wall
+
+    # (d) infer duplex_from_pod5_and_bam on the first pairs
+    out = os.path.join(root, "cli_duplex.bam")
+    counts, wall, _ = cli_leg(
+        ["infer", "duplex_from_pod5_and_bam", sets["duplex_pod5"],
+         *sets["duplex_paths"], "--model", path, "--out-bam", out,
+         "--num-reads", DUPLEX_SMALL_PAIRS], "duplex", pod5=True)
+    tags = bam_tags(out, by_name=True)
+    log(f"cli infer duplex_from_pod5_and_bam: {len(tags)} pairs of "
+        f"{DUPLEX_SMALL_PAIRS} in {wall:.3f} s = {len(tags) / wall:.2f} "
+        f"pairs/s; K1 launches {counts['k1']} [{smi}]")
+    check(len(tags) == DUPLEX_SMALL_PAIRS - 1,
+          f"cli duplex: {len(tags)} pairs written")
+    check(counts["k1"] == 2 * len(tags), f"cli duplex: K1 launched "
+          f"{counts['k1']} times for {2 * len(tags)} strand calls")
+    want_tags = {rid: sets["duplex_f32_tags"][rid] for rid in tags}
+    mm, ml, _w = tag_diff(tags, want_tags)
+    check(mm == ml == 0, "cli duplex: tags differ from phase 5b's f32 run")
+    launches["k1_f32"] += counts["k1"]
+    rates["cli_duplex_pairs_per_s"] = len(tags) / wall
+
+    # (e) dataset prepare, the device refiner against the native one
+    table, _center = synth_level_table()
+    levels = write_level_file(os.path.join(root, "levels_9mer.txt"), table)
+    datasets = {}
+    for backend in ("device", "native"):
+        out = os.path.join(root, f"cli_prepare_{backend}")
+        np.random.seed(9)
+        counts, wall, lines = cli_leg(
+            ["dataset", "prepare", pod5_key, bam_path, "--output-path", out,
+             "--mod-base", "m", "5mC", "--motif", "CG", "0",
+             "--chunk-context", *STAGE_CHUNK_CONTEXT,
+             "--kmer-context-bases", *STAGE_KMER_CONTEXT,
+             "--min-samples-per-base", 5, "--max-chunks-per-read",
+             PREPARE_ALL_SITES, "--num-reads", PREPARE_SUBSET,
+             "--refine-kmer-level-table", levels, "--refine-rough-rescale",
+             "--refine-scale-iters", 0, "--refine-backend", backend],
+            f"prepare {backend}", pod5=True)
+        ds = datasets[backend] = CoreDataset(out, infinite_iter=False)
+        log(f"cli dataset prepare {backend}: {PREPARE_SUBSET} reads, "
+            f"{ds.size} chunks in {wall:.3f} s (the level table's load "
+            f"included) = {PREPARE_SUBSET / wall:.1f} reads/s; K4/K5 "
+            f"launches ({counts['k4']}, {counts['k5']}), planned "
+            f"{counts['planned']}, reads routed to the host "
+            f"{counts['host_routed']}; skip tally {skip_tally(lines)}")
+        check(ds.size > 0, f"cli prepare {backend}: no chunks")
+        if backend == "device":
+            check(counts["k4"] == counts["k5"] == counts["planned"] > 0,
+                  f"cli prepare device: K4/K5 launched ({counts['k4']}, "
+                  f"{counts['k5']}), the refiner planned "
+                  f"{counts['planned']}")
+            check(counts["host_routed"] == 0,
+                  "cli prepare device: reads were routed to the host DP")
+            launches["k4"] += counts["k4"]
+            launches["k5"] += counts["k5"]
+        else:
+            check(counts["k4"] == counts["k5"] == 0,
+                  "cli prepare native: K4/K5 launched")
+        rates[f"cli_prepare_{backend}_reads_per_s"] = PREPARE_SUBSET / wall
+    differ, same_meta = dataset_diff(datasets["device"], datasets["native"])
+    log(f"cli prepare device vs native: arrays that differ {differ}, "
+        f"metadata identical {same_meta}")
+    check(not differ and same_meta,
+          "cli prepare: the device refiner's dataset differs from native's")
+
+    # (f) validate from_remora_dataset on (e)'s dataset, from_modbams on
+    # (c)'s BAM
+    n_chunks = datasets["device"].size
+    table_out = os.path.join(root, "cli_validate.txt")
+    counts, wall, _ = cli_leg(
+        ["validate", "from_remora_dataset", datasets["device"].data_path,
+         "--model", path, "--batch-size", BATCH, "--out-file", table_out],
+        "validate from_remora_dataset")
+    n_batches = -(-n_chunks // BATCH)
+    with open(table_out) as fh:
+        rows = fh.read().splitlines()
+    log(f"cli validate from_remora_dataset: {n_chunks} chunks in "
+        f"{wall:.3f} s = {n_chunks / wall:.1f} chunks/s; K1 launches "
+        f"{counts['k1']} for {n_batches} batches; {rows[-1]}")
+    check(counts["k1"] == n_batches, f"cli validate: K1 launched "
+          f"{counts['k1']} times for {n_batches} batches")
+    check(len(rows) == 2, f"cli validate: {len(rows)} table rows")
+    launches["k1_f32"] += counts["k1"]
+    rates["cli_validate_dataset_chunks_per_s"] = n_chunks / wall
+    bed = write_cg_bed(os.path.join(root, "cg_sites.bed"), bam_path)
+    modbam_out = os.path.join(root, "cli_validate_modbams.txt")
+    _c, wall, _ = cli_leg(
+        ["validate", "from_modbams", "--bam-and-bed",
+         os.path.join(root, "cli_infer_f32.bam"), bed, "--seed", 1,
+         "--out-file", modbam_out], "validate from_modbams")
+    with open(modbam_out) as fh:
+        row = fh.read().splitlines()[-1]
+    n_sites = int(row.split("\t")[6])
+    log(f"cli validate from_modbams: {n_sites} sites in {wall:.3f} s; "
+        f"{row}")
+    check(n_sites > STREAM_READS, f"cli validate from_modbams: {n_sites} "
+          "sites")
+    rates["cli_validate_modbams_s"] = wall
+    return launches, rates
+
+
 def main():
+    with contextlib.ExitStack() as stack:
+        return run_phases(stack)
+
+
+def run_phases(stack):
+    """Every phase in turn; ``stack`` holds the temporary directory that
+    outlives them all."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3394,78 +3755,101 @@ def main():
     }
 
     batches = make_batches()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "convlstm_size64.npz")
-        seeded_checkpoint(path)
-        logits, launches, f32_rate = run_leg(path, batches, None, "f32")
-        log(f"phase 4 f32: lstm_last launches {launches}")
-        _, launches, bf16_rate = run_leg(path, batches, torch.bfloat16,
-                                         "bf16")
-        log(f"phase 4 bf16: lstm_last launches {launches}")
-        check_cpu_agreement(path, batches, logits)
-        format_tags(np.concatenate(logits))
-        # phase 5: the streaming driver, the main path; its launch counts
-        # are K1's in the kernels line
-        refine_path = os.path.join(tmp, "convlstm_size64_refine.npz")
-        seeded_checkpoint(refine_path, refine=synth_level_table())
-        stream_launches, stream_rates = stream_infer(tmp, path, refine_path,
-                                                     smi)
-        # phase 5b: duplex inference; K1's launches there join phase 5's
-        t_phase = time.monotonic()
-        duplex_launches, duplex_dp, duplex_rates = duplex_infer(
-            tmp, path, refine_path, smi)
-        duplex_rates["duplex_phase_s"] = time.monotonic() - t_phase
-        log(f"phase 5b wall {duplex_rates['duplex_phase_s']:.1f} s")
-        kernels[torch.float32]["launches"] = (stream_launches["f32"]
-                                              + duplex_launches["f32"])
-        kernels[torch.bfloat16]["launches"] = (stream_launches["bf16"]
-                                               + duplex_launches["bf16"])
+    # phase 7 runs last, on the checkpoint, reads and datasets of the
+    # phases before it: every phase's files stay until then
+    root = stack.enter_context(tempfile.TemporaryDirectory())
+    sets = {}
+    tmp = os.path.join(root, "infer")
+    os.makedirs(tmp)
+    path = sets["ckpt"] = os.path.join(tmp, "convlstm_size64.npz")
+    seeded_checkpoint(path)
+    logits, launches, f32_rate = run_leg(path, batches, None, "f32")
+    log(f"phase 4 f32: lstm_last launches {launches}")
+    _, launches, bf16_rate = run_leg(path, batches, torch.bfloat16, "bf16")
+    log(f"phase 4 bf16: lstm_last launches {launches}")
+    check_cpu_agreement(path, batches, logits)
+    format_tags(np.concatenate(logits))
+    # phase 5: the streaming driver, the main path; its launch counts
+    # are K1's in the kernels line
+    refine_path = os.path.join(tmp, "convlstm_size64_refine.npz")
+    seeded_checkpoint(refine_path, refine=synth_level_table())
+    stream_launches, stream_rates = stream_infer(tmp, path, refine_path,
+                                                 smi, sets)
+    # phase 5b: duplex inference; K1's launches there join phase 5's
+    t_phase = time.monotonic()
+    duplex_launches, duplex_dp, duplex_rates = duplex_infer(
+        tmp, path, refine_path, smi, sets)
+    duplex_rates["duplex_phase_s"] = time.monotonic() - t_phase
+    log(f"phase 5b wall {duplex_rates['duplex_phase_s']:.1f} s")
+    kernels[torch.float32]["launches"] = (stream_launches["f32"]
+                                          + duplex_launches["f32"])
+    kernels[torch.bfloat16]["launches"] = (stream_launches["bf16"]
+                                           + duplex_launches["bf16"])
 
     train_rates = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        config = write_train_set(tmp)
-        for dtype, bf16, tag in ((torch.float32, False, "train_f32"),
-                                 (torch.bfloat16, True, "train_bf16")):
-            out, launches, rates, _ = train_leg(tmp, config, bf16, tag)
-            for rec, n in zip(train_kernels[dtype], launches):
-                rec["launches"] = n
-            train_rates[tag] = rates
-            profile_train_step(os.path.join(out, "model_final.checkpoint"),
-                               bf16, tag)
-        final = os.path.join(tmp, "train_f32", "model_final.checkpoint")
-        check_train_step_vs_plain(final)
-        infer_trained(final)
-        # 6c: the pallas-mode training path (K6 in every stride-1 block),
-        # f32 one step a call and bf16 in windows of 4
-        for dtype, bf16, spl, tag in (
-                (torch.float32, False, 1, "train_pallas_f32"),
-                (torch.bfloat16, True, 4, "train_pallas_bf16")):
-            out, _, rates, k6 = train_leg(tmp, config, bf16, tag,
-                                          epochs=PALLAS_EPOCHS,
-                                          steps_per_launch=spl,
-                                          convbn="pallas")
-            for rec in convbn_kernels[dtype]:
-                rec["launches"] = k6[rec.pop("key")]
-            train_rates[tag] = rates
-            profile_train_step(os.path.join(out, "model_final.checkpoint"),
-                               bf16, tag, convbn="pallas")
-        # 6d: a pallas-mode step against the fused-mode step
-        check_pallas_step_vs_fused(final)
-        # 6e: the wide LSTM legs on the model path at size WIDE_SIZE
-        wide_model_path(tmp, config, wide_kernels)
+    tmp = os.path.join(root, "train")
+    os.makedirs(tmp)
+    config = sets["train_config"] = write_train_set(tmp)
+    for dtype, bf16, tag in ((torch.float32, False, "train_f32"),
+                             (torch.bfloat16, True, "train_bf16")):
+        out, launches, rates, _ = train_leg(tmp, config, bf16, tag)
+        for rec, n in zip(train_kernels[dtype], launches):
+            rec["launches"] = n
+        train_rates[tag] = rates
+        profile_train_step(os.path.join(out, "model_final.checkpoint"),
+                           bf16, tag)
+    final = os.path.join(tmp, "train_f32", "model_final.checkpoint")
+    check_train_step_vs_plain(final)
+    infer_trained(final)
+    # 6c: the pallas-mode training path (K6 in every stride-1 block),
+    # f32 one step a call and bf16 in windows of 4
+    for dtype, bf16, spl, tag in (
+            (torch.float32, False, 1, "train_pallas_f32"),
+            (torch.bfloat16, True, 4, "train_pallas_bf16")):
+        out, _, rates, k6 = train_leg(tmp, config, bf16, tag,
+                                      epochs=PALLAS_EPOCHS,
+                                      steps_per_launch=spl,
+                                      convbn="pallas")
+        for rec in convbn_kernels[dtype]:
+            rec["launches"] = k6[rec.pop("key")]
+        train_rates[tag] = rates
+        profile_train_step(os.path.join(out, "model_final.checkpoint"),
+                           bf16, tag, convbn="pallas")
+    # 6d: a pallas-mode step against the fused-mode step
+    check_pallas_step_vs_fused(final)
+    # 6e: the wide LSTM legs on the model path at size WIDE_SIZE
+    wide_model_path(tmp, config, wide_kernels)
 
     log(f"phase 8: {host_memory()}")
     dp_kernels = check_banded_dp()
-    with tempfile.TemporaryDirectory() as tmp:
-        launches, refine_rates = refine_stage(tmp)
-        # phase 8c: the prepare driver; K4/K5's launches there and in
-        # phase 5b's device-refiner leg join phase 8b's
-        t_phase = time.monotonic()
-        prepare_launches, prepare_rates = prepare_stage(tmp, smi)
-        prepare_rates["prepare_phase_s"] = time.monotonic() - t_phase
-        log(f"phase 8c wall {prepare_rates['prepare_phase_s']:.1f} s")
+    tmp = os.path.join(root, "refine")
+    os.makedirs(tmp)
+    launches, refine_rates = refine_stage(tmp)
+    # phase 8c: the prepare driver; K4/K5's launches there and in
+    # phase 5b's device-refiner leg join phase 8b's
+    t_phase = time.monotonic()
+    prepare_launches, prepare_rates = prepare_stage(tmp, smi)
+    prepare_rates["prepare_phase_s"] = time.monotonic() - t_phase
+    log(f"phase 8c wall {prepare_rates['prepare_phase_s']:.1f} s")
     for rec, *ns in zip(dp_kernels, launches, duplex_dp, prepare_launches):
         rec["launches"] = sum(ns)
+
+    # phase 7: the command line; its launches join the kernels line
+    tmp = os.path.join(root, "cli")
+    os.makedirs(tmp)
+    log(f"phase 7: {host_memory()}")
+    t_phase = time.monotonic()
+    cli_launches, cli_rates = cli_phase(tmp, sets, smi)
+    cli_rates["cli_phase_s"] = time.monotonic() - t_phase
+    log(f"phase 7 wall {cli_rates['cli_phase_s']:.1f} s; launches "
+        f"{cli_launches}")
+    kernels[torch.float32]["launches"] += cli_launches["k1_f32"]
+    kernels[torch.bfloat16]["launches"] += cli_launches["k1_bf16"]
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for rec, key in zip(train_kernels[dtype], ("k2", "k3")):
+            rec["launches"] += cli_launches[f"{key}_{tag}"]
+    for rec, key in zip(dp_kernels, ("k4", "k5")):
+        rec["launches"] += cli_launches[key]
     log(json.dumps({"slice": {
         "f32_chunks_per_s": f32_rate, "bf16_chunks_per_s": bf16_rate,
         "batches": N_BATCHES, "batch": BATCH, "last_batch": LAST_BATCH,
@@ -3477,6 +3861,7 @@ def main():
         **duplex_rates,
         **refine_rates,
         **prepare_rates,
+        **cli_rates,
     }}))
     records = list(kernels.values())
     for recs in (*train_kernels.values(), *wide_kernels.values(),

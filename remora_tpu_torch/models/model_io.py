@@ -1,4 +1,4 @@
-"""Model artifact I/O: the JAX package's native ``.npz`` checkpoints.
+"""Model artifact I/O: native ``.npz`` checkpoints and TorchScript models.
 
 Counterpart of ``remora_tpu/models/model_io.py``. A checkpoint is one
 ``.npz``: ``__meta__`` (JSON metadata as bytes), ``params/<layer>/<leaf>``
@@ -14,6 +14,11 @@ Refinement settings (``refine_*`` keys and arrays) load as a
 Optimizer state rides as ``opt_leaf/<i>`` arrays in the leaf order of the
 JAX package's optax state (``train/optim.py`` maps torch's optimizers to
 and from it), so a training run resumes across the two packages.
+
+A TorchScript model (``.pt``/``.ts``, written by Remora, the JAX package
+or ``models/export.py``) with its ``meta.txt`` extra file loads as the
+same module as a checkpoint: its state dict maps onto the builtin
+architecture with its layer set, and the program itself is never run.
 """
 
 import json
@@ -21,9 +26,11 @@ import json
 import numpy as np
 import torch
 
-from remora_tpu_torch import constants
-from remora_tpu_torch.models.registry import get_model
+from remora_tpu_torch import RemoraError, constants, log
+from remora_tpu_torch.models.registry import BUILTIN_MODELS, get_model
 from remora_tpu_torch.refine.refiner import SigMapRefiner
+
+LOGGER = log.get_logger()
 
 
 # ---------------- param pytree <-> flat arrays ----------------
@@ -202,13 +209,42 @@ def _json_default(obj):
     raise TypeError(f"Cannot serialize {type(obj)}")
 
 
-def load_model(path):
-    """Load an ``.npz`` checkpoint into a module on the CPU.
+def _module_from_trees(arch, params, bn_state, meta):
+    """``arch``'s module on the CPU holding ``params`` and ``bn_state``.
+    The builtins' widths come from their layers (merge_conv1 (size,
+    2 * size, k), seq_conv1 (16, 4K, k), fc (num_out, ...)); any other
+    architecture's from the metadata's ``model_params``."""
+    if {"merge_conv1", "seq_conv1", "fc"} <= params.keys():
+        model = arch.init(
+            size=params["merge_conv1"]["w"].shape[0],
+            kmer_len=params["seq_conv1"]["w"].shape[1] // 4,
+            num_out=params["fc"]["w"].shape[0],
+        )
+    else:
+        mp = meta["model_params"]
+        model = arch.init(size=mp["size"], kmer_len=mp["kmer_len"],
+                          num_out=mp["num_out"])
+    model.load_state_dict(params_from_numpy(params, bn_state))
+    return model
+
+
+def load_model(path, quiet=True, model_path=None):
+    """Load any supported model artifact into a module on the CPU.
 
     Returns (model, metadata); metadata has all derived fields set
     (kmer_len, chunk_len, can_base, sig_map_refiner, ...).
+    ``model_path`` overrides the architecture recorded in the checkpoint
+    (a builtin name or a model ``.py`` file).
     """
-    with np.load(str(path), allow_pickle=False) as data:
+    path = str(path)
+    if path.endswith((".pt", ".ts")):
+        if model_path is not None:
+            LOGGER.warning(
+                "--model-path is ignored for TorchScript artifacts "
+                "(the architecture is embedded in the program)"
+            )
+        return load_torchscript_model(path, quiet=quiet)
+    with np.load(path, allow_pickle=False) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
         params = unflatten_tree(
             {
@@ -225,14 +261,10 @@ def load_model(path):
             if k.startswith("meta_arr/"):
                 meta[k[len("meta_arr/"):]] = data[k]
     meta = add_derived_metadata(meta)
-    arch = get_model(meta.get("model_name", "ConvLSTM_w_ref"))
-    # both builtins: merge_conv1 (size, 2 * size, k), seq_conv1 (16, 4K, k)
-    model = arch.init(
-        size=params["merge_conv1"]["w"].shape[0],
-        kmer_len=params["seq_conv1"]["w"].shape[1] // 4,
-        num_out=params["fc"]["w"].shape[0],
-    )
-    model.load_state_dict(params_from_numpy(params, bn_state))
+    arch = get_model(model_path or meta.get("model_name", "ConvLSTM_w_ref"))
+    model = _module_from_trees(arch, params, bn_state, meta)
+    if not quiet:
+        LOGGER.debug(f"Loaded model metadata:\n{repr_model_metadata(meta)}")
     return model, meta
 
 
@@ -244,3 +276,122 @@ def load_opt_state(path):
         if not keys:
             return None
         return [data[k] for k in keys]
+
+
+def repr_model_metadata(metadata):
+    return "\n".join(
+        f"  {k: >20} : {v}"
+        for k, v in metadata.items()
+        if not isinstance(v, np.ndarray)
+    )
+
+
+# ---------------- TorchScript (reference model) import ----------------
+
+_TORCH_LAYER_KEYS = ("conv", "fc")
+
+
+def torch_state_dict_to_params(sd):
+    """Map a reference model's state dict (arrays) onto (params, bn_state)
+    pytrees."""
+    params, bn_state = {}, {}
+    names = {k.split(".")[0] for k in sd}
+    for name in names:
+        if name in ("total_ops", "total_params"):
+            continue
+        if "bn" in name:
+            params[name] = {
+                "gamma": np.asarray(sd[f"{name}.weight"]),
+                "beta": np.asarray(sd[f"{name}.bias"]),
+            }
+            bn_state[name] = {
+                "mean": np.asarray(sd[f"{name}.running_mean"]),
+                "var": np.asarray(sd[f"{name}.running_var"]),
+            }
+        elif name.startswith("lstm"):
+            params[name] = {
+                "w_ih": np.asarray(sd[f"{name}.weight_ih_l0"]),
+                "w_hh": np.asarray(sd[f"{name}.weight_hh_l0"]),
+                "b_ih": np.asarray(sd[f"{name}.bias_ih_l0"]),
+                "b_hh": np.asarray(sd[f"{name}.bias_hh_l0"]),
+            }
+        elif any(k in name for k in _TORCH_LAYER_KEYS):
+            params[name] = {
+                "w": np.asarray(sd[f"{name}.weight"]),
+                "b": np.asarray(sd[f"{name}.bias"]),
+            }
+        else:
+            LOGGER.debug(f"Skipping unrecognized torch layer {name}")
+    return params, bn_state
+
+
+def params_to_torch_state_dict(params, bn_state):
+    """Inverse mapping, for export to torch formats: arrays under the
+    reference model's state-dict keys."""
+    sd = {}
+    for name, p in params.items():
+        if "bn" in name:
+            sd[f"{name}.weight"] = np.asarray(p["gamma"])
+            sd[f"{name}.bias"] = np.asarray(p["beta"])
+            sd[f"{name}.running_mean"] = np.asarray(bn_state[name]["mean"])
+            sd[f"{name}.running_var"] = np.asarray(bn_state[name]["var"])
+            sd[f"{name}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+        elif name.startswith("lstm"):
+            sd[f"{name}.weight_ih_l0"] = np.asarray(p["w_ih"])
+            sd[f"{name}.weight_hh_l0"] = np.asarray(p["w_hh"])
+            sd[f"{name}.bias_ih_l0"] = np.asarray(p["b_ih"])
+            sd[f"{name}.bias_hh_l0"] = np.asarray(p["b_hh"])
+        else:
+            sd[f"{name}.weight"] = np.asarray(p["w"])
+            sd[f"{name}.bias"] = np.asarray(p["b"])
+    return sd
+
+
+def load_torchscript_model(model_filename, quiet=True):
+    """Import a reference TorchScript model and its ``meta.txt`` extra
+    file; returns (model, metadata) as ``load_model`` does."""
+    extra_files = {"meta.txt": ""}
+    ts_model = torch.jit.load(
+        model_filename, _extra_files=extra_files, map_location="cpu"
+    )
+    meta = json.loads(extra_files["meta.txt"])
+    sd = {k: v.cpu().numpy() for k, v in ts_model.state_dict().items()}
+    params, bn_state = torch_state_dict_to_params(sd)
+    # reference meta.txt stores refine arrays cp437-encoded
+    for key in ("refine_kmer_levels", "refine_sd_arr"):
+        if meta.get(key) is not None:
+            meta[key] = np.frombuffer(
+                meta[key].encode("cp437"), dtype=np.float32
+            )
+    # reference uses mod_long_names_{i} keys
+    if meta.get("mod_bases") not in (None, "None"):
+        meta["mod_bases"] = list(meta["mod_bases"])
+        meta["mod_long_names"] = [
+            str(meta[f"mod_long_names_{i}"])
+            for i in range(len(meta["mod_bases"]))
+        ]
+    else:
+        meta["mod_bases"] = []
+        meta["mod_long_names"] = []
+    if "num_motifs" in meta:
+        meta["motifs"] = [
+            (meta[f"motif_{i}"], int(meta[f"motif_offset_{i}"]))
+            for i in range(int(meta["num_motifs"]))
+        ]
+    else:
+        meta["motifs"] = [(meta["motif"], int(meta["motif_offset"]))]
+    meta = add_derived_metadata(meta)
+    model = _module_from_trees(conv_arch_from_params(params), params,
+                               bn_state, meta)
+    if not quiet:
+        LOGGER.debug(f"Loaded model metadata:\n{repr_model_metadata(meta)}")
+    return model, meta
+
+
+def conv_arch_from_params(params):
+    """The builtin architecture whose layer names ``params`` carries."""
+    if "lstm1" in params:
+        return BUILTIN_MODELS["ConvLSTM_w_ref"]
+    if "merge_conv4" in params:
+        return BUILTIN_MODELS["Conv_w_ref"]
+    raise RemoraError("Unknown layer setup in imported model")

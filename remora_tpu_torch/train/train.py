@@ -557,7 +557,8 @@ def train_model(
             )
 
         ckpt_meta, ckpt_meta_arrays = model_io.make_model_metadata(
-            dataset.metadata, arch.NAME, model_params
+            dataset.metadata, getattr(arch, "NAME", str(model_name)),
+            model_params,
         )
 
         def save(name):

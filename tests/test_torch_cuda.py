@@ -814,6 +814,36 @@ def test_infer_duplex_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     assert mm == 0 and worst <= 1
 
 
+def test_cli_infer_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``infer from_pod5_and_bam`` through the command line with no
+    ``--device`` (the card) and with ``--device cpu``, on 6 reads of 4000
+    bases (signal from ``chip_smoke.MemoryPod5``) at batch 256: the same
+    records, MM identical, ML within 1, K1 once a batch on the card and
+    never on the CPU."""
+    import chip_smoke as cs
+
+    monkeypatch.setenv("REMORA_TPU_BAM_INDEX_CACHE", "0")
+    monkeypatch.setenv("LOG_SAFE", "1")
+    path = str(tmp_path / "model.npz")
+    cs.seeded_checkpoint(path)
+    table, center = cs.synth_level_table()
+    key, bam_path = cs.write_stream_set(str(tmp_path), "cli", 6, table,
+                                        center)
+    got = {}
+    for device, flags in (("cuda", []), ("cpu", ["--device", "cpu"])):
+        out = str(tmp_path / f"{device}.bam")
+        counts, _wall, _lines = cs.cli_leg(
+            ["infer", "from_pod5_and_bam", key, bam_path, "--model", path,
+             "--out-bam", out, "--batch-size", 256, *flags], device,
+            pod5=True)
+        tags = got[device] = cs.bam_tags(out)
+        n_batches = -(-sum(ml.size for _mm, ml in tags.values()) // 256)
+        assert counts["k1"] == (n_batches if device == "cuda" else 0)
+    assert len(got["cuda"]) == 6 and got["cuda"].keys() == got["cpu"].keys()
+    mm, _ml, worst = cs.tag_diff(got["cuda"], got["cpu"])
+    assert mm == 0 and worst <= 1
+
+
 # ---------------- K6: the conv+BN(train)+swish backward ----------------
 
 

@@ -1,6 +1,7 @@
 """remora_tpu_torch stands alone: no JAX, nothing of remora_tpu, no
-pyarrow, zstandard or tqdm needed to import it, and no silent CPU run
-when no GPU is present."""
+pyarrow, zstandard, tqdm or matplotlib needed to import it, its command
+line runs where JAX cannot be imported, and no silent CPU run when no GPU
+is present."""
 
 import ast
 import subprocess
@@ -42,7 +43,15 @@ def test_port_imports_with_jax_blocked():
     jax fails."""
     mods = _port_modules()
     assert {"remora_tpu_torch.kernels.lstm",
-            "remora_tpu_torch.kernels.convbn"} <= set(mods)
+            "remora_tpu_torch.kernels.convbn",
+            "remora_tpu_torch.__main__", "remora_tpu_torch.cli.main",
+            "remora_tpu_torch.cli.parsers", "remora_tpu_torch.cli.util",
+            "remora_tpu_torch.models.export",
+            "remora_tpu_torch.models.pretrained",
+            "remora_tpu_torch.validate_modbam",
+            "remora_tpu_torch.analyze.regions",
+            "remora_tpu_torch.analyze.kmer_levels",
+            "remora_tpu_torch.analyze.plot"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -62,12 +71,14 @@ def test_port_imports_with_jax_blocked():
 
 
 def test_port_imports_without_optional_host_packages():
-    """Every module of the port imports where pyarrow, zstandard and tqdm
-    are absent: the POD5 reader and the driver's progress bar import them
-    only when they run (the GPU machine has no zstandard)."""
+    """Every module of the port imports where pyarrow, zstandard, tqdm and
+    matplotlib are absent: the POD5 reader, the driver's progress bar and
+    the plots import them only when they run (the GPU machine has no
+    zstandard, and is not known to have matplotlib)."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'pyarrow', 'zstandard', 'tqdm'):\n"
+        "for name in ('jax', 'pyarrow', 'zstandard', 'tqdm', "
+        "'matplotlib'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for name in {_port_modules()!r}:\n"
@@ -80,6 +91,27 @@ def test_port_imports_without_optional_host_packages():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_cli_help_runs_without_jax():
+    """``python -m remora_tpu_torch --help`` lists the five subcommand
+    groups in a process where importing jax fails."""
+    code = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'pyarrow', 'zstandard', 'tqdm', "
+        "'matplotlib'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['remora_tpu_torch', '--help']\n"
+        "runpy.run_module('remora_tpu_torch', run_name='__main__')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("usage: remora_tpu_torch")
+    for group in ("dataset", "model", "infer", "validate", "analyze"):
+        assert f"    {group} " in proc.stdout, group
 
 
 @pytest.mark.parametrize(
