@@ -90,7 +90,21 @@ printed):
    f32 and bf16, the wide K2/K3 once a step and K1 once a batch, logits
    held to the plain LSTM, one train step and one served batch profiled
    by kernel, and one f32 size-96 train step held to the same step with
-   the plain LSTM versions (as 6b);
+   the plain LSTM versions (as 6b); (6f) data-parallel training, the
+   launch and all-reduce counts set to 0 first: (a) ``train_model`` over
+   a one-rank NCCL group on cuda:0, 4 steps of 2048 (SGD), K2/K3 once a
+   step, one all-reduce a step, losses within 1e-5 of the same run
+   without a mesh; (b) two ranks sharing cuda:0 over gloo (processes of
+   this script, ``--dp-rank``), 1024 rows each, 4 steps of
+   ``make_dp_train_step`` without and with ``sync_bn``: the ranks'
+   parameters identical, the stated all-reduces, K2/K3 once a step on
+   each rank, the sync_bn parameters within 1e-4 relative of one process
+   on the whole batches; whether gloo takes CUDA tensors, the step walls
+   and the collectives' share; (5c, run after 6f) two ranks over gloo on
+   cuda:0 infer 128 of phase 5's 256 reads each (f32, batch 2048), K1
+   once a batch on each rank, the merged BAM holding every read with
+   phase 5's f32 tags, reads/s; these K1-K3 launches join the kernels
+   line;
 8. the banded refinement DP: K4 (forward) and K5 (traceback) against
    their plain versions on the card (8 reads of 400 bases, W = 128), K5
    also on rows no DP wrote (W = 8, 128 and 4096; steps of any int16
@@ -153,6 +167,11 @@ printed):
 registers and spills, at the main shape and the wide one), for quick
 turns on the LSTM kernels; its ``kernels`` line has no launch counts.
 
+``python3 chip_smoke.py --data-parallel`` runs phases 6f and 5c alone,
+after K1 and K2/K3 in f32 against their plain versions and the files the
+phases read (phase 4's checkpoint, phase 5's f32 driver run, phase 6's
+dataset).
+
 ``python3 chip_smoke.py --step-walls`` runs only the step profiles of
 phases 6 and 6c (fused and pallas mode, f32 and bf16; 20 unprofiled walls
 each) from a seeded checkpoint, against the package of the checkout it
@@ -165,6 +184,7 @@ Imports nothing of JAX or of the JAX package ``remora_tpu``.
 import contextlib
 import json
 import logging
+import math
 import os
 import re
 import statistics
@@ -2509,6 +2529,449 @@ def infer_trained(ckpt):
         f"softmax p(mod) {float(softmax(out)[:, 1].mean()):.4f}")
 
 
+# ---------------- phases 6f and 5c: data parallel -------------------------
+
+# 6f: DP_STEPS optimizer steps a leg; (b) and 5c run DP_WORLD ranks that
+# share cuda:0 over gloo (the card's machine has one GPU, and NCCL refuses
+# two ranks on one device)
+DP_STEPS, DP_WORLD, DP_LR = 4, 2, 0.05
+DP_RANK_TIMEOUT_S = 300
+# 6f(b)'s parameter error over the parameters' change in DP_STEPS steps:
+# sync_bn's must stay below it, per-rank BatchNorm's above (read on an
+# H100 80GB HBM3 at 700 W: sync_bn 1.4e-05, per-rank 0.0225)
+DP_MOVED_TOL = 1e-3
+
+
+def timed_all_reduce(mesh):
+    """Time ``mesh``'s all-reduces (the card fenced before and after each,
+    so the time is the collective's, its staging included); returns the
+    one-element list of seconds."""
+    import torch
+
+    inner, spent = mesh.all_reduce, [0.0]
+
+    def timed(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(t)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    mesh.all_reduce = timed
+    return spent
+
+
+def dp_batches(seed=7):
+    """6f(b)'s DP_STEPS global batches of BATCH raw chunks (labels shift
+    the signal at the centre, as ``write_train_set``'s)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(DP_STEPS):
+        sigs, seqs, maps, lens = synth_inputs(rng, BATCH)
+        labels = rng.integers(0, 2, BATCH).astype(np.int64)
+        sigs[:, 0, WIDTH // 2 - 20: WIDTH // 2 + 20] += labels[:, None]
+        out.append((sigs, seqs, maps, lens, labels))
+    return out
+
+
+def dp_steps(step, lo, hi):
+    """6f(b)'s batches' rows [lo, hi) through ``step``: (losses, step
+    walls in s)."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import full_f32
+
+    losses, walls = [], []
+    with full_f32():
+        for batch in dp_batches():
+            arrs = [torch.from_numpy(a[lo:hi]).cuda() for a in batch]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _n_filt, _maxs = step(*arrs)
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+    return losses, walls
+
+
+def dp_model(ckpt):
+    """(model on the card, SGD over its parameters, featurize args)."""
+    import torch
+
+    from remora_tpu_torch.train.train import sorted_params
+
+    model, meta = _loaded_model(ckpt)
+    opt = torch.optim.SGD([p for _, p in sorted_params(model)], lr=DP_LR)
+    return model, opt, (tuple(meta["kmer_context_bases"]), WIDTH)
+
+
+def model_params(model):
+    from remora_tpu_torch.train.train import sorted_params
+
+    return {name: p.detach().cpu().numpy() for name, p in
+            sorted_params(model)}
+
+
+def gloo_takes_cuda():
+    """Whether this torch's gloo takes CUDA tensors in all_reduce and
+    all_gather (every rank calls it)."""
+    import torch
+    import torch.distributed as dist
+
+    found = {}
+    t = torch.ones(4, device="cuda")
+    for name, call in (
+            ("all_reduce", lambda: dist.all_reduce(t)),
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(t) for _ in range(DP_WORLD)], t))):
+        try:
+            call()
+            found[name] = True
+        except RuntimeError as err:
+            found[name] = f"refused: {str(err)[:120]}"
+    return found
+
+
+def dp_train_rank(rank, out_dir, ckpt):
+    """A rank of 6f(b): DP_STEPS steps of ``make_dp_train_step`` on its
+    BATCH / DP_WORLD rows of each batch, without and with sync_bn, the
+    launch and all-reduce counts set to 0 first."""
+    import torch
+
+    from remora_tpu_torch.kernels import lstm as K
+    from remora_tpu_torch.parallel import mesh as P
+
+    mesh = P.make_mesh(torch.device("cuda", 0))
+    result = {"gloo_cuda": gloo_takes_cuda()}
+    per = BATCH // DP_WORLD
+    for sync in (False, True):
+        model, opt, featurize = dp_model(ckpt)
+        step = P.make_dp_train_step(model, opt, mesh, sync_bn=sync,
+                                    featurize_args=featurize)
+        spent = timed_all_reduce(mesh)
+        K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+        with P.count_calls() as reduces:
+            losses, walls = dp_steps(step, rank * per, (rank + 1) * per)
+        del mesh.all_reduce  # the timer
+        tag = "sync" if sync else "local"
+        result[tag] = {"losses": losses, "walls_s": walls,
+                       "all_reduce_s": spent[0], "k2": K.LAUNCHES_FWD,
+                       "k3": K.LAUNCHES_BWD, "all_reduces": reduces[0],
+                       "want_all_reduces": DP_STEPS * (
+                           P.sync_bn_collectives(model)[0] if sync else 1)}
+        np.savez(os.path.join(out_dir, f"{tag}.rank{rank}.npz"),
+                 **model_params(model))
+    with open(os.path.join(out_dir, f"train.rank{rank}.json"), "w") as fh:
+        json.dump(result, fh)
+
+
+def dp_infer_rank(rank, out_dir, ckpt):
+    """A rank of 5c: phase 5's 256 reads (written again from the same
+    seed, the signal in this process's ``MemoryPod5``) through
+    ``infer_from_pod5_and_bam`` on cuda:0 in f32, K1's count set to 0
+    first; rank 0 merges the parts into out_dir/merged.bam."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import (ModelHandle,
+                                              infer_from_pod5_and_bam)
+    from remora_tpu_torch.kernels import lstm as K
+    from remora_tpu_torch.parallel import mesh as P
+
+    os.environ["REMORA_TPU_BAM_INDEX_CACHE"] = "0"
+    os.environ["LOG_SAFE"] = "1"
+    table, center = synth_level_table()
+    own = os.path.join(out_dir, f"rank{rank}")
+    os.makedirs(own)
+    pod5_key, bam_path = write_stream_set(own, "stream", STREAM_READS,
+                                          table, center)
+    handle = ModelHandle.load(ckpt, device=torch.device("cuda", 0))
+    K.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with memory_pod5():
+        n = infer_from_pod5_and_bam(
+            pod5_key, bam_path, [handle],
+            os.path.join(out_dir, "merged.bam"), batch_size=BATCH,
+            mesh=P.make_mesh(torch.device("cuda", 0)))
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"infer.rank{rank}.json"), "w") as fh:
+        json.dump({"n": n, "k1": K.LAUNCHES, "wall_s": wall}, fh)
+
+
+def dp_rank_main(argv):
+    """``chip_smoke.py --dp-rank KIND RANK PORT DIR CKPT``: one rank of
+    6f(b) (KIND train) or 5c (KIND infer) over gloo on cuda:0."""
+    from remora_tpu_torch.parallel import mesh as P
+
+    kind, rank, port, out_dir, ckpt = argv
+    rank = int(rank)
+    P.init_multihost(f"127.0.0.1:{port}", DP_WORLD, rank, backend="gloo",
+                     device="cuda:0", timeout_s=120)
+    try:
+        (dp_train_rank if kind == "train" else dp_infer_rank)(
+            rank, out_dir, ckpt)
+    finally:
+        P.teardown()
+    return 0
+
+
+def spawn_dp_ranks(kind, out_dir, ckpt):
+    """DP_WORLD ranks of ``dp_rank_main``; a rank that fails or a run past
+    DP_RANK_TIMEOUT_S fails the phase. Returns (wall s, the ranks'
+    JSON results)."""
+    import gc
+
+    import torch
+
+    from remora_tpu_torch.parallel import mesh as P
+
+    # the ranks share this card: hand back what this process's allocator
+    # caches from the phases before
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"{kind} ranks: {free / 2**30:.1f} of {total / 2**30:.1f} GiB free on "
+        "the card before they start")
+    check(free >= 8 * 2**30, f"{kind} ranks: {free / 2**30:.1f} GiB free on "
+          "the card, 8 wanted")
+    port = P.free_port()
+    t0 = time.monotonic()
+    try:
+        P.spawn_ranks(
+            lambda r: [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                       "--dp-rank", kind, str(r), str(port), out_dir, ckpt],
+            DP_WORLD, DP_RANK_TIMEOUT_S, env=dict(os.environ), cwd=REPO)
+    except Exception as err:  # noqa: BLE001 — the phase fails with it
+        raise SmokeFailure(f"{kind} ranks: {err}") from err
+    wall = time.monotonic() - t0
+    results = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"{kind}.rank{r}.json")) as fh:
+            results.append(json.load(fh))
+    return wall, results
+
+
+def params_rel_err(got, want):
+    """The largest |got - want| of a leaf over that leaf's largest |want|."""
+    return max(float(np.abs(got[k] - want[k]).max())
+               / max(float(np.abs(want[k]).max()), 1e-30) for k in want)
+
+
+def params_moved_err(got, want, init):
+    """||got - want|| over ||want - init||, every leaf in one vector: the
+    error over the change that the steps made."""
+    def norm(f):
+        return math.sqrt(sum(float(np.square(f(k), dtype=np.float64).sum())
+                             for k in want))
+
+    return (norm(lambda k: got[k] - want[k])
+            / max(norm(lambda k: want[k] - init[k]), 1e-30))
+
+
+def dp_nccl_leg(root, config, smi):
+    """6f(a): ``train_model`` with a mesh of one NCCL rank on cuda:0,
+    DP_STEPS steps of BATCH (SGD), the launch and all-reduce counts set to
+    0 first: K2/K3 once a step, one all-reduce a step, the losses within
+    1e-5 of the same run without a mesh. Returns (K2, K3) launches and
+    rates."""
+    import torch
+
+    from remora_tpu_torch.kernels import lstm as K
+    from remora_tpu_torch.parallel import mesh as P
+    from remora_tpu_torch.train import optim
+    from remora_tpu_torch.train.train import train_model
+
+    losses, rates = {}, {}
+    for tag in ("plain", "nccl"):
+        out = os.path.join(root, f"dp_{tag}")
+        mesh = None
+        if tag == "nccl":
+            P.init_multihost(device=torch.device("cuda", 0))
+            mesh = P.make_mesh(torch.device("cuda", 0))
+            check(mesh.backend == "nccl" and mesh.world == 1,
+                  f"6f(a): a group of {mesh.world} over {mesh.backend}")
+            spent = timed_all_reduce(mesh)
+        K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+        t0 = time.monotonic()
+        try:
+            with P.count_calls() as reduces:
+                train_model(
+                    seed=1, out_path=out, remora_dataset_path=config,
+                    chunk_context=None, kmer_context_bases=None,
+                    batch_size=BATCH, model_name="ConvLSTM_w_ref",
+                    size=SIZE,
+                    train_opts=optim.TrainOpts(
+                        epochs=1, optimizer_str="sgd", learning_rate=DP_LR,
+                        lr_scheduler_str="constant"),
+                    chunks_per_epoch=DP_STEPS * BATCH, num_test_chunks=BATCH,
+                    mesh=mesh,
+                )
+        finally:
+            if mesh is not None:
+                P.teardown()
+        wall = time.monotonic() - t0
+        launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
+        with open(os.path.join(out, "batch.log")) as fh:
+            losses[tag] = np.array([float(line.split()[1])
+                                    for line in fh.readlines()[1:]])
+        log(f"6f(a) train_model {tag}: {DP_STEPS} steps in {wall:.1f} s "
+            f"(with validation and checkpoints); K2/K3 launches {launches}; "
+            f"all-reduces {reduces[0]}; losses {losses[tag].tolist()}")
+        check(launches == (DP_STEPS, DP_STEPS),
+              f"6f(a) {tag}: K2/K3 launched {launches} times for "
+              f"{DP_STEPS} steps")
+        if tag == "nccl":
+            check(reduces[0] == DP_STEPS, f"6f(a): {reduces[0]} all-reduces "
+                  f"in {DP_STEPS} steps")
+            rates["dp_nccl1_all_reduce_ms_per_step"] = (
+                spent[0] / DP_STEPS * 1e3)
+            rates["dp_nccl1_train_s"] = wall
+    diff = float(np.abs(losses["nccl"] - losses["plain"]).max())
+    log(f"6f(a) NCCL group of one vs no mesh: max |loss delta| {diff:.3g} "
+        f"(tolerance 1e-5); all-reduce "
+        f"{rates['dp_nccl1_all_reduce_ms_per_step']:.3f} ms a step [{smi}]")
+    check(losses["nccl"].size == DP_STEPS and diff <= 1e-5,
+          f"6f(a): losses {losses}")
+    return launches, rates
+
+
+def dp_gloo_leg(root, ckpt, smi):
+    """6f(b): two ranks sharing cuda:0 over gloo, BATCH / 2 rows each,
+    DP_STEPS steps without and with sync_bn: the ranks' parameters
+    identical, one all-reduce a step without sync_bn (sync_bn's stated
+    count with it), K2/K3 once a step on each rank, and the sync_bn
+    parameters within 1e-4 relative of one process stepping on the whole
+    batches; over the steps' change, sync_bn's within DP_MOVED_TOL of that
+    run and per-rank BatchNorm's (the control) beyond it. Returns (K2, K3)
+    launches over both ranks and rates."""
+    from remora_tpu_torch.train.train import make_train_step_raw
+
+    out_dir = os.path.join(root, "dp_gloo")
+    os.makedirs(out_dir)
+    wall, results = spawn_dp_ranks("train", out_dir, ckpt)
+    gloo_cuda = results[0]["gloo_cuda"]
+    log(f"6f(b) {DP_WORLD} gloo ranks on cuda:0: {wall:.1f} s with start-up; "
+        f"this torch's gloo takes CUDA tensors: {gloo_cuda}")
+    check(gloo_cuda == {"all_reduce": True, "all_gather": True},
+          "6f(b): gloo refuses CUDA tensors, which the mesh hands it")
+    launches = [0, 0]
+    rates = {}
+    params = {}
+    for tag in ("local", "sync"):
+        params[tag] = [dict(np.load(os.path.join(out_dir,
+                                                 f"{tag}.rank{r}.npz")))
+                       for r in range(DP_WORLD)]
+        for r, res in enumerate(results):
+            got = res[tag]
+            step_ms = statistics.median(got["walls_s"]) * 1e3
+            share = got["all_reduce_s"] / sum(got["walls_s"])
+            log(f"6f(b) {tag} rank {r}: losses {got['losses']}; step wall "
+                f"median {step_ms:.2f} ms, all-reduces {got['all_reduces']} "
+                f"({share:.1%} of the steps' wall); K2/K3 launches "
+                f"({got['k2']}, {got['k3']}) [{smi}]")
+            check((got["k2"], got["k3"]) == (DP_STEPS, DP_STEPS),
+                  f"6f(b) {tag} rank {r}: K2/K3 launched "
+                  f"({got['k2']}, {got['k3']}) times for {DP_STEPS} steps")
+            check(got["all_reduces"] == got["want_all_reduces"],
+                  f"6f(b) {tag} rank {r}: {got['all_reduces']} all-reduces, "
+                  f"{got['want_all_reduces']} stated")
+            launches[0] += got["k2"]
+            launches[1] += got["k3"]
+            if r == 0:
+                rates[f"dp_gloo_{tag}_step_ms"] = step_ms
+                rates[f"dp_gloo_{tag}_all_reduce_share"] = share
+        a, b = params[tag]
+        check(a.keys() == b.keys()
+              and all(np.array_equal(a[k], b[k]) for k in a),
+              f"6f(b) {tag}: the ranks' parameters differ")
+    # one process on the whole batches, the same steps
+    model, opt, featurize = dp_model(ckpt)
+    init = model_params(model)
+    step = make_train_step_raw(model, opt, *featurize)
+    losses, _walls = dp_steps(step, 0, BATCH)
+    want = model_params(model)
+    err = params_rel_err(params["sync"][0], want)
+    # the control: per-rank BatchNorm (the local leg) against the same
+    # one-process run, each error over the parameters' change in the
+    # DP_STEPS steps, so that the check tells the two apart
+    moved = {tag: params_moved_err(params[tag][0], want, init)
+             for tag in ("sync", "local")}
+    log(f"6f(b) sync_bn vs one process on the {BATCH}-row batches: losses "
+        f"{results[0]['sync']['losses']} / {losses}; parameters max "
+        f"relative error {err:.3g} (tolerance 1e-4); over the parameters' "
+        f"change in {DP_STEPS} steps: sync_bn {moved['sync']:.3g} "
+        f"(tolerance {DP_MOVED_TOL:g}), per-rank BatchNorm "
+        f"{moved['local']:.3g} (must exceed it)")
+    check(err <= 1e-4, f"6f(b): sync_bn parameters {err:.3g} from one "
+          "process")
+    check(moved["sync"] <= DP_MOVED_TOL,
+          f"6f(b): sync_bn parameters {moved['sync']:.3g} of their change "
+          "from one process")
+    check(moved["local"] > DP_MOVED_TOL,
+          f"6f(b): per-rank BatchNorm only {moved['local']:.3g} of the "
+          "change from one process: the check cannot tell it from sync_bn")
+    check(np.abs(np.subtract(results[0]["sync"]["losses"], losses)).max()
+          <= 1e-4, "6f(b): sync_bn losses differ from one process")
+    rates["dp_gloo_phase_s"] = wall
+    return tuple(launches), rates
+
+
+def dp_infer_phase(root, ckpt, smi, sets):
+    """5c: two ranks over gloo on cuda:0, 128 of phase 5's 256 reads each
+    (f32, batch 2048): K1 once a batch on each rank, every rank reports
+    every read, and the merged BAM holds every read with phase 5's f32
+    tags. Returns (K1 launches over both ranks, rates)."""
+    out_dir = os.path.join(root, "dp_infer")
+    os.makedirs(out_dir)
+    wall, results = spawn_dp_ranks("infer", out_dir, ckpt)
+    merged = os.path.join(out_dir, "merged.bam")
+    tags = bam_tags(merged)
+    want = sets["stream_f32_tags"]
+    check(tags.keys() == want.keys(), f"5c: {len(tags)} records merged, "
+          f"{len(want)} in phase 5's run")
+    mm, ml, worst = tag_diff(tags, want)
+    check(mm == ml == 0, f"5c: tags differ from phase 5's f32 run: MM "
+          f"{mm}, ML bytes {ml}")
+    check(not [p for p in os.listdir(out_dir) if ".part" in p],
+          "5c: rank parts left beside the merged BAM")
+    ids = sorted({rid for rid, _flag, _start in tags})
+    rates = {}
+    for r, res in enumerate(results):
+        stripe = set(ids[r::DP_WORLD])
+        calls = sum(v.size for (rid, _f, _s), (_m, v) in tags.items()
+                    if rid in stripe)
+        n_batches = -(-calls // BATCH)
+        log(f"5c rank {r}: {len(stripe)} reads, {calls} calls in "
+            f"{res['wall_s']:.3f} s = {len(stripe) / res['wall_s']:.1f} "
+            f"reads/s; K1 launches {res['k1']} for {n_batches} batches; "
+            f"reports {res['n']} records [{smi}]")
+        check(res["k1"] == n_batches, f"5c rank {r}: K1 launched "
+              f"{res['k1']} times for {n_batches} batches")
+        check(res["n"] == STREAM_READS, f"5c rank {r}: reports {res['n']} "
+              f"records of {STREAM_READS}")
+    slowest = max(res["wall_s"] for res in results)
+    rates.update(dp_infer_reads_per_s=STREAM_READS / slowest,
+                 dp_infer_phase_s=wall)
+    log(f"5c: {STREAM_READS} reads over {DP_WORLD} ranks = "
+        f"{STREAM_READS / slowest:.1f} reads/s (the slower rank's driver "
+        f"wall); MM and ML identical to phase 5's f32 run; phase wall "
+        f"{wall:.1f} s with start-up")
+    return sum(res["k1"] for res in results), rates
+
+
+def data_parallel(root, config, ckpt, smi, sets):
+    """Phases 6f and 5c. Returns ({"k1", "k2", "k3"} launches, rates)."""
+    t0 = time.monotonic()
+    (a2, a3), rates = dp_nccl_leg(root, config, smi)
+    (b2, b3), gloo_rates = dp_gloo_leg(root, ckpt, smi)
+    rates.update(gloo_rates, dp_train_phase_s=time.monotonic() - t0)
+    log(f"phase 6f wall {rates['dp_train_phase_s']:.1f} s")
+    k1, infer_rates = dp_infer_phase(root, ckpt, smi, sets)
+    rates.update(infer_rates)
+    log(f"phase 5c wall {rates['dp_infer_phase_s']:.1f} s")
+    return {"k1": k1, "k2": a2 + b2, "k3": a3 + b3}, rates
+
+
 # ---------------- phase 8: the banded refinement DP (K4, K5) -------------
 
 # benchmarks/synth_set.py::BASE_LVL: the normalized level of each base
@@ -3708,6 +4171,8 @@ def run_phases(stack):
     if sys.argv[1:] == ["--step-walls"]:
         log(f"card: {nvidia_smi_line()}; package {REPO}")
         return step_walls()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank_main(sys.argv[2:])
     # per-batch host dispatch / fetch / input-wait of every stage pass
     os.environ["REMORA_TPU_INFER_STAGE_STATS"] = "1"
     from remora_tpu_torch.kernels import _build
@@ -3725,6 +4190,8 @@ def run_phases(stack):
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if sys.argv[1:] == ["--data-parallel"]:
+        return data_parallel_only(stack, smi)
     check_lstm_fwd_compile()
     kernels = {
         torch.float32: check_lstm_last(torch.float32, 1e-5),
@@ -3819,6 +4286,13 @@ def run_phases(stack):
     check_pallas_step_vs_fused(final)
     # 6e: the wide LSTM legs on the model path at size WIDE_SIZE
     wide_model_path(tmp, config, wide_kernels)
+    # 6f and 5c: data parallel on phase 6's dataset and phase 5's reads
+    # and checkpoint; their K1-K3 launches join the kernels line
+    dp_launches, dp_rates = data_parallel(tmp, config, sets["ckpt"], smi,
+                                          sets)
+    kernels[torch.float32]["launches"] += dp_launches["k1"]
+    for rec, key in zip(train_kernels[torch.float32], ("k2", "k3")):
+        rec["launches"] += dp_launches[key]
 
     log(f"phase 8: {host_memory()}")
     dp_kernels = check_banded_dp()
@@ -3862,12 +4336,47 @@ def run_phases(stack):
         **refine_rates,
         **prepare_rates,
         **cli_rates,
+        **dp_rates,
     }}))
     records = list(kernels.values())
     for recs in (*train_kernels.values(), *wide_kernels.values(),
                  *convbn_kernels.values(), dp_kernels):
         records.extend(recs)
     return finish(records)
+
+
+def data_parallel_only(stack, smi):
+    """``--data-parallel``: phases 6f and 5c alone, after K1 and K2/K3 in
+    f32 against their plain versions (the kernels line's records) and
+    the files the phases read: phase 4's checkpoint, phase 5's f32 driver
+    run and phase 6's dataset."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import ModelHandle
+
+    check_lstm_fwd_compile()
+    k1 = check_lstm_last(torch.float32, 1e-5)
+    check_lstm_bwd_compile()
+    k23 = check_lstm_train(torch.float32, 1e-5)
+    root = stack.enter_context(tempfile.TemporaryDirectory())
+    os.environ["REMORA_TPU_BAM_INDEX_CACHE"] = "0"
+    os.environ["LOG_SAFE"] = "1"
+    ckpt = os.path.join(root, "convlstm_size64.npz")
+    seeded_checkpoint(ckpt)
+    table, center = synth_level_table()
+    pod5_key, bam_path = write_stream_set(root, "stream", STREAM_READS,
+                                          table, center)
+    tags, _counts, _wall, _lines = stream_leg(
+        pod5_key, bam_path, ModelHandle.load(ckpt),
+        os.path.join(root, "stream_f32.bam"), "stream f32")
+    config = write_train_set(root)
+    launches, rates = data_parallel(root, config, ckpt, smi,
+                                    {"stream_f32_tags": tags})
+    k1["launches"] = launches["k1"]
+    for rec, key in zip(k23, ("k2", "k3")):
+        rec["launches"] = launches[key]
+    log(json.dumps({"slice": rates}))
+    return finish([k1, *k23])
 
 
 def finish(records):

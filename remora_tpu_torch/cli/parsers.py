@@ -9,8 +9,10 @@ Where the JAX package switches its process-wide device
 (``jax_setup.select_device``), this package resolves ``--device`` once
 (``cli.util.parse_device``: cpu, cuda, cuda:N, or an integer N meaning
 cuda:N; without it the GPU, and a run raises when there is none) and
-hands the device to the model loader and the drivers. The data-parallel
-and multi-host flags are parsed and raise: that part is not ported yet.
+hands the device to the model loader and the drivers. The distributed
+flags start a ``torch.distributed`` process group of one process per
+device (``cli.util.start_distributed``); each rank writes its own
+outputs, and ``infer from_pod5_and_bam``'s rank 0 merges the BAM parts.
 """
 
 import json
@@ -551,13 +553,17 @@ def register_model_train(ssub):
     dist = p.add_argument_group("Distributed Arguments")
     dist.add_argument(
         "--data-parallel", action="store_true",
-        help="shard batches over all local (or pod) devices",
+        help="train data-parallel: alone, a group of one process on "
+        "this device; with --num-processes, over the process group",
     )
     dist.add_argument("--coordinator-address",
-                      help="host:port of the process group (multi-host; "
-                      "not ported yet, raises)")
-    dist.add_argument("--num-processes", type=int)
-    dist.add_argument("--process-id", type=int)
+                      help="host:port where the processes meet")
+    dist.add_argument("--num-processes", type=int,
+                      help="ranks of the process group, one process per "
+                      "device (NCCL on GPUs, gloo on the CPU)")
+    dist.add_argument("--process-id", type=int,
+                      help="this process's rank (its GPU: --device, else "
+                      "the process id modulo the visible GPUs)")
     dist.add_argument(
         "--sync-bn", action="store_true",
         help="global-batch BatchNorm under data parallelism "
@@ -570,13 +576,22 @@ def register_model_train(ssub):
 
 def run_model_train(args):
     from remora_tpu_torch.core.util import prepare_out_dir
-    from remora_tpu_torch.cli.util import parse_device, refuse_distributed
+    from remora_tpu_torch.cli.util import rank_device, start_distributed
+    from remora_tpu_torch.parallel.mesh import teardown
+
+    device = rank_device(args)
+    prepare_out_dir(args.output_path, args.overwrite)
+    mesh = start_distributed(args, device, data_parallel=args.data_parallel)
+    try:
+        _train(args, device, mesh)
+    finally:
+        if mesh is not None:
+            teardown()
+
+
+def _train(args, device, mesh):
     from remora_tpu_torch.train.optim import TrainOpts
     from remora_tpu_torch.train.train import train_model
-
-    refuse_distributed(args)
-    device = parse_device(args.device)
-    prepare_out_dir(args.output_path, args.overwrite)
     from remora_tpu_torch import constants as _c
 
     train_opts = TrainOpts(
@@ -629,7 +644,7 @@ def run_model_train(args):
         gradient_clip_num_mads=args.gradient_clip_num_mads,
         resume_from_checkpoint=args.resume_from_checkpoint,
         bf16_compute=args.bf16,
-        mesh=None,
+        mesh=mesh,
         sync_bn=args.sync_bn,
         read_batches_from_disk=args.read_batches_from_disk,
         steps_per_launch=args.steps_per_launch,
@@ -810,8 +825,10 @@ def register_infer_from_pod5_and_bam(ssub):
     dist = p.add_argument_group("Distributed Arguments")
     dist.add_argument(
         "--coordinator-address",
-        help="host:port of the process group (multi-host inference; "
-        "not ported yet, raises)",
+        help="host:port where the processes meet (multi-process "
+        "inference: each rank streams a disjoint read stripe and rank 0 "
+        "merges the ranks' BAM parts; --out-bam must be on storage every "
+        "rank sees, else the parts are left in place for a manual merge)",
     )
     dist.add_argument("--num-processes", type=int)
     dist.add_argument("--process-id", type=int)
@@ -884,13 +901,26 @@ def check_models(models):
 
 def run_infer_from_pod5_and_bam(args):
     from remora_tpu_torch import log
-    from remora_tpu_torch.infer.infer import infer_from_pod5_and_bam
-
-    from remora_tpu_torch.cli.util import refuse_distributed
+    from remora_tpu_torch.cli.util import rank_device, start_distributed
+    from remora_tpu_torch.parallel.mesh import teardown
 
     if args.log_filename:
         log.init_logger(args.log_filename)
-    refuse_distributed(args)
+    mesh = None
+    if args.num_processes:
+        device = rank_device(args)
+        args.device = str(device)  # the models load onto this rank's device
+        mesh = start_distributed(args, device)
+    try:
+        _infer_from_pod5_and_bam(args, mesh)
+    finally:
+        if mesh is not None:
+            teardown()
+
+
+def _infer_from_pod5_and_bam(args, mesh):
+    from remora_tpu_torch.infer.infer import infer_from_pod5_and_bam
+
     models = load_models_kw_args(args)
     infer_from_pod5_and_bam(
         pod5_path=args.pod5,
@@ -907,6 +937,7 @@ def run_infer_from_pod5_and_bam(args):
         skip_non_primary=not args.include_non_primary,
         ref_anchored=args.reference_anchored,
         refine_backend=args.refine_backend,
+        mesh=mesh,
     )
 
 

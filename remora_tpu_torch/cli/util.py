@@ -4,10 +4,6 @@ from pathlib import Path
 
 from remora_tpu_torch import RemoraError
 
-# the data-parallel and multi-host options: parsed, not ported yet
-DISTRIBUTED_OPTIONS = ("data_parallel", "coordinator_address",
-                       "num_processes", "process_id", "sync_bn")
-
 
 def parse_device(device):
     """The torch device of ``--device``: cpu, cuda, cuda:N, or an integer
@@ -20,18 +16,45 @@ def parse_device(device):
     return resolve_device(device)
 
 
-def refuse_distributed(args):
-    """Raise when any data-parallel or multi-host option was given."""
-    given = [
-        "--" + name.replace("_", "-")
-        for name in DISTRIBUTED_OPTIONS
-        if getattr(args, name, None) not in (None, False)
-    ]
-    if given:
+def rank_device(args):
+    """A rank's device: ``--device`` when given, else cuda:(process id %
+    visible GPUs); no GPU and no ``--device`` raises."""
+    import torch
+
+    if args.device is not None or not torch.cuda.is_available():
+        return parse_device(args.device)
+    return torch.device("cuda",
+                        (args.process_id or 0) % torch.cuda.device_count())
+
+
+def start_distributed(args, device, data_parallel=False):
+    """The process group the distributed options ask for: with
+    ``--num-processes N`` this process is rank ``--process-id`` of N
+    meeting at ``--coordinator-address``; ``data_parallel``
+    (``--data-parallel`` alone) is a group of one. NCCL on a GPU, gloo on
+    the CPU. Returns this rank's ``parallel.mesh.Mesh``, or None when no
+    option asks for a group.
+
+    The JAX package's ``--data-parallel`` alone spans every local device
+    in one process; here a process drives one device, so with more than
+    one visible GPU it raises and points to ``--num-processes``."""
+    import torch
+
+    from remora_tpu_torch.parallel.mesh import init_multihost, make_mesh
+
+    if not args.num_processes and not data_parallel:
+        return None
+    if not args.num_processes and device.type == "cuda" \
+            and torch.cuda.device_count() > 1:
         raise RemoraError(
-            f"{', '.join(given)}: data-parallel and multi-host runs are "
-            "not ported yet (ROADMAP queue 1 item 7)"
+            f"--data-parallel alone runs one process on one GPU, and "
+            f"{torch.cuda.device_count()} are visible: start one process "
+            "per GPU with --num-processes N --process-id I "
+            "--coordinator-address HOST:PORT"
         )
+    init_multihost(args.coordinator_address, args.num_processes,
+                   args.process_id, device=device)
+    return make_mesh(device)
 
 
 def parse_picoamps(bc_model, sig_map_refiner):

@@ -1164,3 +1164,23 @@ class ComposedDataset:
             f"dataset_chunks_per_epoch\tdataset_size\t{ds_hdr}\tpath\n"
         )
         return header + "\n".join(rows)
+
+
+def shard_for_process(dataset, shard_index, num_shards):
+    """Restrict a ComposedDataset to one rank's disjoint super-batch
+    stripe (per-rank dataset shards for data-parallel training)."""
+    for sub_ds in dataset.datasets:
+        sub_ds.shard_index = shard_index
+        sub_ds.num_shards = num_shards
+    return dataset
+
+
+def worker_init(dataset, seed=None, worker_id=0):
+    """Randomize per-worker super-batch offsets (reference
+    ``dataloader_worker_init`` analog for host loader workers)."""
+    if seed is not None:
+        np.random.seed(seed + worker_id)
+    dataset.super_batch_offsets = [
+        int(np.random.randint(member.size))
+        for member in dataset.datasets
+    ]

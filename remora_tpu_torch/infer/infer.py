@@ -1,10 +1,18 @@
 """Streaming modified-base inference: POD5 + BAM -> modBAM.
 
-Counterpart of ``remora_tpu/infer/infer.py`` on one device. Host stages
-(signal decode, alignment join, chunk prep, batch assembly, unbatching,
-tag formatting) stream through bounded queues; the device stage runs the
+Counterpart of ``remora_tpu/infer/infer.py``. Host stages (signal
+decode, alignment join, chunk prep, batch assembly, unbatching, tag
+formatting) stream through bounded queues; the device stage runs the
 model's forward over fixed-size batches (the ragged last batch is padded
 to the batch size and its outputs sliced back).
+
+Data parallelism, as in the JAX package, by one of two routes that never
+combine: handed a ``parallel.mesh.Mesh`` of more than one rank (one
+process per GPU), each rank infers a disjoint stripe of the reads into a
+BAM part that rank 0 merges (``_merge_multihost_parts``), on its own
+device alone; without one, the device stage splits each batch's rows
+over the local GPUs (``REMORA_TPU_INFER_DP``; one replica of each model
+per GPU).
 
 Entry points run on the GPU unless the caller names ``device="cpu"``;
 with no GPU and no device named, ``ModelHandle.load`` raises.
@@ -24,6 +32,7 @@ another stream can race the forward.
 
 import array
 import contextlib
+import copy
 import os
 import sys
 import time
@@ -334,69 +343,92 @@ def batch_reads(prepped_nn_inputs, batches_q, batch_size, models_metadata):
     put_item(StopIteration, batches_q)
 
 
+def _side_stream(device):
+    """A side stream on ``device`` that starts after all work queued there
+    so far (the model's own host->device copies included); None off
+    CUDA."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device.type != "cuda":
+        return None
+    stream = torch.cuda.Stream(device=device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    return stream
+
+
 def run_model_batched(batches_q, called_batches_q, eval_fns,
                       device_batch_size):
     """Device stage: forward per canonical base, padded last batch.
 
+    ``eval_fns[cb]`` is one eval callable, or a list of (device, callable)
+    replicas (``ModelHandle.shard_over``) that split each batch's rows in
+    equal parts, one part per device, each on its device's side stream.
     Up to REMORA_TPU_INFER_INFLIGHT (default 2) batches stay in flight:
     each batch's forward and its device->host copy into pinned memory are
     queued on a side CUDA stream and fenced by an event, so the copy of
     batch N overlaps the host->device copy and compute of batch N+1; the
-    host waits on a batch's event only when it emits that batch.
+    host waits on a batch's events only when it emits that batch.
     """
     inflight = max(1, int(os.getenv("REMORA_TPU_INFER_INFLIGHT", "2")))
     pending = deque()
     stats = {"batches": 0, "dispatch_s": 0.0, "fetch_s": 0.0,
              "wait_s": 0.0}
-    stream = None
-    if torch.cuda.is_available():
-        # the side stream starts after all work queued so far (the
-        # model's own host->device copies included)
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
+    replicas = {
+        cb: [(None, fns)] if callable(fns) else list(fns)
+        for cb, fns in eval_fns.items()
+    }
+    streams = {dev: _side_stream(dev)
+               for reps in replicas.values() for dev, _fn in reps}
 
     def emit_oldest():
-        cb, host, done, live, b_read_pos, b_reads = pending.popleft()
+        cb, parts, live, b_read_pos, b_reads = pending.popleft()
         t0 = time.monotonic()
-        if done is not None:
-            done.synchronize()
-        nn_out = host.numpy()[:live]
+        for _host, done in parts:
+            if done is not None:
+                done.synchronize()
+        hosts = [host for host, _done in parts]
+        nn_out = (hosts[0] if len(hosts) == 1 else torch.cat(hosts)).numpy()
         stats["fetch_s"] += time.monotonic() - t0
-        put_item((cb, nn_out, b_read_pos, b_reads), called_batches_q)
+        put_item((cb, nn_out[:live], b_read_pos, b_reads), called_batches_q)
 
-    batch_iter = queue_iter(batches_q)
-    with torch.cuda.stream(stream):  # no-op for None
-        while True:
-            t0 = time.monotonic()
-            item = next(batch_iter, None)
-            stats["wait_s"] += time.monotonic() - t0
-            if item is None:
-                break
-            cb, b_inputs, b_read_pos, b_reads = item
-            live = b_read_pos.size
-            if b_inputs[0].shape[0] != device_batch_size:
-                # pad up to the fixed batch shape; outputs are sliced back
-                b_inputs = tuple(
-                    pad_rows(arr, device_batch_size) for arr in b_inputs
-                )
-            t0 = time.monotonic()
-            out = eval_fns[cb](*b_inputs)
-            done = None
-            if out.is_cuda:
-                host = torch.empty(out.shape, dtype=out.dtype,
-                                   pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            else:
-                host = out
-            stats["dispatch_s"] += time.monotonic() - t0
-            stats["batches"] += 1
-            pending.append((cb, host, done, live, b_read_pos, b_reads))
-            if len(pending) > inflight:
-                emit_oldest()
-        while pending:
+    def launch(dev, fn, inputs):
+        """One replica's forward and its copy into pinned host memory on
+        its side stream: (host tensor, event or None)."""
+        with torch.cuda.stream(streams[dev]):  # no-op for None
+            out = fn(*inputs)
+            if not out.is_cuda:
+                return out, None
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
+
+    for item in _timed_iter(queue_iter(batches_q), stats):
+        cb, b_inputs, b_read_pos, b_reads = item
+        live = b_read_pos.size
+        if b_inputs[0].shape[0] != device_batch_size:
+            # pad up to the fixed batch shape; outputs are sliced back
+            b_inputs = tuple(
+                pad_rows(arr, device_batch_size) for arr in b_inputs
+            )
+        t0 = time.monotonic()
+        reps = replicas[cb]
+        per = device_batch_size // len(reps)
+        parts = [
+            launch(dev, fn, tuple(a[j * per:(j + 1) * per]
+                                  for a in b_inputs))
+            for j, (dev, fn) in enumerate(reps)
+        ]
+        stats["dispatch_s"] += time.monotonic() - t0
+        stats["batches"] += 1
+        pending.append((cb, parts, live, b_read_pos, b_reads))
+        if len(pending) > inflight:
             emit_oldest()
+    while pending:
+        emit_oldest()
     if os.getenv("REMORA_TPU_INFER_STAGE_STATS"):
         n = max(stats["batches"], 1)
         LOGGER.info(
@@ -406,6 +438,18 @@ def run_model_batched(batches_q, called_batches_q, eval_fns,
             f"input-wait {stats['wait_s'] / n * 1e3:.1f}ms"
         )
     put_item(StopIteration, called_batches_q)
+
+
+def _timed_iter(items, stats):
+    """``items``, the time spent waiting for each added to
+    ``stats["wait_s"]``."""
+    while True:
+        t0 = time.monotonic()
+        item = next(items, None)
+        stats["wait_s"] += time.monotonic() - t0
+        if item is None:
+            return
+        yield item
 
 
 class _ReadJoiner:
@@ -526,16 +570,83 @@ def post_process_reads(read_mapping, models_metadata, ref_anchored):
     return io_read, None
 
 
-def _resolve_models(models):
-    """(metadata list, {can_base: eval fn}) of the ModelHandles: each
-    featurizes its batches on its device (``eval_raw``)."""
+def _check_handles(models):
     for mdl in models:
         if not isinstance(mdl, ModelHandle):
             raise RemoraError(
                 f"models must be ModelHandles, not {type(mdl).__name__}")
+
+
+def _resolve_models(models):
+    """(metadata list, {can_base: eval fn or (device, eval fn) replicas})
+    of the ModelHandles: each featurizes its batches on its device
+    (``eval_raw``), or on each device it was spread over."""
     metadata = [m.metadata for m in models]
-    eval_fns = {m.metadata["can_base"]: m.eval_raw for m in models}
+    eval_fns = {
+        m.metadata["can_base"]: (
+            m.eval_raw if m.replicas is None
+            else [(r.device, r.eval_raw) for r in m.replicas])
+        for m in models
+    }
     return metadata, eval_fns
+
+
+def local_devices(device):
+    """The devices the device stage can split a batch over: every visible
+    GPU for a model on a GPU, else ``device`` alone."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _infer_device_split(batch_size, device, world=1):
+    """(devices, device_batch_size) the device stage splits each batch
+    over, or (None, batch_size) when it stays on one device.
+
+    A rank of a multi-process group (``world`` > 1) keeps its own device:
+    the processes already split the work one per GPU, so the split is
+    off there, and REMORA_TPU_INFER_DP asking for one raises.
+
+    The eval forward is row-independent (BatchNorm takes its running
+    statistics), so splitting the rows changes no row's logits. A batch
+    size that does not divide over the devices pads the device batch up
+    to the next multiple (the batches keep ``batch_size`` live rows).
+    REMORA_TPU_INFER_DP overrides the device count: 0/1 keeps one device,
+    N takes the first N local devices (unset: all local devices when
+    there is more than one)."""
+    n_req = os.getenv("REMORA_TPU_INFER_DP")
+    if world > 1:
+        if n_req is not None and int(n_req) > 1:
+            raise RemoraError(
+                f"REMORA_TPU_INFER_DP={n_req} splits batches over the local "
+                f"devices, but this process is a rank of {world}, which "
+                "runs on its own device: unset it, or run one process"
+            )
+        return None, batch_size
+    devs = local_devices(device)
+    if n_req is not None:
+        n = int(n_req)
+        if n <= 1:
+            return None, batch_size
+        if n > len(devs):
+            raise RemoraError(
+                f"REMORA_TPU_INFER_DP={n} but only {len(devs)} local "
+                "devices are attached"
+            )
+        devs = devs[:n]
+    elif len(devs) <= 1:
+        return None, batch_size
+    n_dev = len(devs)
+    device_batch_size = -(-batch_size // n_dev) * n_dev
+    if device_batch_size != batch_size:
+        LOGGER.info(
+            f"batch size {batch_size} does not divide over {n_dev} "
+            f"local devices; padding device batches to "
+            f"{device_batch_size} rows"
+        )
+    LOGGER.info(f"Inference device stage split over {n_dev} local devices")
+    return devs, device_batch_size
 
 
 class _InferProgress:
@@ -592,6 +703,7 @@ def infer_from_pod5_and_bam(
     skip_non_primary=True,
     ref_anchored=False,
     refine_backend=None,
+    mesh=None,
 ):
     """Run the full streaming inference pipeline.
 
@@ -604,10 +716,15 @@ def infer_from_pod5_and_bam(
             stage with a single in-process worker that batches all
             reads' DP refinements into shared K4/K5 launches on the
             models' device.
-
-    Runs one process on one device, the models'. The JAX package's
-    multi-device and multi-host parts are not ported.
+        mesh: this rank's ``parallel.mesh.Mesh``. Of more than one rank,
+            this rank infers the reads ``sorted(read_ids)[:num_reads]
+            [rank::world]`` into ``out_bam_path.partNNNN`` on its models'
+            device, and rank 0 merges the parts into ``out_bam_path`` in
+            rank order; every rank returns the global record count.
+            Without one, the device stage splits each batch over the
+            local devices (``_infer_device_split``).
     """
+    _check_handles(models)
     bam_idx = ReadIndexedBam(
         in_bam_path, skip_non_primary=skip_non_primary, req_tags={"mv"}
     )
@@ -616,6 +733,32 @@ def infer_from_pod5_and_bam(
         sys.exit()
     with DatasetReader(pod5_path) as pod5_dr:
         read_ids, num_reads = get_read_ids(bam_idx, pod5_dr, num_reads)
+
+    # multi-process data parallelism: each rank streams a disjoint stripe
+    # of the reads through its own pipeline into a BAM part, and rank 0
+    # merges the parts after the others have closed theirs
+    merged_out_path = None
+    world = 1 if mesh is None else mesh.world
+    if world > 1:
+        rank = mesh.rank
+        # sorted before striding: get_read_ids returns set-ordered ids;
+        # the global num_reads cap applies before the stripe
+        read_ids = sorted(read_ids)[:num_reads][rank::world]
+        num_reads = len(read_ids)
+        merged_out_path = out_bam_path
+        out_bam_path = f"{out_bam_path}.part{rank:04d}"
+        LOGGER.info(
+            f"Process {rank}/{world} infers {num_reads} reads into "
+            f"{out_bam_path}"
+        )
+
+    # within-process data parallelism: split the device stage's batches
+    # over the local devices (before _resolve_models binds the evals)
+    split_devs, device_batch_size = _infer_device_split(
+        batch_size, models[0].device, world)
+    if split_devs is not None:
+        for mdl in models:
+            mdl.shard_over(split_devs)
 
     models_metadata, eval_fns = _resolve_models(models)
     # a parameter's device: a GPU's carries its index, so the device
@@ -738,7 +881,7 @@ def infer_from_pod5_and_bam(
     )
 
     def _caller(src, sink):
-        run_model_batched(src, sink, eval_fns, batch_size)
+        run_model_batched(src, sink, eval_fns, device_batch_size)
 
     _caller.__name__ = "call_batches"
     called_batches_q, call_batches_t = serial_stage(
@@ -857,6 +1000,53 @@ def infer_from_pod5_and_bam(
             f"inference pipeline stage '{name}' failed after {n_written} "
             f"records were written: {err!r}"
         ) from err
+    if merged_out_path is not None:
+        n_written = _merge_multihost_parts(
+            mesh, merged_out_path, n_written, progress.samples
+        )
+    return n_written
+
+
+def _merge_multihost_parts(mesh, out_bam_path, n_written_local,
+                           samples_local):
+    """Gather every rank's written-record and sample counts over
+    ``mesh``, and on rank 0 merge the ranks' BAM parts into
+    ``out_bam_path`` in rank order and delete them; the other ranks wait
+    at a barrier until the merged file exists. Returns the global record
+    count on every rank.
+
+    The gather doubles as the barrier that holds rank 0 until every part
+    is closed. Parts that rank 0 cannot see (ranks on hosts without
+    shared storage) are left in place with an error in the log."""
+    counts = mesh.gather_counts([n_written_local, samples_local])
+    n_written = int(counts[:, 0].sum())
+    world = mesh.world
+    if mesh.rank == 0:
+        part_paths = [f"{out_bam_path}.part{r:04d}" for r in range(world)]
+        missing = [p for p in part_paths if not os.path.exists(p)]
+        if missing:
+            LOGGER.error(
+                f"Cannot merge per-rank BAM parts: {len(missing)} of "
+                f"{len(part_paths)} parts are not visible on this host's "
+                f"filesystem (first missing: {missing[0]}). Multi-process "
+                "inference needs --out-bam on storage shared by all "
+                f"ranks, or merge the {out_bam_path}.partNNNN files "
+                "yourself."
+            )
+        else:
+            scanner = FastBamScanner(part_paths[0])
+            with BamWriter(out_bam_path, scanner.header) as out_bam:
+                for part in part_paths:
+                    for rec in FastBamScanner(part):
+                        out_bam.write(rec)
+            LOGGER.info(
+                f"Merged {n_written} records from {world} rank parts into "
+                f"{out_bam_path} ({int(counts[:, 1].sum()):,} samples "
+                "called)"
+            )
+            for part in part_paths:
+                os.remove(part)
+    mesh.barrier()
     return n_written
 
 
@@ -934,7 +1124,19 @@ class ModelHandle:
         self.metadata = metadata
         self.compute_dtype = compute_dtype
         self.device = _model_device(self.model)
+        self.replicas = None
         self._eval = None
+
+    def shard_over(self, devices):
+        """Data-parallel device stage: one replica of this handle on each
+        of ``devices``; ``infer_from_pod5_and_bam``'s device stage splits
+        each batch's rows over them (``_resolve_models``). The forward is
+        row-independent, so the logits equal the one-device stage's."""
+        self.replicas = [
+            ModelHandle(copy.deepcopy(self.model).to(dev), self.metadata,
+                        self.compute_dtype)
+            for dev in devices
+        ]
 
     @property
     def eval_fn(self):

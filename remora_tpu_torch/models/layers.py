@@ -33,9 +33,11 @@ return the new running statistics beside the output, as the JAX functions
 do (the models write them into their BatchNorm buffers under
 ``torch.no_grad()``); ``lstm`` runs the K2/K3 kernel pair on CUDA tensors,
 and ``REMORA_TPU_CONVBN=pallas`` runs the stride-1 conv blocks' backward
-as K6.
+as K6. Inside ``synced_bn(mesh)`` every train-mode BatchNorm takes the
+global batch's statistics over a data-parallel mesh (``BNSync``).
 """
 
+import contextlib
 import math
 import os
 
@@ -113,21 +115,30 @@ def batchnorm_init(num_feat, dtype=torch.float32, device=None):
     return params, state
 
 
-def batchnorm(params, state, x, train=False, momentum=0.1, eps=1e-5):
+def _unbiased(var, n):
+    """The biased variance over n rows made unbiased (n a count or, under
+    ``BNSync``, a 0-d tensor)."""
+    if torch.is_tensor(n):
+        return var * n / (n - 1).clamp(min=1)
+    return var * n / max(n - 1, 1)
+
+
+def batchnorm(params, state, x, train=False, momentum=0.1, eps=1e-5,
+              sync=None):
     """BatchNorm over the last axis of x (B, T, C). Returns (out,
     new_state): eval mode normalises with the running statistics and keeps
     them; train mode normalises with the batch's and moves the running ones
-    (unbiased variance), outside the graph."""
+    (unbiased variance), outside the graph; ``sync`` (a ``BNSync``) takes
+    the global batch's statistics in train mode."""
+    if train and sync is not None:
+        out, mean, var = BatchNormSync.apply(x, params["gamma"],
+                                             params["beta"], eps, sync)
+        return out, _moved_state(state, mean, var, sync.n, momentum)
     if train:
         mean = x.mean((0, 1))
         var = x.var((0, 1), correction=0)
         n = x.shape[0] * x.shape[1]
-        with torch.no_grad():
-            unbiased = var * n / max(n - 1, 1)
-            new_state = {
-                "mean": (1 - momentum) * state["mean"] + momentum * mean,
-                "var": (1 - momentum) * state["var"] + momentum * unbiased,
-            }
+        new_state = _moved_state(state, mean, var, n, momentum)
     else:
         mean, var = state["mean"], state["var"]
         new_state = state
@@ -136,6 +147,102 @@ def batchnorm(params, state, x, train=False, momentum=0.1, eps=1e-5):
     else:
         inv = torch.rsqrt(var + eps)
     return (x - mean) * (inv * params["gamma"]) + params["beta"], new_state
+
+
+def _moved_state(state, mean, var, n, momentum):
+    """The running statistics moved toward a batch's (outside the graph)."""
+    with torch.no_grad():
+        return {
+            "mean": (1 - momentum) * state["mean"] + momentum * mean,
+            "var": ((1 - momentum) * state["var"]
+                    + momentum * _unbiased(var, n)),
+        }
+
+
+# ---------------- synced BatchNorm (data parallel, ``sync_bn``) -----------
+#
+# A data-parallel rank holds its shard of the global batch. ``synced_bn``
+# makes every train-mode BatchNorm in its scope normalise with the global
+# batch's statistics, as one device holding the whole batch would (the JAX
+# package's ``sync_bn``, where XLA inserts the reductions): per layer the
+# forward all-reduces (sum, row count) and then the centred sum of squares,
+# the single-device two-pass arithmetic; the backward all-reduces its two
+# per-channel sums, sum(dz) and sum(dz * xhat), in one vector before it
+# forms the conv-output cotangent. The parameter gradients stay this
+# rank's partial sums: the data-parallel step's one all-reduce adds them.
+# K6 (pallas mode) computes those sums inside its own body, so under
+# ``synced_bn`` its backward gathers x and dout over the mesh and runs on
+# the global batch, as GSPMD runs the JAX package's unpartitionable
+# ``pallas_call`` on replicated operands.
+
+_SYNC_MESH = None
+
+
+@contextlib.contextmanager
+def synced_bn(mesh):
+    """Train-mode BatchNorm inside takes the global batch's statistics
+    over ``mesh`` (a ``parallel.mesh.Mesh``; None leaves it per rank)."""
+    global _SYNC_MESH
+    saved, _SYNC_MESH = _SYNC_MESH, mesh
+    try:
+        yield
+    finally:
+        _SYNC_MESH = saved
+
+
+class BNSync:
+    """One train-mode BatchNorm call's collectives over a mesh; ``n`` is
+    the global row count of its forward (a 0-d f32 tensor)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.n = None
+
+    def stats(self, y):
+        """(mean, biased var) of y (B, T, C) over the global batch, in y's
+        dtype (sums in f32): two all-reduces."""
+        rows = y.shape[0] * y.shape[1]
+        s = torch.cat([y.sum((0, 1), dtype=torch.float32),
+                       torch.full((1,), rows, dtype=torch.float32,
+                                  device=y.device)])
+        self.mesh.all_reduce(s)
+        self.n = s[-1]
+        mean = (s[:-1] / self.n).to(y.dtype)
+        d = (y - mean).float().square().sum((0, 1))
+        self.mesh.all_reduce(d)
+        return mean, (d / self.n).to(y.dtype)
+
+    def sums(self, dgamma, dbeta):
+        """The global sum(dz * xhat) and sum(dz): one all-reduce."""
+        s = torch.cat([dgamma, dbeta]).float()
+        self.mesh.all_reduce(s)
+        g, b = s.chunk(2)
+        return g.to(dgamma.dtype), b.to(dbeta.dtype)
+
+
+class BatchNormSync(torch.autograd.Function):
+    """(out, mean, var) of train-mode BatchNorm over the global batch
+    (``batchnorm``'s formula); gamma's and beta's gradients are this
+    rank's sums."""
+
+    @staticmethod
+    def forward(ctx, y, gamma, beta, eps, sync):
+        mean, var = sync.stats(y)
+        r = torch.rsqrt(var + eps)
+        ctx.save_for_backward(gamma, (y - mean) * r, r)
+        ctx.sync = sync
+        ctx.mark_non_differentiable(mean, var)
+        return (y - mean) * (r * gamma) + beta, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        gamma, xhat, r = ctx.saved_tensors
+        dgamma = (dout * xhat).sum((0, 1))
+        dbeta = dout.sum((0, 1))
+        g_dgamma, g_dbeta = ctx.sync.sums(dgamma, dbeta)
+        n = ctx.sync.n
+        dy = gamma * r * (dout - g_dbeta / n - xhat * (g_dgamma / n))
+        return dy, dgamma, dbeta, None, None
 
 
 # ------------- fused Conv1d + BatchNorm1d(train) + swish -------------
@@ -163,26 +270,33 @@ def _conv_nobias(w, x, stride):
     return F.conv1d(x.transpose(1, 2), w, None, stride=stride).transpose(1, 2)
 
 
-def _bn_swish_fwd(y, gamma, beta, eps):
-    """(out, mu, var, r, xhat) of swish(BN_train(y))."""
-    mu = y.mean((0, 1))
-    var = y.var((0, 1), correction=0)
+def _bn_swish_fwd(y, gamma, beta, eps, sync=None):
+    """(out, mu, var, r, xhat) of swish(BN_train(y)); ``sync`` takes the
+    global batch's statistics."""
+    if sync is None:
+        mu = y.mean((0, 1))
+        var = y.var((0, 1), correction=0)
+    else:
+        mu, var = sync.stats(y)
     r = torch.rsqrt(var + eps)
     xhat = (y - mu) * r
     z = gamma * xhat + beta
     return z * torch.sigmoid(z), mu, var, r, xhat
 
 
-def _folded_dy(dout, gamma, beta, xhat, r):
+def _folded_dy(dout, gamma, beta, xhat, r, sync=None):
     """(dy, dgamma, dbeta): the BN+swish backward with the folded identity
-    (``_cbs_bwd``'s order of operations)."""
+    (``_cbs_bwd``'s order of operations). Under ``sync`` dy takes the
+    global sums and row count; dgamma and dbeta stay this rank's."""
     z = gamma * xhat + beta
     s = torch.sigmoid(z)
     dz = dout * (s + z * s * (1.0 - s))
     dgamma = (dz * xhat).sum((0, 1))
     dbeta = dz.sum((0, 1))
-    n = xhat.shape[0] * xhat.shape[1]
-    dy = gamma * r * (dz - dbeta / n - xhat * (dgamma / n))
+    g_dgamma, g_dbeta, n = dgamma, dbeta, xhat.shape[0] * xhat.shape[1]
+    if sync is not None:
+        (g_dgamma, g_dbeta), n = sync.sums(dgamma, dbeta), sync.n
+    dy = gamma * r * (dz - g_dbeta / n - xhat * (g_dgamma / n))
     return dy, dgamma, dbeta
 
 
@@ -196,15 +310,17 @@ def _conv_grads(x, w, dy, stride):
 
 class ConvBNSwish(torch.autograd.Function):
     """(out, mu, var) of swish(BN_train(conv(x, w))); mu and var are the
-    biasless batch statistics, for the running-state update only."""
+    biasless batch statistics, for the running-state update only. Every
+    core takes a ``BNSync`` (or None) last: the global batch's statistics
+    and sums."""
 
     @staticmethod
-    def forward(ctx, w, b, gamma, beta, x, stride, eps):
+    def forward(ctx, w, b, gamma, beta, x, stride, eps, sync=None):
         del b  # cancels in the normalisation; its gradient is sum(dy)
         out, mu, var, r, _ = _bn_swish_fwd(_conv_nobias(w, x, stride), gamma,
-                                           beta, eps)
+                                           beta, eps, sync)
         ctx.save_for_backward(w, gamma, beta, x, mu, r)
-        ctx.stride = stride
+        ctx.stride, ctx.sync = stride, sync
         ctx.mark_non_differentiable(mu, var)
         return out, mu, var
 
@@ -212,9 +328,10 @@ class ConvBNSwish(torch.autograd.Function):
     def backward(ctx, dout, _dmu, _dvar):
         w, gamma, beta, x, mu, r = ctx.saved_tensors
         y = _conv_nobias(w, x, ctx.stride)  # recompute: cheaper than residuals
-        dy, dgamma, dbeta = _folded_dy(dout, gamma, beta, (y - mu) * r, r)
+        dy, dgamma, dbeta = _folded_dy(dout, gamma, beta, (y - mu) * r, r,
+                                       ctx.sync)
         dw, dx = _conv_grads(x, w, dy, ctx.stride)
-        return dw, dy.sum((0, 1)), dgamma, dbeta, dx, None, None
+        return dw, dy.sum((0, 1)), dgamma, dbeta, dx, None, None, None
 
 
 class ConvBNSwishResid(torch.autograd.Function):
@@ -222,21 +339,21 @@ class ConvBNSwishResid(torch.autograd.Function):
     the backward reads it instead of recomputing the conv."""
 
     @staticmethod
-    def forward(ctx, w, b, gamma, beta, x, stride, eps):
+    def forward(ctx, w, b, gamma, beta, x, stride, eps, sync=None):
         del b
         out, mu, var, r, xhat = _bn_swish_fwd(_conv_nobias(w, x, stride),
-                                              gamma, beta, eps)
+                                              gamma, beta, eps, sync)
         ctx.save_for_backward(w, gamma, beta, x, xhat, r)
-        ctx.stride = stride
+        ctx.stride, ctx.sync = stride, sync
         ctx.mark_non_differentiable(mu, var)
         return out, mu, var
 
     @staticmethod
     def backward(ctx, dout, _dmu, _dvar):
         w, gamma, beta, x, xhat, r = ctx.saved_tensors
-        dy, dgamma, dbeta = _folded_dy(dout, gamma, beta, xhat, r)
+        dy, dgamma, dbeta = _folded_dy(dout, gamma, beta, xhat, r, ctx.sync)
         dw, dx = _conv_grads(x, w, dy, ctx.stride)
-        return dw, dy.sum((0, 1)), dgamma, dbeta, dx, None, None
+        return dw, dy.sum((0, 1)), dgamma, dbeta, dx, None, None, None
 
 
 class ConvBNSwishPacked(torch.autograd.Function):
@@ -247,9 +364,9 @@ class ConvBNSwishPacked(torch.autograd.Function):
     ``ConvBNSwishResid``'s."""
 
     @staticmethod
-    def forward(ctx, w, b, gamma, beta, x, stride, eps):
+    def forward(ctx, w, b, gamma, beta, x, stride, eps, sync=None):
         return ConvBNSwishResid.forward(ctx, w, b, gamma, beta, x, stride,
-                                        eps)
+                                        eps, sync)
 
     @staticmethod
     def backward(ctx, dout, _dmu, _dvar):
@@ -261,34 +378,54 @@ class ConvBNSwishPacked(torch.autograd.Function):
         dz = dout.to(f32) * (s + z * s * (1.0 - s))
         dgamma = (dz * xh).sum((0, 1))
         dbeta = dz.sum((0, 1))
-        n = xhat.shape[0] * xhat.shape[1]
-        dy = ((g * r32) * (dz - dbeta / n - xh * (dgamma / n))).to(x.dtype)
+        g_dgamma, g_dbeta, n = dgamma, dbeta, xhat.shape[0] * xhat.shape[1]
+        if ctx.sync is not None:
+            (g_dgamma, g_dbeta), n = ctx.sync.sums(dgamma, dbeta), ctx.sync.n
+        dy = ((g * r32) * (dz - g_dbeta / n - xh * (g_dgamma / n))).to(
+            x.dtype)
         db = dy.to(f32).sum((0, 1))
         dw, dx = _conv_grads(x, w, dy, ctx.stride)
         return (dw, db.to(w.dtype), dgamma.to(gamma.dtype),
-                dbeta.to(beta.dtype), dx, None, None)
+                dbeta.to(beta.dtype), dx, None, None, None)
 
 
 class ConvBNSwishK6(torch.autograd.Function):
     """``ConvBNSwish`` whose backward is K6 (``kernels.convbn``, stride 1):
     ``_cbs_bwd_pallas``, with dw and db cast to w's dtype and dgamma and
-    dbeta to gamma's. The forward is ``ConvBNSwish``'s."""
+    dbeta to gamma's. The forward is ``ConvBNSwish``'s.
+
+    Under ``sync`` K6 runs on the global batch: x and dout are gathered
+    over the mesh (every rank holds a shard of one size), dx keeps this
+    rank's rows, and dw, db, dgamma and dbeta, which are then the global
+    sums, are divided by the world size so the step's all-reduce adds them
+    back up."""
 
     @staticmethod
-    def forward(ctx, w, b, gamma, beta, x, stride, eps):
-        return ConvBNSwish.forward(ctx, w, b, gamma, beta, x, stride, eps)
+    def forward(ctx, w, b, gamma, beta, x, stride, eps, sync=None):
+        return ConvBNSwish.forward(ctx, w, b, gamma, beta, x, stride, eps,
+                                   sync)
 
     @staticmethod
     def backward(ctx, dout, _dmu, _dvar):
         from remora_tpu_torch.kernels import convbn
 
         w, gamma, beta, x, mu, r = ctx.saved_tensors
+        dout = dout.to(x.dtype)
+        rows = x.shape[0]
+        mesh = None if ctx.sync is None else ctx.sync.mesh
+        if mesh is not None:
+            x, dout = mesh.all_gather(x), mesh.all_gather(dout)
         dx, dw, db, dgamma, dbeta = convbn.conv_bn_swish_bwd(
-            x, dout.to(x.dtype), w, gamma, beta, mu, r, stride=ctx.stride,
+            x, dout, w, gamma, beta, mu, r, stride=ctx.stride,
             need_dx=ctx.needs_input_grad[4],
         )
+        if mesh is not None:
+            if dx is not None:
+                dx = dx[mesh.rank * rows:(mesh.rank + 1) * rows]
+            dw, db, dgamma, dbeta = (t / mesh.world
+                                     for t in (dw, db, dgamma, dbeta))
         return (dw.to(w.dtype), db.to(w.dtype), dgamma.to(gamma.dtype),
-                dbeta.to(beta.dtype), dx, None, None)
+                dbeta.to(beta.dtype), dx, None, None, None)
 
 
 CONVBN_MODES = ("plain", "remat", "fused", "fused_resid", "packed", "pallas")
@@ -306,11 +443,14 @@ def convbn_impl(device):
     return mode
 
 
-def _cbs_plain(w, b, gamma, beta, x, stride, eps):
+def _cbs_plain(w, b, gamma, beta, x, stride, eps, sync=None):
     """(out, mean, var) of swish(BatchNorm1d_train(Conv1d(x))), the plain
     path's arithmetic (``batchnorm``'s formula); mean and var (with the
     bias) leave the graph."""
     y = conv1d({"w": w, "b": b}, x, stride)
+    if sync is not None:
+        out, mean, var = BatchNormSync.apply(y, gamma, beta, eps, sync)
+        return swish(out), mean, var
     mean = y.mean((0, 1))
     var = y.var((0, 1), correction=0)
     out = (y - mean) * (torch.rsqrt(var + eps) * gamma) + beta
@@ -324,18 +464,21 @@ def conv_bn_swish(conv_params, bn_params, state, x, stride=1, train=False,
     "plain" (autograd through BN), "remat" (the plain path recomputed in
     the backward; the running-state update stays outside the recompute),
     "fused" (``ConvBNSwish``), "fused_resid", "packed" or "pallas" (K6 for
-    stride-1 blocks); None picks by ``convbn_impl``."""
+    stride-1 blocks); None picks by ``convbn_impl``. Inside ``synced_bn``
+    train mode takes the global batch's statistics in every mode."""
     if not train:
         y = conv1d(conv_params, x, stride)
         return swish(batchnorm(bn_params, state, y)[0]), state
     if impl is None:
         impl = convbn_impl(x.device)
+    sync = None if _SYNC_MESH is None else BNSync(_SYNC_MESH)
     if impl == "plain":
         y = conv1d(conv_params, x, stride)
-        y, new_state = batchnorm(bn_params, state, y, True, momentum, eps)
+        y, new_state = batchnorm(bn_params, state, y, True, momentum, eps,
+                                 sync)
         return swish(y), new_state
     args = (conv_params["w"], conv_params["b"], bn_params["gamma"],
-            bn_params["beta"], x, stride, eps)
+            bn_params["beta"], x, stride, eps, sync)
     if impl == "remat":
         out, mu, var = torch.utils.checkpoint.checkpoint(
             _cbs_plain, *args, use_reentrant=False)
@@ -354,15 +497,12 @@ def conv_bn_swish(conv_params, bn_params, state, x, stride=1, train=False,
             raise RemoraError(f"unknown conv_bn_swish impl {impl!r}")
         out, mu, var = core.apply(*args)
         mu = mu + conv_params["b"].detach()
-    with torch.no_grad():
+    if sync is None:
         y_cols = (x.shape[1] - conv_params["w"].shape[2]) // stride + 1
         n = x.shape[0] * y_cols
-        unbiased = var * n / max(n - 1, 1)
-        new_state = {
-            "mean": (1 - momentum) * state["mean"] + momentum * mu,
-            "var": (1 - momentum) * state["var"] + momentum * unbiased,
-        }
-    return out, new_state
+    else:
+        n = sync.n
+    return out, _moved_state(state, mu, var, n, momentum)
 
 
 def apply_conv_bn_swish(conv, bn, x, train=False):

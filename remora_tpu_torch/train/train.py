@@ -14,9 +14,13 @@ and checkpoints.
 with no GPU and no device named it raises. ``steps_per_launch > 1`` runs K
 optimizer steps per call over K batches put on the device at once (the JAX
 package's ``lax.scan`` window); ``REMORA_TPU_JAX_TRACE_DIR`` writes a
-torch.profiler trace of the first epoch there. Not ported yet (raises
-``RemoraError`` naming its ROADMAP item): ``mesh``, ``sync_bn`` and
-multihost data parallelism.
+torch.profiler trace of the first epoch there. ``mesh`` (a
+``parallel.mesh.Mesh``: this process's rank of a data-parallel group, on
+the mesh's device) trains data-parallel: each rank streams its own
+super-batch stripe of batch_size / world chunks a step, the step makes one
+all-reduce (``parallel.mesh.make_dp_train_step``; ``sync_bn`` for
+global-batch BatchNorm), validation splits every batch over the ranks, and
+every rank writes the same logs and checkpoints into its own ``out_path``.
 
 Precision: the f32 path runs convs and matmuls in full f32 (TF32 off).
 ``bf16_compute`` runs the forward and backward on bf16 casts of the f32
@@ -100,13 +104,16 @@ def train_forward(model, sigs, enc_kmers, compute_dtype=None,
 
 
 def make_loss_fn(model, high_conf_incorrect_thr_frac=None,
-                 compute_dtype=None, reduction="mean", channels_last=False):
+                 compute_dtype=None, reduction="mean", channels_last=False,
+                 mesh=None):
     """CE loss closure: ``loss_fn(sigs, enc_kmers, labels) -> (loss,
     n_filtered)`` (the model's BatchNorm buffers move as a side effect).
 
     ``reduction="sum"`` returns the SUM of kept per-example losses and a
     third element ``n_kept``, from which a data-parallel caller rebuilds
-    the exact global masked mean."""
+    the exact global masked mean. ``mesh`` (a ``parallel.mesh.Mesh``)
+    takes the filter's dynamic threshold over the global batch: every
+    rank's confidences and matches are gathered once."""
 
     def loss_fn(sigs, enc_kmers, labels):
         logits = train_forward(model, sigs, enc_kmers, compute_dtype,
@@ -120,23 +127,28 @@ def make_loss_fn(model, high_conf_incorrect_thr_frac=None,
             n_filt = torch.zeros((), dtype=torch.int32, device=logits.device)
         else:
             conf_thresh, max_frac_skip = high_conf_incorrect_thr_frac
-            max_nr_skip = int(np.floor(bsz * max_frac_skip))
             preds = torch.softmax(logits.detach(), 1)
             highest_preds = preds.max(1).values
             high_conf_cl = preds.argmax(1)
             cl_match = labels == high_conf_cl
-            n_mm = bsz - cl_match.sum()
-            # confidences of mismatched examples, descending
+            # confidences of mismatched examples (the global batch's under
+            # a mesh), descending
             mm_preds = torch.where(
                 cl_match, torch.full_like(highest_preds, -np.inf),
                 highest_preds,
             )
+            if mesh is not None:
+                mm_preds = mesh.all_gather(mm_preds)
+            n_all = mm_preds.shape[0]
+            max_nr_skip = int(np.floor(n_all * max_frac_skip))
+            n_mm = (mm_preds > -np.inf).sum()
             mm_sorted = -torch.sort(-mm_preds).values
             thresh = torch.tensor(conf_thresh, dtype=preds.dtype,
                                   device=preds.device)
             dyn_thresh = torch.where(
                 n_mm > max_nr_skip,
-                torch.maximum(thresh, mm_sorted[min(max_nr_skip, bsz - 1)]),
+                torch.maximum(thresh,
+                              mm_sorted[min(max_nr_skip, n_all - 1)]),
                 thresh,
             )
             mask = cl_match | (highest_preds < dyn_thresh)
@@ -233,7 +245,7 @@ def make_train_step_raw_multi(step, use_grad_clip=False):
     ``grad_threshs`` stay frozen over the window."""
 
     def multi(*arrays, grad_threshs=None):
-        outs = [step(*(a[j] for a in arrays), grad_threshs)
+        outs = [step(*(a[j] for a in arrays), grad_threshs=grad_threshs)
                 for j in range(arrays[0].shape[0])]
         losses, n_filts, grad_maxs = zip(*outs)
         return (torch.stack(losses), torch.stack(n_filts),
@@ -277,14 +289,6 @@ def set_learning_rate(optimizer, lr):
     for group in optimizer.param_groups:
         group["lr"] = lr
     return optimizer
-
-
-def _not_ported(mesh, sync_bn):
-    if mesh is not None or sync_bn:
-        raise RemoraError(
-            "data-parallel training (mesh, sync_bn, multihost) is not "
-            "ported yet (ROADMAP queue 1 item 7)"
-        )
 
 
 def _start_trace(device):
@@ -341,16 +345,22 @@ def train_model(
     steps_per_launch=1,
     device=None,
 ):
+    if mesh is not None:
+        # a rank trains on its mesh device
+        if device is not None and torch.device(device) != mesh.device:
+            raise RemoraError(f"device {device} is not the mesh's "
+                              f"{mesh.device}")
+        device = mesh.device
     device = resolve_device(device)
-    _not_ported(mesh, sync_bn)
     L.convbn_impl(device)  # refuses an unknown REMORA_TPU_CONVBN mode
     out_path = str(out_path)
     os.makedirs(out_path, exist_ok=True)
-    seed = (
-        np.random.randint(0, np.iinfo(np.uint32).max, dtype=np.uint32)
-        if seed is None
-        else seed
-    )
+    if seed is None:
+        seed = np.random.randint(0, np.iinfo(np.uint32).max, dtype=np.uint32)
+        if mesh is not None:
+            # one seed on every rank: the same initial replicas
+            seed = int(mesh.broadcast(torch.tensor(
+                [int(seed)], dtype=torch.int64, device=device))[0])
     LOGGER.info(f"Seed selected is {seed}")
     np.random.seed(int(seed))
     generator = torch.Generator().manual_seed(int(seed))
@@ -479,10 +489,52 @@ def train_model(
             ext_datasets.append((e_name, e_ds))
 
     use_grad_clip = gradient_clip_num_mads is not None
+    world = 1
+    if mesh is not None:
+        from remora_tpu_torch.data.dataset import shard_for_process
+        from remora_tpu_torch.parallel import mesh as mesh_mod
+
+        world = mesh.world
+        LOGGER.info(f"Data-parallel training over {world} devices")
+        if world > 1:
+            # per-rank input sharding: every rank streams a disjoint
+            # super-batch stripe and contributes its slice of the global
+            # batch
+            if batch_size % world:
+                raise RemoraError(
+                    f"batch size ({batch_size}) must divide evenly over "
+                    f"{world} processes"
+                )
+            shard_for_process(trn_ds, mesh.rank, world)
+            trn_ds.set_batch_size(batch_size // world)
+            LOGGER.info(
+                f"Process {mesh.rank}/{world} streams "
+                f"{batch_size // world} chunks per global batch "
+                f"from its dataset stripe"
+            )
     compute_dtype = torch.bfloat16 if bf16_compute else None
     if bf16_compute:
         LOGGER.info("Training compute in bfloat16 (f32 master weights)")
-    if featurize_on_device:
+    names = (("signal", "sequence", "sequence_to_signal_mapping",
+              "sequence_lengths", "labels") if featurize_on_device
+             else ("signal", "enc_kmers", "labels"))
+    if mesh is not None:
+        # one all-reduce a step: grads, BN statistics, loss and counts
+        train_step = mesh_mod.make_dp_train_step(
+            model,
+            optimizer,
+            mesh,
+            high_conf_incorrect_thr_frac=high_conf_incorrect_thr_frac,
+            compute_dtype=compute_dtype,
+            use_grad_clip=use_grad_clip,
+            sync_bn=sync_bn,
+            featurize_args=(
+                (dataset.metadata.kmer_context_bases,
+                 dataset.metadata.chunk_width)
+                if featurize_on_device else None
+            ),
+        )
+    elif featurize_on_device:
         train_step = make_train_step_raw(
             model,
             optimizer,
@@ -492,8 +544,6 @@ def train_model(
             use_grad_clip=use_grad_clip,
             compute_dtype=compute_dtype,
         )
-        names = ("signal", "sequence", "sequence_to_signal_mapping",
-                 "sequence_lengths", "labels")
     else:
         train_step = make_train_step(
             model,
@@ -502,13 +552,12 @@ def train_model(
             use_grad_clip=use_grad_clip,
             compute_dtype=compute_dtype,
         )
-        names = ("signal", "enc_kmers", "labels")
     # every call runs a window of stacked batches: steps_per_launch steps on
     # the raw path, one step otherwise; numerics per step identical
     # (grad-clip thresholds frozen within each window)
     multi_step = make_train_step_raw_multi(train_step, use_grad_clip)
     if steps_per_launch > 1:
-        if featurize_on_device:
+        if featurize_on_device and mesh is None:
             LOGGER.info(
                 f"Launching {steps_per_launch} optimizer steps per call"
             )
@@ -519,11 +568,17 @@ def train_model(
                 "launch"
             )
             steps_per_launch = 1
-    eval_step = make_eval_step(model)
+    if mesh is not None:
+        # sharded validation: each rank computes 1/world of every batch;
+        # the gathered logits, and so validation.log, are the same bytes
+        # on every rank
+        eval_fn = mesh_mod.make_dp_eval_fn(model, mesh)
+    else:
+        eval_step = make_eval_step(model)
 
-    def eval_fn(sigs, enc_kmers):
-        return eval_step(_put(sigs, device),
-                         _put(enc_kmers, device)).cpu().numpy()
+        def eval_fn(sigs, enc_kmers):
+            return eval_step(_put(sigs, device),
+                             _put(enc_kmers, device)).cpu().numpy()
 
     rolling_mads = None
     grad_threshs = None
@@ -615,7 +670,8 @@ def train_model(
                     losses, n_filts, grad_maxs = multi_step(
                         *step_inputs, grad_threshs=grad_threshs)
                     opt_count += len(batches)
-                    n_chunks += sum(b["labels"].shape[0] for b in batches)
+                    n_chunks += sum(b["labels"].shape[0]
+                                    for b in batches) * world
                     if use_grad_clip:
                         # one RollingMAD update per step, from the window's
                         # stacked maxima (the thresholds were frozen within

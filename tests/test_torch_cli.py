@@ -20,7 +20,8 @@ Both CLIs run in-process on synthetic sets
 - ``model train --device cpu`` writes a checkpoint the JAX package
   loads;
 - without ``--device`` and without a GPU a subcommand raises (no silent
-  CPU run), and the data-parallel flags raise.
+  CPU run). The data-parallel flags run in
+  ``tests/test_torch_multiprocess.py``.
 
 Every run that forks pipeline stages is time-bounded.
 """
@@ -243,7 +244,9 @@ DRIVERS = {
 def test_driver_arguments_match_jax(kind, workdir, data_set, model_path,
                                     level_table, monkeypatch):
     """The same argv through both CLIs reaches the wrapped driver with
-    equal keyword arguments; the port's also carry the device."""
+    equal keyword arguments; the port's also carry the device, and the
+    streaming inference driver's its mesh (none without the distributed
+    options)."""
     import importlib
 
     paths = {"pod5": data_set[0], "bam": data_set[1], "model": model_path,
@@ -262,6 +265,8 @@ def test_driver_arguments_match_jax(kind, workdir, data_set, model_path,
     (want,), (got,) = calls["remora_tpu"], calls["remora_tpu_torch"]
     if kind == "train":
         assert got.pop("device") == torch.device("cpu")
+    if kind == "infer":
+        assert got.pop("mesh") is None
     if kind in ("infer", "duplex"):
         # ModelHandles of each package, f32 on the CPU (--bf16 is
         # ignored there by both CLIs)
@@ -306,23 +311,6 @@ def test_no_device_flag_without_gpu_raises(kind, workdir, data_set,
     with pytest.raises(RemoraError, match="no CUDA device"):
         run_port_cli(*argv)
     assert not out.exists()
-
-
-@pytest.mark.parametrize("flags", [
-    ["--data-parallel"], ["--sync-bn"], ["--num-processes", "2"],
-    ["--coordinator-address", "localhost:1234", "--process-id", "0"],
-])
-def test_distributed_flags_raise(flags, workdir, data_set, model_path):
-    """The data-parallel and multi-host flags parse and raise (not ported
-    yet), in ``model train`` and ``infer from_pod5_and_bam``."""
-    with pytest.raises(RemoraError, match="not ported yet"):
-        run_port_cli("model", "train", workdir / "none.cfg",
-                     "--output-path", workdir / "dist_train", *CPU, *flags)
-    if flags[0] in ("--num-processes", "--coordinator-address"):
-        with pytest.raises(RemoraError, match="not ported yet"):
-            run_port_cli("infer", "from_pod5_and_bam", *data_set,
-                         "--model", model_path, "--out-bam",
-                         workdir / "dist.bam", *CPU, *flags)
 
 
 def test_run_takes_an_argument_list(capsys):

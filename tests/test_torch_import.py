@@ -51,7 +51,8 @@ def test_port_imports_with_jax_blocked():
             "remora_tpu_torch.validate_modbam",
             "remora_tpu_torch.analyze.regions",
             "remora_tpu_torch.analyze.kmer_levels",
-            "remora_tpu_torch.analyze.plot"} <= set(mods)
+            "remora_tpu_torch.analyze.plot",
+            "remora_tpu_torch.parallel.mesh"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

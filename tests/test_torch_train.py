@@ -434,8 +434,8 @@ def test_adamw_checkpoints_resume_across_packages(synth_config):
 
 def test_train_model_options(synth_config, monkeypatch):
     """Freezing, the filter, gradient clipping, host featurization and an
-    external validation set run; unported options and a missing GPU
-    raise."""
+    external validation set run; an unknown REMORA_TPU_CONVBN mode and a
+    missing GPU raise."""
     root, config, init = synth_config
     out = root / "opts"
     _run("port", out, config, dict(SGD, epochs=1), finetune_path=init,
@@ -453,9 +453,6 @@ def test_train_model_options(synth_config, monkeypatch):
     head, rows = _table(out / "batch.log")
     assert head == ["Iteration", "Loss", "NumberFiltered"]
     assert len(rows) == 3
-    for kw in ({"mesh": object()}, {"sync_bn": True}):
-        with pytest.raises(RemoraError, match="item 7"):
-            _run("port", root / "x", config, SGD, **kw)
     monkeypatch.setenv("REMORA_TPU_CONVBN", "lanes")
     with pytest.raises(RemoraError, match="unknown REMORA_TPU_CONVBN"):
         _run("port", root / "x", config, SGD)
