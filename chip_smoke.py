@@ -39,8 +39,10 @@ printed):
    and MM/ML tags are formatted for a few synthetic reads;
 5. streaming inference, the main path: 256 synthetic reads of 4000
    bases (a BAM written by the port's ``BamWriter`` and indexed by its
-   native scan; the signal served by ``MemoryPod5`` in place of the POD5
-   container reader, which needs pyarrow and zstandard) through
+   native scan; a POD5 file written by the port's ``Pod5Writer`` and
+   read back bit for bit: VBZ through pyarrow's zstd codec, no
+   zstandard; ExtractSignal's decode alone timed over it, reads/s and
+   compressed MB/s) through
    ``infer_from_pod5_and_bam`` with phase 4's checkpoint at batch 2048,
    f32 and bf16, launch counts set to 0 before each run: K1 launches
    once per batch of 2048 calls (these counts are K1's in the kernels
@@ -76,7 +78,11 @@ printed):
    finite, the logs and checkpoints be written, K3's three bf16 parts
    launch once per bf16 step and never in f32; train chunks/s from the
    epoch timer, and one step profiled by kernel (K3's kernels and launches
-   listed apart). (6b) one f32 train step
+   listed apart); the trim leg: the first member's super batch at chunk
+   context (100, 100) through the native row trim and its NumPy path
+   (identical arrays, both timed, the host library loaded), then 2 f32
+   ``train_model`` steps on the dataset at (100, 100), K2/K3 once a step.
+   (6b) one f32 train step
    with the kernels against the same step with the plain LSTM versions;
    then the trained checkpoint loads through ``ModelHandle.load`` and calls
    one batch. (6c) ``train_model`` with ``REMORA_TPU_CONVBN=pallas``, f32
@@ -137,8 +143,8 @@ printed):
 7. the command line (run after phase 8c, on the checkpoint, reads and
    datasets of phases 4, 5, 5b, 6 and 8b): ``remora_tpu_torch.cli.main.
    run(argv)`` in-process at full width, no ``--device`` (the card), the
-   launch counts set to 0 before each subcommand, ``memory_pod5()`` for
-   those that read POD5: (a) ``model train`` on phase 6's dataset, one
+   launch counts set to 0 before each subcommand, the POD5 files read
+   through the shipped reader: (a) ``model train`` on phase 6's dataset, one
    epoch of 4 steps of 2048, f32 then ``--bf16`` (K2/K3 once a step, K3's
    bf16 parts only in bf16, finite losses, checkpoint and logs written);
    (b) ``model export`` of phase 4's checkpoint as a Dorado directory and
@@ -146,7 +152,10 @@ printed):
    from_pod5_and_bam`` on phase 5's 256 reads at ``--batch-size 2048``
    with the npz in f32 (tags equal to phase 5's driver run), the exported
    ``.pt`` in f32 (tags equal to the npz's) and the npz under ``--bf16``
-   (MM equal, ML within 1), K1 once a batch, every read written, and
+   (MM equal, ML within 1), K1 once a batch, every read written; the
+   same f32 run as a user starts it, ``python -m remora_tpu_torch infer
+   from_pod5_and_bam`` in a process of its own (tags equal to phase 5's,
+   K1 once a batch by the child's device-stage log line); and
    phase 5's refining checkpoint with ``--refine-backend device`` (K4/K5
    as planned, no read to the host, tags equal to phase 5's); (d)
    ``infer duplex_from_pod5_and_bam`` on phase 5b's first 8 pairs (K1
@@ -160,7 +169,12 @@ printed):
    subcommand that raises fails the run. These launches join the kernels
    line (K1, K2/K3, K4/K5);
 9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
-   the last line ``{"ok": true, "device": {...}}``.
+   the last line ``{"ok": true, "device": {...}}``; a run in which any
+   phase imported zstandard fails.
+
+Phases 5, 5b, 5c, 7 and 8c read real POD5 files through the port's
+``io.pod5.DatasetReader`` in every stage, the forked ExtractSignal and
+duplex pair stages included.
 
 ``python3 chip_smoke.py --lstm-kernels`` runs phases 1-3b and 3d only
 (the build, K1-K3 against their plain versions with their times,
@@ -1401,67 +1415,24 @@ def format_tags(logits, n_reads=3, seed=3):
 STREAM_READS, STREAM_BASES, STREAM_SUBSET = 256, 4000, 16
 
 
-class MemoryPod5:
-    """Stands in for the POD5 container reader (``io.pod5.DatasetReader``;
-    the card's machine has no zstandard to decode a POD5 file's signal):
-    the port's own ``Pod5Read`` records in memory, keyed by the path the
-    driver is given. Everything after the reader runs as shipped."""
-
-    SETS = {}
-
-    def __init__(self, path):
-        self._reads = MemoryPod5.SETS[str(path)]
-
-    @property
-    def read_ids(self):
-        return list(self._reads)
-
-    def reads(self, selection=None, preload=None):
-        for rid in self._reads if selection is None else selection:
-            if rid in self._reads:
-                yield self._reads[rid]
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
-@contextlib.contextmanager
-def memory_pod5():
-    """``MemoryPod5`` in place of ``io.pod5.DatasetReader`` and of the
-    drivers' imported names (the stages that fork inherit it; the duplex
-    pair builder and ``iter_signal`` import it from ``io.pod5``)."""
-    from remora_tpu_torch import prepare
-    from remora_tpu_torch.infer import infer
-    from remora_tpu_torch.io import pod5
-
-    saved = pod5.DatasetReader, infer.DatasetReader, prepare.DatasetReader
-    pod5.DatasetReader = infer.DatasetReader = MemoryPod5
-    prepare.DatasetReader = MemoryPod5
-    try:
-        yield
-    finally:
-        (pod5.DatasetReader, infer.DatasetReader,
-         prepare.DatasetReader) = saved
-
-
 def write_stream_set(root, name, n_reads, table, center, seed=12):
     """``benchmarks/synth_set.py::write_synth_set``'s reads (forward
     strand, move table, sm/sd and MD tags), their signal following the
     9-mer table: the BAM written with the port's ``BamWriter`` and indexed
-    by the port's native scan, the signal registered with ``MemoryPod5``.
-    Returns (pod5 key, BAM path)."""
+    by the port's native scan, the signal written to a POD5 file by the
+    port's ``Pod5Writer`` (VBZ through pyarrow's zstd codec) and read back
+    bit for bit by its ``DatasetReader``. Returns (POD5 path, BAM
+    path)."""
     from remora_tpu_torch.core.seq import int_to_seq
     from remora_tpu_torch.io import native
     from remora_tpu_torch.io.bam import BamHeader, BamRecord, BamWriter
-    from remora_tpu_torch.io.pod5 import Calibration, Pod5Read
+    from remora_tpu_torch.io.pod5 import DatasetReader
+    from remora_tpu_torch.io.pod5_write import Pod5Writer
     from remora_tpu_torch.io.read_index import ReadIndexedBam
     from remora_tpu_torch.refine.levels import extract_levels
 
     rng = np.random.default_rng(seed)
-    pod5_key = os.path.join(root, f"{name}.pod5")
+    pod5_path = os.path.join(root, f"{name}.pod5")
     bam_path = os.path.join(root, f"{name}.bam")
     ref_len = (STREAM_BASES + 1000) * n_reads
     header = BamHeader(
@@ -1469,14 +1440,15 @@ def write_stream_set(root, name, n_reads, table, center, seed=12):
         references=["ctg1"], lengths=[ref_len],
     )
     reads = {}
-    with BamWriter(bam_path, header) as bw:
+    with BamWriter(bam_path, header) as bw, \
+            Pod5Writer(pod5_path, sample_rate=5000) as p5w:
         for ri in range(n_reads):
             rid = f"00000000-0000-4000-8000-{seed:04d}{ri:08d}"
             int_seq, s2s, dacs = synth_read(
                 rng, STREAM_BASES,
                 lambda s: extract_levels(s, table, 9, center))
-            reads[rid] = Pod5Read(rid, dacs, Calibration(90.0, 20.0),
-                                  sample_rate=5000, num_samples=dacs.size)
+            p5w.add_read(rid, dacs, 90.0, 20.0)
+            reads[rid] = dacs
             mv = np.zeros(int(s2s[-1]), dtype=np.uint8)
             mv[s2s[:-1]] = 1
             seq = int_to_seq(int_seq)
@@ -1491,14 +1463,40 @@ def write_stream_set(root, name, n_reads, table, center, seed=12):
                           np.int8))],
                 header=header,
             ))
-    MemoryPod5.SETS[pod5_key] = reads
     scan = native.bam_scan_index(bam_path, ("mv",))
     check(scan is not None, "the native BAM scan is unavailable")
     idx = ReadIndexedBam(bam_path, req_tags={"mv"})
     check(sorted(idx.read_ids) == sorted(reads)
           and list(scan[0]) == sorted(o for rid in reads for o in idx[rid]),
           "the BAM index disagrees with the native scan")
-    return pod5_key, bam_path
+    with DatasetReader(pod5_path) as rdr:
+        back = {rec.read_id: rec.signal for rec in rdr.reads()}
+    check(back.keys() == reads.keys()
+          and all(np.array_equal(back[rid], reads[rid]) for rid in reads),
+          f"{pod5_path}: the signal read back differs from the DACs written")
+    return pod5_path, bam_path
+
+
+def extract_signal_rate(pod5_path, n_passes=3):
+    """ExtractSignal's work alone, in this process: every read of a POD5
+    file through ``io.read.iter_signal`` (the stage's generator: the
+    container, VBZ decode through pyarrow, calibration), the median of
+    ``n_passes`` passes (the file warm in the page cache). Returns (reads,
+    compressed signal bytes, median wall seconds)."""
+    import pyarrow.compute as pc
+
+    from remora_tpu_torch.io.pod5 import DatasetReader
+    from remora_tpu_torch.io.read import iter_signal
+
+    with DatasetReader(pod5_path) as rdr:
+        n_bytes = sum(pc.sum(pc.binary_length(
+            r._signal_tbl["signal"])).as_py() for r in rdr._readers)
+    walls = []
+    for _ in range(n_passes):
+        t0 = time.perf_counter()
+        n_reads = sum(err is None for _read, err in iter_signal(pod5_path))
+        walls.append(time.perf_counter() - t0)
+    return n_reads, n_bytes, statistics.median(walls)
 
 
 class _LogLines(logging.Handler):
@@ -1523,7 +1521,7 @@ def bam_tags(path, by_name=False):
     return tags
 
 
-def stream_leg(pod5_key, bam_path, handle, out_path, tag, **kwargs):
+def stream_leg(pod5_path, bam_path, handle, out_path, tag, **kwargs):
     """One run of ``infer_from_pod5_and_bam`` with the launch counts set
     to 0 first; returns ({(read id, flag, start): (MM, ML)}, counts,
     wall seconds, the driver's log lines)."""
@@ -1543,10 +1541,9 @@ def stream_leg(pod5_key, bam_path, handle, out_path, tag, **kwargs):
     RF.PLANNED_LAUNCHES = RF.HOST_ROUTED_READS = 0
     t0 = time.perf_counter()
     try:
-        with memory_pod5():
-            n_written = infer_from_pod5_and_bam(
-                pod5_key, bam_path, [handle], out_path, batch_size=BATCH,
-                **kwargs)
+        n_written = infer_from_pod5_and_bam(
+            pod5_path, bam_path, [handle], out_path, batch_size=BATCH,
+            **kwargs)
     finally:
         logger.removeHandler(handler)
     wall = time.perf_counter() - t0
@@ -1575,7 +1572,7 @@ def tag_diff(got, want):
     return mm, ml, worst
 
 
-def profile_stream(pod5_key, bam_path, path, root):
+def profile_stream(pod5_path, bam_path, path, root):
     """The device's busy and idle share over one f32 streaming run
     (torch.profiler; the forked stages never touch the card), and its
     kernels by device time."""
@@ -1589,7 +1586,7 @@ def profile_stream(pod5_key, bam_path, path, root):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _tags, counts, wall, _ = stream_leg(
-            pod5_key, bam_path, handle,
+            pod5_path, bam_path, handle,
             os.path.join(root, "stream_profiled.bam"), "stream profiled")
         torch.cuda.synchronize()
     rows = kernel_rows(prof)
@@ -1620,17 +1617,25 @@ def stream_infer(root, path, refine_path, smi, sets):
     os.environ["REMORA_TPU_BAM_INDEX_CACHE"] = "0"
     os.environ["LOG_SAFE"] = "1"
     table, center = synth_level_table()
-    pod5_key, bam_path = write_stream_set(root, "stream", STREAM_READS,
-                                          table, center)
-    sub_key, sub_bam = write_stream_set(root, "subset", STREAM_SUBSET,
-                                        table, center)
+    pod5_path, bam_path = write_stream_set(root, "stream", STREAM_READS,
+                                           table, center)
+    sub_pod5, sub_bam = write_stream_set(root, "subset", STREAM_SUBSET,
+                                         table, center)
     results, launches, rates = {}, {}, {}
+    n_read, n_bytes, wall = extract_signal_rate(pod5_path)
+    log(f"stream ExtractSignal alone: {n_read} reads, {n_bytes / 1e6:.3f} "
+        f"MB of VBZ signal in {wall:.4f} s = {n_read / wall:.1f} reads/s, "
+        f"{n_bytes / 1e6 / wall:.1f} MB/s compressed (median of 3 passes, "
+        f"file warm) [{smi}]")
+    check(n_read == STREAM_READS, f"ExtractSignal read {n_read} reads")
+    rates.update(extract_signal_reads_per_s=n_read / wall,
+                 extract_signal_mb_per_s=n_bytes / 1e6 / wall)
     for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
         handle = ModelHandle.load(path, compute_dtype=dtype)
         check(handle.device.type == "cuda", f"stream {tag}: handle on "
               f"{handle.device}")
         tags, counts, wall, lines = stream_leg(
-            pod5_key, bam_path, handle,
+            pod5_path, bam_path, handle,
             os.path.join(root, f"stream_{tag}.bam"), f"stream {tag}")
         n_calls = sum(ml.size for _mm, ml in tags.values())
         n_batches = -(-n_calls // BATCH)
@@ -1658,15 +1663,15 @@ def stream_infer(root, path, refine_path, smi, sets):
     log(f"stream bf16 vs f32: MM strings that differ {mm}, ML bytes that "
         f"differ {ml}, max |delta| {worst}")
     check(mm == 0, "stream bf16: MM strings differ from f32")
-    profile_stream(pod5_key, bam_path, path, root)
+    profile_stream(pod5_path, bam_path, path, root)
 
     # the same driver with the handle on the CPU, 16 reads
     cpu = ModelHandle.load(path, device="cpu")
     cpu_tags, counts, cpu_wall, _ = stream_leg(
-        sub_key, sub_bam, cpu, os.path.join(root, "subset_cpu.bam"),
+        sub_pod5, sub_bam, cpu, os.path.join(root, "subset_cpu.bam"),
         "subset cpu")
     card_tags, _c, _w, _l = stream_leg(
-        sub_key, sub_bam, ModelHandle.load(path),
+        sub_pod5, sub_bam, ModelHandle.load(path),
         os.path.join(root, "subset_f32.bam"), "subset f32")
     check(counts["k1"] == 0, "the CPU leg launched K1")
     check(card_tags.keys() == cpu_tags.keys()
@@ -1685,7 +1690,7 @@ def stream_infer(root, path, refine_path, smi, sets):
     for backend in ("device", "native"):
         handle = ModelHandle.load(refine_path)
         tags, counts, wall, _ = stream_leg(
-            pod5_key, bam_path, handle,
+            pod5_path, bam_path, handle,
             os.path.join(root, f"refine_{backend}.bam"),
             f"refine {backend}", refine_backend=backend)
         log(f"stream refine {backend}: {counts['written']} reads in "
@@ -1725,7 +1730,7 @@ def stream_infer(root, path, refine_path, smi, sets):
     check(ml > 0, "refine: the refiner changed no call")
     rates.update(stream_reads=STREAM_READS, stream_bases=STREAM_BASES,
                  stream_batch=BATCH)
-    sets.update(pod5=pod5_key, bam=bam_path, stream_f32_tags=results["f32"],
+    sets.update(pod5=pod5_path, bam=bam_path, stream_f32_tags=results["f32"],
                 refine_ckpt=refine_path,
                 stream_refine_tags=refine_tags["device"])
     return launches, rates
@@ -1879,11 +1884,10 @@ def duplex_leg(key, paths, handle, out_path, tag, **kwargs):
     simplex_bam, duplex_bam, pairs = paths
     t0 = time.perf_counter()
     try:
-        with memory_pod5():
-            n_written = infer_duplex(
-                simplex_pod5_path=key, simplex_bam_path=simplex_bam,
-                duplex_bam_path=duplex_bam, pairs_path=pairs,
-                models=[handle], out_bam=out_path, **kwargs)
+        n_written = infer_duplex(
+            simplex_pod5_path=key, simplex_bam_path=simplex_bam,
+            duplex_bam_path=duplex_bam, pairs_path=pairs,
+            models=[handle], out_bam=out_path, **kwargs)
     finally:
         logger.removeHandler(handler)
         handle._eval = inner
@@ -1959,7 +1963,7 @@ def duplex_split(key, paths, handle, n_pairs=4):
     caller = D.DuplexReadModCaller(timed_eval, handle.metadata)
     totals = dict.fromkeys(("reads", "align", "forward", "staging"), 0.0)
     done = 0
-    with memory_pod5(), open(pairs) as fh:
+    with open(pairs) as fh:
         (builder,), _ = D.prep_duplex_read_builder(simplex_idx, key)
         for line in fh:
             if done == n_pairs:
@@ -2000,7 +2004,7 @@ def duplex_infer(root, path, refine_path, smi, sets):
 
     from remora_tpu_torch.infer.infer import ModelHandle
     from remora_tpu_torch.io import bam
-    from remora_tpu_torch.io.pod5 import Calibration, Pod5Read
+    from remora_tpu_torch.io.pod5_write import Pod5Writer
     from remora_tpu_torch.refine.levels import extract_levels
 
     # every index from the native scan, none cached under $HOME; no tqdm
@@ -2011,17 +2015,12 @@ def duplex_infer(root, path, refine_path, smi, sets):
     table, center = synth_level_table()
     sub = os.path.join(root, "duplex")
     os.makedirs(sub)
-    reads = {}
-
-    def add_signal(rid, dacs):
-        reads[rid] = Pod5Read(rid, dacs, Calibration(90.0, 20.0),
-                              sample_rate=5000, num_samples=dacs.size)
-
-    paths = write_duplex_set(
-        sub, DUPLEX_PAIRS, DUPLEX_BASES, bam, add_signal,
-        levels_of=lambda s: extract_levels(s, table, 9, center))
     key = os.path.join(sub, "simplex.pod5")
-    MemoryPod5.SETS[key] = reads
+    with Pod5Writer(key, sample_rate=5000) as p5w:
+        paths = write_duplex_set(
+            sub, DUPLEX_PAIRS, DUPLEX_BASES, bam,
+            lambda rid, dacs: p5w.add_read(rid, dacs, 90.0, 20.0),
+            levels_of=lambda s: extract_levels(s, table, 9, center))
     # the pair without a duplex record is filtered before the stages; the
     # one without its complement's signal is among the first resolvable
     want_written = DUPLEX_PAIRS - 2
@@ -2218,11 +2217,13 @@ def convbn_mode(mode):
 
 
 def train_leg(root, config, bf16, tag, epochs=TRAIN_EPOCHS,
-              steps_per_launch=1, convbn=None):
+              steps_per_launch=1, convbn=None, epoch_steps=TRAIN_STEPS,
+              chunk_context=None):
     """``train_model`` at full width with the launch counts set to 0; K2
     and K3 must launch once per optimizer step, and in pallas mode K6 once
-    per stride-1 conv block and step. Returns (out dir, (K2, K3) launches,
-    epoch rates, K6 launches by block shape)."""
+    per stride-1 conv block and step. ``chunk_context`` (None: the
+    dataset's) trims the dataset's chunks as they load. Returns (out dir,
+    (K2, K3) launches, epoch rates, K6 launches by block shape)."""
     from remora_tpu_torch import log as port_log
     from remora_tpu_torch.kernels import convbn as CB
     from remora_tpu_torch.kernels import lstm as K
@@ -2242,12 +2243,12 @@ def train_leg(root, config, bf16, tag, epochs=TRAIN_EPOCHS,
         with convbn_mode(convbn):
             best = train_model(
                 seed=1, out_path=out, remora_dataset_path=config,
-                chunk_context=None, kmer_context_bases=None,
+                chunk_context=chunk_context, kmer_context_bases=None,
                 batch_size=BATCH, model_name="ConvLSTM_w_ref", size=SIZE,
                 train_opts=optim.TrainOpts(epochs=epochs,
                                            lr_scheduler_str="constant",
                                            learning_rate=2e-3),
-                chunks_per_epoch=TRAIN_STEPS * BATCH, num_test_chunks=BATCH,
+                chunks_per_epoch=epoch_steps * BATCH, num_test_chunks=BATCH,
                 bf16_compute=bf16, steps_per_launch=steps_per_launch,
             )
     finally:
@@ -2255,7 +2256,7 @@ def train_leg(root, config, bf16, tag, epochs=TRAIN_EPOCHS,
     launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
     parts = dict(K.LAUNCHES_BWD_MMA)
     k6 = dict(CB.LAUNCHES_BY_SHAPE)
-    steps = TRAIN_STEPS * epochs
+    steps = epoch_steps * epochs
     log(f"{tag}: train_model {steps} steps (REMORA_TPU_CONVBN="
         f"{convbn or 'auto'}, steps_per_launch {steps_per_launch}) in "
         f"{time.monotonic() - t0:.1f} s (with validation and checkpoints); "
@@ -2290,6 +2291,65 @@ def train_leg(root, config, bf16, tag, epochs=TRAIN_EPOCHS,
               f"{tag}: {name} not written")
     check(len(rates.rates) == epochs, f"{tag}: epoch rates {rates.rates}")
     return out, launches, rates.rates, k6
+
+
+# phase 6's trim leg: the dataset, stored at (200, 200), loaded at this
+# chunk context; TRIM_STEPS train steps on it
+TRIM_CONTEXT, TRIM_STEPS = (100, 100), 2
+
+
+def trim_leg(root, config, smi, n_passes=5):
+    """Phase 6's trim leg: the first member of phase 6's dataset (chunk
+    context (200, 200)) as a super batch trimmed to TRIM_CONTEXT, the
+    maps shifted by the leading cut as ``CoreDataset`` does, through the
+    port's native row trim (``csrc/host/trim.cpp``) and its NumPy path:
+    identical arrays, both timed (median of ``n_passes``); then
+    TRIM_STEPS ``train_model`` steps (f32) on the dataset at
+    TRIM_CONTEXT, K2/K3 once a step. Returns their (K2, K3) launches."""
+    from remora_tpu_torch.data import dataset as D
+    from remora_tpu_torch.io import native
+
+    check(native.get_lib() is not None, "trim: the port's host library "
+          "did not load, so the native trim cannot run")
+    with open(config) as fh:
+        member = json.load(fh)[0][0]
+    sb = D.CoreDataset(member, infinite_iter=False).load_super_batch(0)
+    lead_cut = WIDTH // 2 - TRIM_CONTEXT[0]
+    rows = (sb["sequence_to_signal_mapping"] - np.int16(lead_cut),
+            sb["sequence"], sb["sequence_lengths"])
+    new_width, seq_ctx = sum(TRIM_CONTEXT), KMER_LEN - 1
+
+    def run_native(maps, seqs, lens):
+        check(native.trim_chunk_rows(maps, seqs, lens, new_width, seq_ctx),
+              "trim: the native trim refused the super batch")
+
+    def run_plain(maps, seqs, lens):
+        D.trim_rows_numpy(seqs, maps, lens, new_width, seq_ctx)
+
+    out, walls = {}, {}
+    for name, fn in (("native", run_native), ("numpy", run_plain)):
+        walls[name] = []
+        for _ in range(n_passes):
+            arrays = [a.copy() for a in rows]
+            t0 = time.perf_counter()
+            fn(*arrays)
+            walls[name].append(time.perf_counter() - t0)
+        out[name] = arrays
+    same = all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(out["native"], out["numpy"]))
+    shrunk = int((out["native"][2] < rows[2]).sum())
+    ms = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    log(f"trim: {rows[0].shape[0]} chunks, chunk context (200, 200) -> "
+        f"{TRIM_CONTEXT}: native {ms['native']:.3f} ms, NumPy "
+        f"{ms['numpy']:.3f} ms (host, median of {n_passes}); arrays "
+        f"identical {same}; rows shortened {shrunk} [{smi}]")
+    check(same, "trim: the native trim's arrays differ from the NumPy "
+          "path's")
+    check(shrunk > 0, "trim: no row lost a base")
+    _out, launches, _rates, _k6 = train_leg(
+        root, config, False, "train_trim_f32", epochs=1,
+        epoch_steps=TRIM_STEPS, chunk_context=TRIM_CONTEXT)
+    return launches
 
 
 def _train_batch(seed=5):
@@ -2667,7 +2727,7 @@ def dp_train_rank(rank, out_dir, ckpt):
 
 def dp_infer_rank(rank, out_dir, ckpt):
     """A rank of 5c: phase 5's 256 reads (written again from the same
-    seed, the signal in this process's ``MemoryPod5``) through
+    seed into this rank's own POD5 and BAM files) through
     ``infer_from_pod5_and_bam`` on cuda:0 in f32, K1's count set to 0
     first; rank 0 merges the parts into out_dir/merged.bam."""
     import torch
@@ -2682,17 +2742,15 @@ def dp_infer_rank(rank, out_dir, ckpt):
     table, center = synth_level_table()
     own = os.path.join(out_dir, f"rank{rank}")
     os.makedirs(own)
-    pod5_key, bam_path = write_stream_set(own, "stream", STREAM_READS,
-                                          table, center)
+    pod5_path, bam_path = write_stream_set(own, "stream", STREAM_READS,
+                                           table, center)
     handle = ModelHandle.load(ckpt, device=torch.device("cuda", 0))
     K.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with memory_pod5():
-        n = infer_from_pod5_and_bam(
-            pod5_key, bam_path, [handle],
-            os.path.join(out_dir, "merged.bam"), batch_size=BATCH,
-            mesh=P.make_mesh(torch.device("cuda", 0)))
+    n = infer_from_pod5_and_bam(
+        pod5_path, bam_path, [handle], os.path.join(out_dir, "merged.bam"),
+        batch_size=BATCH, mesh=P.make_mesh(torch.device("cuda", 0)))
     wall = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"infer.rank{rank}.json"), "w") as fh:
         json.dump({"n": n, "k1": K.LAUNCHES, "wall_s": wall}, fh)
@@ -3686,7 +3744,7 @@ def prepare_leg(key, bam_path, out, refiner, tag, seed, max_chunks,
              else contextlib.nullcontext())
     t0 = time.perf_counter()
     try:
-        with memory_pod5(), timed:
+        with timed:
             dataset = extract_chunk_dataset(
                 bam_path, key, out, ("m", "5mC"), False, [Motif("CG", 0)],
                 None, STAGE_CHUNK_CONTEXT, 5, max_chunks, None, refiner,
@@ -3836,13 +3894,13 @@ def prepare_stage(root, smi):
 # takes the first DUPLEX_SMALL_PAIRS pairs of phase 5b's set; (e) the first
 # PREPARE_SUBSET reads of phase 5's set, every CG site drawn
 CLI_TRAIN_STEPS = 4
+CLI_SUBPROCESS_S = 300  # the subprocess infer's limit
 
 
-def cli_leg(argv, tag, pod5=False):
+def cli_leg(argv, tag):
     """``remora_tpu_torch.cli.main.run(argv)`` in-process, with every
-    launch count set to 0 first (under ``memory_pod5()`` for a subcommand
-    that reads POD5). Returns (counts, wall seconds, the log lines); a
-    subcommand that raises fails the phase."""
+    launch count set to 0 first. Returns (counts, wall seconds, the log
+    lines); a subcommand that raises fails the phase."""
     import torch
 
     from remora_tpu_torch.cli import main as cli_main
@@ -3861,8 +3919,7 @@ def cli_leg(argv, tag, pod5=False):
     argv = [str(a) for a in argv]
     t0 = time.perf_counter()
     try:
-        with memory_pod5() if pod5 else contextlib.nullcontext():
-            cli_main.run(argv)
+        cli_main.run(argv)
         torch.cuda.synchronize()
     except Exception as err:
         raise SmokeFailure(f"cli {tag}: {' '.join(argv[:2])} raised "
@@ -3875,6 +3932,48 @@ def cli_leg(argv, tag, pod5=False):
               "k5": DP.LAUNCHES_TB, "planned": RF.PLANNED_LAUNCHES,
               "host_routed": RF.HOST_ROUTED_READS}
     return counts, wall, handler.lines
+
+
+def cli_subprocess_infer(root, path, pod5_path, bam_path, sets, rates, smi):
+    """``python -m remora_tpu_torch infer from_pod5_and_bam`` as a user
+    runs it, in a process of its own on the card (f32, batch 2048, the
+    device stage's stats on): its tags must equal phase 5's in-process
+    f32 run's, read by read, and its device stage's log line must count
+    one K1 launch a batch. Returns those launches."""
+    from remora_tpu_torch.parallel import mesh as P
+
+    out = os.path.join(root, "cli_subprocess_f32.bam")
+    argv = [sys.executable, "-m", "remora_tpu_torch", "infer",
+            "from_pod5_and_bam", pod5_path, bam_path, "--model", path,
+            "--out-bam", out, "--batch-size", str(BATCH)]
+    env = dict(P.package_env(), REMORA_TPU_INFER_STAGE_STATS="1")
+    t0 = time.perf_counter()
+    try:
+        (output,) = P.spawn_ranks(lambda _r: argv, 1, CLI_SUBPROCESS_S,
+                                  env=env, cwd=root)
+    except Exception as err:  # noqa: BLE001 — the phase fails with it
+        raise SmokeFailure(f"cli subprocess infer: {err}") from err
+    wall = time.perf_counter() - t0
+    tags = bam_tags(out)
+    n_calls = sum(ml.size for _mm, ml in tags.values())
+    n_batches = -(-n_calls // BATCH)
+    stage = re.findall(r"Device stage: (\d+) batches, K1 launches (\d+)",
+                       output)
+    k1 = int(stage[0][1]) if len(stage) == 1 else -1
+    mm, ml, _w = tag_diff(tags, sets["stream_f32_tags"])
+    log(f"cli subprocess python -m remora_tpu_torch infer "
+        f"from_pod5_and_bam f32: {len(tags)} reads, {n_calls} calls in "
+        f"{wall:.3f} s (the process's start, imports and model load in "
+        f"it) = {len(tags) / wall:.1f} reads/s; device stage {stage}; vs "
+        f"phase 5's f32 run: MM strings that differ {mm}, ML bytes that "
+        f"differ {ml} [{smi}]")
+    check(stage == [(str(n_batches), str(n_batches))],
+          f"cli subprocess infer: the child's device stage logged "
+          f"{stage} (batches, K1 launches) for {n_batches} batches")
+    check(tags.keys() == sets["stream_f32_tags"].keys() and mm == ml == 0,
+          "cli subprocess infer: tags differ from phase 5's f32 run")
+    rates["cli_subprocess_infer_s"] = wall
+    return k1
 
 
 def write_level_file(path, table):
@@ -3926,7 +4025,7 @@ def cli_phase(root, sets, smi):
     from remora_tpu_torch.data.dataset import CoreDataset
     from remora_tpu_torch.models import model_io
 
-    path, pod5_key, bam_path = (sets[k] for k in ("ckpt", "pod5", "bam"))
+    path, pod5_path, bam_path = (sets[k] for k in ("ckpt", "pod5", "bam"))
     rates, launches = {}, {"k1_f32": 0, "k1_bf16": 0, "k2_f32": 0,
                            "k3_f32": 0, "k2_bf16": 0, "k3_bf16": 0,
                            "k4": 0, "k5": 0}
@@ -3988,9 +4087,9 @@ def cli_phase(root, sets, smi):
                                    ("bf16", path, ["--bf16"])):
         out = os.path.join(root, f"cli_infer_{tag}.bam")
         counts, wall, _ = cli_leg(
-            ["infer", "from_pod5_and_bam", pod5_key, bam_path, "--model",
+            ["infer", "from_pod5_and_bam", pod5_path, bam_path, "--model",
              model_file, "--out-bam", out, "--batch-size", BATCH, *flags],
-            f"infer {tag}", pod5=True)
+            f"infer {tag}")
         tags = results[tag] = bam_tags(out)
         n_calls = sum(ml.size for _mm, ml in tags.values())
         n_batches = -(-n_calls // BATCH)
@@ -4022,12 +4121,14 @@ def cli_phase(root, sets, smi):
           "by more than 1 from f32")
     check(ml > 0, "cli infer bf16: ML equals f32's byte for byte (the "
           "bf16 forward did not run)")
+    launches["k1_f32"] += cli_subprocess_infer(root, path, pod5_path,
+                                               bam_path, sets, rates, smi)
     # phase 5's refining checkpoint through the device refiner (K4/K5)
     out = os.path.join(root, "cli_infer_refine.bam")
     counts, wall, _ = cli_leg(
-        ["infer", "from_pod5_and_bam", pod5_key, bam_path, "--model",
+        ["infer", "from_pod5_and_bam", pod5_path, bam_path, "--model",
          sets["refine_ckpt"], "--out-bam", out, "--batch-size", BATCH,
-         "--refine-backend", "device"], "infer refine", pod5=True)
+         "--refine-backend", "device"], "infer refine")
     tags = bam_tags(out)
     mm, ml, _w = tag_diff(tags, sets["stream_refine_tags"])
     log(f"cli infer from_pod5_and_bam refine device: {len(tags)} reads in "
@@ -4053,7 +4154,7 @@ def cli_phase(root, sets, smi):
     counts, wall, _ = cli_leg(
         ["infer", "duplex_from_pod5_and_bam", sets["duplex_pod5"],
          *sets["duplex_paths"], "--model", path, "--out-bam", out,
-         "--num-reads", DUPLEX_SMALL_PAIRS], "duplex", pod5=True)
+         "--num-reads", DUPLEX_SMALL_PAIRS], "duplex")
     tags = bam_tags(out, by_name=True)
     log(f"cli infer duplex_from_pod5_and_bam: {len(tags)} pairs of "
         f"{DUPLEX_SMALL_PAIRS} in {wall:.3f} s = {len(tags) / wall:.2f} "
@@ -4076,7 +4177,7 @@ def cli_phase(root, sets, smi):
         out = os.path.join(root, f"cli_prepare_{backend}")
         np.random.seed(9)
         counts, wall, lines = cli_leg(
-            ["dataset", "prepare", pod5_key, bam_path, "--output-path", out,
+            ["dataset", "prepare", pod5_path, bam_path, "--output-path", out,
              "--mod-base", "m", "5mC", "--motif", "CG", "0",
              "--chunk-context", *STAGE_CHUNK_CONTEXT,
              "--kmer-context-bases", *STAGE_KMER_CONTEXT,
@@ -4084,7 +4185,7 @@ def cli_phase(root, sets, smi):
              PREPARE_ALL_SITES, "--num-reads", PREPARE_SUBSET,
              "--refine-kmer-level-table", levels, "--refine-rough-rescale",
              "--refine-scale-iters", 0, "--refine-backend", backend],
-            f"prepare {backend}", pod5=True)
+            f"prepare {backend}")
         ds = datasets[backend] = CoreDataset(out, infinite_iter=False)
         log(f"cli dataset prepare {backend}: {PREPARE_SUBSET} reads, "
             f"{ds.size} chunks in {wall:.3f} s (the level table's load "
@@ -4265,6 +4366,11 @@ def run_phases(stack):
         train_rates[tag] = rates
         profile_train_step(os.path.join(out, "model_final.checkpoint"),
                            bf16, tag)
+    # the trim leg: the dataset at a smaller chunk context, its K2/K3
+    # launches in the kernels line
+    for rec, n in zip(train_kernels[torch.float32],
+                      trim_leg(tmp, config, smi)):
+        rec["launches"] += n
     final = os.path.join(tmp, "train_f32", "model_final.checkpoint")
     check_train_step_vs_plain(final)
     infer_trained(final)
@@ -4364,10 +4470,10 @@ def data_parallel_only(stack, smi):
     ckpt = os.path.join(root, "convlstm_size64.npz")
     seeded_checkpoint(ckpt)
     table, center = synth_level_table()
-    pod5_key, bam_path = write_stream_set(root, "stream", STREAM_READS,
-                                          table, center)
+    pod5_path, bam_path = write_stream_set(root, "stream", STREAM_READS,
+                                           table, center)
     tags, _counts, _wall, _lines = stream_leg(
-        pod5_key, bam_path, ModelHandle.load(ckpt),
+        pod5_path, bam_path, ModelHandle.load(ckpt),
         os.path.join(root, "stream_f32.bam"), "stream f32")
     config = write_train_set(root)
     launches, rates = data_parallel(root, config, ckpt, smi,
@@ -4380,8 +4486,13 @@ def data_parallel_only(stack, smi):
 
 
 def finish(records):
-    """The kernels line, the card's line and the result line."""
+    """The kernels line, the card's line and the result line, once no
+    phase has imported zstandard (the port's POD5 codec is pyarrow's)."""
     import torch
+
+    check("zstandard" not in sys.modules,
+          "zstandard was imported: the port must read and write POD5 "
+          "without it")
 
     log(json.dumps({"kernels": records}))
     log(nvidia_smi_line())

@@ -8,7 +8,9 @@ bitwise operations and popcount products over those masks.
 """
 
 import math
+import re
 from dataclasses import dataclass
+from itertools import product
 
 import numpy as np
 
@@ -25,6 +27,14 @@ _CODE_MASK = {
     "D": 0b1101, "B": 0b1110, "N": 0b1111,
 }
 _MASK_CODE = {m: c for c, m in _CODE_MASK.items()}
+
+
+def _mask_bases(mask):
+    """Allowed canonical bases of a 4-bit mask, in alphabet order."""
+    return "".join(b for i, b in enumerate(CAN_ALPHABET) if mask >> i & 1)
+
+
+SINGLE_LETTER_CODE = {c: _mask_bases(m) for c, m in _CODE_MASK.items()}
 
 # 256-entry lookup: ASCII byte -> integer base code (or -1)
 _BYTE_TO_INT = np.full(256, -1, dtype=np.int8)
@@ -148,6 +158,25 @@ class Motif:
     @property
     def num_bases_after_focus(self):
         return len(self) - 1 - self.focus_pos
+
+    @property
+    def pattern(self):
+        # wrapped in a lookahead so overlapping occurrences are all found
+        body = "".join(f"[{SINGLE_LETTER_CODE[c]}]" for c in self.raw_motif)
+        return re.compile(f"(?=({body}))")
+
+    @property
+    def int_pattern(self):
+        """Allowed integer bases per motif position (list of arrays)."""
+        return [
+            np.flatnonzero([m >> i & 1 for i in range(4)])
+            for m in self.masks
+        ]
+
+    @property
+    def possible_kmers(self):
+        per_pos = [SINGLE_LETTER_CODE[c] for c in self.raw_motif]
+        return ["".join(kmer) for kmer in product(*per_pos)]
 
     def findall(self, int_seq):
         """Start positions of every (possibly overlapping) motif hit, as a

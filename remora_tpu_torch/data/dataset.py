@@ -38,6 +38,7 @@ from remora_tpu_torch.core import seq as sequtil
 from remora_tpu_torch.core.util import resolve_path
 from remora_tpu_torch.data import encoded_kmers
 from remora_tpu_torch.data.metadata import DatasetMetadata
+from remora_tpu_torch.io import native
 
 LOGGER = log.get_logger()
 
@@ -87,42 +88,59 @@ def check_super_batch(super_batch, chunk_width):
 def trim_sb_chunk_context(stored_cc, cc, total_seq_context, *, seqs,
                           seq_mappings, seq_lens):
     """In-place ragged trim of seq + mapping rows for a smaller chunk
-    context (reference Cython ``trim_sb_chunk_context_core``), fully
-    vectorized (no per-row Python).
+    context (reference Cython ``trim_sb_chunk_context_core``): the native
+    row kernel (``csrc/host/trim.cpp``) when the host library loads and
+    the arrays fit its layout, else its vectorized NumPy twin, which
+    gives the same arrays.
 
     Assumes ``seq_mappings`` has already been shifted by the start diff.
     """
     new_width = cc[0] + cc[1]
+    if not native.trim_chunk_rows(
+        seq_mappings, seqs, seq_lens, new_width, total_seq_context
+    ):
+        trim_rows_numpy(seqs, seq_mappings, seq_lens, new_width,
+                        total_seq_context)
+    return seqs, seq_mappings, seq_lens
+
+
+def trim_rows_numpy(seqs, seq_mappings, seq_lens, new_width, seq_ctx):
+    """The native row trim (``csrc/host/trim.cpp``) in NumPy, in place and
+    for any layout, element for element: each row keeps its bases from
+    the first whose end lies past 0 to the last that starts before
+    ``new_width``, left-aligned, the maps clipped to [0, new_width]; the
+    entries past a row's new length + 1 (maps) or new length + seq_ctx
+    (seqs) keep what the native kernel leaves there. (The JAX package's
+    NumPy path shifts and clips those padding entries too; no reader of
+    a batch looks at them.)"""
     n_rows, map_w = seq_mappings.shape
-    col = np.arange(map_w)
-    valid = col[None, :] <= seq_lens[:, None]
-    guarded = np.where(valid, seq_mappings, np.int32(1 << 30))
+    rows = np.arange(n_rows)
+    lens = seq_lens.astype(np.int64)
+    col = np.arange(map_w)[None, :]
+    maps = seq_mappings
+    # first: the first base whose (shifted) end maps beyond 0, at most
+    # the row's last base
+    ends = np.zeros((n_rows, map_w), bool)
+    ends[:, :-1] = maps[:, 1:] > 0
+    first = np.argmax(ends | (col == lens[:, None] - 1), axis=1)
+    # last: the last base (of the row's) that starts before new_width,
+    # at least base 0
+    starts = ((maps < new_width) | (col == 0)) & (col < lens[:, None])
+    last = map_w - 1 - np.argmax(starts[:, ::-1], axis=1)
+    new_lens = last - first + 1
 
-    # first base whose (shifted) end maps beyond 0 becomes base 0
-    ends_after_zero = (guarded[:, 1:] > 0) & valid[:, 1:]
-    first_base = np.argmax(ends_after_zero, axis=1)
-    # last base whose start precedes new_width becomes the final base
-    starts_before_w = (guarded[:, :-1] < new_width) & valid[:, :-1]
-    last_base = map_w - 2 - np.argmax(starts_before_w[:, ::-1], axis=1)
-    new_lens = (last_base - first_base + 1).astype(seq_lens.dtype)
+    src = np.minimum(first[:, None] + col, map_w - 1)
+    moved = np.clip(np.take_along_axis(maps, src, axis=1), 0, new_width)
+    moved[:, 0] = 0
+    moved[rows, new_lens] = new_width
+    maps[:] = np.where(col <= new_lens[:, None], moved, maps)
 
-    # left-shift every row by its first_base via a per-row gather
-    map_src = np.minimum(first_base[:, None] + col[None, :], map_w - 1)
-    shifted = np.take_along_axis(seq_mappings, map_src, axis=1)
-    np.clip(shifted, 0, new_width, out=shifted)
-    shifted[:, 0] = 0
-    np.put_along_axis(
-        shifted, new_lens[:, None].astype(np.int64), new_width, axis=1
-    )
-    seq_mappings[:] = shifted
-
-    seq_col = np.arange(seqs.shape[1])
-    seq_src = np.minimum(
-        first_base[:, None] + seq_col[None, :], seqs.shape[1] - 1
-    )
+    seq_col = np.arange(seqs.shape[1])[None, :]
+    seq_src = np.where(seq_col < (new_lens + seq_ctx)[:, None],
+                       np.minimum(first[:, None] + seq_col,
+                                  seqs.shape[1] - 1), seq_col)
     seqs[:] = np.take_along_axis(seqs, seq_src, axis=1)
     seq_lens[:] = new_lens
-    return seqs, seq_mappings, seq_lens
 
 
 def _sampled_file_digest(path, block_size=2**18, n_blocks=8):

@@ -58,6 +58,7 @@ from remora_tpu_torch.io.bam import BamWriter, FastBamScanner
 from remora_tpu_torch.io.pod5 import DatasetReader
 from remora_tpu_torch.io.read import extract_alignments, iter_signal
 from remora_tpu_torch.io.read_index import ReadIndexedBam, get_read_ids
+from remora_tpu_torch.kernels import lstm as lstm_kernels
 from remora_tpu_torch.kernels.encoded_kmers import compute_encoded_kmer_batch
 from remora_tpu_torch.models import model_io
 
@@ -369,12 +370,15 @@ def run_model_batched(batches_q, called_batches_q, eval_fns,
     each batch's forward and its device->host copy into pinned memory are
     queued on a side CUDA stream and fenced by an event, so the copy of
     batch N overlaps the host->device copy and compute of batch N+1; the
-    host waits on a batch's events only when it emits that batch.
+    host waits on a batch's events only when it emits that batch. With
+    REMORA_TPU_INFER_STAGE_STATS set it logs its batches, K1's launches
+    while it ran (``kernels.lstm.LAUNCHES``) and its per-batch host times.
     """
     inflight = max(1, int(os.getenv("REMORA_TPU_INFER_INFLIGHT", "2")))
     pending = deque()
     stats = {"batches": 0, "dispatch_s": 0.0, "fetch_s": 0.0,
              "wait_s": 0.0}
+    k1_before = lstm_kernels.LAUNCHES
     replicas = {
         cb: [(None, fns)] if callable(fns) else list(fns)
         for cb, fns in eval_fns.items()
@@ -432,7 +436,8 @@ def run_model_batched(batches_q, called_batches_q, eval_fns,
     if os.getenv("REMORA_TPU_INFER_STAGE_STATS"):
         n = max(stats["batches"], 1)
         LOGGER.info(
-            f"Device stage: {stats['batches']} batches, per-batch "
+            f"Device stage: {stats['batches']} batches, K1 launches "
+            f"{lstm_kernels.LAUNCHES - k1_before}, per-batch "
             f"dispatch {stats['dispatch_s'] / n * 1e3:.1f}ms, "
             f"fetch {stats['fetch_s'] / n * 1e3:.1f}ms, "
             f"input-wait {stats['wait_s'] / n * 1e3:.1f}ms"

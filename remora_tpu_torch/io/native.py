@@ -1,13 +1,13 @@
 """ctypes bindings for the port's native host helpers in ``csrc/host/``.
 
-Counterpart of the aligner, banded-DP, Theil–Sen and BAM-scan part of
-``remora_tpu/io/native.py``. The port builds its own copies of
-``align.cpp``, ``banded_dp.cpp``, ``rescale.cpp`` and ``bam_scan.cpp``
-(``remora_tpu_torch/csrc/host/``) with ``g++`` at first use, into the
-gitignored ``csrc/build/``. When no compiler is available the callers
-take their NumPy or Python paths, as in the JAX package
-(``sg_align_native`` runs ``sg_align_numpy``; ``banded_dp_path``,
-``theil_sen_slope`` and ``bam_scan_index`` return None).
+Counterpart of ``remora_tpu/io/native.py``. The port builds its own
+copies of ``align.cpp``, ``banded_dp.cpp``, ``rescale.cpp``,
+``bam_scan.cpp`` and ``trim.cpp`` (``remora_tpu_torch/csrc/host/``) with
+``g++`` at first use, into the gitignored ``csrc/build/``. When no
+compiler is available the callers take their NumPy or Python paths, as
+in the JAX package (``sg_align_native`` runs ``sg_align_numpy``;
+``banded_dp_path``, ``theil_sen_slope`` and ``bam_scan_index`` return
+None, ``trim_chunk_rows`` False).
 """
 
 import ctypes
@@ -125,6 +125,13 @@ def get_lib():
         f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         lib.theil_sen_median_slope.restype = ctypes.c_double
         lib.theil_sen_median_slope.argtypes = [f64p, f64p, ctypes.c_int64]
+        i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+        i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+        lib.trim_chunk_rows.restype = None
+        lib.trim_chunk_rows.argtypes = [
+            i16p, ctypes.c_int64, i8p, ctypes.c_int64,
+            i16p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ]
         _LIB = lib
         return _LIB
     except Exception as e:
@@ -354,3 +361,37 @@ def bam_scan_index(path, req_tags=()):
     no_pi = np.uint32(0xFFFFFFFF)
     pis = [None if o == no_pi else at(o) for o in pi_offs]
     return offsets, flags, names, pis, has_req
+
+
+def trim_chunk_rows(seq_mappings, seqs, seq_lens, new_width, seq_ctx):
+    """Native in-place super-batch context trim; returns False when the
+    library is unavailable or the arrays do not fit its layout (the
+    caller then takes the NumPy path).
+
+    Arrays must be C-contiguous with the v3 dataset dtypes
+    (maps int16, seqs int8, lens int16).
+    """
+    lib = get_lib()
+    if lib is None:
+        return False
+    ok_layout = (
+        seq_mappings.dtype == np.int16
+        and seqs.dtype == np.int8
+        and seq_lens.dtype == np.int16
+        and seq_mappings.flags.c_contiguous
+        and seqs.flags.c_contiguous
+        and seq_lens.flags.c_contiguous
+    )
+    if not ok_layout:
+        return False
+    lib.trim_chunk_rows(
+        seq_mappings,
+        np.int64(seq_mappings.shape[1]),
+        seqs,
+        np.int64(seqs.shape[1]),
+        seq_lens,
+        np.int64(seq_lens.shape[0]),
+        np.int32(new_width),
+        np.int32(seq_ctx),
+    )
+    return True

@@ -7,7 +7,8 @@ encoding -> zigzag -> svb16 stream-variable-byte (1-bit key per element,
 1-or-2-byte payload) -> zstd.
 
 This module parses the footer flatbuffer directly, reads the embedded
-tables through pyarrow, and decodes vbz with vectorized NumPy.
+tables through pyarrow, and decodes vbz with vectorized NumPy, the zstd
+frames through pyarrow's codec (no ``zstandard``).
 
 Reference analog: ``src/remora/io.py:415–520`` (iter_pod5_reads /
 iter_signal via the pod5 package).
@@ -77,12 +78,61 @@ def parse_footer(buf):
     return files
 
 
-def vbz_decode(compressed, num_samples):
-    """Decode one vbz-compressed signal row to int16 DACs."""
-    import zstandard
+_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
-    dec = zstandard.ZstdDecompressor().decompress(compressed)
-    return svb16_decode(dec, num_samples)
+
+def zstd_content_size(frame, what="a signal row"):
+    """The decompressed size a zstd frame's header declares.
+
+    Header: magic, descriptor byte (bits 7-6 the content-size flag, bit 5
+    single segment, bits 1-0 the dictionary-ID flag), a window byte unless
+    single segment, a 0/1/2/4-byte dictionary ID, then the content size:
+    flag 0 one byte when single segment (else absent), 1 two bytes (+256),
+    2 four, 3 eight. ``ZSTD_compress`` (POD5's vbz writer) always writes
+    it; a frame without one raises, naming ``what``.
+    """
+    frame = memoryview(frame)
+    if bytes(frame[:4]) != _ZSTD_MAGIC or len(frame) < 5:
+        raise RemoraError(f"vbz signal of {what} is not a zstd frame")
+    desc = frame[4]
+    fcs_flag, single = desc >> 6, desc >> 5 & 1
+    fcs_len = (1 if single else 0, 2, 4, 8)[fcs_flag]
+    if fcs_len == 0:
+        raise RemoraError(
+            f"vbz signal of {what}: the zstd frame declares no content size"
+        )
+    pos = 5 + (0 if single else 1) + (0, 1, 2, 4)[desc & 3]
+    if len(frame) < pos + fcs_len:
+        raise RemoraError(f"vbz signal of {what}: truncated zstd header")
+    size = int.from_bytes(frame[pos : pos + fcs_len], "little")
+    return size + 256 if fcs_len == 2 else size
+
+
+def vbz_decode(compressed, num_samples, read_id=None):
+    """Decode one vbz-compressed signal row to int16 DACs.
+
+    The zstd frame is decoded by ``pyarrow`` at the size its header
+    declares; a frame that is not zstd, declares no size, or whose size or
+    payload does not hold ``num_samples`` svb16 values raises
+    ``RemoraError`` naming ``read_id``.
+    """
+    import pyarrow as pa
+
+    what = "a signal row" if read_id is None else f"read {read_id}"
+    size = zstd_content_size(compressed, what)
+    key_len = (num_samples + 7) // 8
+    if not key_len + num_samples <= size <= key_len + 2 * num_samples:
+        raise RemoraError(
+            f"vbz signal of {what}: {size} decompressed bytes cannot hold "
+            f"{num_samples} svb16 samples"
+        )
+    try:
+        dec = pa.Codec("zstd").decompress(
+            compressed, decompressed_size=size, asbytes=True
+        )
+        return svb16_decode(dec, num_samples)
+    except (OSError, RemoraError) as err:
+        raise RemoraError(f"vbz signal of {what}: {err}") from None
 
 
 def svb16_decode(dec, n):
@@ -134,9 +184,13 @@ def svb16_encode(signal):
 
 
 def vbz_encode(signal):
-    import zstandard
+    """vbz-compress int16 DACs: svb16, then one zstd frame (level 1) that
+    declares its content size."""
+    import pyarrow as pa
 
-    return zstandard.ZstdCompressor(level=1).compress(svb16_encode(signal))
+    return pa.Codec("zstd", compression_level=1).compress(
+        svb16_encode(signal), asbytes=True
+    )
 
 
 @dataclass
@@ -221,14 +275,14 @@ class Pod5Reader:
     def __len__(self):
         return len(self._read_ids)
 
-    def _read_signal(self, sig_row_indices):
+    def _read_signal(self, sig_row_indices, read_id):
         parts = []
         for row in sig_row_indices:
             row = int(row)
             raw = self._signal_tbl["signal"][row].as_py()
             nsamp = int(self._sig_samples[row])
             if self._sig_compressed:
-                parts.append(vbz_decode(raw, nsamp))
+                parts.append(vbz_decode(raw, nsamp, read_id))
             else:
                 parts.append(np.asarray(raw, dtype=np.int16))
         if len(parts) == 1:
@@ -245,7 +299,9 @@ class Pod5Reader:
     def _make_read(self, row):
         return Pod5Read(
             read_id=self._read_ids[row],
-            signal=self._read_signal(self._sig_rows[row]),
+            signal=self._read_signal(
+                self._sig_rows[row], self._read_ids[row]
+            ),
             calibration=Calibration(
                 offset=-float(self._cal_offset[row]),
                 scale=1.0 / float(self._cal_scale[row]),

@@ -787,19 +787,17 @@ def test_infer_duplex_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     import chip_smoke as cs
     from remora_tpu_torch.infer.infer import ModelHandle
     from remora_tpu_torch.io import bam
-    from remora_tpu_torch.io.pod5 import Calibration, Pod5Read
+    from remora_tpu_torch.io.pod5_write import Pod5Writer
 
     monkeypatch.setenv("REMORA_TPU_BAM_INDEX_CACHE", "0")
     monkeypatch.setenv("LOG_SAFE", "1")
     path = str(tmp_path / "model.npz")
     cs.seeded_checkpoint(path)
-    reads = {}
-    paths = cs.write_duplex_set(
-        str(tmp_path), 4, 600, bam,
-        lambda rid, dacs: reads.__setitem__(
-            rid, Pod5Read(rid, dacs, Calibration(90.0, 20.0))))
     key = str(tmp_path / "simplex.pod5")
-    cs.MemoryPod5.SETS[key] = reads
+    with Pod5Writer(key) as p5w:
+        paths = cs.write_duplex_set(
+            str(tmp_path), 4, 600, bam,
+            lambda rid, dacs: p5w.add_read(rid, dacs, 90.0, 20.0))
     got = {}
     for device in ("cuda", "cpu"):
         handle = ModelHandle.load(path, device=device)
@@ -817,7 +815,7 @@ def test_infer_duplex_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
 def test_cli_infer_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """``infer from_pod5_and_bam`` through the command line with no
     ``--device`` (the card) and with ``--device cpu``, on 6 reads of 4000
-    bases (signal from ``chip_smoke.MemoryPod5``) at batch 256: the same
+    bases (a POD5 file written by the port) at batch 256: the same
     records, MM identical, ML within 1, K1 once a batch on the card and
     never on the CPU."""
     import chip_smoke as cs
@@ -834,8 +832,7 @@ def test_cli_infer_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
         out = str(tmp_path / f"{device}.bam")
         counts, _wall, _lines = cs.cli_leg(
             ["infer", "from_pod5_and_bam", key, bam_path, "--model", path,
-             "--out-bam", out, "--batch-size", 256, *flags], device,
-            pod5=True)
+             "--out-bam", out, "--batch-size", 256, *flags], device)
         tags = got[device] = cs.bam_tags(out)
         n_batches = -(-sum(ml.size for _mm, ml in tags.values()) // 256)
         assert counts["k1"] == (n_batches if device == "cuda" else 0)

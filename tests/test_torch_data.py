@@ -190,3 +190,140 @@ def test_composed_rejects_mismatched_members(tmp_path):
     config = write_config(tmp_path / "cfg.jsn", [(a, 1), (b, 1)])
     with pytest.raises(RemoraError, match="reverse_signal"):
         port_dataset.ComposedDataset.from_config(config)
+
+
+# stored chunk context (25, 25) shrunk to each of these
+TRIM_CONTEXTS = [(25, 10), (10, 25), (12, 13), (5, 5), (1, 24)]
+
+
+def _shifted_rows(seed, stored_cc, cc, n=400):
+    """v3 super-batch rows (int16 maps, int8 seqs, int16 lens) of seeded
+    synthetic chunks at ``stored_cc``, the maps shifted by the leading
+    context cut as ``_trim_chunk_context_sb`` does."""
+    arrays = synth_arrays(np.random.default_rng(seed), n, stored_cc, (4, 4))
+    maps = arrays["sequence_to_signal_mapping"]
+    maps -= np.int16(stored_cc[0] - cc[0])
+    return maps, arrays["sequence"], arrays["sequence_lengths"]
+
+
+@pytest.mark.parametrize("cc", TRIM_CONTEXTS)
+def test_native_trim_matches_jax_native_and_numpy(cc):
+    """The port's native chunk-row trim (``csrc/host/trim.cpp``) gives
+    arrays identical to the JAX package's native trim and to the port's
+    NumPy path, and ``trim_sb_chunk_context`` takes it."""
+    from remora_tpu.io import native as jax_native
+    from remora_tpu_torch.io import native as port_native
+
+    from tests.test_torch_io import load_jax_native
+
+    load_jax_native()
+    assert port_native.get_lib() is not None
+    width = sum(cc)
+    rows = _shifted_rows(sum(cc), (25, 25), cc)
+    port = [a.copy() for a in rows]
+    jax = [a.copy() for a in rows]
+    plain = [a.copy() for a in rows]
+    via = [a.copy() for a in rows]
+    assert port_native.trim_chunk_rows(*port, width, 8)
+    assert jax_native.trim_chunk_rows(*jax, width, 8)
+    port_dataset.trim_rows_numpy(plain[1], plain[0], plain[2], width, 8)
+    port_dataset.trim_sb_chunk_context(
+        (25, 25), cc, 8, seq_mappings=via[0], seqs=via[1], seq_lens=via[2])
+    for got in (port, plain, via):
+        for g, w in zip(got, jax):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+    maps, _seqs, lens = port
+    assert (maps[np.arange(lens.size), lens] == width).all()
+    assert (lens < rows[2]).any()
+
+
+def test_numpy_trim_matches_native_on_any_rows():
+    """The NumPy path reproduces the native kernel element for element
+    on rows that are not even monotonic: first and last bases, the moved
+    windows and what is left past them."""
+    from remora_tpu.io import native as jax_native
+    from remora_tpu_torch.io import native as port_native
+
+    from tests.test_torch_io import load_jax_native
+
+    load_jax_native()
+    rng = np.random.default_rng(12)
+    n, map_w, seq_ctx, width = 500, 30, 8, 40
+    rows = (rng.integers(-60, 120, (n, map_w)).astype(np.int16),
+            rng.integers(-1, 4, (n, map_w - 1 + seq_ctx)).astype(np.int8),
+            rng.integers(1, map_w, n).astype(np.int16))
+    out = {}
+    for name, trim in (("port", port_native.trim_chunk_rows),
+                       ("jax", jax_native.trim_chunk_rows)):
+        out[name] = [a.copy() for a in rows]
+        assert trim(*out[name], width, seq_ctx)
+    plain = [a.copy() for a in rows]
+    port_dataset.trim_rows_numpy(plain[1], plain[0], plain[2], width,
+                                 seq_ctx)
+    for got in (out["port"], plain):
+        for g, w in zip(got, out["jax"]):
+            assert np.array_equal(g, w)
+
+
+def test_trim_non_contiguous_takes_numpy_path():
+    """Arrays that are not C-contiguous take the NumPy path (both
+    packages' native bindings refuse them), to the same result."""
+    from remora_tpu.io import native as jax_native
+    from remora_tpu_torch.io import native as port_native
+
+    from tests.test_torch_io import load_jax_native
+
+    load_jax_native()
+    cc = (12, 13)
+    rows = _shifted_rows(1, (25, 25), cc)
+    want = [a.copy() for a in rows]
+    assert port_native.trim_chunk_rows(*want, sum(cc), 8)
+    wide = np.zeros((rows[0].shape[0], rows[0].shape[1] + 3), np.int16)
+    wide[:, :rows[0].shape[1]] = rows[0]
+    maps = wide[:, :rows[0].shape[1]]
+    seqs, lens = rows[1].copy(), rows[2].copy()
+    assert not maps.flags.c_contiguous
+    for native in (port_native, jax_native):
+        assert not native.trim_chunk_rows(maps, seqs, lens, sum(cc), 8)
+    assert np.array_equal(maps, rows[0]) and np.array_equal(lens, rows[2])
+    port_dataset.trim_sb_chunk_context(
+        (25, 25), cc, 8, seq_mappings=maps, seqs=seqs, seq_lens=lens)
+    for g, w in zip((maps, seqs, lens), want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("cc", TRIM_CONTEXTS[:2])
+def test_trimmed_super_batches_match_jax(tmp_path, cc):
+    """A dataset stored at (25, 25) and loaded at a smaller chunk context
+    gives the same super batch in both packages."""
+    path = write_synth_dataset("jax", tmp_path / "ds", 60, seed=9)
+    got = {}
+    for pkg in ("jax", "port"):
+        ds = PACKAGES[pkg][0].CoreDataset(
+            path, override_metadata={"chunk_context": cc,
+                                     "extra_arrays": {}})
+        got[pkg] = ds.load_super_batch(0, size=60)
+    assert got["port"].keys() == got["jax"].keys()
+    assert got["port"]["signal"].shape[-1] == sum(cc)
+    for name, want in got["jax"].items():
+        assert got["port"][name].dtype == want.dtype, name
+        assert np.array_equal(got["port"][name], want), name
+
+
+@pytest.mark.parametrize("motif", [("CG", 0), ("DRACH", 2), ("A", 0)])
+def test_motif_patterns_match_jax(motif):
+    """``Motif.pattern``, ``int_pattern`` and ``possible_kmers`` as in the
+    JAX package, and the pattern finds the same overlapping hits."""
+    from remora_tpu.core import seq as jax_seq
+
+    got, want = port_seq.Motif(*motif), jax_seq.Motif(*motif)
+    assert got.pattern.pattern == want.pattern.pattern
+    assert [list(p) for p in got.int_pattern] == [
+        list(p) for p in want.int_pattern]
+    assert got.possible_kmers == want.possible_kmers
+    assert len(got.possible_kmers) == int(np.prod(
+        [len(p) for p in got.int_pattern]))
+    seq = port_seq.int_to_seq(np.random.default_rng(0).integers(0, 4, 500))
+    hits = [m.start() for m in got.pattern.finditer(seq)]
+    assert hits == [m.start() for m in want.pattern.finditer(seq)]
+    assert hits == list(got.findall(port_seq.seq_to_int(seq)))

@@ -1,7 +1,8 @@
 """remora_tpu_torch stands alone: no JAX, nothing of remora_tpu, no
-pyarrow, zstandard, tqdm or matplotlib needed to import it, its command
-line runs where JAX cannot be imported, and no silent CPU run when no GPU
-is present."""
+pyarrow, zstandard, tqdm or matplotlib needed to import it, no zstandard
+imported anywhere (its POD5 codec is pyarrow's), its command line runs
+where JAX cannot be imported, and no silent CPU run when no GPU is
+present."""
 
 import ast
 import subprocess
@@ -73,9 +74,9 @@ def test_port_imports_with_jax_blocked():
 
 def test_port_imports_without_optional_host_packages():
     """Every module of the port imports where pyarrow, zstandard, tqdm and
-    matplotlib are absent: the POD5 reader, the driver's progress bar and
-    the plots import them only when they run (the GPU machine has no
-    zstandard, and is not known to have matplotlib)."""
+    matplotlib are absent: the POD5 reader and writer, the driver's
+    progress bar and the plots import them only when they run (the GPU
+    machine has no zstandard, and is not known to have matplotlib)."""
     code = (
         "import sys\n"
         "for name in ('jax', 'pyarrow', 'zstandard', 'tqdm', "
@@ -126,6 +127,17 @@ def test_no_jax_or_remora_tpu_import(path):
     for name in _imported_names(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "remora_tpu"), (path, name)
+
+
+@pytest.mark.parametrize(
+    "path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_zstandard_import(path):
+    """Nothing of the port, and nothing that ``chip_smoke.py`` runs on the
+    card, imports zstandard: the VBZ codec is pyarrow's zstd codec."""
+    names = [name.split(".")[0] for name in _imported_names(path)]
+    assert "zstandard" not in names, path
 
 
 def test_load_needs_a_device_without_gpu(tmp_path):
