@@ -28,7 +28,13 @@ printed):
    in both dtypes against their plain versions, with times, bounds,
    chains, ``torch.nn.LSTM`` times, registers and spills, the wide K3 by
    part, and lines of the wide K1/K2 beside cuDNN's forward and of the
-   wide K3 beside cuDNN's backward at both widths;
+   wide K3 beside cuDNN's backward at both widths; (3e) the general LSTM
+   leg (``lstm_general.cu``, C or H past 128) at T=124, B=2048 and
+   C=H=160 (the shape 6g gives it; these records take 6g's launches into
+   the kernels line) and C=H=256 (a line of its own), K1, K2 (with and
+   without cs) and K3 in both dtypes against their plain versions, each
+   repeated bit for bit, with times, bounds, chains, ``torch.nn.LSTM``
+   times, registers and spills and K3 by part;
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -49,7 +55,10 @@ printed):
    line), every read is written; reads/s, chunks/s and the stage
    occupancy summary; one f32 run profiled (device busy and idle share);
    a 16-read subset against the same driver with the handle on the CPU
-   (MM identical, ML within 1); a checkpoint carrying phase 8b's level
+   (MM identical, ML within 1); one more f32 run in a process of its own
+   with ``REMORA_TPU_INFER_RUN_MODEL_PROFILE_FILE`` set (tags equal to
+   the f32 run's; the ``call_batches`` thread's cProfile, top ten
+   functions by cumulative and by own time); a checkpoint carrying phase 8b's level
    table through the device refiner (K4/K5 launch as planned, none
    routed to the host) and the native one, tags identical;
    (5b) duplex inference: 64 synthetic pairs of 4000 bases
@@ -96,7 +105,11 @@ printed):
    f32 and bf16, the wide K2/K3 once a step and K1 once a batch, logits
    held to the plain LSTM, one train step and one served batch profiled
    by kernel, and one f32 size-96 train step held to the same step with
-   the plain LSTM versions (as 6b); (6f) data-parallel training, the
+   the plain LSTM versions (as 6b); (6g) the same at size 160 on the
+   general leg (K2/K3 once a step, K1 once a batch on
+   ``lstm_general.cu``), held to the same handle and step with
+   ``REMORA_TPU_LSTM=scan``, and K6's product paths at size 160's block
+   shapes (merge_conv1 320 -> 160); (6f) data-parallel training, the
    launch and all-reduce counts set to 0 first: (a) ``train_model`` over
    a one-rank NCCL group on cuda:0, 4 steps of 2048 (SGD), K2/K3 once a
    step, one all-reduce a step, losses within 1e-5 of the same run
@@ -176,9 +189,9 @@ Phases 5, 5b, 5c, 7 and 8c read real POD5 files through the port's
 ``io.pod5.DatasetReader`` in every stage, the forked ExtractSignal and
 duplex pair stages included.
 
-``python3 chip_smoke.py --lstm-kernels`` runs phases 1-3b and 3d only
-(the build, K1-K3 against their plain versions with their times,
-registers and spills, at the main shape and the wide one), for quick
+``python3 chip_smoke.py --lstm-kernels`` runs phases 1-3b, 3d and 3e
+only (the build, K1-K3 against their plain versions with their times,
+registers and spills, at the main shape, the wide and the general ones), for quick
 turns on the LSTM kernels; its ``kernels`` line has no launch counts.
 
 ``python3 chip_smoke.py --data-parallel`` runs phases 6f and 5c alone,
@@ -230,6 +243,13 @@ TRAIN_LSTM_T = 124  # the LSTM's length at chunk 400
 # WIDE_STEPS train steps, its kernels held to their plain versions at that
 # shape and at C = H = WIDE, the widest they take
 WIDE, WIDE_SIZE, WIDE_STEPS = 128, 96, 2
+# the general LSTM leg (lstm_general.cu, C or H past 128): the model path at
+# size GENERAL_SIZE for GENERAL_STEPS train steps, its kernels held to their
+# plain versions at that shape and at C = H = GENERAL
+GENERAL, GENERAL_SIZE, GENERAL_STEPS = 256, 160, 2
+# samples of CALLS_PER_SAMPLE calls for the general leg's times: its calls
+# take 9-35 ms, so fewer samples keep phase 3e's wall down
+GENERAL_TIMED = 5
 PALLAS_EPOCHS = 2  # the REMORA_TPU_CONVBN=pallas legs: 2 epochs of 12 steps
 
 
@@ -388,6 +408,19 @@ def lstm_chain_instrs(kind, C, H):
             depth = 4 * hh // nsplit
         return 1 + 1 + 1 + 1 + 2 + 3 + 1 + 1 + 1 + depth + 1 + 1 + 1 + 1 \
             + nsplit + 1
+    if kind == "general_fwd":
+        # K1/K2 general (lstm_general.cu::general_fwd_kernel, either dtype:
+        # x_t . W_x and h_{t-1} . W_h share one accumulator a gate and row,
+        # so both are on the chain): BAR -> LDS -> C + H dependent FFMA ->
+        # the gates' activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) ->
+        # h = o tanh(c) -> STS h -> BAR -> LDG x_{t+1} -> STS -> BAR
+        return 1 + 1 + C + H + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 + 1 + 2 + 1
+    if kind == "general_bwd":
+        # K3 general (lstm_general.cu::general_rec_kernel; the gate
+        # recompute and the products are other launches): BAR -> LDS the dh
+        # carry -> FADD dhs -> dc (FMUL, FFMA) -> dgates (3 FMUL) -> STS ->
+        # BAR -> LDS -> 4H dependent FFMA (dh = dgates . W_h^T) -> STS
+        return 1 + 1 + 1 + 2 + 3 + 1 + 1 + 1 + G + 1
     if kind == "fwd_mma":
         # K1/K2 bf16 (lstm_fwd_mma.cu; x_t . W_x is off the chain): BAR ->
         # LDSM h_{t-1} -> ceil(H / 16) dependent HMMA -> FADD bias -> the
@@ -437,7 +470,12 @@ def lstm_kernel_of(leg, dtype, C, H):
 
     bf16 = dtype == torch.bfloat16
     sfx = "bf16" if bf16 else "f32"
-    if K.route(leg, dtype, C, H) == "wide":
+    kind = K.route(leg, dtype, C, H)
+    if kind == "general":
+        return (f"lstm_{leg}_general_{sfx}",
+                "remora_tpu_torch/csrc/lstm_general.cu",
+                "general_bwd" if leg == "bwd" else "general_fwd")
+    if kind == "wide":
         if leg == "bwd":
             return (f"lstm_bwd_wide_{sfx}",
                     "remora_tpu_torch/csrc/lstm_wide_bwd.cu",
@@ -455,7 +493,7 @@ def lstm_kernel_of(leg, dtype, C, H):
     return f"lstm_{leg}_{sfx}", "remora_tpu_torch/csrc/" + src, chain
 
 
-def check_lstm_last(dtype, tol, C=SIZE, H=SIZE):
+def check_lstm_last(dtype, tol, C=SIZE, H=SIZE, n=N_TIMED):
     import torch
 
     from remora_tpu_torch.infer.infer import full_f32
@@ -490,10 +528,10 @@ def check_lstm_last(dtype, tol, C=SIZE, H=SIZE):
         # no-op for bf16, which PyTorch's cuDNN dtype list lacks)
         lib_lstm.flatten_parameters()
         with torch.inference_mode():
-            ms = time_ms(lambda: K.lstm_last(params, x))
-            plain_ms = time_ms(lambda: K.lstm_last_reference(params, x))
+            ms = time_ms(lambda: K.lstm_last(params, x), n=n)
+            plain_ms = time_ms(lambda: K.lstm_last_reference(params, x), n=n)
             # the yardstick only: cuDNN's LSTM, all T hidden states
-            library_ms = time_ms(lambda: lib_lstm(x))
+            library_ms = time_ms(lambda: lib_lstm(x), n=n)
     flops = 2.0 * T * B * (C + H) * 4 * H
     io_bytes = (x.numel() + (C + H + 1) * 4 * H + B * H) * x.element_size()
     bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
@@ -555,10 +593,13 @@ def check_lstm_bwd_parts(x, w_aug, hs, cs, dhs):
     return ms
 
 
-def wide_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5):
-    """Device ms of each of ``lstm_wide_bwd.cu``'s K3 kernels (gate
-    recompute, recurrence, dx, dW, the ordered dW sum) a call, from
-    torch.profiler over ``calls`` calls."""
+def split_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5,
+                      rec="wide_rec_cluster_kernel"):
+    """Device ms of each of the split K3's kernels (gate recompute,
+    recurrence, dx, dW, the ordered dW sum) a call, from torch.profiler
+    over ``calls`` calls: ``lstm_wide_bwd.cu``'s, or with ``rec`` =
+    "general_rec_kernel" ``lstm_general.cu``'s (the products are
+    ``lstm_prod.cuh``'s in both)."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -572,7 +613,7 @@ def wide_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5):
         torch.cuda.synchronize()
     ms = dict.fromkeys(("gates", "recurrence", "dx", "dW", "dW sum"), 0.0)
     for us, name, _count in kernel_rows(prof):
-        if "wide_rec_cluster_kernel" in name:
+        if rec in name:
             part = "recurrence"
         elif re.search(K3_DW_SUM, name):
             part = "dW sum"
@@ -584,14 +625,15 @@ def wide_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5):
                 continue
             part = ("gates", "dx", "dW")[int(op.group(1) or op.group(2))]
         ms[part] += us / 1e3 / calls
-    log("lstm_bwd wide parts (torch.profiler): " + ", ".join(
+    log(f"lstm_bwd {'general' if rec.startswith('general') else 'wide'} "
+        "parts (torch.profiler): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in ms.items()))
     return ms
 
 
 def wide_bwd_part_bounds(T, B, C, H, dtype):
-    """Bound ms of each part of the wide K3 as ``lstm_wide_bwd.cu`` splits
-    it (Z and dgates through device memory): the larger of its operations
+    """Bound ms of each part of the split K3 as ``lstm_wide_bwd.cu`` and
+    ``lstm_general.cu`` split it (Z and dgates through device memory): the larger of its operations
     over the dtype's peak and the bytes it must move (each input read
     once, each output written once: the gates read [x ; h] and write Z in
     f32; the recurrence reads Z, c and dh and writes dgates; dx reads
@@ -616,9 +658,10 @@ def rel_err(got, want):
             / want.float().abs().max()).item()
 
 
-def check_lstm_train(dtype, tol, C=SIZE, H=SIZE):
+def check_lstm_train(dtype, tol, C=SIZE, H=SIZE, n=N_TIMED):
     """K2 (with cs) and K3 against their plain versions at the training
-    path's shape (or another C, H); returns their two kernel records."""
+    path's shape (or another C, H); returns their two kernel records.
+    Kernel and library times are medians of ``n`` samples."""
     import torch
 
     from remora_tpu_torch.infer.infer import full_f32
@@ -667,13 +710,16 @@ def check_lstm_train(dtype, tol, C=SIZE, H=SIZE):
         bwd_chain = lstm_kernel_of("bwd", dtype, C, H)[2]
         parts_ms = (check_lstm_bwd_parts(x, w_aug, hs, cs, dhs)
                     if bwd_chain == "bwd_mma" else
-                    wide_bwd_parts_ms(x, w_aug, hs, cs, dhs)
-                    if bwd_chain.startswith("wide_bwd") else None)
+                    split_bwd_parts_ms(x, w_aug, hs, cs, dhs)
+                    if bwd_chain.startswith("wide_bwd") else
+                    split_bwd_parts_ms(x, w_aug, hs, cs, dhs,
+                                      rec="general_rec_kernel")
+                    if bwd_chain == "general_bwd" else None)
 
-        fwd_ms = time_ms(lambda: K.lstm_fwd(x, w_aug))
+        fwd_ms = time_ms(lambda: K.lstm_fwd(x, w_aug), n=n)
         fwd_plain_ms = time_ms(lambda: K.lstm_fwd_reference(x, w_aug), n=5,
                                calls=1)
-        bwd_ms = time_ms(lambda: K.lstm_bwd(x, w_aug, hs, cs, dhs))
+        bwd_ms = time_ms(lambda: K.lstm_bwd(x, w_aug, hs, cs, dhs), n=n)
         bwd_plain_ms = time_ms(
             lambda: K.lstm_bwd_reference(x, w_aug, hs, cs, dhs), n=5,
             calls=1)
@@ -687,12 +733,12 @@ def check_lstm_train(dtype, tol, C=SIZE, H=SIZE):
             lib_lstm.bias_hh_l0.copy_(params["b_hh"])
         lib_lstm.flatten_parameters()
         with torch.no_grad():
-            fwd_lib_ms = time_ms(lambda: lib_lstm(x))
+            fwd_lib_ms = time_ms(lambda: lib_lstm(x), n=n)
         xg = x.clone().requires_grad_()
         out = lib_lstm(xg)[0]
         inputs = (xg, *lib_lstm.parameters())
         bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
-            out, inputs, grad_outputs=dhs, retain_graph=True))
+            out, inputs, grad_outputs=dhs, retain_graph=True), n=n)
     n_x, n_h = T * B * C, T * B * H
     isz = x.element_size()
     w_bytes = (C + H + 1) * 4 * H * isz
@@ -932,6 +978,51 @@ def check_lstm_wide():
     return records[WIDE_SIZE]
 
 
+def check_lstm_general_compile():
+    """The general LSTM leg's kernels (lstm_general.cu: its forward and
+    recurrence, and lstm_prod.cuh's products and the ordered dW sum it
+    launches), each instantiation: registers logged, no spill."""
+    check_compile("lstm_general", "general K1-K3", (
+        "general_fwd_kernel", "general_rec_kernel", "wide_prod_f32_kernel",
+        "wide_prod_bf16_kernel", "ordered_sum"))
+
+
+def check_lstm_general():
+    """Phase 3e: K1, K2 (with and without cs) and K3 on ``lstm_general.cu``
+    against their plain versions, each dtype, at T = 124, B = BATCH and C =
+    H = GENERAL_SIZE (the shape phase 6g's model path gives them) and at C
+    = H = GENERAL; each repeated bit for bit, timed beside its bound, its
+    chain, its plain version and ``torch.nn.LSTM``. The GENERAL records are
+    logged as a line of their own; returns the GENERAL_SIZE records (K1,
+    K2, K3) by dtype, which take 6g's launches into the kernels line."""
+    import torch
+
+    check_lstm_general_compile()
+    t0 = time.monotonic()
+    records = {
+        width: {dtype: [check_lstm_last(dtype, tol, C=width, H=width,
+                                        n=GENERAL_TIMED),
+                        *check_lstm_train(dtype, tol, C=width, H=width,
+                                          n=GENERAL_TIMED)]
+                for dtype, tol in ((torch.float32, 1e-5),
+                                   (torch.bfloat16, 2e-2))}
+        for width in (GENERAL_SIZE, GENERAL)}
+    log(json.dumps({f"general_lstm_at_{GENERAL}": [
+        rec for recs in records[GENERAL].values() for rec in recs]}))
+    log(json.dumps({"general_vs_cudnn": {
+        f"C=H={width}": {
+            rec["name"]: {"ms": rec["ms"], "cudnn_ms": rec["library_ms"],
+                          "plain_ms": rec["plain_ms"],
+                          "bound_ms": rec["bound_ms"],
+                          "bound_by": rec["bound_by"],
+                          "chain_bound_ms": rec["chain_bound_ms"],
+                          "parts_ms": rec.get("parts_ms")}
+            for recs in records[width].values() for rec in recs}
+        for width in (GENERAL_SIZE, GENERAL)}}))
+    log(f"phase 3e wall {time.monotonic() - t0:.1f} s")
+    return records[GENERAL_SIZE]
+
+
 def profile_serve(handle, arrs, tag, n_walls=5):
     """Device time by kernel over one ``ModelHandle.eval_raw`` batch
     (torch.profiler), against the median unprofiled call."""
@@ -962,15 +1053,34 @@ def profile_serve(handle, arrs, tag, n_walls=5):
         log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
 
 
-def wide_model_path(root, config, records):
-    """Phase 6e: ConvLSTM_w_ref at size WIDE_SIZE on the card, f32 and
-    bf16: ``train_model`` for WIDE_STEPS steps (K2 on lstm_wide.cu and K3
-    on lstm_wide_bwd.cu once a step), then its checkpoint through ``ModelHandle.load`` for one
-    batch (K1 on lstm_wide.cu once), logits finite and held to the same
-    handle with the plain LSTM; one train step and one served batch
-    profiled by kernel; the f32 checkpoint's train step held to the same
-    step with the plain K2/K3 (``check_train_step_vs_plain``). Sets the
-    wide records' launches from the train and serve runs."""
+@contextlib.contextmanager
+def lstm_mode(mode):
+    """REMORA_TPU_LSTM set to ``mode`` (None: as it was)."""
+    old = os.environ.get("REMORA_TPU_LSTM")
+    if mode is not None:
+        os.environ["REMORA_TPU_LSTM"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REMORA_TPU_LSTM", None)
+        else:
+            os.environ["REMORA_TPU_LSTM"] = old
+
+
+def model_path_leg(root, config, records, kind):
+    """Phase 6e (``kind`` "wide"): ConvLSTM_w_ref at size WIDE_SIZE on the
+    card, f32 and bf16: ``train_model`` for WIDE_STEPS steps (K2 on
+    lstm_wide.cu and K3 on lstm_wide_bwd.cu once a step), then its
+    checkpoint through ``ModelHandle.load`` for one batch (K1 on
+    lstm_wide.cu once), logits finite and held to the same handle with the
+    plain LSTM; one train step and one served batch profiled by kernel;
+    the f32 checkpoint's train step held to the same step with the plain
+    K2/K3 (``check_train_step_vs_plain``). Phase 6g (``kind`` "general"):
+    the same at size GENERAL_SIZE for GENERAL_STEPS steps on
+    lstm_general.cu, held to the same handle and step with
+    REMORA_TPU_LSTM=scan. Sets the records' launches from the train and
+    serve runs."""
     import torch
 
     from remora_tpu_torch.infer.infer import ModelHandle
@@ -978,32 +1088,40 @@ def wide_model_path(root, config, records):
     from remora_tpu_torch.train import optim
     from remora_tpu_torch.train.train import train_model
 
+    general = kind == "general"
+    size, steps = ((GENERAL_SIZE, GENERAL_STEPS) if general
+                   else (WIDE_SIZE, WIDE_STEPS))
+    counts = K.LAUNCHES_GENERAL if general else K.LAUNCHES_WIDE
+    reference = ((lambda: lstm_mode("scan"), "REMORA_TPU_LSTM=scan")
+                 if general else (plain_lstm, "plain-LSTM"))
     arrs = synth_inputs(np.random.default_rng(8), BATCH)
+    t_phase = time.monotonic()
     for dtype, bf16 in ((torch.float32, False), (torch.bfloat16, True)):
-        tag = f"wide_size{WIDE_SIZE}_{'bf16' if bf16 else 'f32'}"
+        tag = f"{kind}_size{size}_{'bf16' if bf16 else 'f32'}"
         out = os.path.join(root, tag)
-        K.LAUNCHES_WIDE.update(dict.fromkeys(K.LAUNCHES_WIDE, 0))
+        counts.update(dict.fromkeys(counts, 0))
         t0 = time.monotonic()
         train_model(
             seed=1, out_path=out, remora_dataset_path=config,
             chunk_context=None, kmer_context_bases=None, batch_size=BATCH,
-            model_name="ConvLSTM_w_ref", size=WIDE_SIZE,
+            model_name="ConvLSTM_w_ref", size=size,
             train_opts=optim.TrainOpts(epochs=1,
                                        lr_scheduler_str="constant",
                                        learning_rate=2e-3),
-            chunks_per_epoch=WIDE_STEPS * BATCH, num_test_chunks=BATCH,
+            chunks_per_epoch=steps * BATCH, num_test_chunks=BATCH,
             bf16_compute=bf16,
         )
-        train_launches = dict(K.LAUNCHES_WIDE)
+        train_launches = dict(counts)
         with open(os.path.join(out, "batch.log")) as fh:
             losses = [float(line.split()[1]) for line in fh.readlines()[1:]]
-        log(f"{tag}: train_model {WIDE_STEPS} steps in "
+        log(f"{tag}: train_model {steps} steps in "
             f"{time.monotonic() - t0:.1f} s (with validation and "
-            f"checkpoints); wide launches {train_launches}; losses {losses}")
-        check(train_launches["fwd"] == train_launches["bwd"] == WIDE_STEPS,
-              f"{tag}: the wide K2/K3 launched {train_launches} times for "
-              f"{WIDE_STEPS} steps")
-        check(len(losses) == WIDE_STEPS and np.isfinite(losses).all(),
+            f"checkpoints); {kind} launches {train_launches}; losses "
+            f"{losses}")
+        check(train_launches["fwd"] == train_launches["bwd"] == steps,
+              f"{tag}: the {kind} K2/K3 launched {train_launches} times for "
+              f"{steps} steps")
+        check(len(losses) == steps and np.isfinite(losses).all(),
               f"{tag}: batch.log losses {losses}")
         profile_train_step(os.path.join(out, "model_final.checkpoint"), bf16,
                            f"{tag} step", n_walls=5)
@@ -1012,35 +1130,62 @@ def wide_model_path(root, config, records):
             compute_dtype=dtype if bf16 else None)
         check(handle.device.type == "cuda", f"{tag}: handle on "
               f"{handle.device}")
-        K.LAUNCHES_WIDE.update(dict.fromkeys(K.LAUNCHES_WIDE, 0))
+        counts.update(dict.fromkeys(counts, 0))
         logits = handle.eval_raw(*arrs).cpu().numpy()
-        last_launches = K.LAUNCHES_WIDE["last"]
-        with plain_lstm():
+        last_launches = counts["last"]
+        with reference[0]():
             plain = handle.eval_raw(*arrs).cpu().numpy()
+        check(counts["last"] == last_launches,
+              f"{tag}: the {reference[1]} pass launched the {kind} K1")
         check(logits.shape == (BATCH, 2) and np.isfinite(logits).all(),
               f"{tag}: logits {logits.shape}, finite "
               f"{np.isfinite(logits).all()}")
         check(last_launches == 1,
-              f"{tag}: the wide K1 launched {last_launches} times for one "
+              f"{tag}: the {kind} K1 launched {last_launches} times for one "
               "batch")
         profile_serve(handle, arrs, tag)
         if bf16:
             diff = int(np.abs(ml_bytes(logits) - ml_bytes(plain)).max())
-            log(f"{tag}: ModelHandle batch of {BATCH}: ML bytes vs plain "
-                f"LSTM max |delta| {diff} (tolerance 1)")
+            log(f"{tag}: ModelHandle batch of {BATCH}: ML bytes vs "
+                f"{reference[1]} max |delta| {diff} (tolerance 1)")
             check(diff <= 1, f"{tag}: ML bytes moved by more than 1")
         else:
             err = float(np.abs(logits - plain).max())
             log(f"{tag}: ModelHandle batch of {BATCH}: max |logit - "
-                f"plain-LSTM logit| {err:.3e} (tolerance 1e-4)")
-            check(err <= 1e-4, f"{tag}: logits disagree with the plain LSTM")
+                f"{reference[1]} logit| {err:.3e} (tolerance 1e-4)")
+            check(err <= 1e-4,
+                  f"{tag}: logits disagree with the {reference[1]} pass")
         k1, k2, k3 = records[dtype]
         k1["launches"] = last_launches
         k2["launches"] = train_launches["fwd"]
         k3["launches"] = train_launches["bwd"]
         if not bf16:
             check_train_step_vs_plain(
-                os.path.join(out, "model_final.checkpoint"), wide=True)
+                os.path.join(out, "model_final.checkpoint"), kind=kind)
+    if general:
+        check_convbn_products(size)
+    log(f"phase {'6g' if general else '6e'} wall "
+        f"{time.monotonic() - t_phase:.1f} s")
+
+
+def check_convbn_products(size):
+    """K6's stride-1 blocks of ConvLSTM_w_ref at ``size`` (merge_conv1
+    takes 2 size channels in): the library must take each in both dtypes
+    (``convbn.products``), as REMORA_TPU_CONVBN=pallas would run them."""
+    import torch
+
+    from remora_tpu_torch.kernels import convbn
+
+    blocks = [(name, 2 * size, size, k, ti) if name == "merge_conv1"
+              else (name, i, o, k, ti)
+              for name, i, o, k, ti in CONVBN_BLOCKS]
+    for dtype in (torch.float32, torch.bfloat16):
+        paths = {name: convbn.products(BATCH, ti, i, o, k, dtype)
+                 for name, i, o, k, ti in blocks}
+        log(f"K6 at size {size}, {dtype}: product paths {paths}")
+        check(all(p is not None for p in paths.values()),
+              f"K6 takes no path for a block of size {size} in {dtype}: "
+              f"{paths}")
 
 
 def check_convbn(dtype, tols):
@@ -1602,6 +1747,68 @@ def profile_stream(pod5_path, bam_path, path, root):
         log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
 
 
+def top_functions(stats, key, n=10):
+    """The ``n`` functions of a ``pstats.Stats`` with the largest ``key``
+    ("cumulative" or "tottime"), as log lines."""
+    rows = sorted(stats.stats.items(), key=lambda kv: kv[1][3 if key ==
+                  "cumulative" else 2], reverse=True)[:n]
+    return [f"    {ct:9.4f} s cum {tt:9.4f} s self {nc:>8d} calls  "
+            f"{os.path.basename(path)}:{line}({func})"
+            for (path, line, func), (_cc, nc, tt, ct, _callers) in rows]
+
+
+def profile_stream_stages(root, pod5_path, bam_path, path, want_tags):
+    """Phase 5's f32 run once more, in a process of its own started with
+    REMORA_TPU_INFER_RUN_MODEL_PROFILE_FILE set (``--profile-stream``;
+    the driver reads the variable at import): its tags must equal phase
+    5's f32 tags, and the ``call_batches`` thread's cProfile is logged,
+    the top ten functions by cumulative and by own time. From Python 3.12
+    cProfile records every thread of the process while the stage runs,
+    so the table holds the other stages' calls too."""
+    import pstats
+
+    prof = os.path.join(root, "call_batches.pstats")
+    out = os.path.join(root, "stream_cprofile.bam")
+    env = dict(os.environ, REMORA_TPU_INFER_RUN_MODEL_PROFILE_FILE=prof)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profile-stream",
+         pod5_path, bam_path, path, out],
+        env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "the cProfiled stream run failed:\n"
+          + proc.stderr[-3000:])
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    tags = bam_tags(out)
+    mm, ml, worst = tag_diff(tags, want_tags)
+    log(f"stream f32 cProfiled (call_batches): {result['written']} reads in "
+        f"{result['wall_s']:.3f} s, K1 {result['k1']}; vs phase 5's f32 "
+        f"run: MM strings that differ {mm}, ML bytes that differ {ml} "
+        f"(process wall {time.monotonic() - t0:.1f} s with start-up)")
+    check(tags.keys() == want_tags.keys() and mm == ml == 0,
+          "stream cProfiled: tags differ from phase 5's f32 run")
+    stats = pstats.Stats(prof)
+    for key in ("cumulative", "tottime"):
+        log(f"  call_batches cProfile, top ten by {key} ("
+            f"{stats.total_calls} calls, {stats.total_tt:.3f} s profiled):")
+        for line in top_functions(stats, key):
+            log(line)
+    return result
+
+
+def profile_stream_child(argv):
+    """``--profile-stream POD5 BAM CKPT OUT``: one f32 streaming run (the
+    parent sets the profile variable); its wall and counts as a JSON
+    line."""
+    from remora_tpu_torch.infer.infer import ModelHandle
+
+    pod5_path, bam_path, path, out = argv
+    _tags, counts, wall, _ = stream_leg(
+        pod5_path, bam_path, ModelHandle.load(path), out, "stream cProfiled")
+    print(json.dumps({"wall_s": wall, "k1": counts["k1"],
+                      "written": counts["written"]}), flush=True)
+    return 0
+
+
 def stream_infer(root, path, refine_path, smi, sets):
     """Phase 5: the port's ``infer_from_pod5_and_bam`` on the card, f32
     and bf16, then a CPU run of a 16-read subset and a refiner checkpoint
@@ -1664,6 +1871,7 @@ def stream_infer(root, path, refine_path, smi, sets):
         f"differ {ml}, max |delta| {worst}")
     check(mm == 0, "stream bf16: MM strings differ from f32")
     profile_stream(pod5_path, bam_path, path, root)
+    profile_stream_stages(root, pod5_path, bam_path, path, results["f32"])
 
     # the same driver with the handle on the CPU, 16 reads
     cpu = ModelHandle.load(path, device="cpu")
@@ -2369,8 +2577,8 @@ def _loaded_model(ckpt):
 # bf16 parts, and the ordered dW sum each launches (mma_sm90.cuh's
 # ordered_sum<0>, demangled or mangled; K6's is ordered_sum<64>)
 K3_DW_SUM = r"ordered_sum(<0>|ILi0E)"
-K3_KERNELS = (r"lstm_bwd_\w*kernel|wide_rec_cluster_kernel|wide_prod_\w*|"
-              + K3_DW_SUM)
+K3_KERNELS = (r"lstm_bwd_\w*kernel|wide_rec_cluster_kernel|"
+              r"general_rec_kernel|wide_prod_\w*|" + K3_DW_SUM)
 
 
 def profile_train_step(ckpt, bf16, tag, n_walls=10, convbn=None):
@@ -2454,12 +2662,13 @@ def plain_lstm_train():
         K.lstm_fwd, K.lstm_bwd = kernels
 
 
-def check_train_step_vs_plain(ckpt, wide=False):
+def check_train_step_vs_plain(ckpt, kind=None):
     """One f32 train step (forward, loss, backward) with K2/K3 against the
     same step with their plain versions, from the same checkpoint and
-    batch: loss <= 1e-5, LSTM and fc gradients <= 1e-4 relative. ``wide``:
-    the kernels' step must run on the wide kernels (lstm_wide.cu,
-    lstm_wide_bwd.cu)."""
+    batch: loss <= 1e-5, LSTM and fc gradients <= 1e-4 relative. ``kind``
+    "wide": the kernels' step must run on the wide kernels (lstm_wide.cu,
+    lstm_wide_bwd.cu); "general": on lstm_general.cu, and the step it is
+    held to runs with REMORA_TPU_LSTM=scan (the scan in layers.lstm)."""
     import torch
 
     from remora_tpu_torch.infer.infer import _put, full_f32
@@ -2476,9 +2685,10 @@ def check_train_step_vs_plain(ckpt, wide=False):
         model, meta = _loaded_model(ckpt)
         loss_fn = T.make_loss_fn(model, channels_last=True)
         launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
-        wide_launches = dict(K.LAUNCHES_WIDE)
-        with (plain_lstm_train() if plain else contextlib.nullcontext()), \
-                full_f32():
+        split = K.LAUNCHES_GENERAL if kind == "general" else K.LAUNCHES_WIDE
+        split_launches = dict(split)
+        ref = (lstm_mode("scan") if kind == "general" else plain_lstm_train())
+        with (ref if plain else contextlib.nullcontext()), full_f32():
             bb, ab = meta["kmer_context_bases"]
             enc = compute_encoded_kmer_batch(bb, ab, seqs, maps, lens,
                                              meta["chunk_len"],
@@ -2489,11 +2699,11 @@ def check_train_step_vs_plain(ckpt, wide=False):
         ran = (K.LAUNCHES_FWD - launches[0], K.LAUNCHES_BWD - launches[1])
         check(ran == ((0, 0) if plain else (1, 1)),
               f"train step (plain={plain}) launched K2/K3 {ran} times")
-        ran_wide = tuple(K.LAUNCHES_WIDE[leg] - wide_launches[leg]
-                         for leg in ("fwd", "bwd"))
-        check(ran_wide == ((1, 1) if wide and not plain else (0, 0)),
-              f"train step (plain={plain}) launched the wide K2/K3 "
-              f"{ran_wide} times")
+        ran_split = tuple(split[leg] - split_launches[leg]
+                          for leg in ("fwd", "bwd"))
+        check(ran_split == ((1, 1) if kind and not plain else (0, 0)),
+              f"train step (plain={plain}) launched the {kind or 'wide'} "
+              f"K2/K3 {ran_split} times")
         grads = {name: p.grad for name, p in T.sorted_params(model)
                  if name.split("/")[0] in ("lstm1", "lstm2", "fc")
                  and p.grad is not None}
@@ -2503,16 +2713,17 @@ def check_train_step_vs_plain(ckpt, wide=False):
     rel = {name: ((k_grads[name] - g).abs().max()
                   / g.abs().max().clamp(min=1e-30)).item()
            for name, g in p_grads.items()}
-    log(f"train step{' (wide)' if wide else ''}, kernels vs plain LSTM: "
+    ref_name = "the scan" if kind == "general" else "plain LSTM"
+    log(f"train step{f' ({kind})' if kind else ''}, kernels vs {ref_name}: "
         f"loss {k_loss:.6f} vs "
         f"{p_loss:.6f} (|d| {dloss:.3e}, tolerance 1e-5); worst relative "
         f"gradient gap {max(rel.values()):.3e} ({max(rel, key=rel.get)}; "
         f"tolerance 1e-4)")
-    check(dloss <= 1e-5, "train step loss disagrees with the plain LSTM")
+    check(dloss <= 1e-5, f"train step loss disagrees with {ref_name}")
     check(k_grads.keys() == p_grads.keys() and len(rel) >= 9,
           f"gradients of {sorted(rel)}")
     check(max(rel.values()) <= 1e-4,
-          "train step gradients disagree with the plain LSTM")
+          f"train step gradients disagree with {ref_name}")
 
 
 def check_pallas_step_vs_fused(ckpt):
@@ -4274,6 +4485,8 @@ def run_phases(stack):
         return step_walls()
     if sys.argv[1:2] == ["--dp-rank"]:
         return dp_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--profile-stream"]:
+        return profile_stream_child(sys.argv[2:])
     # per-batch host dispatch / fetch / input-wait of every stage pass
     os.environ["REMORA_TPU_INFER_STAGE_STATS"] = "1"
     from remora_tpu_torch.kernels import _build
@@ -4304,10 +4517,12 @@ def run_phases(stack):
         torch.bfloat16: check_lstm_train(torch.bfloat16, 2e-2),
     }
     wide_kernels = check_lstm_wide()
+    general_kernels = check_lstm_general()
     if sys.argv[1:] == ["--lstm-kernels"]:
-        # phases 1-3b and 3d only: no main path ran, so no launch counts
+        # phases 1-3b, 3d and 3e only: no main path ran, so no launch counts
         records = list(kernels.values())
-        for recs in (*train_kernels.values(), *wide_kernels.values()):
+        for recs in (*train_kernels.values(), *wide_kernels.values(),
+                     *general_kernels.values()):
             records.extend(recs)
         return finish(records)
     # relative to each output's largest entry: f32 rounding everywhere but
@@ -4391,7 +4606,9 @@ def run_phases(stack):
     # 6d: a pallas-mode step against the fused-mode step
     check_pallas_step_vs_fused(final)
     # 6e: the wide LSTM legs on the model path at size WIDE_SIZE
-    wide_model_path(tmp, config, wide_kernels)
+    model_path_leg(tmp, config, wide_kernels, "wide")
+    # 6g: the general LSTM leg on the model path at size GENERAL_SIZE
+    model_path_leg(tmp, config, general_kernels, "general")
     # 6f and 5c: data parallel on phase 6's dataset and phase 5's reads
     # and checkpoint; their K1-K3 launches join the kernels line
     dp_launches, dp_rates = data_parallel(tmp, config, sets["ckpt"], smi,
@@ -4446,7 +4663,8 @@ def run_phases(stack):
     }}))
     records = list(kernels.values())
     for recs in (*train_kernels.values(), *wide_kernels.values(),
-                 *convbn_kernels.values(), dp_kernels):
+                 *general_kernels.values(), *convbn_kernels.values(),
+                 dp_kernels):
         records.extend(recs)
     return finish(records)
 

@@ -64,6 +64,58 @@ from remora_tpu_torch.models import model_io
 
 LOGGER = log.get_logger()
 
+# per-stage cProfile hooks, read once at import as in the JAX package:
+# each names the pstats file that the stage's thread dumps when it ends
+# (PREP_DATA is read and unused there too)
+_PROF_PREP_FN = os.getenv("REMORA_TPU_INFER_PREP_DATA_PROFILE_FILE")
+_PROF_BATCH_FN = os.getenv("REMORA_TPU_INFER_BATCH_PROFILE_FILE")
+_PROF_MODEL_FN = os.getenv("REMORA_TPU_INFER_RUN_MODEL_PROFILE_FILE")
+_PROF_UNBATCH_FN = os.getenv("REMORA_TPU_INFER_UNBATCH_PROFILE_FILE")
+
+
+def _maybe_profile(prof_path):
+    """Decorator: dump cProfile stats for a pipeline stage when the env
+    var for it is set."""
+
+    def outer(func):
+        if not prof_path:
+            return func
+
+        def wrapper(*args, **kwargs):
+            import cProfile
+
+            prof = cProfile.Profile()
+            try:
+                return prof.runcall(func, *args, **kwargs)
+            finally:
+                prof.dump_stats(prof_path)
+
+        return wrapper
+
+    return outer
+
+
+def _check_stage_profiles():
+    """Refuse, before any stage starts, two stage profiles at once where
+    cProfile cannot run them: from Python 3.12 it profiles through
+    ``sys.monitoring``, one profiler for the whole process, so a second
+    ``cProfile.Profile`` started in another stage's thread raises
+    ``ValueError('Another profiling tool is already active')`` (the JAX
+    driver loses that stage mid-stream and raises after draining). One
+    profile on 3.12 also records the other threads' calls while it runs."""
+    names = [name for name, path in (
+        ("REMORA_TPU_INFER_BATCH_PROFILE_FILE", _PROF_BATCH_FN),
+        ("REMORA_TPU_INFER_RUN_MODEL_PROFILE_FILE", _PROF_MODEL_FN),
+        ("REMORA_TPU_INFER_UNBATCH_PROFILE_FILE", _PROF_UNBATCH_FN),
+    ) if path]
+    if len(names) > 1 and sys.version_info >= (3, 12):
+        raise RemoraError(
+            f"{' and '.join(names)} are set: Python "
+            f"{sys.version_info[0]}.{sys.version_info[1]}'s cProfile "
+            "runs one profile a process, so profile one stage a run"
+        )
+
+
 def _model_read(remora_read, motifs):
     """Per-model working copy with its motif focus bases selected."""
     mdl_read = remora_read.copy()
@@ -730,6 +782,7 @@ def infer_from_pod5_and_bam(
             local devices (``_infer_device_split``).
     """
     _check_handles(models)
+    _check_stage_profiles()
     bam_idx = ReadIndexedBam(
         in_bam_path, skip_non_primary=skip_non_primary, req_tags={"mv"}
     )
@@ -847,15 +900,16 @@ def infer_from_pod5_and_bam(
 
     stage_errors = {}
 
-    def serial_stage(target, out_maxsize, out_name, *extra):
+    def serial_stage(target, prof_path, out_maxsize, out_name, *extra):
         out_q = NamedQueue(maxsize=out_maxsize, name=out_name)
+        wrapped = _maybe_profile(prof_path)(target)
 
         def guarded(*a):
             # a crashed serial stage must still emit its end sentinel,
             # or every downstream stage (and the main loop) deadlocks;
             # the error is recorded so the driver raises after draining
             try:
-                target(*a)
+                wrapped(*a)
             except BaseException as e:
                 LOGGER.exception(
                     f"{target.__name__} stage failed; shutting pipeline "
@@ -880,6 +934,7 @@ def infer_from_pod5_and_bam(
     _batcher.__name__ = "batch_reads"
     batches_q, batch_reads_t = serial_stage(
         _batcher,
+        _PROF_BATCH_FN,
         4,
         "Batches",
         queue_iter(prepped_nn_input.out_q, num_prep_nn_input_workers),
@@ -890,15 +945,15 @@ def infer_from_pod5_and_bam(
 
     _caller.__name__ = "call_batches"
     called_batches_q, call_batches_t = serial_stage(
-        _caller, 4, "CalledBatches", batches_q
+        _caller, _PROF_MODEL_FN, 4, "CalledBatches", batches_q
     )
 
     def _joiner(src, sink):
         unbatch(src, sink, models_metadata)
 
     _joiner.__name__ = "unbatch"
-    called_reads_q, _unbatch_t = serial_stage(
-        _joiner, queue_max, "Unbatch", called_batches_q
+    called_reads_q, unbatch_t = serial_stage(
+        _joiner, _PROF_UNBATCH_FN, queue_max, "Unbatch", called_batches_q
     )
 
     final_reads = map_stage(
@@ -996,6 +1051,9 @@ def infer_from_pod5_and_bam(
     # join is safe to abandon) — never hang the driver on it
     batch_reads_t.join(timeout=None if not stage_errors else 10)
     call_batches_t.join(timeout=None if not stage_errors else 10)
+    # the unbatch stage has sent its last reads; its profile (if any) is
+    # dumped when its thread ends
+    unbatch_t.join(timeout=None if not stage_errors else 10)
     if device_refine and prepped_reads.errors:
         # the device refinement raised: its micro-batch of reads is gone
         stage_errors.setdefault("PrepReadData", prepped_reads.errors[0])

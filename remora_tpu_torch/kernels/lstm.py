@@ -23,8 +23,12 @@ and all three legs, to the kernels written for the wider layers:
 ``csrc/lstm_wide.cu`` for K1 and K2 and ``csrc/lstm_wide_bwd.cu`` for K3,
 each walking time on clusters of two CTAs that split the hidden units,
 hold their units' slice of W on chip and swap h_t (K3: partial dh sums)
-through distributed shared memory; above those limits every entry point
-raises.
+through distributed shared memory. C or H above 128, up to
+``GENERAL_MAX_C`` / ``GENERAL_MAX_H`` (1024), goes to the general leg,
+``csrc/lstm_general.cu``: one block per 8 batch rows walks time with h
+and c in shared memory and W read through L2 each step (K3: its own
+reverse recurrence between ``csrc/lstm_prod.cuh``'s gate recompute and
+products, the wide K3's). Above that every entry point raises.
 
 The source notes give each kernel's design and bound. Each entry point
 launches its kernel for a CUDA tensor and uses its plain version
@@ -76,6 +80,16 @@ WIDE_MAX_H = 128
 # launches of the wide kernels (one per wide call of each leg; the leg's
 # own count above moves too)
 LAUNCHES_WIDE = dict.fromkeys(("last", "fwd", "bwd"), 0)
+# the shapes ``lstm_general.cu`` takes (its ``lstm_general_max_c`` /
+# ``_max_h``): every LSTM leg at 1 <= C, H <= 1024 in both dtypes, the
+# forward's x, h and c tiles and the recurrence's dgates, dh and dc tiles
+# of 8 rows within a block's shared memory; it runs what the wide kernels
+# do not take
+GENERAL_MAX_C = 1024
+GENERAL_MAX_H = 1024
+# launches of the general leg (one per general call of each leg; the leg's
+# own count above moves too)
+LAUNCHES_GENERAL = dict.fromkeys(("last", "fwd", "bwd"), 0)
 
 
 def make_w_aug(params, dtype):
@@ -138,26 +152,29 @@ def bwd_f32_shape_error(C, H):
             f"H = 64), got C={C}, H={H}")
 
 
-def wide_shape_error(name, C, H):
+def shape_error(name, C, H):
     """The ``ValueError`` message with which ``name`` refuses C inputs and
     H hidden units that no kernel takes, or None."""
-    if 1 <= C <= WIDE_MAX_C and 1 <= H <= WIDE_MAX_H:
+    if 1 <= C <= GENERAL_MAX_C and 1 <= H <= GENERAL_MAX_H:
         return None
     return (f"{name}: no kernel takes C={C}, H={H}; the LSTM kernels take "
-            f"1 <= C <= {WIDE_MAX_C} and 1 <= H <= {WIDE_MAX_H}")
+            f"1 <= C <= {GENERAL_MAX_C} and 1 <= H <= {GENERAL_MAX_H}")
 
 
 def route(leg, dtype, C, H):
     """The kernel of a CUDA call of ``leg`` ("last" K1, "fwd" K2, "bwd" K3)
     in ``dtype`` at C inputs and H hidden units: "main" for the main-shape
     kernel of that leg and dtype (``lstm_fwd_f32.cu``, ``lstm_fwd_mma.cu``,
-    ``lstm_bwd_f32.cu``, ``lstm_bwd_mma.cu``) where it
-    takes the shape, else "wide" (``lstm_wide.cu``, K3 ``lstm_wide_bwd.cu``);
-    a shape no kernel takes raises ``ValueError``."""
+    ``lstm_bwd_f32.cu``, ``lstm_bwd_mma.cu``) where it takes the shape, else
+    "wide" (``lstm_wide.cu``, K3 ``lstm_wide_bwd.cu``) up to C, H = 128 and
+    "general" (``lstm_general.cu``) above; a shape no kernel takes raises
+    ``ValueError``."""
     name = {"last": "lstm_last", "fwd": "lstm_fwd", "bwd": "lstm_bwd"}[leg]
-    msg = wide_shape_error(name, C, H)
+    msg = shape_error(name, C, H)
     if msg is not None:
         raise ValueError(msg)
+    if C > WIDE_MAX_C or H > WIDE_MAX_H:
+        return "general"
     if dtype == torch.bfloat16:
         main = (fwd_mma_shape_error(name, C, H) is None if leg != "bwd"
                 else H <= BWD_MMA_MAX_H and C + H <= BWD_MMA_MAX_K)
@@ -239,10 +256,54 @@ def _wide_bwd_library():
 
 def wide_bwd_weights(w_aug, C):
     """(W_h^T (4H, H), W_x^T (4H, C)) of W_aug (C + H + 1, 4H), contiguous:
-    what ``lstm_wide_bwd.cu`` reads, the recurrence's slice of W_h^T's rows
-    per CTA and dx's B operand with its columns contiguous."""
+    what ``lstm_wide_bwd.cu`` and ``lstm_general.cu`` read, the
+    recurrence's W_h^T (the wide one's slice of its rows per CTA) and dx's B
+    operand with its columns contiguous. Any width: plain transposes."""
     H = w_aug.shape[1] // 4
     return (w_aug[C:C + H].t().contiguous(), w_aug[:C].t().contiguous())
+
+
+def general_weights(w_aug):
+    """``lstm_general.cu``'s layout of W_aug (C + H + 1, 4H): (C + H + 1, H,
+    4), each unit's four gate weights side by side ([k][u][g] =
+    W_aug[k][g * H + u]), so a thread reads its unit's row of a k as one
+    16-byte (bf16: 8-byte) load; the bias row stays last."""
+    H = w_aug.shape[1] // 4
+    return w_aug.reshape(w_aug.shape[0], 4, H).transpose(1, 2).contiguous()
+
+
+def _general_library():
+    lib = _build.load("lstm_general")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_general_fwd.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.lstm_general_fwd.restype = i32
+        lib.lstm_general_last.argtypes = [i32] + [ptr] * 3 + [i32] * 4 + [ptr]
+        lib.lstm_general_last.restype = i32
+        lib.lstm_general_bwd.argtypes = [i32] + [ptr] * 12 + [i32] * 4 + [ptr]
+        lib.lstm_general_bwd.restype = i32
+        lib.lstm_general_bwd_dw_chunks.argtypes = [i32, i32]
+        lib.lstm_general_bwd_dw_chunks.restype = i32
+        for fn in ("lstm_general_max_c", "lstm_general_max_h"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i32
+        lib.lstm_general_error_string.argtypes = [i32]
+        lib.lstm_general_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _general_launch(fn, dtype, w_aug):
+    """``lstm_general.cu``'s forward launcher ``fn`` behind the main-shape
+    launchers' signature (x, W_aug, outputs..., T, B, C, H, stream): the
+    dtype flag first, and W_aug replaced by ``general_weights``' layout."""
+    bf16 = int(dtype == torch.bfloat16)
+    w_il = general_weights(w_aug)
+
+    def launch(x_ptr, _w_ptr, *rest):
+        return fn(bf16, x_ptr, w_il.data_ptr(), *rest)
+
+    return launch
 
 
 def _fwd_mma_library(name, C, H):
@@ -271,7 +332,8 @@ def lstm_last(params, x):
     in x's dtype. f32 runs full-f32 arithmetic (``lstm_fwd_f32.cu``); bf16
     takes bf16 operands (h included) with f32 sums and f32 h/c carries on
     the tensor cores (``lstm_fwd_mma.cu``, last-only). Shapes those
-    kernels refuse run ``lstm_wide.cu`` (``route``)."""
+    kernels refuse run ``lstm_wide.cu`` or, above C, H = 128,
+    ``lstm_general.cu`` (``route``)."""
     global LAUNCHES
     if x.device.type == "cpu":
         return lstm_last_reference(params, x)
@@ -291,8 +353,12 @@ def lstm_last(params, x):
     w_aug = make_w_aug(params, x.dtype)
     if w_aug.device != x.device:
         raise ValueError("lstm_last: params and x are on different devices")
-    wide = route("last", x.dtype, C, H) == "wide"
-    if wide:
+    kind = route("last", x.dtype, C, H)
+    if kind == "general":
+        lib = _general_library()
+        launch = _general_launch(lib.lstm_general_last, x.dtype, w_aug)
+        error_string = lib.lstm_general_error_string
+    elif kind == "wide":
         lib = _wide_library()
         launch = _wide_launch(lib.lstm_wide_last, x.dtype, w_aug, C)
         error_string = lib.lstm_wide_error_string
@@ -310,9 +376,16 @@ def lstm_last(params, x):
                      H, torch.cuda.current_stream().cuda_stream)
     _raise_on(error_string, "lstm_last", err)
     LAUNCHES += 1
-    if wide:
-        LAUNCHES_WIDE["last"] += 1
+    _count_leg(kind, "last")
     return out
+
+
+def _count_leg(kind, leg):
+    """One launch of ``leg`` on the wide or the general kernels."""
+    if kind == "wide":
+        LAUNCHES_WIDE[leg] += 1
+    elif kind == "general":
+        LAUNCHES_GENERAL[leg] += 1
 
 
 # ---------------- K2 / K3: the training pair ----------------
@@ -486,13 +559,18 @@ def lstm_fwd(x, w_aug, want_cs=True):
     """K2: (hs, cs) of a forward LSTM over x (T, B, C), each (T, B, H) in
     x's dtype; cs is None unless ``want_cs``. f32 runs
     ``lstm_fwd_f32.cu``, bf16 ``lstm_fwd_mma.cu``; shapes
-    those kernels refuse ``lstm_wide.cu`` (``route``)."""
+    those kernels refuse ``lstm_wide.cu`` or, above C, H = 128,
+    ``lstm_general.cu`` (``route``)."""
     global LAUNCHES_FWD
     if x.device.type == "cpu":
         return lstm_fwd_reference(x, w_aug, want_cs)
     T, B, C, H = _check_cuda("lstm_fwd", x, w_aug)
-    wide = route("fwd", x.dtype, C, H) == "wide"
-    if wide:
+    kind = route("fwd", x.dtype, C, H)
+    if kind == "general":
+        lib = _general_library()
+        launch = _general_launch(lib.lstm_general_fwd, x.dtype, w_aug)
+        error_string = lib.lstm_general_error_string
+    elif kind == "wide":
         lib = _wide_library()
         launch = _wide_launch(lib.lstm_wide_fwd, x.dtype, w_aug, C)
         error_string = lib.lstm_wide_error_string
@@ -512,8 +590,7 @@ def lstm_fwd(x, w_aug, want_cs=True):
         )
     _raise_on(error_string, "lstm_fwd", err)
     LAUNCHES_FWD += 1
-    if wide:
-        LAUNCHES_WIDE["fwd"] += 1
+    _count_leg(kind, "fwd")
     return hs, cs
 
 
@@ -648,14 +725,16 @@ def lstm_bwd(x, w_aug, hs, cs, dhs):
     """K3: (dx in x's dtype, dW_aug f32 (C + H + 1, 4H)) from the forward's
     saved hs and cs and the hidden-state cotangents dhs. bf16 runs the
     three tensor-core parts, f32 ``lstm_bwd_f32.cu``'s one-launch kernel;
-    shapes those kernels refuse run ``lstm_wide_bwd.cu``'s parts
-    (``route``; above its limits the call raises)."""
+    shapes those kernels refuse run ``lstm_wide_bwd.cu``'s parts or, above
+    C, H = 128, ``lstm_general.cu``'s (``route``; above its limits the call
+    raises)."""
     global LAUNCHES_BWD
     if x.device.type == "cpu":
         return lstm_bwd_reference(x, w_aug, hs, cs, dhs)
     T, B, C, H = _check_cuda("lstm_bwd", x, w_aug, hs, cs, dhs)
-    if route("bwd", x.dtype, C, H) == "wide":
-        return _lstm_bwd_wide(x, w_aug, hs, cs, dhs)
+    kind = route("bwd", x.dtype, C, H)
+    if kind != "main":
+        return _lstm_bwd_split(kind, x, w_aug, hs, cs, dhs)
     if x.dtype == torch.bfloat16:
         z = lstm_bwd_gates(x, w_aug, hs)
         dg = lstm_bwd_recurrence(z, cs, dhs, w_aug)
@@ -682,35 +761,45 @@ def lstm_bwd(x, w_aug, hs, cs, dhs):
     return dx, dw
 
 
-def _lstm_bwd_wide(x, w_aug, hs, cs, dhs):
-    """K3 through ``lstm_wide_bwd.cu``: the gate recompute, the reverse
-    recurrence on clusters of two CTAs (dh = dgates . W_h^T, each CTA's
-    slice of W_h^T in shared memory) and the products with their ordered dW
-    sum, one call of the library (after ``_check_cuda``). A cluster the card
-    cannot hold raises."""
+def _lstm_bwd_split(kind, x, w_aug, hs, cs, dhs):
+    """K3 in parts, one call of the library (after ``_check_cuda``): the
+    gate recompute, the reverse recurrence and the products with their
+    ordered dW sum (``lstm_prod.cuh``). ``kind`` "wide" runs
+    ``lstm_wide_bwd.cu``'s recurrence on clusters of two CTAs (dh = dgates .
+    W_h^T, each CTA's slice of W_h^T in shared memory; a cluster the card
+    cannot hold raises), "general" ``lstm_general.cu``'s (one block per 8
+    rows, W_h^T read through L2)."""
     global LAUNCHES_BWD
     T, B, C = x.shape
     H = w_aug.shape[1] // 4
-    lib = _wide_bwd_library()
+    if kind == "general":
+        lib = _general_library()
+        run, chunks, error_string = (lib.lstm_general_bwd,
+                                     lib.lstm_general_bwd_dw_chunks,
+                                     lib.lstm_general_error_string)
+    else:
+        lib = _wide_bwd_library()
+        run, chunks, error_string = (lib.lstm_wide_bwd,
+                                     lib.lstm_wide_bwd_dw_chunks,
+                                     lib.lstm_wide_bwd_error_string)
     dev = x.device
     w_ht, w_xt = wide_bwd_weights(w_aug, C)
     z = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     dg = torch.empty((T, B, 4 * H), dtype=x.dtype, device=dev)
     dx = torch.empty_like(x)
-    partials = torch.empty(
-        (lib.lstm_wide_bwd_dw_chunks(T, B), C + H + 1, 4 * H),
-        dtype=torch.float32, device=dev)
+    partials = torch.empty((chunks(T, B), C + H + 1, 4 * H),
+                           dtype=torch.float32, device=dev)
     dw = torch.empty((C + H + 1, 4 * H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.lstm_wide_bwd(
+        err = run(
             int(x.dtype == torch.bfloat16), x.data_ptr(), w_aug.data_ptr(),
             w_ht.data_ptr(), w_xt.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             dhs.data_ptr(), z.data_ptr(), dg.data_ptr(), dx.data_ptr(),
             partials.data_ptr(), dw.data_ptr(), T, B, C, H,
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib.lstm_wide_bwd_error_string, "lstm_bwd", err)
+    _raise_on(error_string, "lstm_bwd", err)
     LAUNCHES_BWD += 1
-    LAUNCHES_WIDE["bwd"] += 1
+    _count_leg(kind, "bwd")
     return dx, dw
 
 

@@ -64,8 +64,8 @@ def test_lstm_last_kernel_refuses_bad_inputs(cuda):
         K.lstm_last(params, x.transpose(0, 1))
     with pytest.raises(ValueError, match="dtype"):
         K.lstm_last(params, x.double())
-    wide, xw = _case(5, 16, 64, 129, torch.float32, cuda)
-    with pytest.raises(ValueError, match="kernel takes"):
+    wide, xw = _case(2, 3, 64, 1025, torch.float32, cuda)
+    with pytest.raises(ValueError, match="kernels take"):
         K.lstm_last(wide, xw)
 
 
@@ -182,7 +182,7 @@ def test_lstm_fwd_f32_matches_plain_and_repeats(cuda, T, B, C, H, offset):
 
 # shapes above every kernel's limits (the bf16 kernel's refusals of H 65
 # to 128 now go to lstm_wide.cu)
-@pytest.mark.parametrize("C,H", [(129, 64), (64, 129), (16, 200)])
+@pytest.mark.parametrize("C,H", [(1025, 64), (64, 1025), (16, 2000)])
 def test_lstm_fwd_mma_refuses_shapes(cuda, C, H):
     params, x = _case(3, 16, C, H, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="no kernel takes"):
@@ -287,8 +287,8 @@ def test_lstm_bwd_f32_routes_to_its_kernel(cuda, monkeypatch):
             assert bool(lib.lstm_bwd_f32_fits(C, H)) == (
                 K.bwd_f32_shape_error(C, H) is None), (C, H)
     # above every kernel's limits ((128, 64), which this kernel refuses,
-    # now runs lstm_wide.cu)
-    params, x = _case(3, 16, 129, 64, torch.float32, cuda)
+    # runs lstm_wide.cu, and (129, 64) lstm_general.cu)
+    params, x = _case(3, 16, 1025, 64, torch.float32, cuda)
     hs = torch.zeros((3, 16, 64), device=cuda)
     with pytest.raises(ValueError, match="no kernel takes"):
         K.lstm_bwd(x, _w_aug(params), hs, hs, hs)
@@ -387,25 +387,110 @@ def test_lstm_wide_bwd_small_units_match_plain(cuda, dtype, T, B, C, H):
 def test_lstm_libraries_match_the_shape_rule(cuda):
     """The limits behind ``route`` are the kernels': lstm_wide.cu refuses a
     launch past WIDE_MAX_C/H before it reads a pointer and splits the units
-    as ``wide_fwd_units`` says, and the f32 forwards' and the bf16
-    backward's maxima are the main-shape rule's."""
+    as ``wide_fwd_units`` says; lstm_general.cu's maxima are
+    GENERAL_MAX_C/H, past which ``route`` raises and the library refuses a
+    launch of any leg before it reads a pointer; and the f32 forwards' and
+    the bf16 backward's maxima are the main-shape rule's."""
     from remora_tpu_torch.kernels import _build
 
     K.lstm_last(*_case(2, 3, 96, 96, torch.float32, cuda))
     wide = _build.load("lstm_wide")
     for C, H in ((K.WIDE_MAX_C + 1, 8), (8, K.WIDE_MAX_H + 1), (0, 8)):
-        assert K.wide_shape_error("lstm_fwd", C, H) is not None
         assert wide.lstm_wide_fwd(0, *[None] * 5, 1, 1, C, H, None) != 0
     # the wide forward's split of the units, which its f32 weight layout
     # (wide_fwd_weights) follows
     for H in range(1, K.WIDE_MAX_H + 1):
         assert wide.lstm_wide_fwd_units(H) == K.wide_fwd_units(H)
+    K.lstm_last(*_case(2, 3, 160, 160, torch.float32, cuda))
+    general = K._general_library()
+    assert (general.lstm_general_max_c(), general.lstm_general_max_h()) == (
+        K.GENERAL_MAX_C, K.GENERAL_MAX_H)
+    for C, H in ((K.GENERAL_MAX_C + 1, 8), (8, K.GENERAL_MAX_H + 1), (0, 8),
+                 (8, 0)):
+        assert K.shape_error("lstm_fwd", C, H) is not None
+        for bf16 in (0, 1):
+            assert general.lstm_general_fwd(
+                bf16, *[None] * 4, 1, 1, C, H, None) != 0
+            assert general.lstm_general_last(
+                bf16, *[None] * 3, 1, 1, C, H, None) != 0
+            assert general.lstm_general_bwd(
+                bf16, *[None] * 12, 1, 1, C, H, None) != 0
+    for C, H in ((K.WIDE_MAX_C + 1, 8), (8, K.WIDE_MAX_H + 1),
+                 (K.GENERAL_MAX_C, K.GENERAL_MAX_H)):
+        assert K.shape_error("lstm_fwd", C, H) is None
+        assert K.route("fwd", torch.float32, C, H) == "general"
     f32 = _build.load("lstm_fwd_f32")
     assert (f32.lstm_fwd_f32_max_c(), f32.lstm_fwd_f32_max_h()) == (
         K.F32_FWD_MAX_C, K.F32_FWD_MAX_H)
     mma = _build.load("lstm_bwd_mma")
     assert (mma.lstm_bwd_mma_max_h(), mma.lstm_bwd_mma_max_k()) == (
         K.BWD_MMA_MAX_H, K.BWD_MMA_MAX_K)
+
+
+# the general leg (lstm_general.cu: K1, K2 with and without cs, K3) against
+# the plain versions at C or H past 128: the model's sizes 160 and 256, C !=
+# H, C = 1 and H = 129 (one unit past a block's 128 slots), C and H off the
+# products' 16-byte staging (bf16: off 8), a batch off and below a block's 8
+# rows, T = 1, and the limit 1024; today's tolerances, a repeated call
+# repeats the bits
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,B,C,H", [(5, 37, 160, 160), (3, 16, 256, 256),
+                                     (4, 9, 144, 200), (3, 5, 1, 129),
+                                     (2, 13, 257, 131), (1, 3, 129, 1),
+                                     (3, 20, 130, 200), (2, 3, 1024, 1024)])
+def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
+    assert K.route("bwd", dtype, C, H) == "general"
+    params, x = _case(T, B, C, H, dtype, cuda)
+    w_aug = _w_aug(params)
+    dhs = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(T, B, H)).astype(np.float32)).to(cuda, dtype)
+    launches = dict(K.LAUNCHES_GENERAL)
+    with full_f32():
+        last = K.lstm_last(params, x)
+        last_ref = K.lstm_last_reference(params, x)
+        hs, cs = K.lstm_fwd(x, w_aug)
+        hs_ref, cs_ref = K.lstm_fwd_reference(x, w_aug)
+        hs_nocs, _ = K.lstm_fwd(x, w_aug, want_cs=False)
+        dx, dw = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        dx_ref, dw_ref = K.lstm_bwd_reference(x, w_aug, hs, cs, dhs)
+        again = (K.lstm_last(params, x), *K.lstm_fwd(x, w_aug),
+                 *K.lstm_bwd(x, w_aug, hs, cs, dhs))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES_GENERAL == {"last": launches["last"] + 2,
+                                  "fwd": launches["fwd"] + 3,
+                                  "bwd": launches["bwd"] + 2}
+    assert last.dtype == hs.dtype == cs.dtype == dx.dtype == dtype
+    assert dw.dtype == torch.float32 and dw.shape == (C + H + 1, 4 * H)
+    assert torch.equal(hs_nocs, hs)
+    for got, want in ((last, last_ref), (hs, hs_ref), (cs, cs_ref),
+                      (dx, dx_ref)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, err
+    assert _rel(dw, dw_ref) <= (1e-4 if dtype == torch.float32 else tol)
+    for a, b in zip(again, (last, hs, cs, dx, dw)):
+        assert torch.equal(a, b)
+
+
+def test_lstm_fused_autograd_general_on_card(cuda):
+    """LSTMFused at C = H = 160 (K2 and K3 on lstm_general.cu) against
+    autograd through the plain scan, f32 on the card."""
+    params, x = _case(7, 19, 160, 160, torch.float32, cuda)
+    probe = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(7, 19, 160)).astype(np.float32)).to(cuda)
+    grads = []
+    launches = dict(K.LAUNCHES_GENERAL)
+    with full_f32():
+        for impl in ("fused", "scan"):
+            p = {k: v.clone().requires_grad_() for k, v in params.items()}
+            xx = x.clone().requires_grad_()
+            hs = K.L.lstm(p, xx, impl=impl)
+            (hs * probe).sum().backward()
+            grads.append([xx.grad] + [p[k].grad for k in sorted(p)])
+    assert K.LAUNCHES_GENERAL["fwd"] == launches["fwd"] + 1
+    assert K.LAUNCHES_GENERAL["bwd"] == launches["bwd"] + 1
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-4
 
 
 def test_lstm_fused_autograd_wide_on_card(cuda):
@@ -436,12 +521,12 @@ def test_lstm_train_kernels_refuse_bad_inputs(cuda):
         K.lstm_fwd(x.transpose(0, 1).contiguous().transpose(0, 1), w_aug)
     with pytest.raises(ValueError, match="dtype"):
         K.lstm_fwd(x.double(), w_aug.double())
-    wide, xw = _case(5, 16, 129, 64, torch.float32, cuda)
+    wide, xw = _case(2, 3, 1025, 64, torch.float32, cuda)
     ww = _w_aug(wide)
-    with pytest.raises(ValueError, match="kernel takes"):
+    with pytest.raises(ValueError, match="kernels take"):
         K.lstm_fwd(xw, ww)
-    hs = torch.zeros((5, 16, 64), device=cuda)
-    with pytest.raises(ValueError, match="kernel takes"):
+    hs = torch.zeros((2, 3, 64), device=cuda)
+    with pytest.raises(ValueError, match="kernels take"):
         K.lstm_bwd(xw, ww, hs, hs, hs)
 
 

@@ -137,7 +137,8 @@ def test_bwd_f32_shape_rule_takes_every_shape_of_the_old_kernel():
             assert (K.bwd_f32_shape_error(C, H) is None) == old, (C, H)
 
 
-@pytest.mark.parametrize("C,H", [(129, 64), (128, 64), (3, 70)])
+@pytest.mark.parametrize("C,H", [(129, 64), (128, 64), (3, 70), (160, 160),
+                                 (144, 200)])
 def test_lstm_bwd_takes_any_width_on_the_cpu(C, H):
     """CPU tensors take the plain version whatever the kernel's rule says,
     and launch nothing."""
@@ -224,7 +225,7 @@ def test_build_rebuilds_when_its_inputs_change(monkeypatch, fake_nvcc,
 @pytest.mark.parametrize("name", ["lstm_fwd_mma", "lstm_bwd_mma",
                                   "lstm_bwd_f32", "convbn_bwd",
                                   "lstm_wide", "lstm_wide_bwd",
-                                  "lstm_fwd_f32"])
+                                  "lstm_fwd_f32", "lstm_general"])
 def test_build_key_covers_the_shared_header(fake_nvcc, name):
     """The package's sources that include the shared header
     (``mma_sm90.cuh``: the tensor-core and cp.async helpers), copied as they

@@ -4,7 +4,8 @@ logits and one train step at sizes 96 and 128, against the JAX package
 run through its Pallas kernels in interpret mode; the REMORA_TPU_LSTM
 override in ``layers.lstm`` and ``layers.lstm_last``; and the shape rule
 that sends a CUDA call to the main-shape kernels, to ``csrc/lstm_wide.cu``
-(K3: ``csrc/lstm_wide_bwd.cu``) or to a ``ValueError``; the wide forward's
+(K3: ``csrc/lstm_wide_bwd.cu``), above 128 to ``csrc/lstm_general.cu``, or
+to a ``ValueError``; the wide forward's
 split of the units over its cluster and the weight layouts the wide
 kernels read."""
 
@@ -238,12 +239,19 @@ def test_route(leg, dtype, C, H, want):
 
 @pytest.mark.parametrize("leg", ["last", "fwd", "bwd"])
 @pytest.mark.parametrize("C,H", [(129, 64), (64, 129), (129, 129), (0, 8),
-                                 (8, 0)])
+                                 (8, 0), (1025, 64), (64, 1025),
+                                 (1025, 1025)])
 def test_route_raises_above_the_limits(leg, C, H):
+    """Past the wide kernels' 128 a shape goes to the general leg
+    (``lstm_general.cu``); past its 1024, or below 1, no kernel takes it
+    and ``route`` raises, naming the limits."""
     for dtype in (F32, BF16):
+        if 1 <= C <= 1024 and 1 <= H <= 1024:
+            assert K.route(leg, dtype, C, H) == "general"
+            continue
         with pytest.raises(ValueError, match=(
                 f"no kernel takes C={C}, H={H}; the LSTM kernels take "
-                r"1 <= C <= 128 and 1 <= H <= 128")):
+                r"1 <= C <= 1024 and 1 <= H <= 1024")):
             K.route(leg, dtype, C, H)
 
 
