@@ -4,6 +4,7 @@
     python3 chip_lstm_fwd_variants.py
     python3 chip_lstm_fwd_variants.py --wide
     python3 chip_lstm_fwd_variants.py --f32
+    python3 chip_lstm_fwd_variants.py --general
     python3 chip_lstm_fwd_variants.py --compare-parent DIR
 
 Builds ``remora_tpu_torch/csrc/lstm_fwd_mma.cu`` as it is and in variants
@@ -28,13 +29,23 @@ without the h product, without the ring that adds the k groups' sums,
 without the gate math, without the hs/cs stores, and with the sigmoid's
 reciprocal by ``__frcp_rn`` (whose out-of-range branch the kernel
 avoids).
+``--general`` splits the step of the general forward's cluster path
+(``lstm_general_cluster.cu``'s ``cluster_fwd_bf16_kernel`` and
+``cluster_fwd_f32_kernel``, K2 with cs at T = 124, B = 2048 and C = H =
+160 and 256 where ``kernels.lstm.general_fwd_plan`` takes the shape, at
+the plan's cluster size and rows): as it is, without the x product,
+without the h product, without the DSMEM exchange and the cluster
+barriers (CTA barriers in their place, h_t into the CTA's own tile),
+without the gate math, and without the hs/cs stores; registers and spills
+per variant.
 ``--compare-parent DIR`` times the main-shape f32 K1 and K2 (with cs; T =
-124, B = 2048, C = H = 64) and the wide K1 and K2 (with cs) of the parent
-checkout at DIR and of this one in one call, parent / this / this /
-parent, beside cuDNN's forward (``torch.nn.LSTM``), the wide legs at C = H
-= 96 and 128, f32 and bf16, each design's library called on preallocated
-buffers and weight layouts, and prints how far the two designs' outputs
-differ.
+124, B = 2048, C = H = 64), the wide K1 and K2 (with cs) and the general
+K1 and K2 (with cs) of the parent checkout at DIR and of this one in one
+call, parent / this / this / parent, beside cuDNN's forward
+(``torch.nn.LSTM``), the wide legs at C = H = 96 and 128 and the general
+ones at 160 and 256, f32 and bf16, each design's library called on
+preallocated buffers and weight layouts, and prints how far the two
+designs' outputs differ.
 
 Imports nothing of JAX or of the JAX package ``remora_tpu``.
 """
@@ -401,6 +412,286 @@ def compare_wide(parent_dir):
                   f"differ by at most {diff:.3e}", flush=True)
 
 
+GENERAL_SOURCE = "lstm_general_cluster.cu"
+# (old, new) textual edits of lstm_general_cluster.cu; each edits both
+# kernels (str.replace takes every match)
+GENERAL_EDITS = {
+    # (resident: nor x_1's request in the prologue's step, so no copy is in
+    # flight when the kernel ends)
+    "no_x_product": [
+        ("      x_product(t + 1, acc);  // off the chain, while h_t crosses\n",
+         ""),
+        ("      if (s + 1 < nsteps) load_x(s + 1);",
+         "      if (false) load_x(s + 1);"),
+        ("      if (threadIdx.x == 0 && s + 1 < nsteps) {",
+         "      if (false) {")],
+    "no_h_product": [
+        ("    for (int kt = 0; kt < nkh; ++kt) {",
+         "    for (int kt = 0; kt < 0; ++kt) {"),
+        ("    tile(acc, hb + (32 * rw + rq) * ldh, ldh, whs + col0, kh / 4);",
+         "    tile(acc, hb + (32 * rw + rq) * ldh, ldh, whs + col0, 0);")],
+    "no_exchange": [
+        ("    cluster_arrive();  // (A) this CTA is done reading h_{t-1}\n",
+         ""),
+        ("    cluster_wait();  // (A) every CTA is done reading h_{t-1}",
+         "    __syncthreads();"),
+        ("      cluster_arrive();  // (B) h_t is published\n", ""),
+        ("      cluster_wait();  // (B) h_t of every unit is in this CTA's "
+         "tile", "      __syncthreads();"),
+        ("for (int r = 0; r < N; ++r) {", "for (int r = 0; r < 1; ++r) {"),
+        ("map_rank(h_off, r)", "map_rank(h_off, rank)")],
+    "no_gate_math": [
+        ("sigmoid(acc[", "(1e-3f * acc["),
+        ("tanhf(acc[", "(1e-3f * acc["),
+        ("hv[v] = og * tanhf(cv[v]);", "hv[v] = og * cv[v];"),
+        ("hv[i][v] = og * tanhf(c[i][v]);", "hv[i][v] = og * c[i][v];")],
+    # (resident: nor the wait for them, which would never end)
+    "no_operand_loads": [
+        ("      if (qn < nsteps * cfg.nkx) load(qn, slot(qn % cfg.S));",
+         "      if (false) load(qn, slot(qn % cfg.S));"),
+        ("        mbar_wait(bar(), (uint32_t)(s & 1));  // x_s is in",
+         "        if (s == 0) mbar_wait(bar(), 0u);"),
+        ("      if (s + 1 < nsteps) load_x(s + 1);",
+         "      if (false) load_x(s + 1);"),
+        ("      if (threadIdx.x == 0 && s + 1 < nsteps) {",
+         "      if (false) {")],
+    "no_operand_barriers": [
+        ("      __syncthreads();  // chunk q is in; every thread is done with "
+         "q - 1", ""),
+        ("      __syncthreads();  // every thread is done with x_s", "")],
+    "w_x_once": [
+        ("    for (int e = tid; e < 2 * G; e += blockDim.x) {",
+         "    for (int e = tid; e < (qc < cfg.S ? 2 * G : 0); e += "
+         "blockDim.x) {"),
+        ("    for (int e = tid; e < kChunk * hh; e += blockDim.x) {",
+         "    for (int e = tid; e < (qc < cfg.S ? kChunk * hh : 0); e += "
+         "blockDim.x) {")],
+    "x_once": [("    const bf16_bits* src = x + ((size_t)s * B + b0) * C;\n"
+                "    if (kVec) {",
+                "    const bf16_bits* src = x + ((size_t)s * B + b0) * C;\n"
+                "    if (qc >= cfg.S) return;\n    if (kVec) {"),
+               ("    const float* src = x + ((size_t)s * B + b0) * C;\n"
+                "    if (kVec) {",
+                "    const float* src = x + ((size_t)s * B + b0) * C;\n"
+                "    if (qc >= cfg.S) return;\n    if (kVec) {")],
+    "no_stores": [("      if (u_ok && row < B) {", "      if (false) {"),
+                  ("      if (!kLast && u0 < H && row_ok) {",
+                   "      if (false) {")],
+}
+GENERAL_VARIANTS = {
+    "as is": [],
+    "no x product": GENERAL_EDITS["no_x_product"],
+    "no h product": GENERAL_EDITS["no_h_product"],
+    "no DSMEM exchange, no cluster barriers": GENERAL_EDITS["no_exchange"],
+    "no gate math": GENERAL_EDITS["no_gate_math"],
+    "no hs/cs stores": GENERAL_EDITS["no_stores"],
+    "x product without its operands' loads": GENERAL_EDITS["no_operand_loads"],
+    "x product without its operands' CTA barriers":
+        GENERAL_EDITS["no_operand_barriers"],
+    "x product with W_x loaded once (streaming)": GENERAL_EDITS["w_x_once"],
+    "x product with x loaded once (streaming)": GENERAL_EDITS["x_once"],
+}
+
+
+def _typed_cluster(lib):
+    """``lib`` (an ``lstm_general_cluster.cu`` library) with its launcher
+    typed."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_general_cluster_fwd.argtypes = ([i32] + [ptr] * 5 + [i32] * 6
+                                             + [ptr])
+    lib.lstm_general_cluster_fwd.restype = i32
+    return lib
+
+
+def _general_case(width, dtype):
+    """(x, W_aug) of a general forward at T = 124, B = 2048, C = H =
+    width, seeded on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(width)
+    x = torch.randn((124, 2048, width), device="cuda", generator=gen)
+    w = (torch.rand((2 * width + 1, 4 * width), device="cuda",
+                    generator=gen) * 2 - 1) / width ** 0.5
+    return x.to(dtype), w.to(dtype)
+
+
+def split_general():
+    """Each variant of the general forward's cluster path, K2 with cs, at T
+    = 124, B = 2048, C = H = 160 and 256 in each dtype the plan takes
+    there, at the plan's N and R on this card, and the kernel as it is at
+    every other one-wave (N, R) whose CTA fits."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import lstm as K
+
+    _, built = build_variants(GENERAL_SOURCE, GENERAL_VARIANTS,
+                              headers=("mma_sm90.cuh",))
+    stream = torch.cuda.current_stream().cuda_stream
+    libs = {name: (_typed_cluster(ctypes.CDLL(path)), out)
+            for name, (path, out) in built.items()}
+    caps = K.cluster_capacity(0)
+    print(f"clusters the card holds: {caps}", flush=True)
+    T, B = 124, 2048
+    for width in (160, 256):
+        for dtype, flag in ((torch.float32, 0), (torch.bfloat16, 1)):
+            sfx = "bf16" if flag else "f32"
+            plan = K.general_fwd_plan(width, width, dtype, caps)
+            if plan is None:
+                print(f"general K2 {sfx} C=H={width}: the plan refuses it "
+                      "(streaming path)", flush=True)
+                continue
+            x, w = _general_case(width, dtype)
+            hs = torch.empty((T, B, width), device="cuda", dtype=dtype)
+            cs = torch.empty_like(hs)
+            shapes = [plan[:2]]  # the plan's first, then the other N
+            for n in (2, 4, 8):
+                r = -(-(-(-B // caps[n])) // 32) * 32
+                if n != plan[0] and K.general_fwd_cfg(width, width, dtype, n,
+                                                      r) is not None:
+                    shapes.append((n, r))
+            for N, R in shapes:
+                cfg = K.general_fwd_cfg(width, width, dtype, N, R)
+                wl = K.general_fwd_weights(w, width, N, cfg["hh"])
+                tag = (f"general K2 {sfx} T={T} C=H={width} N={N} R={R} "
+                       f"({cfg['smem']} B shared, {cfg['slots']} slots, W_x "
+                       f"{'resident' if cfg['resident'] else 'streamed'}"
+                       f"{'' if (N, R) == plan[:2] else '; not the plan'})")
+                names = libs if (N, R) == plan[:2] else ["as is"]
+                for name in names:
+                    lib, out = libs[name]
+
+                    def call(lib=lib, name=name):
+                        err = lib.lstm_general_cluster_fwd(
+                            flag, x.data_ptr(), wl.data_ptr(), hs.data_ptr(),
+                            cs.data_ptr(), None, T, B, width, width, N, R,
+                            stream)
+                        if err != 0:
+                            raise SystemExit(f"{name!r}: launch error {err}")
+                    ms = time_ms(call, n=7, calls=3)
+                    kernel = f"cluster_fwd_{sfx}" + (
+                        "_x2" if cfg["ub"] == 2 else "")
+                    regs = ptxas_lines(out, kernel + "_kernelILb0ELb1E")
+                    print(f"{tag} {name}: {ms:.4f} ms ({ms / T * 1e3:.3f} us "
+                          f"a step); {regs}", flush=True)
+
+
+def _typed_general(lib):
+    """``lib`` (an ``lstm_general.cu`` library) with its two forward
+    launchers typed."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_general_fwd.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.lstm_general_fwd.restype = i32
+    lib.lstm_general_last.argtypes = [i32] + [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.lstm_general_last.restype = i32
+    return lib
+
+
+def compare_general(parent_dir):
+    """The general K1 and K2 (with cs) in one call, parent / this design /
+    this design / parent, beside cuDNN's forward (``torch.nn.LSTM``, all T
+    hidden states; a yardstick the port never calls), at T = 124, B = 2048
+    and C = H = 160 and 256, f32 and bf16: the parent's ``lstm_general.cu``
+    (the streaming ``general_fwd_kernel`` for every shape, on its (C + H +
+    1, H, 4) layout) against this checkout's path (the cluster kernel at
+    the plan's N and R on ``general_fwd_weights``' layout, or the streaming
+    kernel where the plan refuses the shape), each library called directly
+    on preallocated buffers and its layout."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import lstm as K
+
+    _, built = build_variants("lstm_general.cu", {"parent": []},
+                              headers=("lstm_prod.cuh", "mma_sm90.cuh"),
+                              csrc=os.path.join(parent_dir, "remora_tpu_torch",
+                                                "csrc"))
+    parent = _typed_general(ctypes.CDLL(built["parent"][0]))
+    streaming = K._general_library()
+    cluster = K._cluster_library()
+    caps = K.cluster_capacity(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    T, B = 124, 2048
+    for width in (160, 256):
+        C = H = width
+        for dtype in (torch.float32, torch.bfloat16):
+            flag = int(dtype == torch.bfloat16)
+            sfx = "bf16" if flag else "f32"
+            gen = torch.Generator(device="cuda").manual_seed(width)
+            bound = 1.0 / H ** 0.5
+            lib_lstm = torch.nn.LSTM(C, H).cuda()
+            with torch.no_grad():
+                for prm in lib_lstm.parameters():
+                    prm.uniform_(-bound, bound, generator=gen)
+            lib_lstm = lib_lstm.to(dtype)
+            lib_lstm.flatten_parameters()
+            params = {"w_ih": lib_lstm.weight_ih_l0.detach(),
+                      "w_hh": lib_lstm.weight_hh_l0.detach(),
+                      "b_ih": lib_lstm.bias_ih_l0.detach(),
+                      "b_hh": lib_lstm.bias_hh_l0.detach()}
+            x = torch.randn((T, B, C), device="cuda", generator=gen).to(dtype)
+            w = K.make_w_aug(params, dtype)
+            w_il = K.general_weights(w)
+            plan = K.general_fwd_plan(C, H, dtype, caps)
+            launchers = {"parent": (parent, w_il, None)}
+            if plan is None:
+                launchers["change"] = (streaming, w_il, None)
+                tag = "stream"
+            else:
+                N, R, _ = plan
+                launchers["change"] = (cluster, K.general_fwd_weights(
+                    w, C, N, K.general_fwd_cfg(C, H, dtype, N, R)["hh"]),
+                    (N, R))
+                tag = f"cluster N={N} R={R}"
+            outs = {}
+            for name, (lib, wl, nr) in launchers.items():
+                hs = torch.empty((T, B, H), device="cuda", dtype=dtype)
+                cs = torch.empty_like(hs)
+                last = torch.empty((B, H), device="cuda", dtype=dtype)
+
+                def k2(lib=lib, wl=wl, nr=nr, hs=hs, cs=cs):
+                    err = (lib.lstm_general_fwd(
+                        flag, x.data_ptr(), wl.data_ptr(), hs.data_ptr(),
+                        cs.data_ptr(), T, B, C, H, stream) if nr is None
+                        else lib.lstm_general_cluster_fwd(
+                            flag, x.data_ptr(), wl.data_ptr(), hs.data_ptr(),
+                            cs.data_ptr(), None, T, B, C, H, *nr, stream))
+                    if err != 0:
+                        raise SystemExit(f"launch error {err}")
+
+                def k1(lib=lib, wl=wl, nr=nr, last=last):
+                    err = (lib.lstm_general_last(
+                        flag, x.data_ptr(), wl.data_ptr(), last.data_ptr(),
+                        T, B, C, H, stream) if nr is None
+                        else lib.lstm_general_cluster_fwd(
+                            flag, x.data_ptr(), wl.data_ptr(), None, None,
+                            last.data_ptr(), T, B, C, H, *nr, stream))
+                    if err != 0:
+                        raise SystemExit(f"launch error {err}")
+                outs[name] = k1, k2, hs, cs, last
+            ms = {}
+            for leg, idx in (("K1", 0), ("K2", 1)):
+                for name in ("parent", "change", "change", "parent"):
+                    ms.setdefault((leg, name), []).append(
+                        time_ms(outs[name][idx], n=7, calls=3))
+            with torch.no_grad():
+                cudnn = time_ms(lambda: lib_lstm(x), n=7, calls=3)
+            for name in ("parent", "change"):
+                outs[name][0]()
+                outs[name][1]()
+            torch.cuda.synchronize()
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(outs["parent"][2:], outs["change"][2:]))
+            for leg in ("K1", "K2"):
+                p, c = ms[(leg, "parent")], ms[(leg, "change")]
+                print(f"general {leg} {sfx} C=H={width} ({tag}): parent / "
+                      f"change / change / parent {p[0]:.4f} / {c[0]:.4f} / "
+                      f"{c[1]:.4f} / {p[1]:.4f} ms; cuDNN forward "
+                      f"{cudnn:.4f} ms", flush=True)
+            print(f"general {sfx} C=H={width}: the designs' hs, cs, h_(T-1) "
+                  f"differ by at most {diff:.3e}", flush=True)
+
+
 F32_SOURCE = "lstm_fwd_f32.cu"
 # (old, new) textual edits of lstm_fwd_f32.cu
 # (old, new) textual edits of lstm_fwd_f32.cu
@@ -610,6 +901,11 @@ def main():
     if args[:1] == ["--compare-parent"]:
         compare_main(args[1])
         compare_wide(args[1])
+        compare_general(args[1])
+        print(smi_line())
+        return 0
+    if args[:1] == ["--general"]:
+        split_general()
         print(smi_line())
         return 0
     if args[:1] == ["--wide"]:

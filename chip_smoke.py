@@ -29,12 +29,18 @@ printed):
    chains, ``torch.nn.LSTM`` times, registers and spills, the wide K3 by
    part, and lines of the wide K1/K2 beside cuDNN's forward and of the
    wide K3 beside cuDNN's backward at both widths; (3e) the general LSTM
-   leg (``lstm_general.cu``, C or H past 128) at T=124, B=2048 and
-   C=H=160 (the shape 6g gives it; these records take 6g's launches into
-   the kernels line) and C=H=256 (a line of its own), K1, K2 (with and
+   leg (C or H past 128: K1/K2 on ``lstm_general_cluster.cu``'s cluster
+   path where ``kernels.lstm.general_fwd_plan`` takes the shape, else on
+   ``lstm_general.cu``'s streaming path; K3 on ``lstm_general.cu``) at
+   T=124, B=2048 and C=H=160 (the shape 6g gives it; these records take
+   6g's launches into the kernels line) and C=H=256 (a line of its own;
+   f32 K1/K2 there, which the plan refuses, run the streaming path, and
+   their records take 6g's size-256 leg's launches), K1, K2 (with and
    without cs) and K3 in both dtypes against their plain versions, each
-   repeated bit for bit, with times, bounds, chains, ``torch.nn.LSTM``
-   times, registers and spills and K3 by part;
+   repeated bit for bit, with times beside the parent design's
+   (``PARENT_GENERAL_MS``), bounds, chains, ``torch.nn.LSTM`` times, the
+   path, cluster size and rows, registers and spills, the card's cluster
+   capacity, and K3 by part;
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -106,10 +112,12 @@ printed):
    held to the plain LSTM, one train step and one served batch profiled
    by kernel, and one f32 size-96 train step held to the same step with
    the plain LSTM versions (as 6b); (6g) the same at size 160 on the
-   general leg (K2/K3 once a step, K1 once a batch on
-   ``lstm_general.cu``), held to the same handle and step with
+   general leg (K2/K3 once a step, K1 once a batch; K1/K2 on the cluster
+   path, none streamed), held to the same handle and step with
    ``REMORA_TPU_LSTM=scan``, and K6's product paths at size 160's block
-   shapes (merge_conv1 320 -> 160); (6f) data-parallel training, the
+   shapes (merge_conv1 320 -> 160); then size 256 in f32, which the plan
+   refuses: one train step and one served batch, K1/K2 on the streaming
+   path once each, logits held to the scan; (6f) data-parallel training, the
    launch and all-reduce counts set to 0 first: (a) ``train_model`` over
    a one-rank NCCL group on cuda:0, 4 steps of 2048 (SGD), K2/K3 once a
    step, one all-reduce a step, losses within 1e-5 of the same run
@@ -409,11 +417,28 @@ def lstm_chain_instrs(kind, C, H):
         return 1 + 1 + 1 + 1 + 2 + 3 + 1 + 1 + 1 + depth + 1 + 1 + 1 + 1 \
             + nsplit + 1
     if kind == "general_fwd":
-        # K1/K2 general (lstm_general.cu::general_fwd_kernel, either dtype:
-        # x_t . W_x and h_{t-1} . W_h share one accumulator a gate and row,
-        # so both are on the chain): BAR -> LDS -> C + H dependent FFMA ->
-        # the gates' activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) ->
-        # h = o tanh(c) -> STS h -> BAR -> LDG x_{t+1} -> STS -> BAR
+        # K1/K2 general f32, the cluster path (lstm_general_cluster.cu::
+        # cluster_fwd_f32_kernel; x_t . W_x + b is off the chain, in the
+        # window of barrier B): cluster BAR (wait B) -> LDS h_{t-1} -> H
+        # FFMA into one accumulator a gate -> the gates' activations -> c =
+        # f c + i g (FMUL, FFMA) -> tanh(c) -> h = o tanh(c) -> cluster BAR
+        # (wait A) -> st.shared::cluster h -> cluster BAR (arrive B)
+        return 1 + 1 + H + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 + 1 + 1
+    if kind == "general_fwd_mma":
+        # K1/K2 general bf16, the cluster path (cluster_fwd_bf16_kernel):
+        # cluster BAR (wait B) -> LDSM h_{t-1} -> ceil(H / 16) dependent
+        # HMMA -> the gates' activations -> c = f c + i g (FMUL, FFMA) ->
+        # tanh(c) -> h = o tanh(c) -> pack to bf16 -> cluster BAR (wait A)
+        # -> st.shared::cluster h -> cluster BAR (arrive B)
+        return 1 + 1 + -(-H // 16) + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 + 1 \
+            + 1 + 1
+    if kind == "general_stream_fwd":
+        # K1/K2 general, the streaming path (lstm_general.cu::
+        # general_fwd_kernel, either dtype: x_t . W_x and h_{t-1} . W_h
+        # share one accumulator a gate and row, so both are on the chain):
+        # BAR -> LDS -> C + H dependent FFMA -> the gates' activations -> c
+        # = f c + i g (FMUL, FFMA) -> tanh(c) -> h = o tanh(c) -> STS h ->
+        # BAR -> LDG x_{t+1} -> STS -> BAR
         return 1 + 1 + C + H + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 + 1 + 2 + 1
     if kind == "general_bwd":
         # K3 general (lstm_general.cu::general_rec_kernel; the gate
@@ -471,10 +496,17 @@ def lstm_kernel_of(leg, dtype, C, H):
     bf16 = dtype == torch.bfloat16
     sfx = "bf16" if bf16 else "f32"
     kind = K.route(leg, dtype, C, H)
+    if kind == "general" and leg != "bwd":
+        if general_path(dtype, C, H) == "cluster":
+            return (f"lstm_{leg}_general_cluster_{sfx}",
+                    "remora_tpu_torch/csrc/lstm_general_cluster.cu",
+                    "general_fwd_mma" if bf16 else "general_fwd")
+        return (f"lstm_{leg}_general_stream_{sfx}",
+                "remora_tpu_torch/csrc/lstm_general.cu",
+                "general_stream_fwd")
     if kind == "general":
         return (f"lstm_{leg}_general_{sfx}",
-                "remora_tpu_torch/csrc/lstm_general.cu",
-                "general_bwd" if leg == "bwd" else "general_fwd")
+                "remora_tpu_torch/csrc/lstm_general.cu", "general_bwd")
     if kind == "wide":
         if leg == "bwd":
             return (f"lstm_bwd_wide_{sfx}",
@@ -491,6 +523,28 @@ def lstm_kernel_of(leg, dtype, C, H):
     chain = {"bwd": "bwd_mma" if bf16 else "bwd"}.get(
         leg, "fwd_mma" if bf16 else "fwd")
     return f"lstm_{leg}_{sfx}", "remora_tpu_torch/csrc/" + src, chain
+
+
+def general_path(dtype, C, H):
+    """The general K1/K2's path on this card ("cluster" or "stream"),
+    as ``kernels.lstm`` picks it."""
+    from remora_tpu_torch.kernels import lstm as K
+
+    return K.general_fwd_path(dtype, C, H, K.cluster_capacity(0))
+
+
+def path_fields(leg, dtype, C, H):
+    """A general K1/K2 record's path, cluster size and rows a cluster
+    (``general_fwd_plan`` on this card); {} for any other kernel."""
+    from remora_tpu_torch.kernels import lstm as K
+
+    if leg == "bwd" or K.route(leg, dtype, C, H) != "general":
+        return {}
+    plan = K.general_fwd_plan(C, H, dtype, K.cluster_capacity(0))
+    if plan is None:
+        return {"path": "stream", "cluster_ctas": None, "cluster_rows": None}
+    return {"path": "cluster", "cluster_ctas": plan[0],
+            "cluster_rows": plan[1]}
 
 
 def check_lstm_last(dtype, tol, C=SIZE, H=SIZE, n=N_TIMED):
@@ -553,6 +607,7 @@ def check_lstm_last(dtype, tol, C=SIZE, H=SIZE, n=N_TIMED):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        **path_fields("last", dtype, C, H),
     }, chain_ms)
 
 
@@ -717,6 +772,9 @@ def check_lstm_train(dtype, tol, C=SIZE, H=SIZE, n=N_TIMED):
                     if bwd_chain == "general_bwd" else None)
 
         fwd_ms = time_ms(lambda: K.lstm_fwd(x, w_aug), n=n)
+        general = K.route("fwd", dtype, C, H) == "general"
+        nocs_ms = (time_ms(lambda: K.lstm_fwd(x, w_aug, want_cs=False), n=n)
+                   if general else None)
         fwd_plain_ms = time_ms(lambda: K.lstm_fwd_reference(x, w_aug), n=5,
                                calls=1)
         bwd_ms = time_ms(lambda: K.lstm_bwd(x, w_aug, hs, cs, dhs), n=n)
@@ -776,7 +834,10 @@ def check_lstm_train(dtype, tol, C=SIZE, H=SIZE, n=N_TIMED):
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": lib_ms,
+            **path_fields(leg, dtype, C, H),
         }, chain_ms))
+    if nocs_ms is not None:
+        records[0]["nocs_ms"] = nocs_ms
     if parts_ms is not None:
         records[1]["parts_ms"] = parts_ms
     return records
@@ -985,19 +1046,44 @@ def check_lstm_general_compile():
     check_compile("lstm_general", "general K1-K3", (
         "general_fwd_kernel", "general_rec_kernel", "wide_prod_f32_kernel",
         "wide_prod_bf16_kernel", "ordered_sum"))
+    check_compile("lstm_general_cluster", "general K1/K2 cluster", (
+        "cluster_fwd_f32_kernel", "cluster_fwd_bf16_x2_kernel",
+        "cluster_fwd_bf16_kernel"))
+
+
+# the general K1/K2 before the cluster path (PR 21's general_fwd_kernel
+# for every shape; PERF.md section 6, H100 80GB HBM3 at 700 W), ms: the
+# parent-design figure each 3e record is logged beside
+PARENT_GENERAL_MS = {
+    ("last", "f32", 160): 9.2923, ("last", "bf16", 160): 9.3452,
+    ("fwd", "f32", 160): 8.9869, ("fwd", "bf16", 160): 9.3324,
+    ("last", "f32", 256): 14.7656, ("last", "bf16", 256): 14.7777,
+    ("fwd", "f32", 256): 14.1321, ("fwd", "bf16", 256): 14.6810,
+}
 
 
 def check_lstm_general():
-    """Phase 3e: K1, K2 (with and without cs) and K3 on ``lstm_general.cu``
+    """Phase 3e: K1, K2 (with and without cs) and K3 on the general leg
     against their plain versions, each dtype, at T = 124, B = BATCH and C =
     H = GENERAL_SIZE (the shape phase 6g's model path gives them) and at C
-    = H = GENERAL; each repeated bit for bit, timed beside its bound, its
-    chain, its plain version and ``torch.nn.LSTM``. The GENERAL records are
-    logged as a line of their own; returns the GENERAL_SIZE records (K1,
-    K2, K3) by dtype, which take 6g's launches into the kernels line."""
+    = H = GENERAL; K1/K2 on the cluster path (``lstm_general_cluster.cu``)
+    where ``general_fwd_plan`` takes the shape (bf16 at both, f32 at
+    GENERAL_SIZE) and on the streaming path (``lstm_general.cu``) where it
+    refuses it (f32 at GENERAL); each repeated bit for bit, timed beside
+    its bound, its chain, its plain version, ``torch.nn.LSTM`` and the
+    parent design (PARENT_GENERAL_MS). The GENERAL records are logged as a
+    line of their own; returns the GENERAL_SIZE records (K1, K2, K3) by
+    dtype, which take 6g's launches into the kernels line, and the
+    streaming path's K1, K2 records (f32 at GENERAL), which take 6g's
+    size-GENERAL leg's."""
     import torch
 
+    from remora_tpu_torch.kernels import lstm as K
+
     check_lstm_general_compile()
+    caps = K.cluster_capacity(0)
+    log(f"clusters the card holds, one CTA an SM: {caps} (the plan's "
+        f"table: {K.H100_CLUSTERS})")
     t0 = time.monotonic()
     records = {
         width: {dtype: [check_lstm_last(dtype, tol, C=width, H=width,
@@ -1012,15 +1098,32 @@ def check_lstm_general():
     log(json.dumps({"general_vs_cudnn": {
         f"C=H={width}": {
             rec["name"]: {"ms": rec["ms"], "cudnn_ms": rec["library_ms"],
+                          "parent_ms": PARENT_GENERAL_MS.get((
+                              rec["name"].split("_")[1],
+                              rec["name"].rsplit("_", 1)[1], width)),
+                          "nocs_ms": rec.get("nocs_ms"),
                           "plain_ms": rec["plain_ms"],
                           "bound_ms": rec["bound_ms"],
                           "bound_by": rec["bound_by"],
                           "chain_bound_ms": rec["chain_bound_ms"],
+                          "path": rec.get("path"),
+                          "cluster_ctas": rec.get("cluster_ctas"),
+                          "cluster_rows": rec.get("cluster_rows"),
                           "parts_ms": rec.get("parts_ms")}
             for recs in records[width].values() for rec in recs}
         for width in (GENERAL_SIZE, GENERAL)}}))
+    stream = [rec for rec in records[GENERAL][torch.float32]
+              if rec.get("path") == "stream"]
+    check(len(stream) == 2, f"phase 3e: the streaming path ran "
+          f"{[rec['name'] for rec in stream]} at f32 C=H={GENERAL}, not "
+          "K1 and K2")
+    for width in (GENERAL_SIZE, GENERAL):
+        for rec in records[width][torch.bfloat16][:2]:
+            check(rec.get("path") == "cluster",
+                  f"phase 3e: {rec['name']} at C=H={width} is not on the "
+                  "cluster path")
     log(f"phase 3e wall {time.monotonic() - t0:.1f} s")
-    return records[GENERAL_SIZE]
+    return records[GENERAL_SIZE], stream
 
 
 def profile_serve(handle, arrs, tag, n_walls=5):
@@ -1068,7 +1171,59 @@ def lstm_mode(mode):
             os.environ["REMORA_TPU_LSTM"] = old
 
 
-def model_path_leg(root, config, records, kind):
+def general_stream_leg(root, config, records):
+    """Phase 6g's size-GENERAL leg: ConvLSTM_w_ref at size GENERAL in f32,
+    the shape ``general_fwd_plan`` refuses, so its K1/K2 run the streaming
+    ``general_fwd_kernel`` on the model path: ``train_model`` for one step
+    (K2 there once), then its checkpoint through ``ModelHandle.load`` for
+    one batch (K1 once), logits finite and held to the same handle with
+    REMORA_TPU_LSTM=scan; no cluster launch. Sets the streaming records'
+    launches."""
+    from remora_tpu_torch.infer.infer import ModelHandle
+    from remora_tpu_torch.kernels import lstm as K
+    from remora_tpu_torch.train import optim
+    from remora_tpu_torch.train.train import train_model
+
+    tag = f"general_stream_size{GENERAL}_f32"
+    out = os.path.join(root, tag)
+    counts, paths = K.LAUNCHES_GENERAL, K.LAUNCHES_GENERAL_FWD
+    for d in (counts, paths):
+        d.update(dict.fromkeys(d, 0))
+    t0 = time.monotonic()
+    train_model(
+        seed=1, out_path=out, remora_dataset_path=config,
+        chunk_context=None, kmer_context_bases=None, batch_size=BATCH,
+        model_name="ConvLSTM_w_ref", size=GENERAL,
+        train_opts=optim.TrainOpts(epochs=1, lr_scheduler_str="constant",
+                                   learning_rate=2e-3),
+        chunks_per_epoch=BATCH, num_test_chunks=BATCH)
+    train_launches, train_paths = dict(counts), dict(paths)
+    log(f"{tag}: train_model 1 step in {time.monotonic() - t0:.1f} s; "
+        f"general launches {train_launches}, by path {train_paths}")
+    check(train_launches["fwd"] == train_launches["bwd"] == 1
+          and train_paths["cluster"] == 0 and train_paths["stream"] >= 1,
+          f"{tag}: launches {train_launches}, by path {train_paths}")
+    handle = ModelHandle.load(os.path.join(out, "model_final.checkpoint"))
+    arrs = synth_inputs(np.random.default_rng(8), BATCH)
+    for d in (counts, paths):
+        d.update(dict.fromkeys(d, 0))
+    logits = handle.eval_raw(*arrs).cpu().numpy()
+    last = counts["last"]
+    check(last == 1 and paths == {"cluster": 0, "stream": 1},
+          f"{tag}: one batch launched K1 {last} times, by path {paths}")
+    with lstm_mode("scan"):
+        plain = handle.eval_raw(*arrs).cpu().numpy()
+    err = float(np.abs(logits - plain).max())
+    log(f"{tag}: ModelHandle batch of {BATCH} on the streaming K1: max "
+        f"|logit - REMORA_TPU_LSTM=scan logit| {err:.3e} (tolerance 1e-4)")
+    check(np.isfinite(logits).all() and err <= 1e-4,
+          f"{tag}: logits disagree with the scan ({err:.3e})")
+    k1, k2 = records
+    k1["launches"] = last
+    k2["launches"] = train_launches["fwd"]
+
+
+def model_path_leg(root, config, records, kind, stream_records=None):
     """Phase 6e (``kind`` "wide"): ConvLSTM_w_ref at size WIDE_SIZE on the
     card, f32 and bf16: ``train_model`` for WIDE_STEPS steps (K2 on
     lstm_wide.cu and K3 on lstm_wide_bwd.cu once a step), then its
@@ -1077,9 +1232,11 @@ def model_path_leg(root, config, records, kind):
     plain LSTM; one train step and one served batch profiled by kernel;
     the f32 checkpoint's train step held to the same step with the plain
     K2/K3 (``check_train_step_vs_plain``). Phase 6g (``kind`` "general"):
-    the same at size GENERAL_SIZE for GENERAL_STEPS steps on
-    lstm_general.cu, held to the same handle and step with
-    REMORA_TPU_LSTM=scan. Sets the records' launches from the train and
+    the same at size GENERAL_SIZE for GENERAL_STEPS steps on the general
+    leg (K1/K2 on the cluster path, ``lstm_general_cluster.cu``: no launch
+    streams), held to the same handle and step with REMORA_TPU_LSTM=scan,
+    then ``general_stream_leg`` (size GENERAL f32, the streaming path;
+    ``stream_records``). Sets the records' launches from the train and
     serve runs."""
     import torch
 
@@ -1100,6 +1257,8 @@ def model_path_leg(root, config, records, kind):
         tag = f"{kind}_size{size}_{'bf16' if bf16 else 'f32'}"
         out = os.path.join(root, tag)
         counts.update(dict.fromkeys(counts, 0))
+        paths = K.LAUNCHES_GENERAL_FWD
+        paths.update(dict.fromkeys(paths, 0))
         t0 = time.monotonic()
         train_model(
             seed=1, out_path=out, remora_dataset_path=config,
@@ -1121,6 +1280,10 @@ def model_path_leg(root, config, records, kind):
         check(train_launches["fwd"] == train_launches["bwd"] == steps,
               f"{tag}: the {kind} K2/K3 launched {train_launches} times for "
               f"{steps} steps")
+        if general:  # the cluster path, none of it streamed
+            log(f"{tag}: general K1/K2 launches by path {paths}")
+            check(paths["stream"] == 0 and paths["cluster"] >= steps,
+                  f"{tag}: general K1/K2 by path {paths}")
         check(len(losses) == steps and np.isfinite(losses).all(),
               f"{tag}: batch.log losses {losses}")
         profile_train_step(os.path.join(out, "model_final.checkpoint"), bf16,
@@ -1131,8 +1294,12 @@ def model_path_leg(root, config, records, kind):
         check(handle.device.type == "cuda", f"{tag}: handle on "
               f"{handle.device}")
         counts.update(dict.fromkeys(counts, 0))
+        paths.update(dict.fromkeys(paths, 0))
         logits = handle.eval_raw(*arrs).cpu().numpy()
         last_launches = counts["last"]
+        if general:
+            check(paths == {"cluster": 1, "stream": 0},
+                  f"{tag}: the served batch's K1 by path {paths}")
         with reference[0]():
             plain = handle.eval_raw(*arrs).cpu().numpy()
         check(counts["last"] == last_launches,
@@ -1164,6 +1331,7 @@ def model_path_leg(root, config, records, kind):
                 os.path.join(out, "model_final.checkpoint"), kind=kind)
     if general:
         check_convbn_products(size)
+        general_stream_leg(root, config, stream_records)
     log(f"phase {'6g' if general else '6e'} wall "
         f"{time.monotonic() - t_phase:.1f} s")
 
@@ -4517,12 +4685,12 @@ def run_phases(stack):
         torch.bfloat16: check_lstm_train(torch.bfloat16, 2e-2),
     }
     wide_kernels = check_lstm_wide()
-    general_kernels = check_lstm_general()
+    general_kernels, stream_kernels = check_lstm_general()
     if sys.argv[1:] == ["--lstm-kernels"]:
         # phases 1-3b, 3d and 3e only: no main path ran, so no launch counts
         records = list(kernels.values())
         for recs in (*train_kernels.values(), *wide_kernels.values(),
-                     *general_kernels.values()):
+                     *general_kernels.values(), stream_kernels):
             records.extend(recs)
         return finish(records)
     # relative to each output's largest entry: f32 rounding everywhere but
@@ -4608,7 +4776,7 @@ def run_phases(stack):
     # 6e: the wide LSTM legs on the model path at size WIDE_SIZE
     model_path_leg(tmp, config, wide_kernels, "wide")
     # 6g: the general LSTM leg on the model path at size GENERAL_SIZE
-    model_path_leg(tmp, config, general_kernels, "general")
+    model_path_leg(tmp, config, general_kernels, "general", stream_kernels)
     # 6f and 5c: data parallel on phase 6's dataset and phase 5's reads
     # and checkpoint; their K1-K3 launches join the kernels line
     dp_launches, dp_rates = data_parallel(tmp, config, sets["ckpt"], smi,
@@ -4663,7 +4831,8 @@ def run_phases(stack):
     }}))
     records = list(kernels.values())
     for recs in (*train_kernels.values(), *wide_kernels.values(),
-                 *general_kernels.values(), *convbn_kernels.values(),
+                 *general_kernels.values(), stream_kernels,
+                 *convbn_kernels.values(),
                  dp_kernels):
         records.extend(recs)
     return finish(records)

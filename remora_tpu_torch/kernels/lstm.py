@@ -24,11 +24,21 @@ and all three legs, to the kernels written for the wider layers:
 each walking time on clusters of two CTAs that split the hidden units,
 hold their units' slice of W on chip and swap h_t (K3: partial dh sums)
 through distributed shared memory. C or H above 128, up to
-``GENERAL_MAX_C`` / ``GENERAL_MAX_H`` (1024), goes to the general leg,
-``csrc/lstm_general.cu``: one block per 8 batch rows walks time with h
-and c in shared memory and W read through L2 each step (K3: its own
-reverse recurrence between ``csrc/lstm_prod.cuh``'s gate recompute and
-products, the wide K3's). Above that every entry point raises.
+``GENERAL_MAX_C`` / ``GENERAL_MAX_H`` (1024), goes to the general leg. Its
+K1 and K2 take one of two paths, chosen on the host by shape before the
+launch (``general_fwd_plan``, ``general_fwd_path``): the cluster path,
+``csrc/lstm_general_cluster.cu``, where the plan finds clusters of N = 2,
+4 or 8 CTAs over R rows that run the batch in one wave and fit a CTA
+(bf16 at sizes 160 and 256, f32 at 160): each CTA keeps its units' slice
+of W_h on chip, h_t crosses the cluster through distributed shared
+memory, x_t . W_x runs off the chain, bf16 on the tensor cores; and the
+streaming path, ``csrc/lstm_general.cu``'s ``general_fwd_kernel``, for
+every shape the plan refuses (f32 at 256, every shape at 1024): one block
+per 8 batch rows walks time with h and c in shared memory and W read
+through L2 each step. K3 there is ``lstm_general.cu``'s own reverse
+recurrence between ``csrc/lstm_prod.cuh``'s gate recompute and products,
+the wide K3's. Above 1024 every entry point raises; a launch on either
+path that fails raises, never moving to the other path.
 
 The source notes give each kernel's design and bound. Each entry point
 launches its kernel for a CUDA tensor and uses its plain version
@@ -39,7 +49,9 @@ launch raises.
 """
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from remora_tpu_torch.kernels import _build
@@ -90,6 +102,22 @@ GENERAL_MAX_H = 1024
 # launches of the general leg (one per general call of each leg; the leg's
 # own count above moves too)
 LAUNCHES_GENERAL = dict.fromkeys(("last", "fwd", "bwd"), 0)
+# the general K1/K2 launches by path (one per general call of ``lstm_last``
+# or ``lstm_fwd``): "cluster" ``lstm_general_cluster.cu``, "stream"
+# ``lstm_general.cu``'s ``general_fwd_kernel`` (``general_fwd_path``)
+LAUNCHES_GENERAL_FWD = dict.fromkeys(("cluster", "stream"), 0)
+# ``lstm_general_cluster.cu``'s budget: a block's shared memory, threads a
+# CTA by dtype (its __launch_bounds__), ring slots at most, k a slot holds,
+# and the batch its plan sizes a wave for (the model paths' batch)
+CLUSTER_SMEM_MAX = 232448
+CLUSTER_MAX_THREADS = {torch.bfloat16: 512, torch.float32: 480}
+CLUSTER_MAX_THREADS_X2 = 320  # bf16 warps of two unit blocks
+CLUSTER_MAX_SLOTS = 16
+CLUSTER_CHUNK = 16
+GENERAL_FWD_PLAN_BATCH = 2048
+# clusters of N CTAs an H100 80GB HBM3 (132 SMs) holds at once, one CTA an
+# SM (``lstm_general_cluster_capacity``): its GPCs' SMs split into clusters
+H100_CLUSTERS = {2: 66, 4: 30, 8: 15}
 
 
 def make_w_aug(params, dtype):
@@ -272,6 +300,209 @@ def general_weights(w_aug):
     return w_aug.reshape(w_aug.shape[0], 4, H).transpose(1, 2).contiguous()
 
 
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def general_fwd_cfg(C, H, dtype, N, R):
+    """``lstm_general_cluster.cu``'s launch shape for clusters of N CTAs over
+    R rows (its ``make_cfg``; the card's ``lstm_general_cluster_cfg`` gives
+    the same): a dict of ``hh`` (hidden units a CTA: ceil(H / N) rounded up
+    to 8, or to 16 where ``ub`` is 2), ``ub`` (the 8-unit blocks a warp
+    owns: 2 in bf16 where one a warp would need more than 512 threads),
+    ``threads`` (a warp per 32 rows and ``ub`` blocks), ``resident`` (W_x's
+    slice and a step's x tile fit in shared memory beside W_h's slice and
+    the h tile), ``slots`` (else the x / W_x ring's k16 chunks; 0 when
+    resident), ``smem`` (bytes) and ``layout`` (elements of
+    ``general_fwd_weights``), or None where the shape does not fit one
+    CTA."""
+    if not (1 <= C <= GENERAL_MAX_C and 1 <= H <= GENERAL_MAX_H):
+        return None
+    if N not in (2, 4, 8) or R < 32 or R % 32:
+        return None
+    bf16 = dtype == torch.bfloat16
+    hh, ub = _ceil(_ceil(H, N), 8) * 8, 1
+    if bf16 and 32 * (hh // 8) * (R // 32) > CLUSTER_MAX_THREADS[dtype]:
+        hh, ub = _ceil(_ceil(H, N), 16) * 16, 2
+    threads = 32 * (hh // (8 * ub)) * (R // 32)
+    if threads > (CLUSTER_MAX_THREADS_X2 if ub == 2
+                  else CLUSTER_MAX_THREADS[dtype]):
+        return None
+    nkx = _ceil(C, CLUSTER_CHUNK)
+    G, C16 = 4 * hh, CLUSTER_CHUNK * nkx
+    esz, pad = (2, 8) if bf16 else (4, 4)
+    kh = _ceil(H, 16 if bf16 else 8) * (16 if bf16 else 8)
+    ldh, ldx = kh + pad, C16 + pad
+    x_off = (G * ldh * 2 if bf16 else kh * G * 4) + R * ldh * esz
+    x_off += threads * 16 * 4 if ub == 2 else 0  # the c carry
+    # resident: the x tile, W_x's slice, the mbarrier
+    res_end = x_off + R * ldx * esz + (G * ldx * 2 if bf16 else C16 * G * 4)
+    slot = (R * (CLUSTER_CHUNK + pad) * esz + G * CLUSTER_CHUNK * esz
+            + (G * 8 * 2 if bf16 else 0))
+    if res_end + 16 <= CLUSTER_SMEM_MAX:
+        resident, slots, smem = True, 0, res_end + 16
+    elif x_off + 2 * slot <= CLUSTER_SMEM_MAX:
+        resident = False
+        slots = min((CLUSTER_SMEM_MAX - x_off) // slot, CLUSTER_MAX_SLOTS)
+        smem = x_off + slots * slot
+    else:
+        return None
+    return {"hh": hh, "ub": ub, "threads": threads, "slots": slots,
+            "resident": resident, "smem": smem,
+            "layout": N * G * (C16 + kh + 1)}
+
+
+def general_fwd_plan(C, H, dtype, clusters=None):
+    """The general forward's cluster plan at C inputs and H hidden units in
+    ``dtype``: (N, R, shared-memory bytes) for ``lstm_general_cluster.cu``,
+    or None, where the shape runs the streaming ``general_fwd_kernel``.
+    ``clusters`` maps N to the clusters of N CTAs the card holds at once
+    (default ``H100_CLUSTERS``). For N in 2, 4, 8, R is the fewest rows (a
+    multiple of 32) with which GENERAL_FWD_PLAN_BATCH rows run in one wave
+    of clusters (a second wave would double the walk: a step's latency does
+    not shrink with its work); among the N whose CTA then fits
+    (``general_fwd_cfg``) it takes W_x resident (its x product then loads a
+    step's x a step ahead, one CTA barrier a step, where a streamed W_x
+    waits on L2 every k16 chunk: at bf16 160 N = 4 with R = 96 beats N = 2
+    with R = 32 though a CTA does 1.5x the work), then the least work a CTA
+    (R x hh, rows and units rounded up), then the deepest ring, then the
+    smaller cluster."""
+    clusters = clusters or H100_CLUSTERS
+    best = None
+    for N in (2, 4, 8):
+        # the fewest rows a cluster with which the batch takes one wave
+        R = _ceil(_ceil(GENERAL_FWD_PLAN_BATCH, clusters[N]), 32) * 32
+        cfg = general_fwd_cfg(C, H, dtype, N, R)
+        if cfg is None:
+            continue
+        key = (not cfg["resident"], R * cfg["hh"], -cfg["slots"], N)
+        if best is None or key < best[0]:
+            best = key, (N, R, cfg["smem"])
+    return None if best is None else best[1]
+
+
+def general_fwd_path(dtype, C, H, clusters=None):
+    """The path of a general K1/K2 call (``route`` "general"): "cluster"
+    where ``general_fwd_plan`` takes the shape, else "stream". Chosen by
+    shape before the launch; a launch that fails raises on its path."""
+    return "stream" if general_fwd_plan(C, H, dtype, clusters) is None \
+        else "cluster"
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_index(C, H, N, hh, bf16):
+    """Flat indices into W_aug (C + H + 1, 4H) of each element of
+    ``general_fwd_weights``' layout; (C + H + 1) 4H (one past W_aug) where
+    the element is zero."""
+    G = 4 * hh
+    C16 = _ceil(C, CLUSTER_CHUNK) * CLUSTER_CHUNK
+    kh = _ceil(H, 16 if bf16 else 8) * (16 if bf16 else 8)
+    zero = (C + H + 1) * 4 * H
+    n = np.arange(N * G)
+    nn = n % G
+    if bf16:
+        unit, gate = 8 * (nn // 32) + nn % 8, (nn % 32) // 8
+    else:
+        unit, gate = nn // 4, nn % 4
+    unit = (n // G) * hh + unit
+    col = np.where(unit < H, gate * H + unit, -1)
+
+    def block(row0, n_rows, depth):
+        k = np.arange(depth)[:, None]
+        idx = np.where((k < n_rows) & (col >= 0)[None, :],
+                       (row0 + k) * 4 * H + col[None, :], zero)
+        return (idx.T if bf16 else idx).reshape(-1)
+
+    return np.concatenate([block(0, C, C16), block(C, H, kh),
+                           block(C + H, 1, 1)]).astype(np.int64)
+
+
+_CLUSTER_INDEX_ON = {}
+
+
+def general_fwd_weights(w_aug, C, N, hh):
+    """``lstm_general_cluster.cu``'s layout of W_aug (C + H + 1, 4H) for
+    clusters of N CTAs of hh units each (``general_fwd_cfg``), in W_aug's
+    dtype and device: W_x (16 ceil(C / 16)
+    k), then W_h (H rounded up to 16 in bf16, to 8 in f32), then the bias,
+    each over N 4hh gate columns, CTA r's r 4hh .. (r + 1) 4hh. Column n of a
+    CTA is gate (n % 32) // 8 of its unit 8 (n // 32) + n % 8 in bf16 (a
+    warp's 4 n8 mma tiles, one gate each), gate n % 4 of unit n // 4 in f32
+    (a unit's four gates side by side); units past H and k past C, H are
+    zero. bf16 stores each of W_x, W_h gate-column-major (N 4hh, k), f32
+    k-major (k, N 4hh)."""
+    H = w_aug.shape[1] // 4
+    key = (C, H, N, hh, w_aug.dtype == torch.bfloat16, w_aug.device)
+    idx = _CLUSTER_INDEX_ON.get(key)
+    if idx is None:
+        idx = torch.from_numpy(_cluster_index(*key[:5])).to(w_aug.device)
+        _CLUSTER_INDEX_ON[key] = idx
+    flat = torch.cat([w_aug.reshape(-1), w_aug.new_zeros(1)])
+    return flat[idx]
+
+
+def _cluster_library():
+    lib = _build.load("lstm_general_cluster")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_general_cluster_fwd.argtypes = ([i32] + [ptr] * 5
+                                                 + [i32] * 6 + [ptr])
+        lib.lstm_general_cluster_fwd.restype = i32
+        lib.lstm_general_cluster_cfg.argtypes = [i32] * 5 + [ptr]
+        lib.lstm_general_cluster_cfg.restype = i32
+        lib.lstm_general_cluster_capacity.argtypes = [i32]
+        lib.lstm_general_cluster_capacity.restype = i32
+        lib.lstm_general_cluster_error_string.argtypes = [i32]
+        lib.lstm_general_cluster_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_capacity(index):
+    """{N: clusters of N CTAs} that CUDA device ``index`` holds at once, one
+    CTA an SM (``lstm_general_cluster_capacity``); raises where the card
+    holds none."""
+    lib = _cluster_library()
+    with torch.cuda.device(index):
+        caps = {n: lib.lstm_general_cluster_capacity(n) for n in (2, 4, 8)}
+    if min(caps.values()) < 1:
+        raise RuntimeError(f"lstm_general_cluster: the card holds no "
+                           f"cluster of some size: {caps}")
+    return caps
+
+
+def _general_fwd_launch(leg, x, w_aug, C, H):
+    """(launch, error string, path) of a general K1/K2 call: the cluster
+    kernel behind the main-shape launchers' signature where
+    ``general_fwd_plan`` takes the shape on this card, else the streaming
+    ``general_fwd_kernel``."""
+    plan = general_fwd_plan(C, H, x.dtype,
+                            cluster_capacity(x.device.index or 0))
+    bf16 = int(x.dtype == torch.bfloat16)
+    if plan is None:
+        lib = _general_library()
+        fn = lib.lstm_general_last if leg == "last" else lib.lstm_general_fwd
+        return (_general_launch(fn, x.dtype, w_aug),
+                lib.lstm_general_error_string, "stream")
+    N, R, _ = plan
+    lib = _cluster_library()
+    wl = general_fwd_weights(w_aug, C, N,
+                             general_fwd_cfg(C, H, x.dtype, N, R)["hh"])
+
+    def launch(x_ptr, _w_ptr, out_ptr, *rest):
+        if leg == "last":  # (out, T, B, C, H, stream)
+            return lib.lstm_general_cluster_fwd(
+                bf16, x_ptr, wl.data_ptr(), None, None, out_ptr, *rest[:4],
+                N, R, rest[4])
+        cs_ptr, *rest = rest  # (hs, cs, T, B, C, H, stream)
+        return lib.lstm_general_cluster_fwd(
+            bf16, x_ptr, wl.data_ptr(), out_ptr, cs_ptr, None, *rest[:4], N,
+            R, rest[4])
+
+    return launch, lib.lstm_general_cluster_error_string, "cluster"
+
+
 def _general_library():
     lib = _build.load("lstm_general")
     if not getattr(lib, "_typed", False):
@@ -354,10 +585,10 @@ def lstm_last(params, x):
     if w_aug.device != x.device:
         raise ValueError("lstm_last: params and x are on different devices")
     kind = route("last", x.dtype, C, H)
+    path = None
     if kind == "general":
-        lib = _general_library()
-        launch = _general_launch(lib.lstm_general_last, x.dtype, w_aug)
-        error_string = lib.lstm_general_error_string
+        launch, error_string, path = _general_fwd_launch("last", x, w_aug, C,
+                                                         H)
     elif kind == "wide":
         lib = _wide_library()
         launch = _wide_launch(lib.lstm_wide_last, x.dtype, w_aug, C)
@@ -376,16 +607,19 @@ def lstm_last(params, x):
                      H, torch.cuda.current_stream().cuda_stream)
     _raise_on(error_string, "lstm_last", err)
     LAUNCHES += 1
-    _count_leg(kind, "last")
+    _count_leg(kind, "last", path)
     return out
 
 
-def _count_leg(kind, leg):
-    """One launch of ``leg`` on the wide or the general kernels."""
+def _count_leg(kind, leg, path=None):
+    """One launch of ``leg`` on the wide or the general kernels (``path``:
+    the general forward's, "cluster" or "stream")."""
     if kind == "wide":
         LAUNCHES_WIDE[leg] += 1
     elif kind == "general":
         LAUNCHES_GENERAL[leg] += 1
+        if path is not None:
+            LAUNCHES_GENERAL_FWD[path] += 1
 
 
 # ---------------- K2 / K3: the training pair ----------------
@@ -566,10 +800,10 @@ def lstm_fwd(x, w_aug, want_cs=True):
         return lstm_fwd_reference(x, w_aug, want_cs)
     T, B, C, H = _check_cuda("lstm_fwd", x, w_aug)
     kind = route("fwd", x.dtype, C, H)
+    path = None
     if kind == "general":
-        lib = _general_library()
-        launch = _general_launch(lib.lstm_general_fwd, x.dtype, w_aug)
-        error_string = lib.lstm_general_error_string
+        launch, error_string, path = _general_fwd_launch("fwd", x, w_aug, C,
+                                                         H)
     elif kind == "wide":
         lib = _wide_library()
         launch = _wide_launch(lib.lstm_wide_fwd, x.dtype, w_aug, C)
@@ -590,7 +824,7 @@ def lstm_fwd(x, w_aug, want_cs=True):
         )
     _raise_on(error_string, "lstm_fwd", err)
     LAUNCHES_FWD += 1
-    _count_leg(kind, "fwd")
+    _count_leg(kind, "fwd", path)
     return hs, cs
 
 

@@ -427,25 +427,33 @@ def test_lstm_libraries_match_the_shape_rule(cuda):
         K.BWD_MMA_MAX_H, K.BWD_MMA_MAX_K)
 
 
-# the general leg (lstm_general.cu: K1, K2 with and without cs, K3) against
+# the general leg (lstm_general.cu: K1, K2 with and without cs, K3; K1/K2
+# on lstm_general_cluster.cu where general_fwd_plan takes the shape) against
 # the plain versions at C or H past 128: the model's sizes 160 and 256, C !=
 # H, C = 1 and H = 129 (one unit past a block's 128 slots), C and H off the
-# products' 16-byte staging (bf16: off 8), a batch off and below a block's 8
-# rows, T = 1, and the limit 1024; today's tolerances, a repeated call
-# repeats the bits
+# products' 16-byte staging (bf16: off 8; the cluster kernels' x staging:
+# C = 161, 257), H odd (unpaired stores), a batch off and below a block's 8
+# rows and a cluster's R, one row, more rows than one wave of clusters
+# (2100), T = 1, and the limit 1024; today's tolerances, a repeated call
+# repeats the bits, and each K1/K2 launch takes the plan's path
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,B,C,H", [(5, 37, 160, 160), (3, 16, 256, 256),
                                      (4, 9, 144, 200), (3, 5, 1, 129),
                                      (2, 13, 257, 131), (1, 3, 129, 1),
-                                     (3, 20, 130, 200), (2, 3, 1024, 1024)])
+                                     (3, 20, 130, 200), (2, 3, 1024, 1024),
+                                     (4, 70, 161, 160), (3, 1, 160, 133),
+                                     (2, 2100, 160, 160)])
 def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
     assert K.route("bwd", dtype, C, H) == "general"
+    path = K.general_fwd_path(dtype, C, H,
+                              K.cluster_capacity(cuda.index or 0))
     params, x = _case(T, B, C, H, dtype, cuda)
     w_aug = _w_aug(params)
     dhs = torch.from_numpy(np.random.default_rng(1).normal(
         size=(T, B, H)).astype(np.float32)).to(cuda, dtype)
     launches = dict(K.LAUNCHES_GENERAL)
+    paths = dict(K.LAUNCHES_GENERAL_FWD)
     with full_f32():
         last = K.lstm_last(params, x)
         last_ref = K.lstm_last_reference(params, x)
@@ -460,6 +468,8 @@ def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
     assert K.LAUNCHES_GENERAL == {"last": launches["last"] + 2,
                                   "fwd": launches["fwd"] + 3,
                                   "bwd": launches["bwd"] + 2}
+    paths[path] += 5
+    assert K.LAUNCHES_GENERAL_FWD == paths
     assert last.dtype == hs.dtype == cs.dtype == dx.dtype == dtype
     assert dw.dtype == torch.float32 and dw.shape == (C + H + 1, 4 * H)
     assert torch.equal(hs_nocs, hs)
@@ -470,6 +480,46 @@ def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
     assert _rel(dw, dw_ref) <= (1e-4 if dtype == torch.float32 else tol)
     for a, b in zip(again, (last, hs, cs, dx, dw)):
         assert torch.equal(a, b)
+
+
+def test_lstm_general_cluster_library_matches_the_plan(cuda):
+    """lstm_general_cluster.cu's launch shapes are ``general_fwd_cfg``'s;
+    it refuses a cluster size, a row count or a shape outside its budget
+    before it reads a pointer; the card holds the clusters ``H100_CLUSTERS``
+    says (on an H100 80GB HBM3), and the plan's clusters at 160 and 256 run
+    in one wave; K1 at T = 0 is h_{-1} = 0 on the cluster path."""
+    import ctypes
+
+    lib = K._cluster_library()
+    info = (ctypes.c_longlong * 7)()
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = int(dtype == torch.bfloat16)
+        for C, H in ((160, 160), (256, 256), (144, 200), (1, 129),
+                     (129, 1), (257, 131), (1024, 1024)):
+            for N, R in ((2, 32), (4, 64), (8, 128), (4, 96), (8, 160)):
+                cfg = K.general_fwd_cfg(C, H, dtype, N, R)
+                rc = lib.lstm_general_cluster_cfg(bf16, C, H, N, R, info)
+                if cfg is None:
+                    assert rc == -1, (dtype, C, H, N, R)
+                    assert lib.lstm_general_cluster_fwd(
+                        bf16, *[None] * 5, 1, 1, C, H, N, R, None) != 0
+                    continue
+                assert rc == 0 and list(info) == [
+                    cfg["hh"], cfg["ub"], cfg["threads"], cfg["slots"],
+                    int(cfg["resident"]), cfg["smem"], cfg["layout"]]
+        for bad in ((3, 64), (16, 256), (4, 48), (4, 16)):
+            assert lib.lstm_general_cluster_cfg(bf16, 160, 160, *bad,
+                                                info) == -1
+    # the card's cluster capacity is the table the CPU tests plan with
+    caps = K.cluster_capacity(cuda.index or 0)
+    if torch.cuda.get_device_properties(cuda).name == "NVIDIA H100 80GB HBM3":
+        assert caps == K.H100_CLUSTERS, caps
+    for dtype, C in ((torch.bfloat16, 160), (torch.bfloat16, 256),
+                     (torch.float32, 160)):
+        N, R, _ = K.general_fwd_plan(C, C, dtype, caps)
+        assert -(-K.GENERAL_FWD_PLAN_BATCH // R) <= caps[N], (dtype, C)
+    params, x = _case(0, 5, 160, 160, torch.bfloat16, cuda)
+    assert not K.lstm_last(params, x).float().abs().max().item()
 
 
 def test_lstm_fused_autograd_general_on_card(cuda):
