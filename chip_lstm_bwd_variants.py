@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the step time of K3's f32 kernel, and of the wide K3's reverse
-recurrence, goes, on one NVIDIA GPU.
+"""Where the step time of K3's f32 kernel, and of the wide and the general
+K3's reverse recurrences, goes, on one NVIDIA GPU.
 
     python3 chip_lstm_bwd_variants.py
     python3 chip_lstm_bwd_variants.py --wide [--parent DIR]
+    python3 chip_lstm_bwd_variants.py --general
     python3 chip_lstm_bwd_variants.py --compare-parent DIR
 
 Builds the f32 training LSTM backward (``csrc/lstm_bwd_f32.cu``) as it is
@@ -30,9 +31,21 @@ without the DSMEM stores and the cluster barrier (a CTA barrier in its
 place). With ``--parent DIR`` it first splits the parent design's
 ``lstm_wide.cu::wide_rec_kernel`` from the checkout at DIR (its own
 edits, matched against that source). Prints registers and spills per
-variant. ``--compare-parent DIR`` times the whole wide K3 of the parent
-checkout at DIR and of this one in one call, parent / this / this /
-parent, beside cuDNN's backward, at C = H = 96 and 128, f32 and bf16.
+variant.
+
+``--general`` splits the general K3's cluster recurrence
+(``lstm_general_rec_cluster.cu``, the recurrence alone, at T = 124, B =
+2048 and C = H = 160 and 256 at the plan's N, R and passes, f32 and
+bf16): as it is, without the gate activations, without the partial
+product, without the DSMEM exchange and the cluster barriers (local
+stores, CTA barriers), without the input loads and without the dgates'
+device stores; then the kernel as it is at the other one-wave plans, and
+the streaming ``general_rec_kernel`` alone at every shape (the
+recurrence's own time where the plan refuses it). ``--compare-parent
+DIR`` times the general K3 of the parent checkout at DIR
+(``lstm_general_bwd``) and of this one (its path by the plan) in one
+call, parent / this / this / parent, beside cuDNN's backward, at C = H =
+160 and 256, f32 and bf16.
 
 Imports nothing of JAX or of the JAX package ``remora_tpu``; the build,
 timing and SASS helpers are ``chip_lstm_fwd_variants.py``'s.
@@ -261,34 +274,187 @@ def _kernel_ptxas(out, kernel, flag):
     return ", ".join(found) or "no ptxas line"
 
 
-def compare_wide(parent_dir):
-    """The wide K3 in one call, parent / this design / this design /
-    parent, beside cuDNN's backward (``torch.nn.LSTM``, data and weights;
-    a yardstick the port never calls), at T = 124, B = 2048 and C = H = 96
-    and 128, f32 and bf16; each design's library called directly on
-    preallocated buffers. Also prints the largest |dx| and relative dW
-    difference of the two designs' outputs."""
+# the general K3's cluster recurrence (lstm_general_rec_cluster.cu): each
+# edit takes one piece of a step away
+GENERAL_SOURCE = "lstm_general_rec_cluster.cu"
+_GENERAL_ACTS = (
+    "        const float ig = sigmoid(zr[k][0]), fg = sigmoid(zr[k][1]);\n"
+    "        const float gg = tanhf(zr[k][2]), og = sigmoid(zr[k][3]);\n"
+    "        const float tanh_c = tanhf(c_cur.get(k)), cp = widen(cpr[k]);")
+GENERAL_EDITS = {
+    # the activations (three sigmoids, two tanh) by linear stand-ins
+    "no_gate_math": [(_GENERAL_ACTS, _GENERAL_ACTS
+                      .replace("sigmoid(zr[k][0])", "0.5f + 0.1f * zr[k][0]")
+                      .replace("sigmoid(zr[k][1])", "0.5f + 0.1f * zr[k][1]")
+                      .replace("tanhf(zr[k][2])", "0.1f * zr[k][2]")
+                      .replace("sigmoid(zr[k][3])", "0.5f + 0.1f * zr[k][3]")
+                      .replace("tanhf(c_cur.get(k))", "0.1f * c_cur.get(k)"))],
+    "no_product": [("        tile.product(ds, ws, cfg, p, tr, tc, lane);\n",
+                    "        tile = Tile{};\n")],
+    # each CTA's partials into its own receive tile, CTA barriers for the
+    # cluster's (no remote store is left in flight at exit)
+    "no_exchange": [
+        ("      const uint32_t dst = map_rank(rv, s);",
+         "      const uint32_t dst = rv + 0 * s;"),
+        ("    const uint32_t dst = map_rank(rv, s);",
+         "    const uint32_t dst = rv + 0 * s;"),
+        ('  asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: '
+         '"memory");', ""),
+        ('  asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: '
+         '"memory");', "  __syncthreads();")],
+    "no_loads": [
+        ("      load_now(zr[k][g], zk + g * H, o);\n",
+         "      zr[k][g] = 0.25f * (float)g - 0.3f + 0.01f * (float)(t & 7);\n"),
+        ("    load_now(cpr[k], cs + (t > 0 ? hk - (size_t)B * H : 0), o && "
+         "t > 0);\n    load_now(dhr[k], dhs + hk, o);\n",
+         "    cpr[k] = narrow<T>(0.5f);\n    dhr[k] = narrow<T>(0.125f);\n")],
+    "no_dg_stores": [
+        ("        for (int g = 0; g < 4; ++g) dgm[g * H] = narrow<T>(q[g]);\n",
+         "")],
+}
+GENERAL_VARIANTS = {
+    "as is": [],
+    "no gate activations": GENERAL_EDITS["no_gate_math"],
+    "no partial product": GENERAL_EDITS["no_product"],
+    "no exchange, no cluster barriers": GENERAL_EDITS["no_exchange"],
+    "no input loads": GENERAL_EDITS["no_loads"],
+    "no dgates device stores": GENERAL_EDITS["no_dg_stores"],
+}
+
+
+def _typed_rec(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_general_rec_cluster_rec.argtypes = ([i32] + [ptr] * 5
+                                                 + [i32] * 6 + [ptr])
+    lib.lstm_general_rec_cluster_rec.restype = i32
+    return lib
+
+
+def _general_rec_case(width, dtype, T=124, B=2048, seed=0):
+    """Seeded recurrence inputs on the card at C = H = width: Z (f32), cs,
+    dhs and W_h^T, and a dgates buffer."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + width)
+    H = width
+    z = torch.randn((T, B, 4 * H), device="cuda", generator=gen)
+    cs = torch.randn((T, B, H), device="cuda", generator=gen).to(dtype)
+    dhs = torch.randn((T, B, H), device="cuda", generator=gen).to(dtype)
+    w_ht = ((torch.rand((4 * H, H), device="cuda", generator=gen) * 2 - 1)
+            / H ** 0.5).to(dtype)
+    dg = torch.empty((T, B, 4 * H), device="cuda", dtype=dtype)
+    return z, cs, dhs, w_ht, dg
+
+
+def split_general():
+    """Each variant of the general K3's cluster recurrence alone
+    (``lstm_general_rec_cluster_rec``) at T = 124, B = 2048 and C = H = 160
+    and 256 in each dtype the plan takes there, at the plan's N, R and
+    passes on this card; then the kernel as it is at the other one-wave
+    plans whose CTA fits (the fewest passes of each N), and the streaming
+    ``general_rec_kernel`` alone at the same shapes (``lstm_general_rec``),
+    f32 at 256 included."""
     import torch
 
     sys.path.insert(0, REPO)
     from remora_tpu_torch.kernels import lstm as K
 
-    _, built = build_variants(WIDE_SOURCE, {"parent": []},
-                              headers=("mma_sm90.cuh",), csrc=os.path.join(
-                                  parent_dir, "remora_tpu_torch", "csrc"))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    parent = ctypes.CDLL(built["parent"][0])
-    parent.lstm_wide_bwd.argtypes = [i32] + [ptr] * 11 + [i32] * 4 + [ptr]
-    parent.lstm_wide_bwd.restype = i32
-    parent.lstm_wide_dw_chunks.argtypes = [i32, i32]
-    parent.lstm_wide_dw_chunks.restype = i32
-    change = K._wide_bwd_library()
+    _, built = build_variants(GENERAL_SOURCE, GENERAL_VARIANTS,
+                              headers=("mma_sm90.cuh", "lstm_prod.cuh"))
+    libs = {name: (_typed_rec(ctypes.CDLL(path)), out)
+            for name, (path, out) in built.items()}
+    streaming = K._general_library()
+    caps = K.cluster_capacity(0)
+    print(f"clusters the card holds: {caps}", flush=True)
     stream = torch.cuda.current_stream().cuda_stream
     T, B = 124, 2048
-    for width in (96, 128):
+    for width in (160, 256):
+        for dtype, flag in ((torch.float32, 0), (torch.bfloat16, 1)):
+            sfx = "bf16" if flag else "f32"
+            z, cs, dhs, w_ht, dg = _general_rec_case(width, dtype)
+            ptrs = (z.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+                    w_ht.data_ptr(), dg.data_ptr())
+
+            def stream_call():
+                err = streaming.lstm_general_rec(flag, *ptrs, T, B, width,
+                                                 stream)
+                if err != 0:
+                    raise SystemExit(f"general_rec_kernel: error {err}")
+            ms = time_ms(stream_call)
+            print(f"general K3 recurrence {sfx} C=H={width} streaming "
+                  f"general_rec_kernel: {ms:.4f} ms ({ms / T * 1e3:.3f} us "
+                  "a step)", flush=True)
+            plan = K.general_rec_plan(width, width, dtype, caps)
+            if plan is None:
+                print(f"general K3 {sfx} C=H={width}: the plan refuses it "
+                      "(streaming path)", flush=True)
+                continue
+            shapes = [(plan[0], plan[1], plan[3])]
+            for n in (2, 4, 8):
+                rows = -(-(-(-B // caps[n])) // 32) * 32
+                for passes in range(1, K.CLUSTER_REC_MAX_PASSES + 1):
+                    if K.general_rec_cfg(width, dtype, n, rows,
+                                         passes) is not None:
+                        if (n, rows, passes) not in shapes:
+                            shapes.append((n, rows, passes))
+                        break
+            for i, (n, rows, passes) in enumerate(shapes):
+                names = list(libs) if i == 0 else ["as is"]
+                for name in names:
+                    lib, out = libs[name]
+
+                    def call(lib=lib):
+                        err = lib.lstm_general_rec_cluster_rec(
+                            flag, *ptrs, T, B, width, n, rows, passes,
+                            stream)
+                        if err != 0:
+                            raise SystemExit(f"{name!r}: error {err}")
+                    ms = time_ms(call)
+                    tag = "plan" if i == 0 else "other plan"
+                    print(f"general K3 recurrence {sfx} C=H={width} "
+                          f"({tag}: N={n} R={rows} P={passes}) {name}: "
+                          f"{ms:.4f} ms ({ms / T * 1e3:.3f} us a step); "
+                          f"{_kernel_ptxas(out, 'general_rec_cluster_kernel', flag)}",
+                          flush=True)
+
+
+def _typed_general_bwd(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_general_bwd.argtypes = [i32] + [ptr] * 12 + [i32] * 4 + [ptr]
+    lib.lstm_general_bwd.restype = i32
+    lib.lstm_general_bwd_dw_chunks.argtypes = [i32, i32]
+    lib.lstm_general_bwd_dw_chunks.restype = i32
+    return lib
+
+
+def compare_general(parent_dir):
+    """The general K3 in one call, parent / this design / this design /
+    parent, beside cuDNN's backward (``torch.nn.LSTM``, data and weights; a
+    yardstick the port never calls), at T = 124, B = 2048 and C = H = 160
+    and 256, f32 and bf16: the parent checkout's ``lstm_general_bwd``
+    (``general_rec_kernel`` between ``lstm_prod.cuh``'s products) against
+    this checkout's path (the cluster recurrence at the plan's N, R and
+    passes, or the streaming one where the plan refuses the shape), each
+    library called directly on preallocated buffers; and how far the two
+    designs' dx and dW differ."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import lstm as K
+
+    _, built = build_variants("lstm_general.cu", {"parent": []},
+                              headers=("lstm_prod.cuh", "mma_sm90.cuh"),
+                              csrc=os.path.join(parent_dir, "remora_tpu_torch",
+                                                "csrc"))
+    parent = _typed_general_bwd(ctypes.CDLL(built["parent"][0]))
+    caps = K.cluster_capacity(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    T, B = 124, 2048
+    for width in (160, 256):
         C = H = width
         for dtype in (torch.float32, torch.bfloat16):
             flag = int(dtype == torch.bfloat16)
+            sfx = "bf16" if flag else "f32"
             gen = torch.Generator(device="cuda").manual_seed(width)
             bound = 1.0 / H ** 0.5
             lib_lstm = torch.nn.LSTM(C, H).cuda()
@@ -307,28 +473,29 @@ def compare_wide(parent_dir):
             w = K.make_w_aug(params, dtype)
             hs, cs = K.lstm_fwd(x, w)
             w_ht, w_xt = K.wide_bwd_weights(w, C)
-            z = torch.empty((T, B, 4 * H), device="cuda")
-            dg = torch.empty((T, B, 4 * H), device="cuda", dtype=dtype)
+            run, chunks_of, _err, path = K._general_bwd_launch(
+                dtype, C, H, x.device)
             outs = {}
-            for name, lib, weights in (
-                    ("parent", parent, (w, w_ht)),
-                    ("change", change, (w, w_ht, w_xt))):
-                chunks = (parent.lstm_wide_dw_chunks(T, B) if lib is parent
-                          else change.lstm_wide_bwd_dw_chunks(T, B))
+            for name, fn, chunks in (
+                    ("parent", parent.lstm_general_bwd,
+                     parent.lstm_general_bwd_dw_chunks(T, B)),
+                    ("change", run, chunks_of(T, B))):
+                z = torch.empty((T, B, 4 * H), device="cuda")
+                dg = torch.empty((T, B, 4 * H), device="cuda", dtype=dtype)
                 dx = torch.empty_like(x)
                 partials = torch.empty((chunks, C + H + 1, 4 * H),
                                        device="cuda")
                 dw = torch.empty((C + H + 1, 4 * H), device="cuda")
-                args = ([flag, x.data_ptr()] + [t.data_ptr() for t in weights]
-                        + [hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-                           z.data_ptr(), dg.data_ptr(), dx.data_ptr(),
-                           partials.data_ptr(), dw.data_ptr(), T, B, C, H,
-                           stream])
+                args = [flag, x.data_ptr(), w.data_ptr(), w_ht.data_ptr(),
+                        w_xt.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                        dhs.data_ptr(), z.data_ptr(), dg.data_ptr(),
+                        dx.data_ptr(), partials.data_ptr(), dw.data_ptr(),
+                        T, B, C, H, stream]
 
-                def call(lib=lib, args=args):
-                    err = lib.lstm_wide_bwd(*args)
+                def call(fn=fn, args=args, name=name):
+                    err = fn(*args)
                     if err != 0:
-                        raise SystemExit(f"launch error {err}")
+                        raise SystemExit(f"{name}: launch error {err}")
                 outs[name] = call, dx, dw
             ms = {}
             for name in ("parent", "change", "change", "parent"):
@@ -344,12 +511,12 @@ def compare_wide(parent_dir):
             (_, dx_p, dw_p), (_, dx_c, dw_c) = outs["parent"], outs["change"]
             ddx = (dx_p.float() - dx_c.float()).abs().max().item()
             ddw = ((dw_p - dw_c).abs().max() / dw_p.abs().max()).item()
-            sfx = "f32" if flag == 0 else "bf16"
-            print(f"wide K3 {sfx} C=H={width}: parent / change / change / "
-                  f"parent {ms['parent'][0]:.4f} / {ms['change'][0]:.4f} / "
-                  f"{ms['change'][1]:.4f} / {ms['parent'][1]:.4f} ms; cuDNN "
-                  f"backward {cudnn:.4f} ms; designs differ by dx "
-                  f"{ddx:.3e}, dW {ddw:.3e} of its max-abs", flush=True)
+            print(f"general K3 {sfx} C=H={width} ({path} path): parent / "
+                  f"change / change / parent {ms['parent'][0]:.4f} / "
+                  f"{ms['change'][0]:.4f} / {ms['change'][1]:.4f} / "
+                  f"{ms['parent'][1]:.4f} ms; cuDNN backward {cudnn:.4f} ms; "
+                  f"designs differ by dx {ddx:.3e}, dW {ddw:.3e} of its "
+                  "max-abs", flush=True)
 
 
 def main():
@@ -361,7 +528,11 @@ def main():
         return 1
     args = sys.argv[1:]
     if args[:1] == ["--compare-parent"]:
-        compare_wide(args[1])
+        compare_general(args[1])
+        print(smi_line())
+        return 0
+    if args[:1] == ["--general"]:
+        split_general()
         print(smi_line())
         return 0
     if args[:1] == ["--wide"]:

@@ -31,10 +31,14 @@ printed):
    wide K3 beside cuDNN's backward at both widths; (3e) the general LSTM
    leg (C or H past 128: K1/K2 on ``lstm_general_cluster.cu``'s cluster
    path where ``kernels.lstm.general_fwd_plan`` takes the shape, else on
-   ``lstm_general.cu``'s streaming path; K3 on ``lstm_general.cu``) at
+   ``lstm_general.cu``'s streaming path; K3's recurrence on
+   ``lstm_general_rec_cluster.cu``'s clusters where
+   ``kernels.lstm.general_rec_plan`` takes the shape, else on
+   ``lstm_general.cu``'s ``general_rec_kernel``; the recurrence alone also
+   held to its plain twin on the same Z and timed) at
    T=124, B=2048 and C=H=160 (the shape 6g gives it; these records take
    6g's launches into the kernels line) and C=H=256 (a line of its own;
-   f32 K1/K2 there, which the plan refuses, run the streaming path, and
+   f32 K1-K3 there, which the plans refuse, run the streaming paths, and
    their records take 6g's size-256 leg's launches), K1, K2 (with and
    without cs) and K3 in both dtypes against their plain versions, each
    repeated bit for bit, with times beside the parent design's
@@ -112,12 +116,12 @@ printed):
    held to the plain LSTM, one train step and one served batch profiled
    by kernel, and one f32 size-96 train step held to the same step with
    the plain LSTM versions (as 6b); (6g) the same at size 160 on the
-   general leg (K2/K3 once a step, K1 once a batch; K1/K2 on the cluster
-   path, none streamed), held to the same handle and step with
+   general leg (K2/K3 once a step, K1 once a batch; K1-K3 on the cluster
+   paths, none streamed), held to the same handle and step with
    ``REMORA_TPU_LSTM=scan``, and K6's product paths at size 160's block
    shapes (merge_conv1 320 -> 160); then size 256 in f32, which the plan
-   refuses: one train step and one served batch, K1/K2 on the streaming
-   path once each, logits held to the scan; (6f) data-parallel training, the
+   refuses: one train step and one served batch, K1-K3 on the streaming
+   paths once each, logits held to the scan; (6f) data-parallel training, the
    launch and all-reduce counts set to 0 first: (a) ``train_model`` over
    a one-rank NCCL group on cuda:0, 4 steps of 2048 (SGD), K2/K3 once a
    step, one all-reduce a step, losses within 1e-5 of the same run
@@ -440,8 +444,29 @@ def lstm_chain_instrs(kind, C, H):
         # = f c + i g (FMUL, FFMA) -> tanh(c) -> h = o tanh(c) -> STS h ->
         # BAR -> LDG x_{t+1} -> STS -> BAR
         return 1 + 1 + C + H + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 + 1 + 2 + 1
+    if kind in ("general_bwd_cluster", "general_bwd_cluster_mma"):
+        # K3 general, the cluster path (lstm_general_rec_cluster.cu::
+        # general_rec_cluster_kernel; the gate recompute and the products
+        # are other launches), a CTA of the plan's cluster: cluster BAR
+        # (wait B) -> LDS the N partials -> N FADD (rank order) -> FADD dhs
+        # -> dc (FMUL, FFMA) -> dgates (3 FMUL) -> STS -> BAR -> LDS -> the
+        # partial product's dependent chain (f32: 4hh FFMA into one
+        # accumulator; bf16: 4hh / 16 HMMA) -> st.shared::cluster -> cluster
+        # BAR (arrive B); each further pass adds a product, a store, a
+        # barrier and the N-term sum
+        import torch
+
+        from remora_tpu_torch.kernels import lstm as K
+
+        dtype = torch.bfloat16 if kind.endswith("mma") else torch.float32
+        N, R, _smem, P = K.general_rec_plan(C, H, dtype,
+                                            K.cluster_capacity(0))
+        hh = K.general_rec_cfg(H, dtype, N, R, P)["hh"]
+        depth = 4 * hh // 16 if dtype == torch.bfloat16 else 4 * hh
+        return 1 + 1 + N + 1 + 2 + 3 + 1 + 1 + 1 + depth + 1 + 1 \
+            + (P - 1) * (depth + 1 + 1 + 1 + N)
     if kind == "general_bwd":
-        # K3 general (lstm_general.cu::general_rec_kernel; the gate
+        # K3 general, the streaming path (lstm_general.cu::general_rec_kernel; the gate
         # recompute and the products are other launches): BAR -> LDS the dh
         # carry -> FADD dhs -> dc (FMUL, FFMA) -> dgates (3 FMUL) -> STS ->
         # BAR -> LDS -> 4H dependent FFMA (dh = dgates . W_h^T) -> STS
@@ -505,7 +530,12 @@ def lstm_kernel_of(leg, dtype, C, H):
                 "remora_tpu_torch/csrc/lstm_general.cu",
                 "general_stream_fwd")
     if kind == "general":
-        return (f"lstm_{leg}_general_{sfx}",
+        if general_path(dtype, C, H, leg) == "cluster":
+            return (f"lstm_bwd_general_cluster_{sfx}",
+                    "remora_tpu_torch/csrc/lstm_general_rec_cluster.cu",
+                    "general_bwd_cluster_mma" if bf16
+                    else "general_bwd_cluster")
+        return (f"lstm_bwd_general_stream_{sfx}",
                 "remora_tpu_torch/csrc/lstm_general.cu", "general_bwd")
     if kind == "wide":
         if leg == "bwd":
@@ -525,22 +555,32 @@ def lstm_kernel_of(leg, dtype, C, H):
     return f"lstm_{leg}_{sfx}", "remora_tpu_torch/csrc/" + src, chain
 
 
-def general_path(dtype, C, H):
-    """The general K1/K2's path on this card ("cluster" or "stream"),
-    as ``kernels.lstm`` picks it."""
+def general_path(dtype, C, H, leg="fwd"):
+    """The general leg's path on this card ("cluster" or "stream"), as
+    ``kernels.lstm`` picks it: K1/K2's, or K3's for ``leg`` "bwd"."""
     from remora_tpu_torch.kernels import lstm as K
 
-    return K.general_fwd_path(dtype, C, H, K.cluster_capacity(0))
+    path = K.general_bwd_path if leg == "bwd" else K.general_fwd_path
+    return path(dtype, C, H, K.cluster_capacity(0))
 
 
 def path_fields(leg, dtype, C, H):
-    """A general K1/K2 record's path, cluster size and rows a cluster
-    (``general_fwd_plan`` on this card); {} for any other kernel."""
+    """A general record's path, cluster size and rows a cluster
+    (``general_fwd_plan`` on this card; K3's ``general_rec_plan``, with
+    the exchange's passes); {} for any other kernel."""
     from remora_tpu_torch.kernels import lstm as K
 
-    if leg == "bwd" or K.route(leg, dtype, C, H) != "general":
+    if K.route(leg, dtype, C, H) != "general":
         return {}
-    plan = K.general_fwd_plan(C, H, dtype, K.cluster_capacity(0))
+    caps = K.cluster_capacity(0)
+    if leg == "bwd":
+        plan = K.general_rec_plan(C, H, dtype, caps)
+        if plan is None:
+            return {"path": "stream", "cluster_ctas": None,
+                    "cluster_rows": None, "passes": None}
+        return {"path": "cluster", "cluster_ctas": plan[0],
+                "cluster_rows": plan[1], "passes": plan[3]}
+    plan = K.general_fwd_plan(C, H, dtype, caps)
     if plan is None:
         return {"path": "stream", "cluster_ctas": None, "cluster_rows": None}
     return {"path": "cluster", "cluster_ctas": plan[0],
@@ -653,8 +693,9 @@ def split_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5,
     """Device ms of each of the split K3's kernels (gate recompute,
     recurrence, dx, dW, the ordered dW sum) a call, from torch.profiler
     over ``calls`` calls: ``lstm_wide_bwd.cu``'s, or with ``rec`` =
-    "general_rec_kernel" ``lstm_general.cu``'s (the products are
-    ``lstm_prod.cuh``'s in both)."""
+    "general_rec_cluster_kernel" (``lstm_general_rec_cluster.cu``) or
+    "general_rec_kernel" (``lstm_general.cu``) the general K3's (the
+    products are ``lstm_prod.cuh``'s in all three)."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -769,7 +810,10 @@ def check_lstm_train(dtype, tol, C=SIZE, H=SIZE, n=N_TIMED):
                     if bwd_chain.startswith("wide_bwd") else
                     split_bwd_parts_ms(x, w_aug, hs, cs, dhs,
                                       rec="general_rec_kernel")
-                    if bwd_chain == "general_bwd" else None)
+                    if bwd_chain == "general_bwd" else
+                    split_bwd_parts_ms(x, w_aug, hs, cs, dhs,
+                                      rec="general_rec_cluster_kernel")
+                    if bwd_chain.startswith("general_bwd_cluster") else None)
 
         fwd_ms = time_ms(lambda: K.lstm_fwd(x, w_aug), n=n)
         general = K.route("fwd", dtype, C, H) == "general"
@@ -1042,24 +1086,80 @@ def check_lstm_wide():
 def check_lstm_general_compile():
     """The general LSTM leg's kernels (lstm_general.cu: its forward and
     recurrence, and lstm_prod.cuh's products and the ordered dW sum it
-    launches), each instantiation: registers logged, no spill."""
+    launches; lstm_general_cluster.cu's forwards;
+    lstm_general_rec_cluster.cu's recurrence and the products again), each
+    instantiation: registers logged, no spill."""
     check_compile("lstm_general", "general K1-K3", (
         "general_fwd_kernel", "general_rec_kernel", "wide_prod_f32_kernel",
         "wide_prod_bf16_kernel", "ordered_sum"))
     check_compile("lstm_general_cluster", "general K1/K2 cluster", (
         "cluster_fwd_f32_kernel", "cluster_fwd_bf16_x2_kernel",
         "cluster_fwd_bf16_kernel"))
+    check_compile("lstm_general_rec_cluster", "general K3 cluster", (
+        "general_rec_cluster_kernel", "wide_prod_f32_kernel",
+        "wide_prod_bf16_kernel", "ordered_sum"))
 
 
-# the general K1/K2 before the cluster path (PR 21's general_fwd_kernel
-# for every shape; PERF.md section 6, H100 80GB HBM3 at 700 W), ms: the
-# parent-design figure each 3e record is logged beside
+# the general legs before their cluster paths (the first design's
+# general_fwd_kernel and general_rec_kernel for every shape; PERF.md
+# section 6, H100 80GB HBM3 at 700 W), ms: the parent-design figure each
+# 3e record is logged beside
 PARENT_GENERAL_MS = {
     ("last", "f32", 160): 9.2923, ("last", "bf16", 160): 9.3452,
     ("fwd", "f32", 160): 8.9869, ("fwd", "bf16", 160): 9.3324,
     ("last", "f32", 256): 14.7656, ("last", "bf16", 256): 14.7777,
     ("fwd", "f32", 256): 14.1321, ("fwd", "bf16", 256): 14.6810,
+    ("bwd", "f32", 160): 16.9088, ("bwd", "bf16", 160): 10.6175,
+    ("bwd", "f32", 256): 31.5380, ("bwd", "bf16", 256): 16.6665,
 }
+
+
+def check_general_recurrence(dtype, width):
+    """K3's recurrence alone on the general leg (``general_recurrence``, on
+    the path ``general_bwd_path`` picks) against its plain twin on the same
+    Z, at T = 124, B = BATCH and C = H = ``width`` (dgates within 1e-5 (f32)
+    or 2e-2 (bf16) of their largest entry), a repeated call identical; its
+    time beside its bound (``wide_bwd_part_bounds``' recurrence) and the
+    plain twin's."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import full_f32
+    from remora_tpu_torch.kernels import lstm as K
+
+    params, x = lstm_case(dtype, T=TRAIN_LSTM_T, C=width, H=width, seed=3)
+    T, B, C = x.shape
+    H = width
+    w_aug = K.make_w_aug(params, dtype)
+    dhs = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(T, B, H)).astype(np.float32)).cuda().to(dtype)
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    with full_f32():
+        hs, cs = K.lstm_fwd(x, w_aug)
+        z = K.lstm_bwd_gates_reference(x, w_aug, hs)
+        paths = dict(K.LAUNCHES_GENERAL_BWD)
+        got = K.general_recurrence(z, cs, dhs, w_aug)
+        path = next(k for k in paths if K.LAUNCHES_GENERAL_BWD[k] > paths[k])
+        want = K.lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)
+        again = K.general_recurrence(z, cs, dhs, w_aug)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        check(np.isfinite(err) and err <= tol,
+              f"general K3 recurrence {sfx} C=H={width}: dgates disagree "
+              f"with the plain twin ({err:.3e} > {tol})")
+        check(torch.equal(again, got), f"general K3 recurrence {sfx} "
+              f"C=H={width}: a second call gave other bits")
+        ms = time_ms(lambda: K.general_recurrence(z, cs, dhs, w_aug))
+        plain_ms = time_ms(
+            lambda: K.lstm_bwd_recurrence_reference(z, cs, dhs, w_aug), n=3,
+            calls=1)
+    bound = wide_bwd_part_bounds(T, B, C, H, dtype)["recurrence"]
+    log(f"general K3 recurrence {sfx} C=H={width} ({path} path): dgates "
+        f"{err:.3e} of their max-abs against the plain twin on the same Z "
+        f"(tolerance {tol}), repeated bit for bit; {ms:.4f} ms ({ms / T * 1e3:.3f} "
+        f"us a step), plain {plain_ms:.4f} ms, bound {bound:.4f} ms")
+    return {"path": path, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "max_rel_err": err}
 
 
 def check_lstm_general():
@@ -1085,6 +1185,7 @@ def check_lstm_general():
     log(f"clusters the card holds, one CTA an SM: {caps} (the plan's "
         f"table: {K.H100_CLUSTERS})")
     t0 = time.monotonic()
+    bwd_paths = dict(K.LAUNCHES_GENERAL_BWD)
     records = {
         width: {dtype: [check_lstm_last(dtype, tol, C=width, H=width,
                                         n=GENERAL_TIMED),
@@ -1093,6 +1194,11 @@ def check_lstm_general():
                 for dtype, tol in ((torch.float32, 1e-5),
                                    (torch.bfloat16, 2e-2))}
         for width in (GENERAL_SIZE, GENERAL)}
+    for width in (GENERAL_SIZE, GENERAL):
+        for dtype, recs in records[width].items():
+            recs[2]["recurrence"] = check_general_recurrence(dtype, width)
+    ran = {k: K.LAUNCHES_GENERAL_BWD[k] - bwd_paths[k] for k in bwd_paths}
+    log(f"phase 3e: general K3 launches by path {ran}")
     log(json.dumps({f"general_lstm_at_{GENERAL}": [
         rec for recs in records[GENERAL].values() for rec in recs]}))
     log(json.dumps({"general_vs_cudnn": {
@@ -1109,19 +1215,28 @@ def check_lstm_general():
                           "path": rec.get("path"),
                           "cluster_ctas": rec.get("cluster_ctas"),
                           "cluster_rows": rec.get("cluster_rows"),
-                          "parts_ms": rec.get("parts_ms")}
+                          "passes": rec.get("passes"),
+                          "parts_ms": rec.get("parts_ms"),
+                          "recurrence": rec.get("recurrence")}
             for recs in records[width].values() for rec in recs}
         for width in (GENERAL_SIZE, GENERAL)}}))
     stream = [rec for rec in records[GENERAL][torch.float32]
               if rec.get("path") == "stream"]
-    check(len(stream) == 2, f"phase 3e: the streaming path ran "
+    check(len(stream) == 3, f"phase 3e: the streaming paths ran "
           f"{[rec['name'] for rec in stream]} at f32 C=H={GENERAL}, not "
-          "K1 and K2")
+          "K1, K2 and K3")
     for width in (GENERAL_SIZE, GENERAL):
-        for rec in records[width][torch.bfloat16][:2]:
-            check(rec.get("path") == "cluster",
-                  f"phase 3e: {rec['name']} at C=H={width} is not on the "
-                  "cluster path")
+        for dtype, recs in records[width].items():
+            # every leg on its cluster path but f32 at GENERAL (streams)
+            want = ("stream" if dtype == torch.float32 and width == GENERAL
+                    else "cluster")
+            for rec in recs:
+                check(rec.get("path") == want,
+                      f"phase 3e: {rec['name']} at C=H={width} is not on "
+                      f"the {want} path")
+            check(recs[2]["recurrence"]["path"] == want,
+                  f"phase 3e: the {dtype} recurrence at C=H={width} ran "
+                  f"the {recs[2]['recurrence']['path']} path")
     log(f"phase 3e wall {time.monotonic() - t0:.1f} s")
     return records[GENERAL_SIZE], stream
 
@@ -1177,8 +1292,8 @@ def general_stream_leg(root, config, records):
     ``general_fwd_kernel`` on the model path: ``train_model`` for one step
     (K2 there once), then its checkpoint through ``ModelHandle.load`` for
     one batch (K1 once), logits finite and held to the same handle with
-    REMORA_TPU_LSTM=scan; no cluster launch. Sets the streaming records'
-    launches."""
+    REMORA_TPU_LSTM=scan; no cluster launch (K3's recurrence streams as
+    well). Sets the streaming records' launches."""
     from remora_tpu_torch.infer.infer import ModelHandle
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.train import optim
@@ -1187,7 +1302,8 @@ def general_stream_leg(root, config, records):
     tag = f"general_stream_size{GENERAL}_f32"
     out = os.path.join(root, tag)
     counts, paths = K.LAUNCHES_GENERAL, K.LAUNCHES_GENERAL_FWD
-    for d in (counts, paths):
+    bwd_paths = K.LAUNCHES_GENERAL_BWD
+    for d in (counts, paths, bwd_paths):
         d.update(dict.fromkeys(d, 0))
     t0 = time.monotonic()
     train_model(
@@ -1198,11 +1314,15 @@ def general_stream_leg(root, config, records):
                                    learning_rate=2e-3),
         chunks_per_epoch=BATCH, num_test_chunks=BATCH)
     train_launches, train_paths = dict(counts), dict(paths)
+    train_bwd_paths = dict(bwd_paths)
     log(f"{tag}: train_model 1 step in {time.monotonic() - t0:.1f} s; "
-        f"general launches {train_launches}, by path {train_paths}")
+        f"general launches {train_launches}, K1/K2 by path {train_paths}, "
+        f"K3 by path {train_bwd_paths}")
     check(train_launches["fwd"] == train_launches["bwd"] == 1
-          and train_paths["cluster"] == 0 and train_paths["stream"] >= 1,
-          f"{tag}: launches {train_launches}, by path {train_paths}")
+          and train_paths["cluster"] == 0 and train_paths["stream"] >= 1
+          and train_bwd_paths == {"cluster": 0, "stream": 1},
+          f"{tag}: launches {train_launches}, K1/K2 by path {train_paths}, "
+          f"K3 by path {train_bwd_paths}")
     handle = ModelHandle.load(os.path.join(out, "model_final.checkpoint"))
     arrs = synth_inputs(np.random.default_rng(8), BATCH)
     for d in (counts, paths):
@@ -1218,9 +1338,10 @@ def general_stream_leg(root, config, records):
         f"|logit - REMORA_TPU_LSTM=scan logit| {err:.3e} (tolerance 1e-4)")
     check(np.isfinite(logits).all() and err <= 1e-4,
           f"{tag}: logits disagree with the scan ({err:.3e})")
-    k1, k2 = records
+    k1, k2, k3 = records
     k1["launches"] = last
     k2["launches"] = train_launches["fwd"]
+    k3["launches"] = train_launches["bwd"]
 
 
 def model_path_leg(root, config, records, kind, stream_records=None):
@@ -1233,8 +1354,9 @@ def model_path_leg(root, config, records, kind, stream_records=None):
     the f32 checkpoint's train step held to the same step with the plain
     K2/K3 (``check_train_step_vs_plain``). Phase 6g (``kind`` "general"):
     the same at size GENERAL_SIZE for GENERAL_STEPS steps on the general
-    leg (K1/K2 on the cluster path, ``lstm_general_cluster.cu``: no launch
-    streams), held to the same handle and step with REMORA_TPU_LSTM=scan,
+    leg (K1/K2 on the cluster path, ``lstm_general_cluster.cu``, K3's
+    recurrence on ``lstm_general_rec_cluster.cu``'s: no launch streams),
+    held to the same handle and step with REMORA_TPU_LSTM=scan,
     then ``general_stream_leg`` (size GENERAL f32, the streaming path;
     ``stream_records``). Sets the records' launches from the train and
     serve runs."""
@@ -1259,6 +1381,8 @@ def model_path_leg(root, config, records, kind, stream_records=None):
         counts.update(dict.fromkeys(counts, 0))
         paths = K.LAUNCHES_GENERAL_FWD
         paths.update(dict.fromkeys(paths, 0))
+        bwd_paths = K.LAUNCHES_GENERAL_BWD
+        bwd_paths.update(dict.fromkeys(bwd_paths, 0))
         t0 = time.monotonic()
         train_model(
             seed=1, out_path=out, remora_dataset_path=config,
@@ -1280,10 +1404,14 @@ def model_path_leg(root, config, records, kind, stream_records=None):
         check(train_launches["fwd"] == train_launches["bwd"] == steps,
               f"{tag}: the {kind} K2/K3 launched {train_launches} times for "
               f"{steps} steps")
-        if general:  # the cluster path, none of it streamed
-            log(f"{tag}: general K1/K2 launches by path {paths}")
+        if general:  # the cluster paths, none of it streamed
+            log(f"{tag}: general K1/K2 launches by path {paths}, K3 "
+                f"{bwd_paths}")
             check(paths["stream"] == 0 and paths["cluster"] >= steps,
                   f"{tag}: general K1/K2 by path {paths}")
+            check(bwd_paths == {"cluster": steps, "stream": 0},
+                  f"{tag}: general K3 by path {bwd_paths} for {steps} "
+                  "steps")
         check(len(losses) == steps and np.isfinite(losses).all(),
               f"{tag}: batch.log losses {losses}")
         profile_train_step(os.path.join(out, "model_final.checkpoint"), bf16,
@@ -2746,7 +2874,8 @@ def _loaded_model(ckpt):
 # ordered_sum<0>, demangled or mangled; K6's is ordered_sum<64>)
 K3_DW_SUM = r"ordered_sum(<0>|ILi0E)"
 K3_KERNELS = (r"lstm_bwd_\w*kernel|wide_rec_cluster_kernel|"
-              r"general_rec_kernel|wide_prod_\w*|" + K3_DW_SUM)
+              r"general_rec_kernel|general_rec_cluster_kernel|"
+              r"wide_prod_\w*|" + K3_DW_SUM)
 
 
 def profile_train_step(ckpt, bf16, tag, n_walls=10, convbn=None):

@@ -35,10 +35,15 @@ memory, x_t . W_x runs off the chain, bf16 on the tensor cores; and the
 streaming path, ``csrc/lstm_general.cu``'s ``general_fwd_kernel``, for
 every shape the plan refuses (f32 at 256, every shape at 1024): one block
 per 8 batch rows walks time with h and c in shared memory and W read
-through L2 each step. K3 there is ``lstm_general.cu``'s own reverse
-recurrence between ``csrc/lstm_prod.cuh``'s gate recompute and products,
-the wide K3's. Above 1024 every entry point raises; a launch on either
-path that fails raises, never moving to the other path.
+through L2 each step. K3 there runs ``csrc/lstm_prod.cuh``'s gate
+recompute and products (the wide K3's) around a reverse recurrence on one
+of two paths, chosen the same way (``general_rec_plan``,
+``general_bwd_path``): ``csrc/lstm_general_rec_cluster.cu``'s clusters of
+N CTAs, each holding its gate columns' slice of W_h^T and trading partial
+dh sums through distributed shared memory (bf16 at 160 and 256, f32 at
+160), else ``lstm_general.cu``'s ``general_rec_kernel`` (f32 at 256,
+every shape at 1024). Above 1024 every entry point raises; a launch on
+either path that fails raises, never moving to the other path.
 
 The source notes give each kernel's design and bound. Each entry point
 launches its kernel for a CUDA tensor and uses its plain version
@@ -118,6 +123,18 @@ GENERAL_FWD_PLAN_BATCH = 2048
 # clusters of N CTAs an H100 80GB HBM3 (132 SMs) holds at once, one CTA an
 # SM (``lstm_general_cluster_capacity``): its GPCs' SMs split into clusters
 H100_CLUSTERS = {2: 66, 4: 30, 8: 15}
+# the general K3's launches by path (one per general call of ``lstm_bwd``
+# or ``general_recurrence``): "cluster" ``lstm_general_rec_cluster.cu``,
+# "stream" ``lstm_general.cu``'s ``general_rec_kernel``
+# (``general_bwd_path``)
+LAUNCHES_GENERAL_BWD = dict.fromkeys(("cluster", "stream"), 0)
+# ``lstm_general_rec_cluster.cu``'s budget besides CLUSTER_SMEM_MAX: threads
+# a CTA (its __launch_bounds__: 168 registers a thread), the (row, unit)
+# pairs a thread may own (its instantiations), and the exchange's passes at
+# most
+CLUSTER_REC_MAX_THREADS = 384
+CLUSTER_REC_PAIRS = {torch.float32: (8, 12), torch.bfloat16: (8, 14)}
+CLUSTER_REC_MAX_PASSES = 8
 
 
 def make_w_aug(params, dtype):
@@ -389,6 +406,84 @@ def general_fwd_path(dtype, C, H, clusters=None):
         else "cluster"
 
 
+def general_rec_cfg(H, dtype, N, R, P):
+    """``lstm_general_rec_cluster.cu``'s launch shape for clusters of N CTAs
+    over R rows with the exchange in P passes (its ``make_cfg``; the card's
+    ``lstm_general_rec_cluster_cfg`` gives the same): a dict of ``hh``
+    (hidden units a CTA: ceil(H / N) rounded up to 8 P), ``hc`` (units a
+    pass, hh / P), ``nct`` (columns of a pass's product: N hc rounded up to
+    a 32-unit tile), ``pairs`` (the (row, unit) pairs a thread owns: the
+    first of the dtype's CLUSTER_REC_PAIRS within 384 threads), ``threads``
+    (hh x
+    ceil(R / pairs), rounded up to a warp) and ``smem`` (bytes: W_h^T's
+    slice, the dgates tile, the receive tile [N][R][hc] f32 and, with
+    passes, the dh tile [R][hh] f32), or None where the shape does not fit
+    one CTA."""
+    if not 1 <= H <= GENERAL_MAX_H or N not in (2, 4, 8):
+        return None
+    if R < 32 or R % 32 or not 1 <= P <= CLUSTER_REC_MAX_PASSES:
+        return None
+    hh = _ceil(_ceil(H, N), 8 * P) * 8 * P
+    hc = hh // P
+    nct = _ceil(N * hc, 32) * 32
+    k4 = 4 * hh
+    if dtype == torch.bfloat16:
+        w_bytes = P * nct * (k4 + 8) * 2
+        d_bytes = R * (k4 + 8) * 2
+    else:
+        w_bytes = k4 * (P * nct + 4) * 4
+        d_bytes = R * (k4 + 4) * 4
+    for pairs in CLUSTER_REC_PAIRS[dtype]:
+        threads = _ceil(hh * _ceil(R, pairs), 32) * 32
+        if threads <= CLUSTER_REC_MAX_THREADS:
+            break
+    else:
+        return None
+    smem = w_bytes + d_bytes + N * R * hc * 4 + (R * hh * 4 if P > 1 else 0)
+    if smem > CLUSTER_SMEM_MAX:
+        return None
+    return {"hh": hh, "hc": hc, "nct": nct, "pairs": pairs,
+            "threads": threads, "smem": smem}
+
+
+def general_rec_plan(C, H, dtype, clusters=None):
+    """The general K3's cluster plan at C inputs and H hidden units in
+    ``dtype``: (N, R, shared-memory bytes, passes P) for
+    ``lstm_general_rec_cluster.cu``'s recurrence, or None, where the shape
+    runs the streaming ``general_rec_kernel``. ``clusters`` maps N to the
+    clusters of N CTAs the card holds at once (default ``H100_CLUSTERS``).
+    For N in 2, 4, 8, R is the fewest rows (a multiple of 32) with which
+    GENERAL_FWD_PLAN_BATCH rows run in one wave of clusters, and P the
+    fewest passes with which the CTA fits (``general_rec_cfg``); among the
+    N that fit it takes the fewest passes (each costs a cluster barrier's
+    round trip on the chain), then the least work a CTA (R x hh, the
+    (row, unit) pairs of its gate math and the rows x columns of its
+    product), then the smaller cluster. C does not enter: the products
+    around the walk take any width."""
+    clusters = clusters or H100_CLUSTERS
+    if not 1 <= C <= GENERAL_MAX_C:
+        return None
+    best = None
+    for N in (2, 4, 8):
+        R = _ceil(_ceil(GENERAL_FWD_PLAN_BATCH, clusters[N]), 32) * 32
+        for P in range(1, CLUSTER_REC_MAX_PASSES + 1):
+            cfg = general_rec_cfg(H, dtype, N, R, P)
+            if cfg is not None:
+                key = (P, R * cfg["hh"], N)
+                if best is None or key < best[0]:
+                    best = key, (N, R, cfg["smem"], P)
+                break
+    return None if best is None else best[1]
+
+
+def general_bwd_path(dtype, C, H, clusters=None):
+    """The path of a general K3 call (``route`` "general"): "cluster" where
+    ``general_rec_plan`` takes the shape, else "stream". Chosen by shape
+    before the launch; a launch that fails raises on its path."""
+    return "stream" if general_rec_plan(C, H, dtype, clusters) is None \
+        else "cluster"
+
+
 @functools.lru_cache(maxsize=None)
 def _cluster_index(C, H, N, hh, bf16):
     """Flat indices into W_aug (C + H + 1, 4H) of each element of
@@ -513,6 +608,8 @@ def _general_library():
         lib.lstm_general_last.restype = i32
         lib.lstm_general_bwd.argtypes = [i32] + [ptr] * 12 + [i32] * 4 + [ptr]
         lib.lstm_general_bwd.restype = i32
+        lib.lstm_general_rec.argtypes = [i32] + [ptr] * 5 + [i32] * 3 + [ptr]
+        lib.lstm_general_rec.restype = i32
         lib.lstm_general_bwd_dw_chunks.argtypes = [i32, i32]
         lib.lstm_general_bwd_dw_chunks.restype = i32
         for fn in ("lstm_general_max_c", "lstm_general_max_h"):
@@ -522,6 +619,100 @@ def _general_library():
         lib.lstm_general_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _general_rec_library():
+    lib = _build.load("lstm_general_rec_cluster")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_general_rec_cluster_bwd.argtypes = ([i32] + [ptr] * 12
+                                                     + [i32] * 7 + [ptr])
+        lib.lstm_general_rec_cluster_bwd.restype = i32
+        lib.lstm_general_rec_cluster_rec.argtypes = ([i32] + [ptr] * 5
+                                                     + [i32] * 6 + [ptr])
+        lib.lstm_general_rec_cluster_rec.restype = i32
+        lib.lstm_general_rec_cluster_cfg.argtypes = [i32] * 5 + [ptr]
+        lib.lstm_general_rec_cluster_cfg.restype = i32
+        lib.lstm_general_rec_cluster_dw_chunks.argtypes = [i32, i32]
+        lib.lstm_general_rec_cluster_dw_chunks.restype = i32
+        lib.lstm_general_rec_cluster_error_string.argtypes = [i32]
+        lib.lstm_general_rec_cluster_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _general_bwd_launch(dtype, C, H, device):
+    """(run, dW chunks, error string, path) of a general K3 call: the
+    cluster library behind ``lstm_general_bwd``'s signature, with the
+    plan's N, R and P, where ``general_rec_plan`` takes the shape on this
+    card, else ``lstm_general.cu``'s streaming K3."""
+    plan = general_rec_plan(C, H, dtype, cluster_capacity(device.index or 0))
+    if plan is None:
+        lib = _general_library()
+        return (lib.lstm_general_bwd, lib.lstm_general_bwd_dw_chunks,
+                lib.lstm_general_error_string, "stream")
+    N, R, _, P = plan
+    lib = _general_rec_library()
+
+    def run(*args):  # (bf16, 12 pointers, T, B, C, H, stream)
+        return lib.lstm_general_rec_cluster_bwd(*args[:-1], N, R, P,
+                                                args[-1])
+
+    return (run, lib.lstm_general_rec_cluster_dw_chunks,
+            lib.lstm_general_rec_cluster_error_string, "cluster")
+
+
+def general_recurrence(z, cs, dhs, w_aug):
+    """The general K3's reverse recurrence alone: dgates (T, B, 4H) in cs's
+    dtype (``lstm_bwd_recurrence_reference``, its plain version, on CPU
+    tensors) on the path ``general_bwd_path`` picks for the shape:
+    ``lstm_general_rec_cluster.cu``'s clusters or ``lstm_general.cu``'s
+    ``general_rec_kernel``. Counted in LAUNCHES_GENERAL_BWD by path."""
+    if cs.device.type == "cpu":
+        return lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)
+    name = "general_recurrence"
+    if cs.device.type != "cuda" or cs.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{name}: no kernel for {cs.dtype} on {cs.device}")
+    if cs.dim() != 3:
+        raise ValueError(f"{name}: cs must be (T, B, H), got "
+                         f"{tuple(cs.shape)}")
+    T, B, H = cs.shape
+    C = w_aug.shape[0] - H - 1
+    if w_aug.shape[1] != 4 * H or route("bwd", cs.dtype, C, H) != "general":
+        raise ValueError(f"{name}: W_aug {tuple(w_aug.shape)} is not a "
+                         f"general leg's at H={H}")
+    for t, shape, dtype in ((z, (T, B, 4 * H), torch.float32),
+                            (dhs, (T, B, H), cs.dtype),
+                            (w_aug, w_aug.shape, cs.dtype)):
+        if t.shape != shape or t.dtype != dtype or t.device != cs.device \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {tuple(t.shape)} {t.dtype} is not a contiguous "
+                f"{tuple(shape)} {dtype} on {cs.device}")
+    if not cs.is_contiguous():
+        raise ValueError(f"{name}: operands must be contiguous")
+    bf16 = int(cs.dtype == torch.bfloat16)
+    w_ht = w_aug[C:C + H].t().contiguous()
+    dg = torch.empty((T, B, 4 * H), dtype=cs.dtype, device=cs.device)
+    plan = general_rec_plan(C, H, cs.dtype,
+                            cluster_capacity(cs.device.index or 0))
+    ptrs = (z.data_ptr(), cs.data_ptr(), dhs.data_ptr(), w_ht.data_ptr(),
+            dg.data_ptr())
+    with torch.cuda.device(cs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan is None:
+            lib, path = _general_library(), "stream"
+            err = lib.lstm_general_rec(bf16, *ptrs, T, B, H, stream)
+            error_string = lib.lstm_general_error_string
+        else:
+            lib, path = _general_rec_library(), "cluster"
+            N, R, _, P = plan
+            err = lib.lstm_general_rec_cluster_rec(bf16, *ptrs, T, B, H, N,
+                                                   R, P, stream)
+            error_string = lib.lstm_general_rec_cluster_error_string
+    _raise_on(error_string, name, err)
+    LAUNCHES_GENERAL_BWD[path] += 1
+    return dg
 
 
 def _general_launch(fn, dtype, w_aug):
@@ -613,13 +804,15 @@ def lstm_last(params, x):
 
 def _count_leg(kind, leg, path=None):
     """One launch of ``leg`` on the wide or the general kernels (``path``:
-    the general forward's, "cluster" or "stream")."""
+    the general leg's, "cluster" or "stream")."""
     if kind == "wide":
         LAUNCHES_WIDE[leg] += 1
     elif kind == "general":
         LAUNCHES_GENERAL[leg] += 1
         if path is not None:
-            LAUNCHES_GENERAL_FWD[path] += 1
+            paths = LAUNCHES_GENERAL_BWD if leg == "bwd" \
+                else LAUNCHES_GENERAL_FWD
+            paths[path] += 1
 
 
 # ---------------- K2 / K3: the training pair ----------------
@@ -1001,16 +1194,16 @@ def _lstm_bwd_split(kind, x, w_aug, hs, cs, dhs):
     ordered dW sum (``lstm_prod.cuh``). ``kind`` "wide" runs
     ``lstm_wide_bwd.cu``'s recurrence on clusters of two CTAs (dh = dgates .
     W_h^T, each CTA's slice of W_h^T in shared memory; a cluster the card
-    cannot hold raises), "general" ``lstm_general.cu``'s (one block per 8
-    rows, W_h^T read through L2)."""
+    cannot hold raises), "general" ``lstm_general_rec_cluster.cu``'s on
+    clusters of N CTAs where ``general_rec_plan`` takes the shape, else
+    ``lstm_general.cu``'s (one block per 8 rows, W_h^T read through L2)."""
     global LAUNCHES_BWD
     T, B, C = x.shape
     H = w_aug.shape[1] // 4
+    path = None
     if kind == "general":
-        lib = _general_library()
-        run, chunks, error_string = (lib.lstm_general_bwd,
-                                     lib.lstm_general_bwd_dw_chunks,
-                                     lib.lstm_general_error_string)
+        run, chunks, error_string, path = _general_bwd_launch(
+            x.dtype, C, H, x.device)
     else:
         lib = _wide_bwd_library()
         run, chunks, error_string = (lib.lstm_wide_bwd,
@@ -1033,7 +1226,7 @@ def _lstm_bwd_split(kind, x, w_aug, hs, cs, dhs):
             torch.cuda.current_stream().cuda_stream)
     _raise_on(error_string, "lstm_bwd", err)
     LAUNCHES_BWD += 1
-    _count_leg(kind, "bwd")
+    _count_leg(kind, "bwd", path)
     return dx, dw
 
 

@@ -454,6 +454,7 @@ def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
         size=(T, B, H)).astype(np.float32)).to(cuda, dtype)
     launches = dict(K.LAUNCHES_GENERAL)
     paths = dict(K.LAUNCHES_GENERAL_FWD)
+    bwd_paths = dict(K.LAUNCHES_GENERAL_BWD)
     with full_f32():
         last = K.lstm_last(params, x)
         last_ref = K.lstm_last_reference(params, x)
@@ -470,6 +471,9 @@ def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
                                   "bwd": launches["bwd"] + 2}
     paths[path] += 5
     assert K.LAUNCHES_GENERAL_FWD == paths
+    bwd_paths[K.general_bwd_path(dtype, C, H,
+                                 K.cluster_capacity(cuda.index or 0))] += 2
+    assert K.LAUNCHES_GENERAL_BWD == bwd_paths
     assert last.dtype == hs.dtype == cs.dtype == dx.dtype == dtype
     assert dw.dtype == torch.float32 and dw.shape == (C + H + 1, 4 * H)
     assert torch.equal(hs_nocs, hs)
@@ -520,6 +524,86 @@ def test_lstm_general_cluster_library_matches_the_plan(cuda):
         assert -(-K.GENERAL_FWD_PLAN_BATCH // R) <= caps[N], (dtype, C)
     params, x = _case(0, 5, 160, 160, torch.bfloat16, cuda)
     assert not K.lstm_last(params, x).float().abs().max().item()
+
+
+# the general K3's recurrence alone (``general_recurrence``) against its
+# plain twin on the same Z: the cluster path at the model's sizes 160 (both
+# dtypes) and 256 (bf16: two passes), batches off a cluster's R rows and
+# beyond one wave, H off the 8-unit tiles, T = 1; the streaming path where
+# the plan refuses (f32 at 256); dgates within 1e-5 (f32) or 2e-2 (bf16) of
+# their largest entry, a repeated call identical, one launch a call on the
+# plan's path
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,C,H", [(6, 37, 160, 160), (4, 100, 256, 256),
+                                     (3, 161, 144, 200), (1, 9, 160, 160),
+                                     (3, 2100, 160, 160), (5, 40, 129, 133)])
+def test_general_recurrence_matches_twin(cuda, T, B, C, H, dtype):
+    params, x = _case(T, B, C, H, dtype, cuda, seed=H)
+    w_aug = _w_aug(params)
+    rng = np.random.default_rng(T + B)
+    dhs = torch.from_numpy(rng.normal(size=(T, B, H)).astype(
+        np.float32)).to(cuda, dtype)
+    path = K.general_bwd_path(dtype, C, H,
+                              K.cluster_capacity(cuda.index or 0))
+    if (C, H) in ((160, 160), (256, 256)) and (
+            dtype == torch.bfloat16 or C == 160):
+        assert path == "cluster"
+    paths = dict(K.LAUNCHES_GENERAL_BWD)
+    with full_f32():
+        hs, cs = K.lstm_fwd_reference(x, w_aug)
+        z = K.lstm_bwd_gates_reference(x, w_aug, hs)
+        got = K.general_recurrence(z, cs, dhs, w_aug)
+        want = K.lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)
+        again = K.general_recurrence(z, cs, dhs, w_aug)
+    torch.cuda.synchronize()
+    paths[path] += 2
+    assert K.LAUNCHES_GENERAL_BWD == paths
+    assert got.dtype == dtype and got.shape == (T, B, 4 * H)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert _rel(got, want) <= tol, _rel(got, want)
+    assert torch.equal(again, got)
+
+
+def test_general_rec_cluster_library_matches_the_plan(cuda):
+    """lstm_general_rec_cluster.cu's launch shapes are
+    ``general_rec_cfg``'s; it refuses a cluster size, row count, pass count,
+    shape outside its budget or batch past its 32-bit offsets before it
+    reads a pointer; the plan's
+    clusters at 160 and 256 run in one wave."""
+    import ctypes
+
+    lib = K._general_rec_library()
+    info = (ctypes.c_longlong * 6)()
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = int(dtype == torch.bfloat16)
+        for H in (1, 8, 129, 160, 200, 256, 300, 1024):
+            for N, R in ((2, 32), (4, 96), (8, 160), (4, 64)):
+                for P in (1, 2, 3, 4):
+                    cfg = K.general_rec_cfg(H, dtype, N, R, P)
+                    rc = lib.lstm_general_rec_cluster_cfg(bf16, H, N, R, P,
+                                                          info)
+                    if cfg is None:
+                        assert rc == -1, (dtype, H, N, R, P)
+                        assert lib.lstm_general_rec_cluster_rec(
+                            bf16, *[None] * 5, 1, 1, H, N, R, P, None) != 0
+                        continue
+                    assert rc == 0 and list(info) == [
+                        cfg["hh"], cfg["pairs"], cfg["threads"], cfg["smem"],
+                        cfg["hc"], cfg["nct"]], (dtype, H, N, R, P)
+        for bad in ((3, 64, 1), (16, 256, 1), (4, 48, 1), (4, 96, 0),
+                    (4, 96, 9)):
+            assert lib.lstm_general_rec_cluster_cfg(bf16, 160, *bad,
+                                                    info) == -1
+        assert lib.lstm_general_rec_cluster_bwd(
+            bf16, *[None] * 12, 1, 1, 1025, 160, 4, 96, 1, None) != 0
+        # a batch whose (B + R) 4H offsets pass 2^32
+        assert lib.lstm_general_rec_cluster_rec(
+            bf16, *[None] * 5, 1, 2 ** 30, 160, 4, 96, 1, None) != 0
+    caps = K.cluster_capacity(cuda.index or 0)
+    for dtype, C in ((torch.bfloat16, 160), (torch.bfloat16, 256),
+                     (torch.float32, 160)):
+        N, R, _, _ = K.general_rec_plan(C, C, dtype, caps)
+        assert -(-K.GENERAL_FWD_PLAN_BATCH // R) <= caps[N], (dtype, C)
 
 
 def test_lstm_fused_autograd_general_on_card(cuda):

@@ -352,3 +352,166 @@ def test_general_fwd_launch_picks_the_path_by_shape(monkeypatch):
             with pytest.raises(RuntimeError, match="kernel launch failed"):
                 K._raise_on(lambda e: b"refused", "lstm_fwd", err)
     assert set(K.LAUNCHES_GENERAL_FWD) == {"cluster", "stream"}
+
+
+# K3's cluster plan over the same sides (C != H included): what it takes
+# fits a CTA's 227 KB and 384 threads and runs GENERAL_FWD_PLAN_BATCH rows
+# in one wave of the clusters an H100 holds; what it refuses runs the
+# streaming general_rec_kernel, and no cluster size and pass count fit it
+def _rec_fits(H, dtype, caps):
+    """{N: (R, P, cfg) of the fewest passes that fit at N's one-wave R, or
+    None}."""
+    out = {}
+    for n in (2, 4, 8):
+        rows = -(-(-(-2048 // caps[n])) // 32) * 32
+        out[n] = next(((rows, p, cfg) for p in range(
+            1, K.CLUSTER_REC_MAX_PASSES + 1)
+            if (cfg := K.general_rec_cfg(H, dtype, n, rows, p)) is not None),
+            None)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("C", _PLAN_SIDES)
+def test_general_rec_plan_grid(dtype, C):
+    caps = K.H100_CLUSTERS
+    for H in (1, 8, 100, *_PLAN_SIDES):
+        if K.route("bwd", dtype, C, H) != "general":
+            continue
+        plan = K.general_rec_plan(C, H, dtype)
+        path = K.general_bwd_path(dtype, C, H)
+        fits = _rec_fits(H, dtype, caps)
+        if plan is None:
+            assert path == "stream", (C, H)
+            assert not any(fits.values()), (C, H)
+            continue
+        assert path == "cluster", (C, H)
+        N, R, smem, P = plan
+        assert fits[N] is not None and fits[N][:2] == (R, P)
+        cfg = fits[N][2]
+        assert cfg == K.general_rec_cfg(H, dtype, N, R, P)
+        assert smem == cfg["smem"] <= K.CLUSTER_SMEM_MAX == 232448
+        clusters = -(-K.GENERAL_FWD_PLAN_BATCH // R)
+        assert clusters <= caps[N] and clusters * N <= 132  # one wave
+        assert clusters * R >= K.GENERAL_FWD_PLAN_BATCH == 2048
+        assert cfg["threads"] <= K.CLUSTER_REC_MAX_THREADS == 384
+        assert cfg["pairs"] in K.CLUSTER_REC_PAIRS[dtype]
+        # every (row, unit) pair of the CTA has a thread
+        assert (cfg["threads"] // cfg["hh"]) * cfg["pairs"] >= R
+        assert N * cfg["hh"] >= H and cfg["hh"] % (8 * P) == 0
+        assert cfg["hc"] * P == cfg["hh"] and cfg["nct"] % 32 == 0
+        assert cfg["nct"] >= N * cfg["hc"]
+        # the fewest passes, then the least work a CTA, then the smaller N
+        for n, alt in fits.items():
+            if alt is not None:
+                key = (alt[1], alt[0] * alt[2]["hh"], n)
+                assert (P, R * cfg["hh"], N) <= key, (C, H, n)
+
+
+def test_general_rec_plan_takes_the_model_widths():
+    """K3's recurrence at the model's widths: bf16 at 160 on clusters of 2
+    CTAs over 32 rows (the least work a CTA: 2560 (row, unit) pairs, where
+    4 x 96 and 8 x 160 give 3840; the chip's split measured 9.5 against
+    16.3 and 18.9 us a step), f32 at 160 on 4 x 96 (N = 2 does not fit:
+    W_h^T's slice alone is 320 x 164 f32), bf16 at 256 on 8 x 160 with
+    the exchange in two passes (one pass needs 276,992 bytes); f32 at 256
+    (W_h^T's slice and the dgates tile take 217,600 bytes before any
+    partials) and every shape at 1024 stream."""
+    assert K.general_rec_plan(160, 160, BF16) == (2, 32, 146432, 1)
+    assert K.general_rec_plan(160, 160, F32) == (4, 96, 229376, 1)
+    assert K.general_rec_plan(256, 256, BF16) == (8, 160, 215552, 2)
+    assert K.general_rec_plan(256, 256, F32) is None
+    assert K.general_bwd_path(F32, 256, 256) == "stream"
+    for dtype in (F32, BF16):
+        assert K.general_rec_plan(1024, 1024, dtype) is None
+        assert K.general_bwd_path(dtype, 1024, 1024) == "stream"
+        assert K.general_rec_cfg(160, dtype, 3, 64, 1) is None
+        assert K.general_rec_cfg(160, dtype, 4, 48, 1) is None
+        assert K.general_rec_cfg(160, dtype, 4, 96, 0) is None
+    assert K.general_rec_cfg(256, BF16, 8, 160, 1) is None
+    assert K.general_rec_cfg(160, F32, 2, 32, 1) is None
+    cfg = K.general_rec_cfg(160, BF16, 2, 32, 1)
+    assert (cfg["hh"], cfg["pairs"], cfg["threads"]) == (80, 8, 320)
+    cfg = K.general_rec_cfg(160, F32, 4, 96, 1)
+    assert (cfg["hh"], cfg["pairs"], cfg["threads"]) == (40, 12, 320)
+    cfg = K.general_rec_cfg(256, BF16, 8, 160, 2)
+    assert (cfg["hh"], cfg["hc"], cfg["pairs"], cfg["threads"]) == (
+        32, 16, 14, 384)
+    # 256 x 136 bf16 W_h^T slice, 160 x 136 dgates tile, receive tile
+    # 8 x 160 x 16 f32, dh tile 160 x 32 f32
+    assert cfg["smem"] == 256 * 136 * 2 + 160 * 136 * 2 + 8 * 160 * 16 * 4 \
+        + 160 * 32 * 4
+    # a card holding more clusters gets fewer rows a cluster (at 33 of 4,
+    # 64 rows: bf16 256 then fits 4 CTAs in fewer passes than 8)
+    assert K.general_rec_plan(160, 160, BF16, {2: 68, 4: 33, 8: 16})[:2] == (
+        2, 32)
+    assert K.general_rec_plan(256, 256, BF16, {2: 66, 4: 33, 8: 16})[:2] == (
+        4, 64)
+
+
+def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
+    """``_general_bwd_launch`` decides K3's path from the plan alone, before
+    any launch: the cluster library with the plan's N, R and passes where
+    the plan takes the shape, ``lstm_general.cu``'s K3 where it refuses
+    it; a launch that returns an error raises (``_raise_on``), with no
+    second try on the other path."""
+    calls = []
+
+    class Fake:
+        def __init__(self, name):
+            self.name = name
+
+        def __getattr__(self, fn):
+            def call(*args):
+                calls.append((self.name, fn, args))
+                return 7
+            return call
+
+    monkeypatch.setattr(K, "_general_rec_library", lambda: Fake("cluster"))
+    monkeypatch.setattr(K, "_general_library", lambda: Fake("stream"))
+    monkeypatch.setattr(K, "cluster_capacity",
+                        lambda index: K.H100_CLUSTERS)
+    for dtype, C, H, want in ((BF16, 160, 160, "cluster"),
+                              (BF16, 256, 256, "cluster"),
+                              (F32, 160, 160, "cluster"),
+                              (F32, 256, 256, "stream"),
+                              (BF16, 1024, 1024, "stream")):
+        calls.clear()
+        run, _chunks, _error_string, path = K._general_bwd_launch(
+            dtype, C, H, torch.device("cpu"))
+        assert path == want
+        err = run(int(dtype == BF16), *range(1, 13), 2, 3, C, H, 0)
+        assert [c[0] for c in calls] == [want]
+        if want == "cluster":
+            N, R, _, P = K.general_rec_plan(C, H, dtype)
+            assert calls[0][1] == "lstm_general_rec_cluster_bwd"
+            assert calls[0][2][-4:] == (N, R, P, 0)
+            assert calls[0][2][13:17] == (2, 3, C, H)
+        else:
+            assert calls[0][1] == "lstm_general_bwd"
+            assert calls[0][2][-5:] == (2, 3, C, H, 0)
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            K._raise_on(lambda e: b"refused", "lstm_bwd", err)
+    assert set(K.LAUNCHES_GENERAL_BWD) == {"cluster", "stream"}
+
+
+def test_general_recurrence_on_the_cpu_is_the_plain_twin():
+    """On CPU tensors ``general_recurrence`` is
+    ``lstm_bwd_recurrence_reference`` (what the card's kernels are held to)
+    and launches nothing; the twin takes the dgates rounded to the dtype
+    into the dh carry."""
+    T, B, C, H = 3, 5, 130, 136
+    rng = np.random.default_rng(0)
+    for dtype in (F32, BF16):
+        z = torch.from_numpy(rng.normal(size=(T, B, 4 * H)).astype(
+            np.float32))
+        cs, dhs = (torch.from_numpy(rng.normal(size=(T, B, H)).astype(
+            np.float32)).to(dtype) for _ in range(2))
+        w_aug = torch.from_numpy((rng.normal(size=(C + H + 1, 4 * H))
+                                  * 0.1).astype(np.float32)).to(dtype)
+        before = dict(K.LAUNCHES_GENERAL_BWD)
+        got = K.general_recurrence(z, cs, dhs, w_aug)
+        assert K.LAUNCHES_GENERAL_BWD == before
+        assert torch.equal(got, K.lstm_bwd_recurrence_reference(
+            z, cs, dhs, w_aug))
+        assert got.dtype == dtype and got.shape == (T, B, 4 * H)

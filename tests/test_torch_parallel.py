@@ -420,34 +420,39 @@ def test_group_of_one_on_the_cpu():
     GPU, a mesh on no named device raises."""
     from remora_tpu_torch import RemoraError
 
-    P.init_multihost(device="cpu", timeout_s=30)
-    try:
-        with pytest.raises(RemoraError, match="no CUDA device"):
-            P.make_mesh()
-        mesh = P.make_mesh("cpu")
-        assert (mesh.rank, mesh.world, mesh.backend) == (0, 1, "gloo")
-        data = [torch.from_numpy(a) for a in case_data("filter")]
-        runs = []
-        for dp in (True, False):
-            torch.manual_seed(0)
-            model = conv_model.init(size=8, kmer_len=KMER_LEN,
-                                    num_out=NUM_OUT)
-            opt = torch.optim.SGD(model.parameters(), lr=LR)
-            kw = dict(high_conf_incorrect_thr_frac=(0.3, 0.2))
-            step = (P.make_dp_train_step(model, opt, mesh, **kw) if dp
-                    else train.make_train_step(model, opt, **kw))
-            runs.append((run_port_steps(step, model, data),
-                         port_state(model)))
-        (dp_run, dp_state), (one_run, one_state) = runs
-        assert dp_run[1] == one_run[1]
-        assert np.abs(np.subtract(dp_run[0], one_run[0])).max() <= 1e-6
-        for key, want in one_state.items():
-            if _is_conv_bias(key.split("/", 1)[1]) and key.startswith(
-                    "grads/"):
-                continue
-            assert _rel_err(dp_state[key], want) <= 1e-5, key
-    finally:
-        P.teardown()
+    # the group's own limit: an in-process gloo group that hangs fails
+    # this test, not the run
+    from tests.test_torch_infer_pipeline import time_limit
+
+    with time_limit(120):
+        P.init_multihost(device="cpu", timeout_s=30)
+        try:
+            with pytest.raises(RemoraError, match="no CUDA device"):
+                P.make_mesh()
+            mesh = P.make_mesh("cpu")
+            assert (mesh.rank, mesh.world, mesh.backend) == (0, 1, "gloo")
+            data = [torch.from_numpy(a) for a in case_data("filter")]
+            runs = []
+            for dp in (True, False):
+                torch.manual_seed(0)
+                model = conv_model.init(size=8, kmer_len=KMER_LEN,
+                                        num_out=NUM_OUT)
+                opt = torch.optim.SGD(model.parameters(), lr=LR)
+                kw = dict(high_conf_incorrect_thr_frac=(0.3, 0.2))
+                step = (P.make_dp_train_step(model, opt, mesh, **kw) if dp
+                        else train.make_train_step(model, opt, **kw))
+                runs.append((run_port_steps(step, model, data),
+                             port_state(model)))
+            (dp_run, dp_state), (one_run, one_state) = runs
+            assert dp_run[1] == one_run[1]
+            assert np.abs(np.subtract(dp_run[0], one_run[0])).max() <= 1e-6
+            for key, want in one_state.items():
+                if _is_conv_bias(key.split("/", 1)[1]) and key.startswith(
+                        "grads/"):
+                    continue
+                assert _rel_err(dp_state[key], want) <= 1e-5, key
+        finally:
+            P.teardown()
 
 
 if __name__ == "__main__":
