@@ -35,17 +35,25 @@ variant.
 
 ``--general`` splits the general K3's cluster recurrence
 (``lstm_general_rec_cluster.cu``, the recurrence alone, at T = 124, B =
-2048 and C = H = 160 and 256 at the plan's N, R and passes, f32 and
-bf16): as it is, without the gate activations, without the partial
-product, without the DSMEM exchange and the cluster barriers (local
-stores, CTA barriers), without the input loads and without the dgates'
-device stores; then the kernel as it is at the other one-wave plans, and
-the streaming ``general_rec_kernel`` alone at every shape (the
-recurrence's own time where the plan refuses it). ``--compare-parent
-DIR`` times the general K3 of the parent checkout at DIR
-(``lstm_general_bwd``) and of this one (its path by the plan) in one
-call, parent / this / this / parent, beside cuDNN's backward, at C = H =
-160 and 256, f32 and bf16.
+2048 and C = H = 160 and 256 at the plan's N, R, passes and row groups,
+f32 and bf16; ``general_rec_cluster_kernel``, or at f32 256
+``general_rec_group_kernel``): as it is, without the gate activations,
+without the partial product, without the DSMEM exchange and the cluster
+barriers (local stores, CTA barriers), without the input loads and
+without the dgates' device stores; for the row-group kernel also with
+local stores in place of the remote ones (the cluster barriers kept),
+and two designs that compute the same dgates (held to it bit for bit):
+the next slot's inputs loaded after the product, and the product's
+dgates as float4 over 4 k; then the kernel as it is at the other
+one-wave plans, and the streaming ``general_rec_kernel`` alone at every
+shape.
+``--compare-parent DIR`` times the general K3 of the parent checkout at
+DIR (on the path its plan takes: its cluster library at this plan's N, R
+and passes where this plan runs one row group, else its streaming
+``lstm_general_bwd``) and of this one (its path by the plan) in one
+call, parent / this / this / parent, with each one's recurrence alone
+and split by part, beside cuDNN's backward with TF32 off, at C = H = 160
+and 256, f32 and bf16.
 
 Imports nothing of JAX or of the JAX package ``remora_tpu``; the build,
 timing and SASS helpers are ``chip_lstm_fwd_variants.py``'s.
@@ -56,8 +64,8 @@ import os
 import re
 import sys
 
-from chip_lstm_fwd_variants import CSRC, REPO, build_variants, sass_mix, \
-    smi_line, time_ms
+from chip_lstm_fwd_variants import CSRC, REPO, build_variants, cudnn_ms, \
+    sass_mix, smi_line, time_ms
 
 SOURCE = "lstm_bwd_f32.cu"
 KERNEL = "lstm_bwd_f32_kernelILb1ELi64ELi64E"
@@ -250,8 +258,9 @@ def split_wide(label, csrc, edits, kernel, source):
 
 
 def _kernel_ptxas(out, kernel, flag):
-    """registers and spill bytes of ``kernel``'s instantiation for the
-    dtype (f32: mangled with ``f``, bf16 with ``t``, unsigned short)."""
+    """registers and spill bytes of ``kernel``'s instantiations for the
+    dtype (f32: mangled with ``f``, bf16 with ``t``, unsigned short; the
+    row-group kernel is f32 alone)."""
     found = []
     name = None
     for line in out.splitlines():
@@ -262,7 +271,8 @@ def _kernel_ptxas(out, kernel, flag):
             continue
         if name is None or kernel not in name:
             continue
-        if (flag == 0) != bool(re.search(kernel + r"I[^E]*f", name)):
+        if "group" not in kernel and (flag == 0) != bool(
+                re.search(kernel + r"I[^E]*f", name)):
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -320,12 +330,84 @@ GENERAL_VARIANTS = {
     "no input loads": GENERAL_EDITS["no_loads"],
     "no dgates device stores": GENERAL_EDITS["no_dg_stores"],
 }
+# the same pieces of the row-group path (general_rec_group_kernel), and
+# two other designs of it that compute the same dgates: the next slot's
+# inputs loaded after the product (not held across it), and the product's
+# dgates read as float4 over 4 k (fewer loads, more registers)
+_GROUP_ACTS = (
+    "          const float ig = sigmoid(zr[i][0]), fg = sigmoid(zr[i][1]);\n"
+    "          const float gg = tanhf(zr[i][2]), og = sigmoid(zr[i][3]);\n"
+    "          const float tanh_c = tanhf(ctr[i]);")
+_GROUP_FETCH = (
+    "      if (g + 1 < kG) {\n"
+    "        fetch(t, g + 1);\n"
+    "      } else if (t > 0) {\n"
+    "        fetch(t - 1, 0);\n"
+    "      }\n")
+_GROUP_PRODUCT = "        tile.product(ds, ws, warp, lane);\n"
+_GROUP_K2 = (
+    "    for (int k = 0; k < kGK; k += 2) {\n"
+    "      float2 av[4];\n"
+    "#pragma unroll\n"
+    "      for (int i = 0; i < 4; ++i) {\n"
+    "        av[i] = *reinterpret_cast<const float2*>(a + 4 * i * kGLda + k);\n"
+    "      }\n"
+    "#pragma unroll\n"
+    "      for (int kk = 0; kk < 2; ++kk) {\n")
+_GROUP_LOCAL = [
+    ("    const uint32_t d0 = map_rank(rv, s), d1 = map_rank(rv, s + 1);",
+     "    const uint32_t d0 = rv + 0 * s, d1 = rv + 0 * s;")]
+GROUP_EDITS = {
+    "no_gate_math": [(_GROUP_ACTS, _GROUP_ACTS
+                      .replace("sigmoid(zr[i][0])", "0.5f + 0.1f * zr[i][0]")
+                      .replace("sigmoid(zr[i][1])", "0.5f + 0.1f * zr[i][1]")
+                      .replace("tanhf(zr[i][2])", "0.1f * zr[i][2]")
+                      .replace("sigmoid(zr[i][3])", "0.5f + 0.1f * zr[i][3]")
+                      .replace("tanhf(ctr[i])", "0.1f * ctr[i]"))],
+    "no_product": [(_GROUP_PRODUCT, "        tile = GroupTile{};\n")],
+    "no_exchange": [*_GROUP_LOCAL, *GENERAL_EDITS["no_exchange"][2:]],
+    "local_stores": _GROUP_LOCAL,
+    "no_loads": [
+        ("        load_now(zr[i][q], zk + q * H, o);\n",
+         "        zr[i][q] = 0.25f * (float)q - 0.3f + 0.01f * (float)(t & 7);\n"),
+        ("      load_now(ctr[i], cs + hk, o);\n"
+         "      load_now(cpr[i], cs + (t > 0 ? hk - (size_t)B * H : 0), o && "
+         "t > 0);\n      load_now(dhr[i], dhs + hk, o);\n",
+         "      ctr[i] = 0.5f;\n      cpr[i] = 0.25f;\n      dhr[i] = 0.125f;\n")],
+    "no_dg_stores": [
+        ("          for (int c = 0; c < 4; ++c) dgm[c * H] = q[c];\n", "")],
+    "fetch_after_product": [
+        (_GROUP_FETCH, "      if (t == 0 && g + 1 < kG) fetch(t, g + 1);\n"),
+        (_GROUP_PRODUCT, _GROUP_PRODUCT + "        if (g + 1 < kG) {\n"
+         "          fetch(t, g + 1);\n        } else {\n"
+         "          fetch(t - 1, 0);\n        }\n")],
+    "k4": [
+        (_GROUP_K2, _GROUP_K2.replace("k += 2", "k += 4")
+         .replace("float2", "float4").replace("kk < 2", "kk < 4")),
+        ("          const float ak = kk == 0 ? av[i].x : av[i].y;\n",
+         "          const float ak = kk == 0   ? av[i].x\n"
+         "                           : kk == 1 ? av[i].y\n"
+         "                           : kk == 2 ? av[i].z\n"
+         "                                     : av[i].w;\n")],
+}
+GROUP_VARIANTS = {
+    "groups as is": [],
+    "groups no gate activations": GROUP_EDITS["no_gate_math"],
+    "groups no partial product": GROUP_EDITS["no_product"],
+    "groups no exchange, no cluster barriers": GROUP_EDITS["no_exchange"],
+    "groups local stores, cluster barriers kept": GROUP_EDITS["local_stores"],
+    "groups no input loads": GROUP_EDITS["no_loads"],
+    "groups no dgates device stores": GROUP_EDITS["no_dg_stores"],
+    "groups, inputs loaded after the product":
+        GROUP_EDITS["fetch_after_product"],
+    "groups, dgates as float4 over 4 k": GROUP_EDITS["k4"],
+}
 
 
 def _typed_rec(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lstm_general_rec_cluster_rec.argtypes = ([i32] + [ptr] * 5
-                                                 + [i32] * 6 + [ptr])
+                                                 + [i32] * 7 + [ptr])
     lib.lstm_general_rec_cluster_rec.restype = i32
     return lib
 
@@ -359,7 +441,8 @@ def split_general():
     sys.path.insert(0, REPO)
     from remora_tpu_torch.kernels import lstm as K
 
-    _, built = build_variants(GENERAL_SOURCE, GENERAL_VARIANTS,
+    _, built = build_variants(GENERAL_SOURCE,
+                              {**GENERAL_VARIANTS, **GROUP_VARIANTS},
                               headers=("mma_sm90.cuh", "lstm_prod.cuh"))
     libs = {name: (_typed_rec(ctypes.CDLL(path)), out)
             for name, (path, out) in built.items()}
@@ -389,32 +472,49 @@ def split_general():
                 print(f"general K3 {sfx} C=H={width}: the plan refuses it "
                       "(streaming path)", flush=True)
                 continue
-            shapes = [(plan[0], plan[1], plan[3])]
+            shapes = [(plan[0], plan[1], plan[3], plan[4])]
             for n in (2, 4, 8):
                 rows = -(-(-(-B // caps[n])) // 32) * 32
                 for passes in range(1, K.CLUSTER_REC_MAX_PASSES + 1):
                     if K.general_rec_cfg(width, dtype, n, rows,
                                          passes) is not None:
-                        if (n, rows, passes) not in shapes:
-                            shapes.append((n, rows, passes))
+                        if (n, rows, passes, 1) not in shapes:
+                            shapes.append((n, rows, passes, 1))
                         break
-            for i, (n, rows, passes) in enumerate(shapes):
-                names = list(libs) if i == 0 else ["as is"]
+            grouped = plan[4] > 1
+            kernel = ("general_rec_group_kernel" if grouped
+                      else "general_rec_cluster_kernel")
+            for i, (n, rows, passes, groups) in enumerate(shapes):
+                names = ([name for name in libs
+                          if name.startswith("groups") == grouped]
+                         if i == 0 else ["as is"])
+                want = None
                 for name in names:
                     lib, out = libs[name]
 
                     def call(lib=lib):
                         err = lib.lstm_general_rec_cluster_rec(
                             flag, *ptrs, T, B, width, n, rows, passes,
-                            stream)
+                            groups, stream)
                         if err != 0:
                             raise SystemExit(f"{name!r}: error {err}")
                     ms = time_ms(call)
+                    # the designs that compute the same dgates must agree
+                    # with the plan's kernel bit for bit
+                    same = ""
+                    if name in ("groups as is", "as is") and i == 0:
+                        call()
+                        want = dg.clone()
+                    elif name.startswith("groups, ") and want is not None:
+                        call()
+                        same = ("; dgates identical" if torch.equal(dg, want)
+                                else "; dgates DIFFER")
                     tag = "plan" if i == 0 else "other plan"
                     print(f"general K3 recurrence {sfx} C=H={width} "
-                          f"({tag}: N={n} R={rows} P={passes}) {name}: "
+                          f"({tag}: N={n} R={rows} P={passes} "
+                          f"groups={groups}) {name}: "
                           f"{ms:.4f} ms ({ms / T * 1e3:.3f} us a step); "
-                          f"{_kernel_ptxas(out, 'general_rec_cluster_kernel', flag)}",
+                          f"{_kernel_ptxas(out, kernel, flag)}{same}",
                           flush=True)
 
 
@@ -424,29 +524,88 @@ def _typed_general_bwd(lib):
     lib.lstm_general_bwd.restype = i32
     lib.lstm_general_bwd_dw_chunks.argtypes = [i32, i32]
     lib.lstm_general_bwd_dw_chunks.restype = i32
+    lib.lstm_general_rec.argtypes = [i32] + [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.lstm_general_rec.restype = i32
     return lib
+
+
+def _typed_parent_cluster(lib):
+    """The parent checkout's cluster K3 (N, R and passes; no row groups)."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_general_rec_cluster_bwd.argtypes = ([i32] + [ptr] * 12
+                                                 + [i32] * 7 + [ptr])
+    lib.lstm_general_rec_cluster_bwd.restype = i32
+    lib.lstm_general_rec_cluster_rec.argtypes = ([i32] + [ptr] * 5
+                                                 + [i32] * 6 + [ptr])
+    lib.lstm_general_rec_cluster_rec.restype = i32
+    lib.lstm_general_rec_cluster_dw_chunks.argtypes = [i32, i32]
+    lib.lstm_general_rec_cluster_dw_chunks.restype = i32
+    return lib
+
+
+def _parts_ms(call, calls=3):
+    """Device ms of each part of a general K3 call (the gate recompute, the
+    recurrence, dx, dW, the ordered dW sum) from torch.profiler over
+    ``calls`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(("gates", "recurrence", "dx", "dW", "dW sum"), 0.0)
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA \
+                or evt.self_device_time_total <= 0:
+            continue
+        name = evt.key
+        if "general_rec" in name:
+            part = "recurrence"
+        elif re.search(r"ordered_sum(<0>|ILi0E)", name):
+            part = "dW sum"
+        else:
+            op = re.search(r"Op\)(\d)|OpE(\d)E", name)
+            if "wide_prod" not in name or op is None:
+                continue
+            part = ("gates", "dx", "dW")[int(op.group(1) or op.group(2))]
+        ms[part] += evt.self_device_time_total / 1e3 / calls
+    return ms
 
 
 def compare_general(parent_dir):
     """The general K3 in one call, parent / this design / this design /
-    parent, beside cuDNN's backward (``torch.nn.LSTM``, data and weights; a
-    yardstick the port never calls), at T = 124, B = 2048 and C = H = 160
-    and 256, f32 and bf16: the parent checkout's ``lstm_general_bwd``
-    (``general_rec_kernel`` between ``lstm_prod.cuh``'s products) against
-    this checkout's path (the cluster recurrence at the plan's N, R and
-    passes, or the streaming one where the plan refuses the shape), each
-    library called directly on preallocated buffers; and how far the two
-    designs' dx and dW differ."""
+    parent, beside cuDNN's backward (``torch.nn.LSTM``, data and weights,
+    TF32 off as the port's f32 kernels; a yardstick the port never calls),
+    at T = 124, B = 2048 and C = H = 160 and 256, f32 and bf16: the parent
+    checkout's K3 on the path its plan takes (its
+    ``lstm_general_rec_cluster.cu`` at the same N, R and passes where this
+    plan runs one row group, else its ``lstm_general.cu``'s streaming
+    ``general_rec_kernel``) against this checkout's path
+    (``_general_bwd_launch``), each library called directly on
+    preallocated buffers; each design's split by part (torch.profiler) and
+    its recurrence alone, parent / this / this / parent; and how far the
+    two designs' dx and dW differ."""
     import torch
 
     sys.path.insert(0, REPO)
+    from remora_tpu_torch.infer.infer import full_f32
     from remora_tpu_torch.kernels import lstm as K
 
+    parent_csrc = os.path.join(parent_dir, "remora_tpu_torch", "csrc")
     _, built = build_variants("lstm_general.cu", {"parent": []},
                               headers=("lstm_prod.cuh", "mma_sm90.cuh"),
-                              csrc=os.path.join(parent_dir, "remora_tpu_torch",
-                                                "csrc"))
+                              csrc=parent_csrc)
     parent = _typed_general_bwd(ctypes.CDLL(built["parent"][0]))
+    _, built = build_variants(GENERAL_SOURCE, {"parent": []},
+                              headers=("lstm_prod.cuh", "mma_sm90.cuh"),
+                              csrc=parent_csrc)
+    parent_cluster = _typed_parent_cluster(ctypes.CDLL(built["parent"][0]))
+    this_cluster = _typed_rec(K._general_rec_library())
+    this_stream = _typed_general_bwd(K._general_library())
     caps = K.cluster_capacity(0)
     stream = torch.cuda.current_stream().cuda_stream
     T, B = 124, 2048
@@ -475,12 +634,36 @@ def compare_general(parent_dir):
             w_ht, w_xt = K.wide_bwd_weights(w, C)
             run, chunks_of, _err, path = K._general_bwd_launch(
                 dtype, C, H, x.device)
-            outs = {}
-            for name, fn, chunks in (
-                    ("parent", parent.lstm_general_bwd,
-                     parent.lstm_general_bwd_dw_chunks(T, B)),
-                    ("change", run, chunks_of(T, B))):
-                z = torch.empty((T, B, 4 * H), device="cuda")
+            plan = K.general_rec_plan(C, H, dtype, caps)
+            if plan is not None and plan[4] == 1:
+                npr = plan[0], plan[1], plan[3]
+                parent_path = "cluster"
+                parent_fn = (lambda *a: parent_cluster
+                             .lstm_general_rec_cluster_bwd(*a[:-1], *npr,
+                                                           a[-1]))
+                parent_chunks = (parent_cluster
+                                 .lstm_general_rec_cluster_dw_chunks)
+                parent_rec = (lambda *a: parent_cluster
+                              .lstm_general_rec_cluster_rec(*a[:-1], *npr,
+                                                            a[-1]))
+            else:
+                parent_path = "stream"
+                parent_fn = parent.lstm_general_bwd
+                parent_chunks = parent.lstm_general_bwd_dw_chunks
+                parent_rec = parent.lstm_general_rec
+            if plan is None:
+                this_rec = this_stream.lstm_general_rec
+            else:
+                this_rec = (lambda *a: this_cluster
+                            .lstm_general_rec_cluster_rec(
+                                *a[:-1], *plan[:2], *plan[3:], a[-1]))
+            with full_f32():
+                z = K.lstm_bwd_gates_reference(x, w, hs)
+            outs, recs = {}, {}
+            for name, fn, chunks, rec in (
+                    ("parent", parent_fn, parent_chunks(T, B), parent_rec),
+                    ("change", run, chunks_of(T, B), this_rec)):
+                zb = torch.empty((T, B, 4 * H), device="cuda")
                 dg = torch.empty((T, B, 4 * H), device="cuda", dtype=dtype)
                 dx = torch.empty_like(x)
                 partials = torch.empty((chunks, C + H + 1, 4 * H),
@@ -488,7 +671,7 @@ def compare_general(parent_dir):
                 dw = torch.empty((C + H + 1, 4 * H), device="cuda")
                 args = [flag, x.data_ptr(), w.data_ptr(), w_ht.data_ptr(),
                         w_xt.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                        dhs.data_ptr(), z.data_ptr(), dg.data_ptr(),
+                        dhs.data_ptr(), zb.data_ptr(), dg.data_ptr(),
                         dx.data_ptr(), partials.data_ptr(), dw.data_ptr(),
                         T, B, C, H, stream]
 
@@ -497,26 +680,53 @@ def compare_general(parent_dir):
                     if err != 0:
                         raise SystemExit(f"{name}: launch error {err}")
                 outs[name] = call, dx, dw
-            ms = {}
+                dg_alone = torch.empty((T, B, 4 * H), device="cuda",
+                                       dtype=dtype)
+                rargs = [flag, z.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+                         w_ht.data_ptr(), dg_alone.data_ptr(), T, B, H,
+                         stream]
+
+                def rcall(rec=rec, rargs=rargs, name=name):
+                    err = rec(*rargs)
+                    if err != 0:
+                        raise SystemExit(f"{name} recurrence: error {err}")
+                recs[name] = rcall, dg_alone
+            ms, rec_ms = {}, {}
             for name in ("parent", "change", "change", "parent"):
                 ms.setdefault(name, []).append(time_ms(outs[name][0]))
+            for name in ("parent", "change", "change", "parent"):
+                rec_ms.setdefault(name, []).append(time_ms(recs[name][0]))
+            parts = {name: _parts_ms(outs[name][0])
+                     for name in ("parent", "change")}
             xg = x.clone().requires_grad_()
             out = lib_lstm(xg)[0]
             inputs = (xg, *lib_lstm.parameters())
-            cudnn = time_ms(lambda: torch.autograd.grad(
+            cudnn = cudnn_ms(lambda: torch.autograd.grad(
                 out, inputs, grad_outputs=dhs, retain_graph=True))
             for name in ("parent", "change"):
                 outs[name][0]()
+                recs[name][0]()
             torch.cuda.synchronize()
             (_, dx_p, dw_p), (_, dx_c, dw_c) = outs["parent"], outs["change"]
             ddx = (dx_p.float() - dx_c.float()).abs().max().item()
             ddw = ((dw_p - dw_c).abs().max() / dw_p.abs().max()).item()
-            print(f"general K3 {sfx} C=H={width} ({path} path): parent / "
+            dg_p, dg_c = recs["parent"][1].float(), recs["change"][1].float()
+            ddg = ((dg_p - dg_c).abs().max() / dg_p.abs().max()).item()
+            print(f"general K3 {sfx} C=H={width} (parent: {parent_path} "
+                  f"path, change: {path} path, plan {plan}): parent / "
                   f"change / change / parent {ms['parent'][0]:.4f} / "
                   f"{ms['change'][0]:.4f} / {ms['change'][1]:.4f} / "
-                  f"{ms['parent'][1]:.4f} ms; cuDNN backward {cudnn:.4f} ms; "
-                  f"designs differ by dx {ddx:.3e}, dW {ddw:.3e} of its "
-                  "max-abs", flush=True)
+                  f"{ms['parent'][1]:.4f} ms; the recurrence alone "
+                  f"{rec_ms['parent'][0]:.4f} / {rec_ms['change'][0]:.4f} / "
+                  f"{rec_ms['change'][1]:.4f} / {rec_ms['parent'][1]:.4f} "
+                  f"ms; cuDNN backward (TF32 off) {cudnn:.4f} ms; designs "
+                  f"differ by dx {ddx:.3e}, dW {ddw:.3e} of its max-abs, "
+                  f"dgates {ddg:.3e} of theirs", flush=True)
+            for name in ("parent", "change"):
+                print(f"general K3 {sfx} C=H={width} {name} by part "
+                      "(torch.profiler): " + ", ".join(
+                          f"{k} {v:.4f} ms" for k, v in parts[name].items()),
+                      flush=True)
 
 
 def main():

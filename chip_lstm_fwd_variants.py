@@ -42,7 +42,7 @@ per variant.
 124, B = 2048, C = H = 64), the wide K1 and K2 (with cs) and the general
 K1 and K2 (with cs) of the parent checkout at DIR and of this one in one
 call, parent / this / this / parent, beside cuDNN's forward
-(``torch.nn.LSTM``), the wide legs at C = H = 96 and 128 and the general
+(``torch.nn.LSTM``, with TF32 off as the port's f32 kernels), the wide legs at C = H = 96 and 128 and the general
 ones at 160 and 256, f32 and bf16, each design's library called on
 preallocated buffers and weight layouts, and prints how far the two
 designs' outputs differ.
@@ -180,6 +180,18 @@ def time_ms(fn, n=15, calls=5):
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
+
+
+def cudnn_ms(fn, **kw):
+    """``time_ms`` of a cuDNN yardstick call with TF32 off
+    (``remora_tpu_torch.infer.infer.full_f32``, as ``chip_smoke.py``
+    times cuDNN): in f32 the port's kernels are full f32, so is the
+    yardstick. No effect in bf16."""
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.infer.infer import full_f32
+
+    with full_f32():
+        return time_ms(fn, **kw)
 
 
 def smi_line():
@@ -394,7 +406,7 @@ def compare_wide(parent_dir):
                     ms.setdefault((leg, name), []).append(
                         time_ms(outs[name][idx]))
             with torch.no_grad():
-                cudnn = time_ms(lambda: lib_lstm(x))
+                cudnn = cudnn_ms(lambda: lib_lstm(x))
             for name in ("parent", "change"):
                 outs[name][0]()
                 outs[name][1]()
@@ -407,7 +419,7 @@ def compare_wide(parent_dir):
                 print(f"wide {leg} {sfx} C=H={width}: parent / change / "
                       f"change / parent {p[0]:.4f} / {c[0]:.4f} / "
                       f"{c[1]:.4f} / {p[1]:.4f} ms; cuDNN forward "
-                      f"{cudnn:.4f} ms", flush=True)
+                      f"(TF32 off) {cudnn:.4f} ms", flush=True)
             print(f"wide {sfx} C=H={width}: the designs' hs, cs, h_(T-1) "
                   f"differ by at most {diff:.3e}", flush=True)
 
@@ -675,7 +687,7 @@ def compare_general(parent_dir):
                     ms.setdefault((leg, name), []).append(
                         time_ms(outs[name][idx], n=7, calls=3))
             with torch.no_grad():
-                cudnn = time_ms(lambda: lib_lstm(x), n=7, calls=3)
+                cudnn = cudnn_ms(lambda: lib_lstm(x), n=7, calls=3)
             for name in ("parent", "change"):
                 outs[name][0]()
                 outs[name][1]()
@@ -687,7 +699,7 @@ def compare_general(parent_dir):
                 print(f"general {leg} {sfx} C=H={width} ({tag}): parent / "
                       f"change / change / parent {p[0]:.4f} / {c[0]:.4f} / "
                       f"{c[1]:.4f} / {p[1]:.4f} ms; cuDNN forward "
-                      f"{cudnn:.4f} ms", flush=True)
+                      f"(TF32 off) {cudnn:.4f} ms", flush=True)
             print(f"general {sfx} C=H={width}: the designs' hs, cs, h_(T-1) "
                   f"differ by at most {diff:.3e}", flush=True)
 
@@ -874,7 +886,7 @@ def compare_main(parent_dir):
         for name in ("parent", "change", "change", "parent"):
             ms.setdefault((leg, name), []).append(time_ms(outs[name][idx]))
     with torch.no_grad():
-        cudnn = time_ms(lambda: lib_lstm(x))
+        cudnn = cudnn_ms(lambda: lib_lstm(x))
     for name in ("parent", "change"):
         outs[name][0]()
         outs[name][1]()
@@ -885,7 +897,7 @@ def compare_main(parent_dir):
         p, c = ms[(leg, "parent")], ms[(leg, "change")]
         print(f"main {leg} f32 C=H={C}: parent / change / change / parent "
               f"{p[0]:.4f} / {c[0]:.4f} / {c[1]:.4f} / {p[1]:.4f} ms; cuDNN "
-              f"forward {cudnn:.4f} ms", flush=True)
+              f"forward (TF32 off) {cudnn:.4f} ms", flush=True)
     print(f"main f32 C=H={C}: the designs' hs, cs, h_(T-1) differ by at most "
           f"{diff:.3e}", flush=True)
 

@@ -33,18 +33,22 @@ printed):
    path where ``kernels.lstm.general_fwd_plan`` takes the shape, else on
    ``lstm_general.cu``'s streaming path; K3's recurrence on
    ``lstm_general_rec_cluster.cu``'s clusters where
-   ``kernels.lstm.general_rec_plan`` takes the shape, else on
-   ``lstm_general.cu``'s ``general_rec_kernel``; the recurrence alone also
-   held to its plain twin on the same Z and timed) at
-   T=124, B=2048 and C=H=160 (the shape 6g gives it; these records take
-   6g's launches into the kernels line) and C=H=256 (a line of its own;
-   f32 K1-K3 there, which the plans refuse, run the streaming paths, and
-   their records take 6g's size-256 leg's launches), K1, K2 (with and
-   without cs) and K3 in both dtypes against their plain versions, each
-   repeated bit for bit, with times beside the parent design's
+   ``kernels.lstm.general_rec_plan`` takes the shape (f32 at 256 in row
+   groups, ``general_rec_group_kernel``), else on ``lstm_general.cu``'s
+   ``general_rec_kernel``; the recurrence alone also held to its plain
+   twin on the same Z and timed) at T=124, B=2048 and C=H=160 (the shape
+   6g gives it; these records take 6g's launches into the kernels line)
+   and C=H=256 (a line of its own; f32 K1/K2 there, which the plan
+   refuses, run the streaming path, and their records and the row-group
+   K3's take 6g's size-256 leg's launches), K1, K2 (with and without cs)
+   and K3 in both dtypes against their plain versions, each repeated bit
+   for bit, with times beside the parent design's
    (``PARENT_GENERAL_MS``), bounds, chains, ``torch.nn.LSTM`` times, the
-   path, cluster size and rows, registers and spills, the card's cluster
-   capacity, and K3 by part;
+   path, cluster size, rows, passes and row groups, registers and spills,
+   the card's cluster capacity, and K3 by part; and K3 f32 at C=H=512
+   (T=16), which every cluster plan refuses, on the streaming
+   ``general_rec_kernel`` against its plain version (its record takes
+   6g's size-512 leg's launches);
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -119,10 +123,13 @@ printed):
    general leg (K2/K3 once a step, K1 once a batch; K1-K3 on the cluster
    paths, none streamed), held to the same handle and step with
    ``REMORA_TPU_LSTM=scan``, and K6's product paths at size 160's block
-   shapes (merge_conv1 320 -> 160); then size 256 in f32, which the plan
-   refuses: one train step and one served batch, K1-K3 on the streaming
-   paths once each, logits held to the scan; (6f) data-parallel training, the
-   launch and all-reduce counts set to 0 first: (a) ``train_model`` over
+   shapes (merge_conv1 320 -> 160); then size 256 in f32, whose K1/K2 the
+   plan refuses: one train step and one served batch, K1/K2 on the
+   streaming path once each, K3 once on the row-group cluster path,
+   logits held to the scan; then size 512 in f32, one train step of 512
+   chunks, K2 and K3 once each on the streaming paths; (6f) data-parallel
+   training, the launch and all-reduce counts set to 0 first: (a)
+   ``train_model`` over
    a one-rank NCCL group on cuda:0, 4 steps of 2048 (SGD), K2/K3 once a
    step, one all-reduce a step, losses within 1e-5 of the same run
    without a mesh; (b) two ranks sharing cuda:0 over gloo (processes of
@@ -262,6 +269,11 @@ GENERAL, GENERAL_SIZE, GENERAL_STEPS = 256, 160, 2
 # samples of CALLS_PER_SAMPLE calls for the general leg's times: its calls
 # take 9-35 ms, so fewer samples keep phase 3e's wall down
 GENERAL_TIMED = 5
+# the general K3's streaming path (lstm_general.cu::general_rec_kernel),
+# f32 at C = H = GENERAL_STREAM, which no cluster plan takes: held to its
+# plain version at GENERAL_STREAM_T steps (3e), and on the model path at
+# size GENERAL_STREAM for one step of GENERAL_STREAM_BATCH chunks (6g)
+GENERAL_STREAM, GENERAL_STREAM_T, GENERAL_STREAM_BATCH = 512, 16, 512
 PALLAS_EPOCHS = 2  # the REMORA_TPU_CONVBN=pallas legs: 2 epochs of 12 steps
 
 
@@ -444,7 +456,8 @@ def lstm_chain_instrs(kind, C, H):
         # = f c + i g (FMUL, FFMA) -> tanh(c) -> h = o tanh(c) -> STS h ->
         # BAR -> LDG x_{t+1} -> STS -> BAR
         return 1 + 1 + C + H + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 + 1 + 2 + 1
-    if kind in ("general_bwd_cluster", "general_bwd_cluster_mma"):
+    if kind in ("general_bwd_cluster", "general_bwd_cluster_mma",
+                "general_bwd_groups"):
         # K3 general, the cluster path (lstm_general_rec_cluster.cu::
         # general_rec_cluster_kernel; the gate recompute and the products
         # are other launches), a CTA of the plan's cluster: cluster BAR
@@ -453,18 +466,23 @@ def lstm_chain_instrs(kind, C, H):
         # partial product's dependent chain (f32: 4hh FFMA into one
         # accumulator; bf16: 4hh / 16 HMMA) -> st.shared::cluster -> cluster
         # BAR (arrive B); each further pass adds a product, a store, a
-        # barrier and the N-term sum
+        # barrier and the N-term sum. The row-group path
+        # (general_rec_group_kernel) walks each group's chain, one pass,
+        # while the other groups take their turns: its mbarrier wait in
+        # place of the cluster barrier, and the partials' store to the
+        # staging tile, a CTA barrier and the bulk copy in place of the
+        # DSMEM store
         import torch
 
         from remora_tpu_torch.kernels import lstm as K
 
         dtype = torch.bfloat16 if kind.endswith("mma") else torch.float32
-        N, R, _smem, P = K.general_rec_plan(C, H, dtype,
-                                            K.cluster_capacity(0))
-        hh = K.general_rec_cfg(H, dtype, N, R, P)["hh"]
+        N, R, _smem, P, groups = K.general_rec_plan(C, H, dtype,
+                                                    K.cluster_capacity(0))
+        hh = K.general_rec_cfg(H, dtype, N, R, P, groups)["hh"]
         depth = 4 * hh // 16 if dtype == torch.bfloat16 else 4 * hh
         return 1 + 1 + N + 1 + 2 + 3 + 1 + 1 + 1 + depth + 1 + 1 \
-            + (P - 1) * (depth + 1 + 1 + 1 + N)
+            + (P - 1) * (depth + 1 + 1 + 1 + N) + (2 if groups > 1 else 0)
     if kind == "general_bwd":
         # K3 general, the streaming path (lstm_general.cu::general_rec_kernel; the gate
         # recompute and the products are other launches): BAR -> LDS the dh
@@ -531,6 +549,10 @@ def lstm_kernel_of(leg, dtype, C, H):
                 "general_stream_fwd")
     if kind == "general":
         if general_path(dtype, C, H, leg) == "cluster":
+            if K.general_rec_plan(C, H, dtype, K.cluster_capacity(0))[4] > 1:
+                return (f"lstm_bwd_general_groups_{sfx}",
+                        "remora_tpu_torch/csrc/lstm_general_rec_cluster.cu",
+                        "general_bwd_groups")
             return (f"lstm_bwd_general_cluster_{sfx}",
                     "remora_tpu_torch/csrc/lstm_general_rec_cluster.cu",
                     "general_bwd_cluster_mma" if bf16
@@ -567,7 +589,7 @@ def general_path(dtype, C, H, leg="fwd"):
 def path_fields(leg, dtype, C, H):
     """A general record's path, cluster size and rows a cluster
     (``general_fwd_plan`` on this card; K3's ``general_rec_plan``, with
-    the exchange's passes); {} for any other kernel."""
+    the exchange's passes and the row groups); {} for any other kernel."""
     from remora_tpu_torch.kernels import lstm as K
 
     if K.route(leg, dtype, C, H) != "general":
@@ -577,9 +599,10 @@ def path_fields(leg, dtype, C, H):
         plan = K.general_rec_plan(C, H, dtype, caps)
         if plan is None:
             return {"path": "stream", "cluster_ctas": None,
-                    "cluster_rows": None, "passes": None}
+                    "cluster_rows": None, "passes": None, "row_groups": None}
         return {"path": "cluster", "cluster_ctas": plan[0],
-                "cluster_rows": plan[1], "passes": plan[3]}
+                "cluster_rows": plan[1], "passes": plan[3],
+                "row_groups": plan[4]}
     plan = K.general_fwd_plan(C, H, dtype, caps)
     if plan is None:
         return {"path": "stream", "cluster_ctas": None, "cluster_rows": None}
@@ -693,9 +716,10 @@ def split_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5,
     """Device ms of each of the split K3's kernels (gate recompute,
     recurrence, dx, dW, the ordered dW sum) a call, from torch.profiler
     over ``calls`` calls: ``lstm_wide_bwd.cu``'s, or with ``rec`` =
-    "general_rec_cluster_kernel" (``lstm_general_rec_cluster.cu``) or
-    "general_rec_kernel" (``lstm_general.cu``) the general K3's (the
-    products are ``lstm_prod.cuh``'s in all three)."""
+    "general_rec_cluster_kernel" or "general_rec_group_kernel"
+    (``lstm_general_rec_cluster.cu``) or "general_rec_kernel"
+    (``lstm_general.cu``) the general K3's (the products are
+    ``lstm_prod.cuh``'s in all of them)."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -813,7 +837,10 @@ def check_lstm_train(dtype, tol, C=SIZE, H=SIZE, n=N_TIMED):
                     if bwd_chain == "general_bwd" else
                     split_bwd_parts_ms(x, w_aug, hs, cs, dhs,
                                       rec="general_rec_cluster_kernel")
-                    if bwd_chain.startswith("general_bwd_cluster") else None)
+                    if bwd_chain.startswith("general_bwd_cluster") else
+                    split_bwd_parts_ms(x, w_aug, hs, cs, dhs,
+                                      rec="general_rec_group_kernel")
+                    if bwd_chain == "general_bwd_groups" else None)
 
         fwd_ms = time_ms(lambda: K.lstm_fwd(x, w_aug), n=n)
         general = K.route("fwd", dtype, C, H) == "general"
@@ -1096,7 +1123,8 @@ def check_lstm_general_compile():
         "cluster_fwd_f32_kernel", "cluster_fwd_bf16_x2_kernel",
         "cluster_fwd_bf16_kernel"))
     check_compile("lstm_general_rec_cluster", "general K3 cluster", (
-        "general_rec_cluster_kernel", "wide_prod_f32_kernel",
+        "general_rec_cluster_kernel", "general_rec_group_kernel",
+        "wide_prod_f32_kernel",
         "wide_prod_bf16_kernel", "ordered_sum"))
 
 
@@ -1162,6 +1190,109 @@ def check_general_recurrence(dtype, width):
             "max_rel_err": err}
 
 
+def check_general_stream_k3():
+    """Phase 3e's streaming K3 (``lstm_general.cu::general_rec_kernel``
+    between ``lstm_prod.cuh``'s products): f32 at T = GENERAL_STREAM_T, B =
+    BATCH and C = H = GENERAL_STREAM, a shape ``general_rec_plan``
+    refuses. dx within 1e-5 abs and dW within 1e-4 of its max-abs of
+    ``lstm_bwd_reference``, the recurrence alone's dgates within 1e-5 of
+    their max-abs of its plain twin on the same Z, each repeated bit for
+    bit; K3 timed beside its bound, chain, plain version and cuDNN's
+    backward (TF32 off). Returns its kernel record (launches from 6g)."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import full_f32
+    from remora_tpu_torch.kernels import lstm as K
+
+    dtype = torch.float32
+    C = H = GENERAL_STREAM
+    params, x = lstm_case(dtype, T=GENERAL_STREAM_T, C=C, H=H, seed=5)
+    T, B, _ = x.shape
+    w_aug = K.make_w_aug(params, dtype)
+    dhs = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(T, B, H)).astype(np.float32)).cuda()
+    name, source, chain = lstm_kernel_of("bwd", dtype, C, H)
+    check(name == "lstm_bwd_general_stream_f32",
+          f"phase 3e: K3 at f32 C=H={C} is {name}, not the streaming path")
+    with full_f32():
+        hs, cs = K.lstm_fwd_reference(x, w_aug)
+        paths = dict(K.LAUNCHES_GENERAL_BWD)
+        dx, dw = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        z = K.lstm_bwd_gates_reference(x, w_aug, hs)
+        dg = K.general_recurrence(z, cs, dhs, w_aug)
+        ran = {k: K.LAUNCHES_GENERAL_BWD[k] - paths[k] for k in paths}
+        dx_ref, dw_ref = K.lstm_bwd_reference(x, w_aug, hs, cs, dhs)
+        dg_ref = K.lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)
+        again = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        dg_again = K.general_recurrence(z, cs, dhs, w_aug)
+        torch.cuda.synchronize()
+        err = (dx - dx_ref).abs().max().item()
+        dw_rel, dg_rel = rel_err(dw, dw_ref), rel_err(dg, dg_ref)
+        log(f"{name} C=H={C} T={T}: max |dx| {err:.3e} (tolerance 1e-5), "
+            f"dW {dw_rel:.3e} of its max-abs (tolerance 1e-4), the "
+            f"recurrence's dgates {dg_rel:.3e} of theirs against the twin "
+            f"(tolerance 1e-5); K3 launches by path {ran}")
+        check(ran == {"cluster": 0, "stream": 2},
+              f"phase 3e: K3 at f32 C=H={C} ran {ran}, not the stream")
+        check(np.isfinite(err) and err <= 1e-5,
+              f"{name} C=H={C}: dx disagrees ({err:.3e} > 1e-5)")
+        check(np.isfinite(dw_rel) and dw_rel <= 1e-4,
+              f"{name} C=H={C}: dW disagrees ({dw_rel:.3e} > 1e-4)")
+        check(np.isfinite(dg_rel) and dg_rel <= 1e-5,
+              f"{name} C=H={C}: dgates disagree ({dg_rel:.3e} > 1e-5)")
+        check(torch.equal(again[0], dx) and torch.equal(again[1], dw)
+              and torch.equal(dg_again, dg),
+              f"{name} C=H={C}: a second call gave other bits")
+        ms = time_ms(lambda: K.lstm_bwd(x, w_aug, hs, cs, dhs),
+                     n=GENERAL_TIMED)
+        rec_ms = time_ms(lambda: K.general_recurrence(z, cs, dhs, w_aug),
+                         n=GENERAL_TIMED)
+        plain_ms = time_ms(
+            lambda: K.lstm_bwd_reference(x, w_aug, hs, cs, dhs), n=3,
+            calls=1)
+        # the yardstick only: cuDNN's backward (data and weights)
+        lib_lstm = torch.nn.LSTM(C, H).cuda()
+        with torch.no_grad():
+            lib_lstm.weight_ih_l0.copy_(params["w_ih"])
+            lib_lstm.weight_hh_l0.copy_(params["w_hh"])
+            lib_lstm.bias_ih_l0.copy_(params["b_ih"])
+            lib_lstm.bias_hh_l0.copy_(params["b_hh"])
+        lib_lstm.flatten_parameters()
+        xg = x.clone().requires_grad_()
+        out = lib_lstm(xg)[0]
+        inputs = (xg, *lib_lstm.parameters())
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            out, inputs, grad_outputs=dhs, retain_graph=True),
+            n=GENERAL_TIMED)
+    flops = 3 * 2.0 * T * B * (C + H) * 4 * H
+    io_bytes = (2 * T * B * C + 3 * T * B * H) * 4 \
+        + 2 * (C + H + 1) * 4 * H * 4
+    bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
+    rec_bound = wide_bwd_part_bounds(T, B, C, H, dtype)["recurrence"]
+    chain_ms = lstm_chain_bound_ms(chain, T, C, H)
+    log(f"{name} C=H={C} T={T}: kernel {ms:.4f} ms (the recurrence alone "
+        f"{rec_ms:.4f}, bound {rec_bound:.4f}), plain {plain_ms:.4f} ms, "
+        f"torch.nn.LSTM backward {lib_ms:.4f} ms (TF32 off), bound "
+        f"{bound_ms:.4f} ms ({bound_by}), chain {chain_ms:.4f} ms")
+    return with_chain({
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": "remora_tpu/kernels/pallas_lstm.py:251",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": lib_ms,
+        "shape": {"T": T, "B": B, "C": C, "H": H},
+        "recurrence": {"ms": rec_ms, "bound_ms": rec_bound,
+                       "max_rel_err": dg_rel},
+        **path_fields("bwd", dtype, C, H),
+    }, chain_ms)
+
+
 def check_lstm_general():
     """Phase 3e: K1, K2 (with and without cs) and K3 on the general leg
     against their plain versions, each dtype, at T = 124, B = BATCH and C =
@@ -1169,13 +1300,16 @@ def check_lstm_general():
     = H = GENERAL; K1/K2 on the cluster path (``lstm_general_cluster.cu``)
     where ``general_fwd_plan`` takes the shape (bf16 at both, f32 at
     GENERAL_SIZE) and on the streaming path (``lstm_general.cu``) where it
-    refuses it (f32 at GENERAL); each repeated bit for bit, timed beside
+    refuses it (f32 at GENERAL); K3 on the cluster path at both (f32 at
+    GENERAL in row groups), and on the streaming path at f32 GENERAL_STREAM
+    (``check_general_stream_k3``); each repeated bit for bit, timed beside
     its bound, its chain, its plain version, ``torch.nn.LSTM`` and the
     parent design (PARENT_GENERAL_MS). The GENERAL records are logged as a
     line of their own; returns the GENERAL_SIZE records (K1, K2, K3) by
-    dtype, which take 6g's launches into the kernels line, and the
-    streaming path's K1, K2 records (f32 at GENERAL), which take 6g's
-    size-GENERAL leg's."""
+    dtype, which take 6g's launches into the kernels line, and f32 at
+    GENERAL's (the streaming K1, K2 and the row-group K3, which take 6g's
+    size-GENERAL leg's) with the streaming K3 (6g's size-GENERAL_STREAM
+    leg's)."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -1222,23 +1356,32 @@ def check_lstm_general():
         for width in (GENERAL_SIZE, GENERAL)}}))
     stream = [rec for rec in records[GENERAL][torch.float32]
               if rec.get("path") == "stream"]
-    check(len(stream) == 3, f"phase 3e: the streaming paths ran "
+    check(len(stream) == 2, f"phase 3e: the streaming paths ran "
           f"{[rec['name'] for rec in stream]} at f32 C=H={GENERAL}, not "
-          "K1, K2 and K3")
+          "K1 and K2")
+    groups = records[GENERAL][torch.float32][2]
+    check(groups["name"] == "lstm_bwd_general_groups_f32"
+          and groups["row_groups"] > 1,
+          f"phase 3e: K3 at f32 C=H={GENERAL} is {groups['name']}, "
+          f"{groups.get('row_groups')} row groups")
     for width in (GENERAL_SIZE, GENERAL):
         for dtype, recs in records[width].items():
-            # every leg on its cluster path but f32 at GENERAL (streams)
-            want = ("stream" if dtype == torch.float32 and width == GENERAL
-                    else "cluster")
-            for rec in recs:
+            # every leg on its cluster path but K1/K2 f32 at GENERAL
+            # (they stream)
+            for i, rec in enumerate(recs):
+                want = ("stream" if dtype == torch.float32
+                        and width == GENERAL and i < 2 else "cluster")
                 check(rec.get("path") == want,
                       f"phase 3e: {rec['name']} at C=H={width} is not on "
                       f"the {want} path")
-            check(recs[2]["recurrence"]["path"] == want,
+            check(recs[2]["recurrence"]["path"] == "cluster",
                   f"phase 3e: the {dtype} recurrence at C=H={width} ran "
                   f"the {recs[2]['recurrence']['path']} path")
+    stream_k3 = check_general_stream_k3()
+    log(json.dumps({f"general_k3_stream_at_{GENERAL_STREAM}": stream_k3}))
     log(f"phase 3e wall {time.monotonic() - t0:.1f} s")
-    return records[GENERAL_SIZE], stream
+    return records[GENERAL_SIZE], [*records[GENERAL][torch.float32],
+                                   stream_k3]
 
 
 def profile_serve(handle, arrs, tag, n_walls=5):
@@ -1290,10 +1433,11 @@ def general_stream_leg(root, config, records):
     """Phase 6g's size-GENERAL leg: ConvLSTM_w_ref at size GENERAL in f32,
     the shape ``general_fwd_plan`` refuses, so its K1/K2 run the streaming
     ``general_fwd_kernel`` on the model path: ``train_model`` for one step
-    (K2 there once), then its checkpoint through ``ModelHandle.load`` for
-    one batch (K1 once), logits finite and held to the same handle with
-    REMORA_TPU_LSTM=scan; no cluster launch (K3's recurrence streams as
-    well). Sets the streaming records' launches."""
+    (K2 there once, K3 once on the cluster path's row groups), then its
+    checkpoint through ``ModelHandle.load`` for one batch (K1 once), logits
+    finite and held to the same handle with REMORA_TPU_LSTM=scan; no
+    cluster launch of K1/K2; then ``general_k3_stream_leg``. Sets the
+    records' launches (K1, K2, K3 here, the streaming K3 there)."""
     from remora_tpu_torch.infer.infer import ModelHandle
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.train import optim
@@ -1320,7 +1464,7 @@ def general_stream_leg(root, config, records):
         f"K3 by path {train_bwd_paths}")
     check(train_launches["fwd"] == train_launches["bwd"] == 1
           and train_paths["cluster"] == 0 and train_paths["stream"] >= 1
-          and train_bwd_paths == {"cluster": 0, "stream": 1},
+          and train_bwd_paths == {"cluster": 1, "stream": 0},
           f"{tag}: launches {train_launches}, K1/K2 by path {train_paths}, "
           f"K3 by path {train_bwd_paths}")
     handle = ModelHandle.load(os.path.join(out, "model_final.checkpoint"))
@@ -1338,10 +1482,56 @@ def general_stream_leg(root, config, records):
         f"|logit - REMORA_TPU_LSTM=scan logit| {err:.3e} (tolerance 1e-4)")
     check(np.isfinite(logits).all() and err <= 1e-4,
           f"{tag}: logits disagree with the scan ({err:.3e})")
-    k1, k2, k3 = records
+    k1, k2, k3, stream_k3 = records
     k1["launches"] = last
     k2["launches"] = train_launches["fwd"]
     k3["launches"] = train_launches["bwd"]
+    general_k3_stream_leg(root, config, stream_k3)
+
+
+def general_k3_stream_leg(root, config, record):
+    """Phase 6g's size-GENERAL_STREAM leg: ConvLSTM_w_ref at size
+    GENERAL_STREAM in f32, whose K3 ``general_rec_plan`` refuses, so it
+    runs the streaming ``general_rec_kernel`` on the model path:
+    ``train_model`` for one step of GENERAL_STREAM_BATCH chunks, K2 and K3
+    once each on their streaming paths, finite losses. Sets the streaming
+    K3 record's launches."""
+    from remora_tpu_torch.kernels import lstm as K
+    from remora_tpu_torch.train import optim
+    from remora_tpu_torch.train.train import train_model
+
+    tag = f"general_stream_size{GENERAL_STREAM}_f32"
+    out = os.path.join(root, tag)
+    counts, paths = K.LAUNCHES_GENERAL, K.LAUNCHES_GENERAL_FWD
+    bwd_paths = K.LAUNCHES_GENERAL_BWD
+    for d in (counts, paths, bwd_paths):
+        d.update(dict.fromkeys(d, 0))
+    t0 = time.monotonic()
+    train_model(
+        seed=1, out_path=out, remora_dataset_path=config,
+        chunk_context=None, kmer_context_bases=None,
+        batch_size=GENERAL_STREAM_BATCH, model_name="ConvLSTM_w_ref",
+        size=GENERAL_STREAM,
+        train_opts=optim.TrainOpts(epochs=1, lr_scheduler_str="constant",
+                                   learning_rate=2e-3),
+        chunks_per_epoch=GENERAL_STREAM_BATCH,
+        num_test_chunks=GENERAL_STREAM_BATCH)
+    launches, fwd_paths = dict(counts), dict(paths)
+    k3_paths = dict(bwd_paths)
+    with open(os.path.join(out, "batch.log")) as fh:
+        losses = [float(line.split()[1]) for line in fh.readlines()[1:]]
+    log(f"{tag}: train_model 1 step of {GENERAL_STREAM_BATCH} in "
+        f"{time.monotonic() - t0:.1f} s; general launches {launches}, "
+        f"K1/K2 by path {fwd_paths}, K3 by path {k3_paths}; losses "
+        f"{losses}")
+    check(launches["fwd"] == launches["bwd"] == 1
+          and fwd_paths["cluster"] == 0
+          and k3_paths == {"cluster": 0, "stream": 1},
+          f"{tag}: launches {launches}, K1/K2 by path {fwd_paths}, K3 by "
+          f"path {k3_paths}")
+    check(len(losses) == 1 and np.isfinite(losses).all(),
+          f"{tag}: batch.log losses {losses}")
+    record["launches"] = launches["bwd"]
 
 
 def model_path_leg(root, config, records, kind, stream_records=None):

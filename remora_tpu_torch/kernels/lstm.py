@@ -41,9 +41,10 @@ of two paths, chosen the same way (``general_rec_plan``,
 ``general_bwd_path``): ``csrc/lstm_general_rec_cluster.cu``'s clusters of
 N CTAs, each holding its gate columns' slice of W_h^T and trading partial
 dh sums through distributed shared memory (bf16 at 160 and 256, f32 at
-160), else ``lstm_general.cu``'s ``general_rec_kernel`` (f32 at 256,
-every shape at 1024). Above 1024 every entry point raises; a launch on
-either path that fails raises, never moving to the other path.
+160; f32 at 193-256 walks the cluster's rows as groups of 48, whose
+partials fit where all R rows' do not), else ``lstm_general.cu``'s
+``general_rec_kernel`` (f32 past 256, every shape at 1024). Above 1024 every entry point raises; a launch
+on either path that fails raises, never moving to the other path.
 
 The source notes give each kernel's design and bound. Each entry point
 launches its kernel for a CUDA tensor and uses its plain version
@@ -135,6 +136,14 @@ LAUNCHES_GENERAL_BWD = dict.fromkeys(("cluster", "stream"), 0)
 CLUSTER_REC_MAX_THREADS = 384
 CLUSTER_REC_PAIRS = {torch.float32: (8, 12), torch.bfloat16: (8, 14)}
 CLUSTER_REC_MAX_PASSES = 8
+# its row-group path (``general_rec_group_kernel``, f32, where no pass count
+# fits): clusters of 8 CTAs of 32 units, the R rows walked as 3 groups of
+# 48 (R = 144: an H100's 15 clusters of 8 a wave; a fourth group's
+# carries outgrow 168 registers), 12 warps
+CLUSTER_REC_GROUP_N = 8
+CLUSTER_REC_GROUP_UNITS = 32
+CLUSTER_REC_GROUP_ROWS = 48
+CLUSTER_REC_GROUPS = 3
 
 
 def make_w_aug(params, dtype):
@@ -406,10 +415,34 @@ def general_fwd_path(dtype, C, H, clusters=None):
         else "cluster"
 
 
-def general_rec_cfg(H, dtype, N, R, P):
+def general_rec_group_cfg(H, dtype, N, R, groups):
+    """The row-group path's launch shape (``lstm_general_rec_cluster.cu``'s
+    ``make_group_cfg``): f32, clusters of CLUSTER_REC_GROUP_N CTAs of 32
+    units (H to 256), one pass, R = 48 ``groups`` rows walked as ``groups``
+    (CLUSTER_REC_GROUPS) groups of 48; a thread owns 4 pairs a group.
+    Shared memory: W_h^T's slice [128][256] f32, two dgates tiles [48][132]
+    f32 and a receive tile [8][48][32] f32. None where it does not take
+    the shape."""
+    units, rows = CLUSTER_REC_GROUP_UNITS, CLUSTER_REC_GROUP_ROWS
+    if dtype != torch.float32 or N != CLUSTER_REC_GROUP_N:
+        return None
+    if not 1 <= H <= N * units or groups != CLUSTER_REC_GROUPS:
+        return None
+    if R != groups * rows:
+        return None
+    k4 = 4 * units
+    smem = k4 * N * units * 4 + 2 * rows * (k4 + 4) * 4 + N * rows * units * 4
+    return {"hh": units, "hc": units, "nct": N * units,
+            "pairs": 4 * groups, "threads": CLUSTER_REC_MAX_THREADS,
+            "smem": smem, "groups": groups}
+
+
+def general_rec_cfg(H, dtype, N, R, P, groups=1):
     """``lstm_general_rec_cluster.cu``'s launch shape for clusters of N CTAs
-    over R rows with the exchange in P passes (its ``make_cfg``; the card's
-    ``lstm_general_rec_cluster_cfg`` gives the same): a dict of ``hh``
+    over R rows with the exchange in P passes, the rows walked as
+    ``groups`` groups (its ``make_cfg``; the card's
+    ``lstm_general_rec_cluster_cfg`` gives the same; ``groups`` above 1 is
+    the row-group path, ``general_rec_group_cfg``): a dict of ``hh``
     (hidden units a CTA: ceil(H / N) rounded up to 8 P), ``hc`` (units a
     pass, hh / P), ``nct`` (columns of a pass's product: N hc rounded up to
     a 32-unit tile), ``pairs`` (the (row, unit) pairs a thread owns: the
@@ -417,8 +450,12 @@ def general_rec_cfg(H, dtype, N, R, P):
     (hh x
     ceil(R / pairs), rounded up to a warp) and ``smem`` (bytes: W_h^T's
     slice, the dgates tile, the receive tile [N][R][hc] f32 and, with
-    passes, the dh tile [R][hh] f32), or None where the shape does not fit
-    one CTA."""
+    passes, the dh tile [R][hh] f32) and ``groups`` (1), or None where the
+    shape does not fit one CTA."""
+    if groups != 1:
+        if P != 1:
+            return None
+        return general_rec_group_cfg(H, dtype, N, R, groups)
     if not 1 <= H <= GENERAL_MAX_H or N not in (2, 4, 8):
         return None
     if R < 32 or R % 32 or not 1 <= P <= CLUSTER_REC_MAX_PASSES:
@@ -443,12 +480,12 @@ def general_rec_cfg(H, dtype, N, R, P):
     if smem > CLUSTER_SMEM_MAX:
         return None
     return {"hh": hh, "hc": hc, "nct": nct, "pairs": pairs,
-            "threads": threads, "smem": smem}
+            "threads": threads, "smem": smem, "groups": 1}
 
 
 def general_rec_plan(C, H, dtype, clusters=None):
     """The general K3's cluster plan at C inputs and H hidden units in
-    ``dtype``: (N, R, shared-memory bytes, passes P) for
+    ``dtype``: (N, R, shared-memory bytes, passes P, row groups) for
     ``lstm_general_rec_cluster.cu``'s recurrence, or None, where the shape
     runs the streaming ``general_rec_kernel``. ``clusters`` maps N to the
     clusters of N CTAs the card holds at once (default ``H100_CLUSTERS``).
@@ -458,8 +495,12 @@ def general_rec_plan(C, H, dtype, clusters=None):
     N that fit it takes the fewest passes (each costs a cluster barrier's
     round trip on the chain), then the least work a CTA (R x hh, the
     (row, unit) pairs of its gate math and the rows x columns of its
-    product), then the smaller cluster. C does not enter: the products
-    around the walk take any width."""
+    product), then the smaller cluster: ``general_rec_cluster_kernel``,
+    one row group. Where none fits, f32 takes the row-group path
+    (``general_rec_group_cfg``) if it fits: clusters of 8 over the fewest
+    rows, a multiple of 48, that run the batch in one wave, walked as
+    groups of 48. C does not enter: the products around the walk take any
+    width."""
     clusters = clusters or H100_CLUSTERS
     if not 1 <= C <= GENERAL_MAX_C:
         return None
@@ -471,9 +512,14 @@ def general_rec_plan(C, H, dtype, clusters=None):
             if cfg is not None:
                 key = (P, R * cfg["hh"], N)
                 if best is None or key < best[0]:
-                    best = key, (N, R, cfg["smem"], P)
+                    best = key, (N, R, cfg["smem"], P, 1)
                 break
-    return None if best is None else best[1]
+    if best is not None:
+        return best[1]
+    N, rows = CLUSTER_REC_GROUP_N, CLUSTER_REC_GROUP_ROWS
+    groups = _ceil(_ceil(GENERAL_FWD_PLAN_BATCH, clusters[N]), rows)
+    cfg = general_rec_cfg(H, dtype, N, groups * rows, 1, groups)
+    return None if cfg is None else (N, groups * rows, cfg["smem"], 1, groups)
 
 
 def general_bwd_path(dtype, C, H, clusters=None):
@@ -626,12 +672,12 @@ def _general_rec_library():
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.lstm_general_rec_cluster_bwd.argtypes = ([i32] + [ptr] * 12
-                                                     + [i32] * 7 + [ptr])
+                                                     + [i32] * 8 + [ptr])
         lib.lstm_general_rec_cluster_bwd.restype = i32
         lib.lstm_general_rec_cluster_rec.argtypes = ([i32] + [ptr] * 5
-                                                     + [i32] * 6 + [ptr])
+                                                     + [i32] * 7 + [ptr])
         lib.lstm_general_rec_cluster_rec.restype = i32
-        lib.lstm_general_rec_cluster_cfg.argtypes = [i32] * 5 + [ptr]
+        lib.lstm_general_rec_cluster_cfg.argtypes = [i32] * 6 + [ptr]
         lib.lstm_general_rec_cluster_cfg.restype = i32
         lib.lstm_general_rec_cluster_dw_chunks.argtypes = [i32, i32]
         lib.lstm_general_rec_cluster_dw_chunks.restype = i32
@@ -644,18 +690,18 @@ def _general_rec_library():
 def _general_bwd_launch(dtype, C, H, device):
     """(run, dW chunks, error string, path) of a general K3 call: the
     cluster library behind ``lstm_general_bwd``'s signature, with the
-    plan's N, R and P, where ``general_rec_plan`` takes the shape on this
-    card, else ``lstm_general.cu``'s streaming K3."""
+    plan's N, R, P and row groups, where ``general_rec_plan`` takes the
+    shape on this card, else ``lstm_general.cu``'s streaming K3."""
     plan = general_rec_plan(C, H, dtype, cluster_capacity(device.index or 0))
     if plan is None:
         lib = _general_library()
         return (lib.lstm_general_bwd, lib.lstm_general_bwd_dw_chunks,
                 lib.lstm_general_error_string, "stream")
-    N, R, _, P = plan
+    N, R, _, P, groups = plan
     lib = _general_rec_library()
 
     def run(*args):  # (bf16, 12 pointers, T, B, C, H, stream)
-        return lib.lstm_general_rec_cluster_bwd(*args[:-1], N, R, P,
+        return lib.lstm_general_rec_cluster_bwd(*args[:-1], N, R, P, groups,
                                                 args[-1])
 
     return (run, lib.lstm_general_rec_cluster_dw_chunks,
@@ -706,9 +752,9 @@ def general_recurrence(z, cs, dhs, w_aug):
             error_string = lib.lstm_general_error_string
         else:
             lib, path = _general_rec_library(), "cluster"
-            N, R, _, P = plan
-            err = lib.lstm_general_rec_cluster_rec(bf16, *ptrs, T, B, H, N,
-                                                   R, P, stream)
+            err = lib.lstm_general_rec_cluster_rec(bf16, *ptrs, T, B, H,
+                                                   *plan[:2], *plan[3:],
+                                                   stream)
             error_string = lib.lstm_general_rec_cluster_error_string
     _raise_on(error_string, name, err)
     LAUNCHES_GENERAL_BWD[path] += 1

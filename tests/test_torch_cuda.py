@@ -528,15 +528,17 @@ def test_lstm_general_cluster_library_matches_the_plan(cuda):
 
 # the general K3's recurrence alone (``general_recurrence``) against its
 # plain twin on the same Z: the cluster path at the model's sizes 160 (both
-# dtypes) and 256 (bf16: two passes), batches off a cluster's R rows and
-# beyond one wave, H off the 8-unit tiles, T = 1; the streaming path where
-# the plan refuses (f32 at 256); dgates within 1e-5 (f32) or 2e-2 (bf16) of
-# their largest entry, a repeated call identical, one launch a call on the
-# plan's path
+# dtypes) and 256 (bf16: two passes; f32: row groups), batches off a
+# cluster's R rows and beyond one wave, H off the 8-unit tiles, T = 1; the
+# streaming path where the plan refuses (f32 at 512); dgates within 1e-5
+# (f32) or 2e-2 (bf16) of their largest entry, a repeated call identical,
+# one launch a call on the plan's path
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,B,C,H", [(6, 37, 160, 160), (4, 100, 256, 256),
                                      (3, 161, 144, 200), (1, 9, 160, 160),
-                                     (3, 2100, 160, 160), (5, 40, 129, 133)])
+                                     (3, 2100, 160, 160), (5, 40, 129, 133),
+                                     (3, 2200, 256, 256), (1, 50, 240, 240),
+                                     (2, 20, 512, 512)])
 def test_general_recurrence_matches_twin(cuda, T, B, C, H, dtype):
     params, x = _case(T, B, C, H, dtype, cuda, seed=H)
     w_aug = _w_aug(params)
@@ -545,9 +547,10 @@ def test_general_recurrence_matches_twin(cuda, T, B, C, H, dtype):
         np.float32)).to(cuda, dtype)
     path = K.general_bwd_path(dtype, C, H,
                               K.cluster_capacity(cuda.index or 0))
-    if (C, H) in ((160, 160), (256, 256)) and (
-            dtype == torch.bfloat16 or C == 160):
+    if (C, H) in ((160, 160), (256, 256)):
         assert path == "cluster"
+    if H == 512:
+        assert path == "stream"
     paths = dict(K.LAUNCHES_GENERAL_BWD)
     with full_f32():
         hs, cs = K.lstm_fwd_reference(x, w_aug)
@@ -566,43 +569,49 @@ def test_general_recurrence_matches_twin(cuda, T, B, C, H, dtype):
 
 def test_general_rec_cluster_library_matches_the_plan(cuda):
     """lstm_general_rec_cluster.cu's launch shapes are
-    ``general_rec_cfg``'s; it refuses a cluster size, row count, pass count,
-    shape outside its budget or batch past its 32-bit offsets before it
-    reads a pointer; the plan's
-    clusters at 160 and 256 run in one wave."""
+    ``general_rec_cfg``'s, the row-group path's included; it refuses a
+    cluster size, row count, pass count, group count, shape outside its
+    budget or batch past its 32-bit offsets before it reads a pointer; the
+    plan's clusters at 160 and 256 run in one wave."""
     import ctypes
 
     lib = K._general_rec_library()
     info = (ctypes.c_longlong * 6)()
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = int(dtype == torch.bfloat16)
-        for H in (1, 8, 129, 160, 200, 256, 300, 1024):
-            for N, R in ((2, 32), (4, 96), (8, 160), (4, 64)):
+        for H in (1, 8, 129, 160, 200, 256, 257, 300, 1024):
+            for N, R, G in ((2, 32, 1), (4, 96, 1), (8, 160, 1), (4, 64, 1),
+                            (8, 96, 2), (8, 144, 3), (8, 192, 4),
+                            (8, 160, 3), (4, 144, 3), (8, 48, 1)):
                 for P in (1, 2, 3, 4):
-                    cfg = K.general_rec_cfg(H, dtype, N, R, P)
+                    cfg = K.general_rec_cfg(H, dtype, N, R, P, G)
                     rc = lib.lstm_general_rec_cluster_cfg(bf16, H, N, R, P,
-                                                          info)
+                                                          G, info)
                     if cfg is None:
-                        assert rc == -1, (dtype, H, N, R, P)
+                        assert rc == -1, (dtype, H, N, R, P, G)
                         assert lib.lstm_general_rec_cluster_rec(
-                            bf16, *[None] * 5, 1, 1, H, N, R, P, None) != 0
+                            bf16, *[None] * 5, 1, 1, H, N, R, P, G,
+                            None) != 0
                         continue
                     assert rc == 0 and list(info) == [
                         cfg["hh"], cfg["pairs"], cfg["threads"], cfg["smem"],
-                        cfg["hc"], cfg["nct"]], (dtype, H, N, R, P)
-        for bad in ((3, 64, 1), (16, 256, 1), (4, 48, 1), (4, 96, 0),
-                    (4, 96, 9)):
+                        cfg["hc"], cfg["nct"]], (dtype, H, N, R, P, G)
+        for bad in ((3, 64, 1, 1), (16, 256, 1, 1), (4, 48, 1, 1),
+                    (4, 96, 0, 1), (4, 96, 9, 1), (4, 96, 1, 0),
+                    (8, 144, 2, 3)):
             assert lib.lstm_general_rec_cluster_cfg(bf16, 160, *bad,
                                                     info) == -1
         assert lib.lstm_general_rec_cluster_bwd(
-            bf16, *[None] * 12, 1, 1, 1025, 160, 4, 96, 1, None) != 0
+            bf16, *[None] * 12, 1, 1, 1025, 160, 4, 96, 1, 1, None) != 0
         # a batch whose (B + R) 4H offsets pass 2^32
         assert lib.lstm_general_rec_cluster_rec(
-            bf16, *[None] * 5, 1, 2 ** 30, 160, 4, 96, 1, None) != 0
+            bf16, *[None] * 5, 1, 2 ** 30, 160, 4, 96, 1, 1, None) != 0
+    assert lib.lstm_general_rec_cluster_rec(
+        0, *[None] * 5, 1, 2 ** 22, 256, 8, 144, 1, 3, None) != 0
     caps = K.cluster_capacity(cuda.index or 0)
     for dtype, C in ((torch.bfloat16, 160), (torch.bfloat16, 256),
-                     (torch.float32, 160)):
-        N, R, _, _ = K.general_rec_plan(C, C, dtype, caps)
+                     (torch.float32, 160), (torch.float32, 256)):
+        N, R = K.general_rec_plan(C, C, dtype, caps)[:2]
         assert -(-K.GENERAL_FWD_PLAN_BATCH // R) <= caps[N], (dtype, C)
 
 

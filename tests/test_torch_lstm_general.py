@@ -356,8 +356,18 @@ def test_general_fwd_launch_picks_the_path_by_shape(monkeypatch):
 
 # K3's cluster plan over the same sides (C != H included): what it takes
 # fits a CTA's 227 KB and 384 threads and runs GENERAL_FWD_PLAN_BATCH rows
-# in one wave of the clusters an H100 holds; what it refuses runs the
-# streaming general_rec_kernel, and no cluster size and pass count fit it
+# in one wave of the clusters an H100 holds; where no cluster size and
+# pass count fit all R rows, f32 walks them in row groups if those fit;
+# what it refuses runs the streaming general_rec_kernel
+def _group_fit(H, dtype, caps):
+    """(R, groups, cfg) of the row-group path at clusters of 8's one-wave
+    rows, or None."""
+    groups = -(-(-(-2048 // caps[8])) // K.CLUSTER_REC_GROUP_ROWS)
+    rows = groups * K.CLUSTER_REC_GROUP_ROWS
+    cfg = K.general_rec_cfg(H, dtype, 8, rows, 1, groups)
+    return None if cfg is None else (rows, groups, cfg)
+
+
 def _rec_fits(H, dtype, caps):
     """{N: (R, P, cfg) of the fewest passes that fit at N's one-wave R, or
     None}."""
@@ -381,15 +391,34 @@ def test_general_rec_plan_grid(dtype, C):
         plan = K.general_rec_plan(C, H, dtype)
         path = K.general_bwd_path(dtype, C, H)
         fits = _rec_fits(H, dtype, caps)
+        group = _group_fit(H, dtype, caps)
         if plan is None:
             assert path == "stream", (C, H)
-            assert not any(fits.values()), (C, H)
+            assert not any(fits.values()) and group is None, (C, H)
             continue
         assert path == "cluster", (C, H)
-        N, R, smem, P = plan
+        N, R, smem, P, groups = plan
+        if groups > 1:  # the row-group path: only where no pass count fits
+            assert not any(fits.values()), (C, H)
+            assert dtype == F32 and group[:2] == (R, groups) and N == 8
+            cfg = group[2]
+            assert cfg == K.general_rec_cfg(H, dtype, N, R, P, groups)
+            assert smem == cfg["smem"] <= K.CLUSTER_SMEM_MAX
+            assert P == 1 and cfg["groups"] == groups
+            assert R == groups * K.CLUSTER_REC_GROUP_ROWS
+            clusters = -(-K.GENERAL_FWD_PLAN_BATCH // R)
+            assert clusters <= caps[N] and clusters * R >= 2048
+            # a thread a unit of the CTA and 4 rows of every group
+            assert cfg["threads"] == 32 * 12 == K.CLUSTER_REC_MAX_THREADS
+            assert cfg["pairs"] * (cfg["threads"] // cfg["hh"]) == R
+            assert N * cfg["hh"] >= H and cfg["hh"] == cfg["hc"] == 32
+            assert cfg["nct"] == N * cfg["hc"] == 256
+            continue
+        assert groups == 1
         assert fits[N] is not None and fits[N][:2] == (R, P)
         cfg = fits[N][2]
         assert cfg == K.general_rec_cfg(H, dtype, N, R, P)
+        assert cfg["groups"] == 1
         assert smem == cfg["smem"] <= K.CLUSTER_SMEM_MAX == 232448
         clusters = -(-K.GENERAL_FWD_PLAN_BATCH // R)
         assert clusters <= caps[N] and clusters * N <= 132  # one wave
@@ -415,13 +444,41 @@ def test_general_rec_plan_takes_the_model_widths():
     16.3 and 18.9 us a step), f32 at 160 on 4 x 96 (N = 2 does not fit:
     W_h^T's slice alone is 320 x 164 f32), bf16 at 256 on 8 x 160 with
     the exchange in two passes (one pass needs 276,992 bytes); f32 at 256
-    (W_h^T's slice and the dgates tile take 217,600 bytes before any
-    partials) and every shape at 1024 stream."""
-    assert K.general_rec_plan(160, 160, BF16) == (2, 32, 146432, 1)
-    assert K.general_rec_plan(160, 160, F32) == (4, 96, 229376, 1)
-    assert K.general_rec_plan(256, 256, BF16) == (8, 160, 215552, 2)
-    assert K.general_rec_plan(256, 256, F32) is None
-    assert K.general_bwd_path(F32, 256, 256) == "stream"
+    (W_h^T's slice and the dgates tile of all 160 rows take 217,600 bytes
+    before any partials) on 8 x 144 rows walked as 3 groups of 48: W_h^T's
+    128 x 256 f32 slice, two 48 x 132 f32 dgates tiles and an 8 x 48 x 32
+    f32 receive tile; f32 at 512 and every shape at 1024 stream."""
+    assert K.general_rec_plan(160, 160, BF16) == (2, 32, 146432, 1, 1)
+    assert K.general_rec_plan(160, 160, F32) == (4, 96, 229376, 1, 1)
+    assert K.general_rec_plan(256, 256, BF16) == (8, 160, 215552, 2, 1)
+    smem = 128 * 256 * 4 + 2 * 48 * 132 * 4 + 8 * 48 * 32 * 4
+    assert smem == 230912 <= K.CLUSTER_SMEM_MAX
+    assert K.general_rec_plan(256, 256, F32) == (8, 144, smem, 1, 3)
+    assert K.general_bwd_path(F32, 256, 256) == "cluster"
+    assert K.general_rec_cfg(256, F32, 8, 160, 1) is None  # all 160 rows
+    cfg = K.general_rec_cfg(256, F32, 8, 144, 1, 3)
+    assert (cfg["hh"], cfg["hc"], cfg["nct"], cfg["pairs"],
+            cfg["threads"], cfg["groups"]) == (32, 32, 256, 12, 384, 3)
+    # the row-group path is f32 on clusters of 8, one pass, 3 groups of
+    # 48 rows, H to 256
+    assert K.general_rec_cfg(256, BF16, 8, 144, 1, 3) is None
+    assert K.general_rec_cfg(256, F32, 4, 144, 1, 3) is None
+    assert K.general_rec_cfg(256, F32, 8, 144, 2, 3) is None
+    assert K.general_rec_cfg(256, F32, 8, 160, 1, 3) is None
+    assert K.general_rec_cfg(257, F32, 8, 144, 1, 3) is None
+    assert K.general_rec_cfg(256, F32, 8, 192, 1, 4) is None
+    assert K.general_rec_cfg(256, F32, 8, 48, 1, 1) is None
+    assert K.general_rec_cfg(256, F32, 8, 96, 1, 2) is None
+    # a card holding 22 clusters of 8 (R = 96) fits all rows' partials in
+    # four passes; one holding 14 would need a fourth group, whose carries
+    # outgrow the registers: it streams; f32 at 224 (an hh of 28 rounds up
+    # to 32) takes the same CTA as 256
+    assert K.general_rec_plan(256, 256, F32, {2: 66, 4: 30, 8: 22}) == (
+        8, 96, 220672, 4, 1)
+    assert K.general_rec_plan(256, 256, F32, {2: 66, 4: 30, 8: 14}) is None
+    assert K.general_rec_plan(224, 224, F32) == (8, 144, smem, 1, 3)
+    assert K.general_rec_plan(512, 512, F32) is None
+    assert K.general_bwd_path(F32, 512, 512) == "stream"
     for dtype in (F32, BF16):
         assert K.general_rec_plan(1024, 1024, dtype) is None
         assert K.general_bwd_path(dtype, 1024, 1024) == "stream"
@@ -451,8 +508,8 @@ def test_general_rec_plan_takes_the_model_widths():
 
 def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
     """``_general_bwd_launch`` decides K3's path from the plan alone, before
-    any launch: the cluster library with the plan's N, R and passes where
-    the plan takes the shape, ``lstm_general.cu``'s K3 where it refuses
+    any launch: the cluster library with the plan's N, R, passes and row
+    groups (f32 at 256: 3) where the plan takes the shape, ``lstm_general.cu``'s K3 where it refuses
     it; a launch that returns an error raises (``_raise_on``), with no
     second try on the other path."""
     calls = []
@@ -474,7 +531,8 @@ def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
     for dtype, C, H, want in ((BF16, 160, 160, "cluster"),
                               (BF16, 256, 256, "cluster"),
                               (F32, 160, 160, "cluster"),
-                              (F32, 256, 256, "stream"),
+                              (F32, 256, 256, "cluster"),
+                              (F32, 512, 512, "stream"),
                               (BF16, 1024, 1024, "stream")):
         calls.clear()
         run, _chunks, _error_string, path = K._general_bwd_launch(
@@ -483,9 +541,9 @@ def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
         err = run(int(dtype == BF16), *range(1, 13), 2, 3, C, H, 0)
         assert [c[0] for c in calls] == [want]
         if want == "cluster":
-            N, R, _, P = K.general_rec_plan(C, H, dtype)
+            N, R, _, P, groups = K.general_rec_plan(C, H, dtype)
             assert calls[0][1] == "lstm_general_rec_cluster_bwd"
-            assert calls[0][2][-4:] == (N, R, P, 0)
+            assert calls[0][2][-5:] == (N, R, P, groups, 0)
             assert calls[0][2][13:17] == (2, 3, C, H)
         else:
             assert calls[0][1] == "lstm_general_bwd"
