@@ -4,8 +4,9 @@
     python3 chip_lstm_fwd_variants.py
     python3 chip_lstm_fwd_variants.py --wide
     python3 chip_lstm_fwd_variants.py --f32
-    python3 chip_lstm_fwd_variants.py --general
+    python3 chip_lstm_fwd_variants.py --general [WIDTH DTYPE]
     python3 chip_lstm_fwd_variants.py --compare-parent DIR
+    python3 chip_lstm_fwd_variants.py --compare-general DIR [WIDTH DTYPE]
 
 Builds ``remora_tpu_torch/csrc/lstm_fwd_mma.cu`` as it is and in variants
 that each take one piece of a step away or make it cheaper (textual edits
@@ -37,7 +38,18 @@ the plan's cluster size and rows): as it is, without the x product,
 without the h product, without the DSMEM exchange and the cluster
 barriers (CTA barriers in their place, h_t into the CTA's own tile),
 without the gate math, and without the hs/cs stores; registers and spills
-per variant.
+per variant. Where the plan is the W_h-ring kernel's
+(``cluster_fwd_f32_whring_kernel`` after Z_x's product, f32 at 256): the
+product alone, the product and the walk, and the walk alone in its own
+variants: as it is, without the h product's FMA (its chunks still pass
+the ring), without the W_h loads (the ring's waits and barriers kept),
+without the Z_x loads, without the DSMEM exchange and the cluster
+barriers, with h_t pushed in 8-byte stores, with warps of 72 rows (9 a
+thread, 8 warps), with W_h's chunks of k16 or k32 (more CTA barriers),
+without the gate math, without the stores, and the exchange alone (in
+16- and 8-byte stores).
+``--general 256 f32`` runs one width and dtype.
+``--compare-general DIR [WIDTH DTYPE]`` runs the general part alone.
 ``--compare-parent DIR`` times the main-shape f32 K1 and K2 (with cs; T =
 124, B = 2048, C = H = 64), the wide K1 and K2 (with cs) and the general
 K1 and K2 (with cs) of the parent checkout at DIR and of this one in one
@@ -505,13 +517,85 @@ GENERAL_VARIANTS = {
 }
 
 
+# (old, new) textual edits of the W_h-ring kernel
+# (cluster_fwd_f32_whring_kernel, f32 at 256); the exchange, gate-math and
+# store edits above take its lines too
+RING_EDITS = {
+    # the chunks still pass the ring (loads, waits, barriers)
+    "no_h_fma": [("      for (int qd = 0; qd < nq4; ++qd) {",
+                  "      for (int qd = 0; qd < 0; ++qd) {")],
+    # W_h's chunks of k16 (8 KB slots, 10 of them at 256) or k32 (5): four
+    # or two times the CTA barriers
+    "k16_chunks": [("constexpr int kChunkRing = 64;",
+                    "constexpr int kChunkRing = 16;")],
+    "k32_chunks": [("constexpr int kChunkRing = 64;",
+                    "constexpr int kChunkRing = 32;")],
+    # the ring's waits and barriers kept, after the prologue's loads
+    "no_w_h_loads": [("  auto load = [&](int q) {\n",
+                      "  auto load = [&](int q) {\n    if (q >= S - 1) return;"
+                      "\n")],
+    "no_h_product": [("    h_product(acc);\n    cluster_arrive();",
+                      "    cluster_arrive();")],
+    # warps of 72 rows, 9 a thread (72 accumulators), 8 warps at R = 144
+    "rows_9": [("constexpr int kRowsRing = 48;", "constexpr int kRowsRing = 72;"),
+               ("constexpr int kRowsThread = 6;",
+                "constexpr int kRowsThread = 9;"),
+               ("constexpr int kThreadsRing = 384;",
+                "constexpr int kThreadsRing = 256;")],
+    "no_zx_loads": [("    if (t + 1 < T) zx_rows(t + 1, acc);  // in flight "
+                     "across A and B\n", "")],
+    # h_t as a float2 a row and rank, 48 stores a thread, not 24 float4s
+    "push_8_bytes": [
+        ("  const int odd = p & 1, u4 = u - 2 * odd;\n",
+         "  const int odd = p & 1, u4 = u - 2 * odd;\n"
+         "  const uint32_t h_off8 = smem_u32(hb) + (uint32_t)((row0 * ldh + u)"
+         " * 4);\n"),
+        ("      if (u4 < H) {\n"
+         "        for (int r = 0; r < N; ++r) {\n"
+         "          const uint32_t dst = map_rank(h_off, r);\n"
+         "#pragma unroll\n"
+         "          for (int k = 0; k < kPairs; ++k) {\n"
+         "            st_cluster(dst + (uint32_t)(16 * k * ldh * 4), hq[k]);\n",
+         "      if (u_ok) {\n"
+         "        for (int r = 0; r < N; ++r) {\n"
+         "          const uint32_t dst = map_rank(h_off8, r);\n"
+         "#pragma unroll\n"
+         "          for (int k = 0; k < kRowsThread; ++k) {\n"
+         "            st_cluster(dst + (uint32_t)(8 * k * ldh * 4), hv[k][0],"
+         " hv[k][1]);\n")],
+}
+_RING_ALONE = (RING_EDITS["no_h_product"] + RING_EDITS["no_zx_loads"]
+               + GENERAL_EDITS["no_gate_math"] + GENERAL_EDITS["no_stores"])
+RING_VARIANTS = {
+    "as is": [],
+    "no h product FMA (W_h's chunks still pass the ring)":
+        RING_EDITS["no_h_fma"],
+    "no W_h loads (the ring's waits and barriers kept)":
+        RING_EDITS["no_w_h_loads"],
+    "no Z_x loads": RING_EDITS["no_zx_loads"],
+    "no DSMEM exchange, no cluster barriers": GENERAL_EDITS["no_exchange"],
+    "h_t pushed in 8-byte stores": RING_EDITS["push_8_bytes"],
+    "9 rows a thread, 8 warps": RING_EDITS["rows_9"],
+    "W_h's chunks of k16 (10 slots)": RING_EDITS["k16_chunks"],
+    "W_h's chunks of k32 (5 slots)": RING_EDITS["k32_chunks"],
+    "no gate math": GENERAL_EDITS["no_gate_math"],
+    "no hs/cs stores": GENERAL_EDITS["no_stores"],
+    "the exchange alone (no product, Z_x loads, gate math or stores)":
+        _RING_ALONE,
+    "the exchange alone, 8-byte stores":
+        _RING_ALONE + RING_EDITS["push_8_bytes"],
+}
+
+
 def _typed_cluster(lib):
-    """``lib`` (an ``lstm_general_cluster.cu`` library) with its launcher
+    """``lib`` (an ``lstm_general_cluster.cu`` library) with its launchers
     typed."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lstm_general_cluster_fwd.argtypes = ([i32] + [ptr] * 5 + [i32] * 6
                                              + [ptr])
     lib.lstm_general_cluster_fwd.restype = i32
+    lib.lstm_general_ring_fwd.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.lstm_general_ring_fwd.restype = i32
     return lib
 
 
@@ -527,65 +611,116 @@ def _general_case(width, dtype):
     return x.to(dtype), w.to(dtype)
 
 
-def split_general():
+def split_general(only=None):
     """Each variant of the general forward's cluster path, K2 with cs, at T
     = 124, B = 2048, C = H = 160 and 256 in each dtype the plan takes
-    there, at the plan's N and R on this card, and the kernel as it is at
-    every other one-wave (N, R) whose CTA fits."""
+    there (``only``: one (width, dtype name) of them), at the plan's N and
+    R on this card, and the kernel as it is at every other one-wave (N, R)
+    whose CTA fits: GENERAL_VARIANTS, or RING_VARIANTS where the plan is
+    the W_h-ring kernel's (f32 at 256)."""
     import torch
 
     sys.path.insert(0, REPO)
     from remora_tpu_torch.kernels import lstm as K
 
-    _, built = build_variants(GENERAL_SOURCE, GENERAL_VARIANTS,
-                              headers=("mma_sm90.cuh",))
-    stream = torch.cuda.current_stream().cuda_stream
-    libs = {name: (_typed_cluster(ctypes.CDLL(path)), out)
-            for name, (path, out) in built.items()}
     caps = K.cluster_capacity(0)
     print(f"clusters the card holds: {caps}", flush=True)
+    cases = [(width, dtype) for width in (160, 256)
+             for dtype in (torch.float32, torch.bfloat16)
+             if only is None or only == (
+                 width, "bf16" if dtype == torch.bfloat16 else "f32")]
+    rings = {case: (lambda plan: plan is not None and K.general_fwd_cfg(
+        case[0], case[0], case[1], *plan[:2])["ring"])(
+            K.general_fwd_plan(case[0], case[0], case[1], caps))
+             for case in cases}
+    built = {}
+    for ring, variants in ((False, GENERAL_VARIANTS), (True, RING_VARIANTS)):
+        if any(r == ring for r in rings.values()):
+            built[ring] = build_variants(
+                GENERAL_SOURCE, variants,
+                headers=("mma_sm90.cuh", "lstm_prod.cuh"))[1]
+    stream = torch.cuda.current_stream().cuda_stream
     T, B = 124, 2048
-    for width in (160, 256):
-        for dtype, flag in ((torch.float32, 0), (torch.bfloat16, 1)):
-            sfx = "bf16" if flag else "f32"
-            plan = K.general_fwd_plan(width, width, dtype, caps)
-            if plan is None:
-                print(f"general K2 {sfx} C=H={width}: the plan refuses it "
-                      "(streaming path)", flush=True)
+    for width, dtype in cases:
+        flag = int(dtype == torch.bfloat16)
+        sfx = "bf16" if flag else "f32"
+        plan = K.general_fwd_plan(width, width, dtype, caps)
+        if plan is None:
+            print(f"general K2 {sfx} C=H={width}: the plan refuses it "
+                  "(streaming path)", flush=True)
+            continue
+        libs = {name: (_typed_cluster(ctypes.CDLL(path)), out)
+                for name, (path, out) in built[rings[(width, dtype)]].items()}
+        x, w = _general_case(width, dtype)
+        hs = torch.empty((T, B, width), device="cuda", dtype=dtype)
+        cs = torch.empty_like(hs)
+        shapes = [plan[:2]]  # the plan's first, then the other N
+        for n in (2, 4, 8):
+            r = -(-(-(-B // caps[n])) // 32) * 32
+            cfg = K.general_fwd_cfg(width, width, dtype, n, r)
+            if n != plan[0] and cfg is not None and not cfg["ring"]:
+                shapes.append((n, r))
+        for N, R in shapes:
+            cfg = K.general_fwd_cfg(width, width, dtype, N, R)
+            wl = K.general_fwd_weights(w, width, N, cfg["hh"])
+            tag = (f"general K2 {sfx} T={T} C=H={width} N={N} R={R} "
+                   f"({cfg['smem']} B shared, {cfg['slots']} slots, W_x "
+                   f"{'resident' if cfg['resident'] else 'streamed'}"
+                   f"{', W_h through the ring' if cfg['ring'] else ''}"
+                   f"{'' if (N, R) == plan[:2] else '; not the plan'})")
+            if cfg["ring"]:
+                split_ring(libs, x, w, wl, hs, cs, N, R, tag)
                 continue
-            x, w = _general_case(width, dtype)
-            hs = torch.empty((T, B, width), device="cuda", dtype=dtype)
-            cs = torch.empty_like(hs)
-            shapes = [plan[:2]]  # the plan's first, then the other N
-            for n in (2, 4, 8):
-                r = -(-(-(-B // caps[n])) // 32) * 32
-                if n != plan[0] and K.general_fwd_cfg(width, width, dtype, n,
-                                                      r) is not None:
-                    shapes.append((n, r))
-            for N, R in shapes:
-                cfg = K.general_fwd_cfg(width, width, dtype, N, R)
-                wl = K.general_fwd_weights(w, width, N, cfg["hh"])
-                tag = (f"general K2 {sfx} T={T} C=H={width} N={N} R={R} "
-                       f"({cfg['smem']} B shared, {cfg['slots']} slots, W_x "
-                       f"{'resident' if cfg['resident'] else 'streamed'}"
-                       f"{'' if (N, R) == plan[:2] else '; not the plan'})")
-                names = libs if (N, R) == plan[:2] else ["as is"]
-                for name in names:
-                    lib, out = libs[name]
+            names = libs if (N, R) == plan[:2] else ["as is"]
+            for name in names:
+                lib, out = libs[name]
 
-                    def call(lib=lib, name=name):
-                        err = lib.lstm_general_cluster_fwd(
-                            flag, x.data_ptr(), wl.data_ptr(), hs.data_ptr(),
-                            cs.data_ptr(), None, T, B, width, width, N, R,
-                            stream)
-                        if err != 0:
-                            raise SystemExit(f"{name!r}: launch error {err}")
-                    ms = time_ms(call, n=7, calls=3)
-                    kernel = f"cluster_fwd_{sfx}" + (
-                        "_x2" if cfg["ub"] == 2 else "")
-                    regs = ptxas_lines(out, kernel + "_kernelILb0ELb1E")
-                    print(f"{tag} {name}: {ms:.4f} ms ({ms / T * 1e3:.3f} us "
-                          f"a step); {regs}", flush=True)
+                def call(lib=lib, name=name):
+                    err = lib.lstm_general_cluster_fwd(
+                        flag, x.data_ptr(), wl.data_ptr(), hs.data_ptr(),
+                        cs.data_ptr(), None, T, B, width, width, N, R,
+                        stream)
+                    if err != 0:
+                        raise SystemExit(f"{name!r}: launch error {err}")
+                ms = time_ms(call, n=7, calls=3)
+                kernel = f"cluster_fwd_{sfx}" + (
+                    "_x2" if cfg["ub"] == 2 else "")
+                regs = ptxas_lines(out, kernel + "_kernelILb0ELb1E")
+                print(f"{tag} {name}: {ms:.4f} ms ({ms / T * 1e3:.3f} us "
+                      f"a step); {regs}", flush=True)
+
+
+def split_ring(libs, x, w, wl, hs, cs, N, R, tag):
+    """The W_h-ring path's K2 (with cs) by part, ``lstm_general_ring_fwd``:
+    Z_x's product alone, the product and the walk, and each variant's walk
+    alone (on the Z_x the product left)."""
+    import torch
+
+    T, B, C = x.shape
+    H = hs.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    zx = torch.empty((T, B, 4 * H), device="cuda")
+
+    def call(lib, parts, name):
+        def run():
+            err = lib.lstm_general_ring_fwd(
+                x.data_ptr(), w.data_ptr(), wl.data_ptr(), zx.data_ptr(),
+                hs.data_ptr(), cs.data_ptr(), None, T, B, C, H, N, R, parts,
+                stream)
+            if err != 0:
+                raise SystemExit(f"{name!r}, parts {parts}: launch error "
+                                 f"{err}")
+        return run
+
+    for name, (lib, out) in libs.items():
+        prod_ms, both_ms, ms = (time_ms(call(lib, parts, name), n=7, calls=3)
+                                for parts in (1, 3, 2))
+        regs = ptxas_lines(out, "cluster_fwd_f32_whring_kernelILb0ELb1E")
+        prod_regs = ptxas_lines(out, "wide_prod_f32_kernelILNS0_2OpE3E")
+        print(f"{tag} {name}: Z_x's product alone {prod_ms:.4f} ms "
+              f"({prod_regs}); the product and the walk {both_ms:.4f} ms; "
+              f"the walk alone {ms:.4f} ms ({ms / T * 1e3:.3f} us a step; "
+              f"{regs}); Z_x {zx.numel() * 4 / 2**30:.3f} GiB", flush=True)
 
 
 def _typed_general(lib):
@@ -599,16 +734,18 @@ def _typed_general(lib):
     return lib
 
 
-def compare_general(parent_dir):
+def compare_general(parent_dir, only=None):
     """The general K1 and K2 (with cs) in one call, parent / this design /
     this design / parent, beside cuDNN's forward (``torch.nn.LSTM``, all T
     hidden states; a yardstick the port never calls), at T = 124, B = 2048
     and C = H = 160 and 256, f32 and bf16: the parent's ``lstm_general.cu``
     (the streaming ``general_fwd_kernel`` for every shape, on its (C + H +
     1, H, 4) layout) against this checkout's path (the cluster kernel at
-    the plan's N and R on ``general_fwd_weights``' layout, or the streaming
-    kernel where the plan refuses the shape), each library called directly
-    on preallocated buffers and its layout."""
+    the plan's N and R on ``general_fwd_weights``' layout, through
+    ``lstm_general_ring_fwd`` with its Z_x scratch where the plan is the
+    W_h-ring kernel's, or the streaming kernel where the plan refuses the
+    shape), each library called directly on preallocated buffers and its
+    layout; ``only``: one (width, dtype name) of them."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -629,6 +766,8 @@ def compare_general(parent_dir):
         for dtype in (torch.float32, torch.bfloat16):
             flag = int(dtype == torch.bfloat16)
             sfx = "bf16" if flag else "f32"
+            if only is not None and only != (width, sfx):
+                continue
             gen = torch.Generator(device="cuda").manual_seed(width)
             bound = 1.0 / H ** 0.5
             lib_lstm = torch.nn.LSTM(C, H).cuda()
@@ -651,33 +790,45 @@ def compare_general(parent_dir):
                 tag = "stream"
             else:
                 N, R, _ = plan
+                cfg = K.general_fwd_cfg(C, H, dtype, N, R)
                 launchers["change"] = (cluster, K.general_fwd_weights(
-                    w, C, N, K.general_fwd_cfg(C, H, dtype, N, R)["hh"]),
-                    (N, R))
-                tag = f"cluster N={N} R={R}"
+                    w, C, N, cfg["hh"]), (N, R))
+                tag = f"cluster N={N} R={R}" + (
+                    ", W_h through the ring after Z_x's product"
+                    if cfg["ring"] else "")
+            ring = plan is not None and cfg["ring"]
+            zx = (torch.empty((T, B, 4 * H), device="cuda") if ring
+                  else None)
             outs = {}
             for name, (lib, wl, nr) in launchers.items():
                 hs = torch.empty((T, B, H), device="cuda", dtype=dtype)
                 cs = torch.empty_like(hs)
                 last = torch.empty((B, H), device="cuda", dtype=dtype)
 
+                def run(lib, wl, nr, hs, cs, last):
+                    if nr is None:
+                        return (lib.lstm_general_fwd(
+                            flag, x.data_ptr(), wl.data_ptr(), hs, cs, T, B,
+                            C, H, stream) if last is None
+                            else lib.lstm_general_last(
+                                flag, x.data_ptr(), wl.data_ptr(), last, T,
+                                B, C, H, stream))
+                    if ring:
+                        return lib.lstm_general_ring_fwd(
+                            x.data_ptr(), w.data_ptr(), wl.data_ptr(),
+                            zx.data_ptr(), hs, cs, last, T, B, C, H, *nr, 3,
+                            stream)
+                    return lib.lstm_general_cluster_fwd(
+                        flag, x.data_ptr(), wl.data_ptr(), hs, cs, last, T,
+                        B, C, H, *nr, stream)
+
                 def k2(lib=lib, wl=wl, nr=nr, hs=hs, cs=cs):
-                    err = (lib.lstm_general_fwd(
-                        flag, x.data_ptr(), wl.data_ptr(), hs.data_ptr(),
-                        cs.data_ptr(), T, B, C, H, stream) if nr is None
-                        else lib.lstm_general_cluster_fwd(
-                            flag, x.data_ptr(), wl.data_ptr(), hs.data_ptr(),
-                            cs.data_ptr(), None, T, B, C, H, *nr, stream))
+                    err = run(lib, wl, nr, hs.data_ptr(), cs.data_ptr(), None)
                     if err != 0:
                         raise SystemExit(f"launch error {err}")
 
                 def k1(lib=lib, wl=wl, nr=nr, last=last):
-                    err = (lib.lstm_general_last(
-                        flag, x.data_ptr(), wl.data_ptr(), last.data_ptr(),
-                        T, B, C, H, stream) if nr is None
-                        else lib.lstm_general_cluster_fwd(
-                            flag, x.data_ptr(), wl.data_ptr(), None, None,
-                            last.data_ptr(), T, B, C, H, *nr, stream))
+                    err = run(lib, wl, nr, None, None, last.data_ptr())
                     if err != 0:
                         raise SystemExit(f"launch error {err}")
                 outs[name] = k1, k2, hs, cs, last
@@ -916,8 +1067,13 @@ def main():
         compare_general(args[1])
         print(smi_line())
         return 0
+    if args[:1] == ["--compare-general"]:
+        compare_general(args[1], (int(args[2]), args[3]) if len(args) == 4
+                        else None)
+        print(smi_line())
+        return 0
     if args[:1] == ["--general"]:
-        split_general()
+        split_general((int(args[1]), args[2]) if len(args) == 3 else None)
         print(smi_line())
         return 0
     if args[:1] == ["--wide"]:

@@ -38,16 +38,17 @@ printed):
    ``general_rec_kernel``; the recurrence alone also held to its plain
    twin on the same Z and timed) at T=124, B=2048 and C=H=160 (the shape
    6g gives it; these records take 6g's launches into the kernels line)
-   and C=H=256 (a line of its own; f32 K1/K2 there, which the plan
-   refuses, run the streaming path, and their records and the row-group
-   K3's take 6g's size-256 leg's launches), K1, K2 (with and without cs)
-   and K3 in both dtypes against their plain versions, each repeated bit
-   for bit, with times beside the parent design's
+   and C=H=256 (a line of its own; f32 K1/K2 there run the W_h-ring
+   kernel, ``cluster_fwd_f32_whring_kernel``, and their records and the
+   row-group K3's take 6g's size-256 leg's launches), K1, K2 (with and
+   without cs) and K3 in both dtypes against their plain versions, each
+   repeated bit for bit, with times beside the parent design's
    (``PARENT_GENERAL_MS``), bounds, chains, ``torch.nn.LSTM`` times, the
    path, cluster size, rows, passes and row groups, registers and spills,
-   the card's cluster capacity, and K3 by part; and K3 f32 at C=H=512
-   (T=16), which every cluster plan refuses, on the streaming
-   ``general_rec_kernel`` against its plain version (its record takes
+   the card's cluster capacity, and K3 by part; and K1, K2 (with and
+   without cs) and K3 f32 at C=H=512 (T=16), which every cluster plan
+   refuses, on the streaming ``general_fwd_kernel`` and
+   ``general_rec_kernel`` against their plain versions (their records take
    6g's size-512 leg's launches);
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
@@ -123,11 +124,12 @@ printed):
    general leg (K2/K3 once a step, K1 once a batch; K1-K3 on the cluster
    paths, none streamed), held to the same handle and step with
    ``REMORA_TPU_LSTM=scan``, and K6's product paths at size 160's block
-   shapes (merge_conv1 320 -> 160); then size 256 in f32, whose K1/K2 the
-   plan refuses: one train step and one served batch, K1/K2 on the
-   streaming path once each, K3 once on the row-group cluster path,
-   logits held to the scan; then size 512 in f32, one train step of 512
-   chunks, K2 and K3 once each on the streaming paths; (6f) data-parallel
+   shapes (merge_conv1 320 -> 160); then size 256 in f32: one train step
+   and one served batch, K1/K2 once each on the cluster path's W_h-ring
+   kernel, K3 once on the row-group cluster path, none streamed, logits
+   held to the scan; then size 512 in f32, which every cluster plan
+   refuses, one train step of 512 chunks, K2 and K3 once each and K1 (its
+   validation) on the streaming paths; (6f) data-parallel
    training, the launch and all-reduce counts set to 0 first: (a)
    ``train_model`` over
    a one-rank NCCL group on cuda:0, 4 steps of 2048 (SGD), K2/K3 once a
@@ -440,6 +442,19 @@ def lstm_chain_instrs(kind, C, H):
         # f c + i g (FMUL, FFMA) -> tanh(c) -> h = o tanh(c) -> cluster BAR
         # (wait A) -> st.shared::cluster h -> cluster BAR (arrive B)
         return 1 + 1 + H + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 + 1 + 1
+    if kind == "general_fwd_ring":
+        # K1/K2 general f32, the W_h-ring path (lstm_general_cluster.cu::
+        # cluster_fwd_f32_whring_kernel; x_t . W_x + b from Z_x, loaded
+        # while h_t crosses; W_h's chunks through the ring): cluster BAR
+        # (wait B) -> per chunk of CLUSTER_RING_CHUNK k (a CTA BAR -> LDS
+        # h_{t-1} and the chunk's W_h -> its FFMA into one accumulator a
+        # gate) -> the gates' activations -> c = f c + i g (FMUL, FFMA) ->
+        # tanh(c) -> h = o tanh(c) -> SHFL (the pair trade) -> cluster BAR
+        # (wait A) -> st.shared::cluster h -> cluster BAR (arrive B)
+        from remora_tpu_torch.kernels import lstm as K
+
+        return 1 + -(-H // K.CLUSTER_RING_CHUNK) * 2 + H + ACT_CHAIN + 2 \
+            + ACT_CHAIN + 1 + 1 + 1 + 1 + 1
     if kind == "general_fwd_mma":
         # K1/K2 general bf16, the cluster path (cluster_fwd_bf16_kernel):
         # cluster BAR (wait B) -> LDSM h_{t-1} -> ceil(H / 16) dependent
@@ -540,6 +555,10 @@ def lstm_kernel_of(leg, dtype, C, H):
     sfx = "bf16" if bf16 else "f32"
     kind = K.route(leg, dtype, C, H)
     if kind == "general" and leg != "bwd":
+        if general_fwd_ring(dtype, C, H):
+            return (f"lstm_{leg}_general_whring_{sfx}",
+                    "remora_tpu_torch/csrc/lstm_general_cluster.cu",
+                    "general_fwd_ring")
         if general_path(dtype, C, H) == "cluster":
             return (f"lstm_{leg}_general_cluster_{sfx}",
                     "remora_tpu_torch/csrc/lstm_general_cluster.cu",
@@ -584,6 +603,16 @@ def general_path(dtype, C, H, leg="fwd"):
 
     path = K.general_bwd_path if leg == "bwd" else K.general_fwd_path
     return path(dtype, C, H, K.cluster_capacity(0))
+
+
+def general_fwd_ring(dtype, C, H):
+    """Whether the general K1/K2's cluster plan on this card is the f32
+    W_h-ring path (``cluster_fwd_f32_whring_kernel``)."""
+    from remora_tpu_torch.kernels import lstm as K
+
+    plan = K.general_fwd_plan(C, H, dtype, K.cluster_capacity(0))
+    return plan is not None and K.general_fwd_cfg(C, H, dtype,
+                                                  *plan[:2])["ring"]
 
 
 def path_fields(leg, dtype, C, H):
@@ -1113,15 +1142,17 @@ def check_lstm_wide():
 def check_lstm_general_compile():
     """The general LSTM leg's kernels (lstm_general.cu: its forward and
     recurrence, and lstm_prod.cuh's products and the ordered dW sum it
-    launches; lstm_general_cluster.cu's forwards;
+    launches; lstm_general_cluster.cu's forwards and the W_h-ring path's
+    Z_x product;
     lstm_general_rec_cluster.cu's recurrence and the products again), each
     instantiation: registers logged, no spill."""
     check_compile("lstm_general", "general K1-K3", (
         "general_fwd_kernel", "general_rec_kernel", "wide_prod_f32_kernel",
         "wide_prod_bf16_kernel", "ordered_sum"))
     check_compile("lstm_general_cluster", "general K1/K2 cluster", (
-        "cluster_fwd_f32_kernel", "cluster_fwd_bf16_x2_kernel",
-        "cluster_fwd_bf16_kernel"))
+        "cluster_fwd_f32_whring_kernel", "cluster_fwd_f32_kernel",
+        "cluster_fwd_bf16_x2_kernel", "cluster_fwd_bf16_kernel",
+        "wide_prod_f32_kernel"))
     check_compile("lstm_general_rec_cluster", "general K3 cluster", (
         "general_rec_cluster_kernel", "general_rec_group_kernel",
         "wide_prod_f32_kernel",
@@ -1293,23 +1324,126 @@ def check_general_stream_k3():
     }, chain_ms)
 
 
+def check_general_stream_fwd():
+    """Phase 3e's streaming K1/K2 (``lstm_general.cu::general_fwd_kernel``):
+    f32 at T = GENERAL_STREAM_T, B = BATCH and C = H = GENERAL_STREAM, a
+    shape ``general_fwd_plan`` refuses. K1's h_(T-1), K2's hs and cs (with
+    and without cs) within 1e-5 abs of the plain versions, each repeated
+    bit for bit, and K2's hs the same without cs; launched on the
+    streaming path alone; timed beside their bound, chain, plain versions
+    and cuDNN's forward (TF32 off). Returns their kernel records (K1, K2;
+    launches from 6g's size-GENERAL_STREAM leg)."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import full_f32
+    from remora_tpu_torch.kernels import lstm as K
+
+    dtype = torch.float32
+    C = H = GENERAL_STREAM
+    params, x = lstm_case(dtype, T=GENERAL_STREAM_T, C=C, H=H, seed=7)
+    T, B, _ = x.shape
+    w_aug = K.make_w_aug(params, dtype)
+    names = [lstm_kernel_of(leg, dtype, C, H) for leg in ("last", "fwd")]
+    check([n[0] for n in names] == ["lstm_last_general_stream_f32",
+                                    "lstm_fwd_general_stream_f32"],
+          f"phase 3e: K1/K2 at f32 C=H={C} are {names}, not the stream")
+    with full_f32():
+        paths = dict(K.LAUNCHES_GENERAL_FWD)
+        last = K.lstm_last(params, x)
+        hs, cs = K.lstm_fwd(x, w_aug)
+        hs_nocs, _ = K.lstm_fwd(x, w_aug, want_cs=False)
+        ran = {k: K.LAUNCHES_GENERAL_FWD[k] - paths[k] for k in paths}
+        last_ref = K.lstm_last_reference(params, x)
+        hs_ref, cs_ref = K.lstm_fwd_reference(x, w_aug)
+        again = (K.lstm_last(params, x), *K.lstm_fwd(x, w_aug))
+        torch.cuda.synchronize()
+        errs = {name: (a - b).abs().max().item()
+                for name, a, b in (("h_(T-1)", last, last_ref),
+                                   ("hs", hs, hs_ref), ("cs", cs, cs_ref))}
+        log(f"general K1/K2 f32 C=H={C} T={T}: max |d| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (tolerance 1e-5); K1/K2 launches by path {ran}")
+        check(ran == {"cluster": 0, "stream": 3},
+              f"phase 3e: K1/K2 at f32 C=H={C} ran {ran}, not the stream")
+        for k, v in errs.items():
+            check(np.isfinite(v) and v <= 1e-5,
+                  f"general K1/K2 f32 C=H={C}: {k} disagrees ({v:.3e} > "
+                  "1e-5)")
+        check(all(torch.equal(a, b) for a, b in zip(again, (last, hs, cs)))
+              and torch.equal(hs_nocs, hs),
+              f"general K1/K2 f32 C=H={C}: a second call gave other bits, "
+              "or hs without cs differs")
+        ms = {"last": time_ms(lambda: K.lstm_last(params, x),
+                              n=GENERAL_TIMED),
+              "fwd": time_ms(lambda: K.lstm_fwd(x, w_aug), n=GENERAL_TIMED)}
+        nocs_ms = time_ms(lambda: K.lstm_fwd(x, w_aug, want_cs=False),
+                          n=GENERAL_TIMED)
+        plain = {"last": time_ms(lambda: K.lstm_last_reference(params, x),
+                                 n=3, calls=1),
+                 "fwd": time_ms(lambda: K.lstm_fwd_reference(x, w_aug), n=3,
+                                calls=1)}
+        # the yardstick only: cuDNN's forward, all T hidden states
+        lib_lstm = torch.nn.LSTM(C, H).cuda()
+        with torch.no_grad():
+            lib_lstm.weight_ih_l0.copy_(params["w_ih"])
+            lib_lstm.weight_hh_l0.copy_(params["w_hh"])
+            lib_lstm.bias_ih_l0.copy_(params["b_ih"])
+            lib_lstm.bias_hh_l0.copy_(params["b_hh"])
+        lib_lstm.flatten_parameters()
+        with torch.no_grad():
+            lib_ms = time_ms(lambda: lib_lstm(x), n=GENERAL_TIMED)
+    flops = 2.0 * T * B * (C + H) * 4 * H
+    w_bytes = (C + H + 1) * 4 * H * 4
+    records = []
+    for (name, source, chain), leg, err, replaces, io_bytes in (
+            (*names[:1], "last", errs["h_(T-1)"],
+             "remora_tpu/kernels/pallas_lstm.py:181",
+             (T * B * C + B * H) * 4 + w_bytes),
+            (*names[1:], "fwd", max(errs["hs"], errs["cs"]),
+             "remora_tpu/kernels/pallas_lstm.py:137",
+             (T * B * C + 2 * T * B * H) * 4 + w_bytes)):
+        bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
+        chain_ms = lstm_chain_bound_ms(chain, T, C, H)
+        log(f"{name} C=H={C} T={T}: kernel {ms[leg]:.4f} ms, plain "
+            f"{plain[leg]:.4f} ms, torch.nn.LSTM forward {lib_ms:.4f} ms "
+            f"(TF32 off), bound {bound_ms:.4f} ms ({bound_by}), chain "
+            f"{chain_ms:.4f} ms")
+        records.append(with_chain({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": None,
+            "max_abs_err": err,
+            "ms": ms[leg],
+            "plain_ms": plain[leg],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": lib_ms,
+            "shape": {"T": T, "B": B, "C": C, "H": H},
+            **path_fields(leg, dtype, C, H),
+        }, chain_ms))
+    records[1]["nocs_ms"] = nocs_ms
+    return records
+
+
 def check_lstm_general():
     """Phase 3e: K1, K2 (with and without cs) and K3 on the general leg
     against their plain versions, each dtype, at T = 124, B = BATCH and C =
     H = GENERAL_SIZE (the shape phase 6g's model path gives them) and at C
-    = H = GENERAL; K1/K2 on the cluster path (``lstm_general_cluster.cu``)
-    where ``general_fwd_plan`` takes the shape (bf16 at both, f32 at
-    GENERAL_SIZE) and on the streaming path (``lstm_general.cu``) where it
-    refuses it (f32 at GENERAL); K3 on the cluster path at both (f32 at
-    GENERAL in row groups), and on the streaming path at f32 GENERAL_STREAM
-    (``check_general_stream_k3``); each repeated bit for bit, timed beside
+    = H = GENERAL; K1/K2 on the cluster path (``lstm_general_cluster.cu``;
+    f32 at GENERAL on its W_h-ring kernel), K3 on the cluster path (f32 at
+    GENERAL in row groups); the streaming paths (``lstm_general.cu``) at
+    f32 GENERAL_STREAM, which every plan refuses (K1/K2 at
+    GENERAL_STREAM_T steps, ``check_general_stream_fwd``; K3,
+    ``check_general_stream_k3``); each repeated bit for bit, timed beside
     its bound, its chain, its plain version, ``torch.nn.LSTM`` and the
     parent design (PARENT_GENERAL_MS). The GENERAL records are logged as a
     line of their own; returns the GENERAL_SIZE records (K1, K2, K3) by
     dtype, which take 6g's launches into the kernels line, and f32 at
-    GENERAL's (the streaming K1, K2 and the row-group K3, which take 6g's
-    size-GENERAL leg's) with the streaming K3 (6g's size-GENERAL_STREAM
-    leg's)."""
+    GENERAL's (the W_h-ring K1, K2 and the row-group K3, which take 6g's
+    size-GENERAL leg's) with the streaming K1, K2 and K3 (6g's
+    size-GENERAL_STREAM leg's)."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -1354,11 +1488,11 @@ def check_lstm_general():
                           "recurrence": rec.get("recurrence")}
             for recs in records[width].values() for rec in recs}
         for width in (GENERAL_SIZE, GENERAL)}}))
-    stream = [rec for rec in records[GENERAL][torch.float32]
-              if rec.get("path") == "stream"]
-    check(len(stream) == 2, f"phase 3e: the streaming paths ran "
-          f"{[rec['name'] for rec in stream]} at f32 C=H={GENERAL}, not "
-          "K1 and K2")
+    ring = [rec["name"] for rec in records[GENERAL][torch.float32][:2]]
+    check(ring == ["lstm_last_general_whring_f32",
+                   "lstm_fwd_general_whring_f32"],
+          f"phase 3e: K1/K2 at f32 C=H={GENERAL} are {ring}, not the W_h-ring "
+          "kernel")
     groups = records[GENERAL][torch.float32][2]
     check(groups["name"] == "lstm_bwd_general_groups_f32"
           and groups["row_groups"] > 1,
@@ -1366,22 +1500,21 @@ def check_lstm_general():
           f"{groups.get('row_groups')} row groups")
     for width in (GENERAL_SIZE, GENERAL):
         for dtype, recs in records[width].items():
-            # every leg on its cluster path but K1/K2 f32 at GENERAL
-            # (they stream)
-            for i, rec in enumerate(recs):
-                want = ("stream" if dtype == torch.float32
-                        and width == GENERAL and i < 2 else "cluster")
-                check(rec.get("path") == want,
+            # every leg on its cluster path
+            for rec in recs:
+                check(rec.get("path") == "cluster",
                       f"phase 3e: {rec['name']} at C=H={width} is not on "
-                      f"the {want} path")
+                      "the cluster path")
             check(recs[2]["recurrence"]["path"] == "cluster",
                   f"phase 3e: the {dtype} recurrence at C=H={width} ran "
                   f"the {recs[2]['recurrence']['path']} path")
+    stream_fwd = check_general_stream_fwd()
     stream_k3 = check_general_stream_k3()
-    log(json.dumps({f"general_k3_stream_at_{GENERAL_STREAM}": stream_k3}))
+    log(json.dumps({f"general_stream_at_{GENERAL_STREAM}": [*stream_fwd,
+                                                            stream_k3]}))
     log(f"phase 3e wall {time.monotonic() - t0:.1f} s")
     return records[GENERAL_SIZE], [*records[GENERAL][torch.float32],
-                                   stream_k3]
+                                   *stream_fwd, stream_k3]
 
 
 def profile_serve(handle, arrs, tag, n_walls=5):
@@ -1429,21 +1562,22 @@ def lstm_mode(mode):
             os.environ["REMORA_TPU_LSTM"] = old
 
 
-def general_stream_leg(root, config, records):
+def general_ring_leg(root, config, records):
     """Phase 6g's size-GENERAL leg: ConvLSTM_w_ref at size GENERAL in f32,
-    the shape ``general_fwd_plan`` refuses, so its K1/K2 run the streaming
-    ``general_fwd_kernel`` on the model path: ``train_model`` for one step
-    (K2 there once, K3 once on the cluster path's row groups), then its
-    checkpoint through ``ModelHandle.load`` for one batch (K1 once), logits
-    finite and held to the same handle with REMORA_TPU_LSTM=scan; no
-    cluster launch of K1/K2; then ``general_k3_stream_leg``. Sets the
-    records' launches (K1, K2, K3 here, the streaming K3 there)."""
+    whose K1/K2 run the cluster path's W_h-ring kernel
+    (``cluster_fwd_f32_whring_kernel``) on the model path: ``train_model``
+    for one step (K2 there once, K3 once on the cluster path's row
+    groups), then its checkpoint through ``ModelHandle.load`` for one
+    batch (K1 once), logits finite and held to the same handle with
+    REMORA_TPU_LSTM=scan; no launch of K1/K2 streams; then
+    ``general_k3_stream_leg``. Sets the records' launches (K1, K2, K3
+    here, the streaming K1, K2 and K3 there)."""
     from remora_tpu_torch.infer.infer import ModelHandle
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.train import optim
     from remora_tpu_torch.train.train import train_model
 
-    tag = f"general_stream_size{GENERAL}_f32"
+    tag = f"general_whring_size{GENERAL}_f32"
     out = os.path.join(root, tag)
     counts, paths = K.LAUNCHES_GENERAL, K.LAUNCHES_GENERAL_FWD
     bwd_paths = K.LAUNCHES_GENERAL_BWD
@@ -1463,7 +1597,7 @@ def general_stream_leg(root, config, records):
         f"general launches {train_launches}, K1/K2 by path {train_paths}, "
         f"K3 by path {train_bwd_paths}")
     check(train_launches["fwd"] == train_launches["bwd"] == 1
-          and train_paths["cluster"] == 0 and train_paths["stream"] >= 1
+          and train_paths["stream"] == 0 and train_paths["cluster"] >= 1
           and train_bwd_paths == {"cluster": 1, "stream": 0},
           f"{tag}: launches {train_launches}, K1/K2 by path {train_paths}, "
           f"K3 by path {train_bwd_paths}")
@@ -1473,29 +1607,30 @@ def general_stream_leg(root, config, records):
         d.update(dict.fromkeys(d, 0))
     logits = handle.eval_raw(*arrs).cpu().numpy()
     last = counts["last"]
-    check(last == 1 and paths == {"cluster": 0, "stream": 1},
+    check(last == 1 and paths == {"cluster": 1, "stream": 0},
           f"{tag}: one batch launched K1 {last} times, by path {paths}")
     with lstm_mode("scan"):
         plain = handle.eval_raw(*arrs).cpu().numpy()
     err = float(np.abs(logits - plain).max())
-    log(f"{tag}: ModelHandle batch of {BATCH} on the streaming K1: max "
+    log(f"{tag}: ModelHandle batch of {BATCH} on the W_h-ring K1: max "
         f"|logit - REMORA_TPU_LSTM=scan logit| {err:.3e} (tolerance 1e-4)")
     check(np.isfinite(logits).all() and err <= 1e-4,
           f"{tag}: logits disagree with the scan ({err:.3e})")
-    k1, k2, k3, stream_k3 = records
+    k1, k2, k3, *stream_records = records
     k1["launches"] = last
     k2["launches"] = train_launches["fwd"]
     k3["launches"] = train_launches["bwd"]
-    general_k3_stream_leg(root, config, stream_k3)
+    general_k3_stream_leg(root, config, stream_records)
 
 
-def general_k3_stream_leg(root, config, record):
+def general_k3_stream_leg(root, config, records):
     """Phase 6g's size-GENERAL_STREAM leg: ConvLSTM_w_ref at size
-    GENERAL_STREAM in f32, whose K3 ``general_rec_plan`` refuses, so it
-    runs the streaming ``general_rec_kernel`` on the model path:
-    ``train_model`` for one step of GENERAL_STREAM_BATCH chunks, K2 and K3
-    once each on their streaming paths, finite losses. Sets the streaming
-    K3 record's launches."""
+    GENERAL_STREAM in f32, which every cluster plan refuses, so it runs
+    the streaming ``general_fwd_kernel`` and ``general_rec_kernel`` on the
+    model path: ``train_model`` for one step of GENERAL_STREAM_BATCH
+    chunks, K2 and K3 once each and K1 (its validation) at least once, all
+    on the streaming paths, finite losses. Sets the streaming K1, K2 and K3
+    records' launches."""
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.train import optim
     from remora_tpu_torch.train.train import train_model
@@ -1524,14 +1659,16 @@ def general_k3_stream_leg(root, config, record):
         f"{time.monotonic() - t0:.1f} s; general launches {launches}, "
         f"K1/K2 by path {fwd_paths}, K3 by path {k3_paths}; losses "
         f"{losses}")
-    check(launches["fwd"] == launches["bwd"] == 1
-          and fwd_paths["cluster"] == 0
+    check(launches["fwd"] == launches["bwd"] == 1 and launches["last"] >= 1
+          and fwd_paths == {"cluster": 0,
+                            "stream": launches["fwd"] + launches["last"]}
           and k3_paths == {"cluster": 0, "stream": 1},
           f"{tag}: launches {launches}, K1/K2 by path {fwd_paths}, K3 by "
           f"path {k3_paths}")
     check(len(losses) == 1 and np.isfinite(losses).all(),
           f"{tag}: batch.log losses {losses}")
-    record["launches"] = launches["bwd"]
+    for rec, leg in zip(records, ("last", "fwd", "bwd")):
+        rec["launches"] = launches[leg]
 
 
 def model_path_leg(root, config, records, kind, stream_records=None):
@@ -1547,7 +1684,8 @@ def model_path_leg(root, config, records, kind, stream_records=None):
     leg (K1/K2 on the cluster path, ``lstm_general_cluster.cu``, K3's
     recurrence on ``lstm_general_rec_cluster.cu``'s: no launch streams),
     held to the same handle and step with REMORA_TPU_LSTM=scan,
-    then ``general_stream_leg`` (size GENERAL f32, the streaming path;
+    then ``general_ring_leg`` (size GENERAL f32, K1/K2 on the W_h-ring
+    kernel, and size GENERAL_STREAM on the streaming paths;
     ``stream_records``). Sets the records' launches from the train and
     serve runs."""
     import torch
@@ -1649,7 +1787,7 @@ def model_path_leg(root, config, records, kind, stream_records=None):
                 os.path.join(out, "model_final.checkpoint"), kind=kind)
     if general:
         check_convbn_products(size)
-        general_stream_leg(root, config, stream_records)
+        general_ring_leg(root, config, stream_records)
     log(f"phase {'6g' if general else '6e'} wall "
         f"{time.monotonic() - t_phase:.1f} s")
 

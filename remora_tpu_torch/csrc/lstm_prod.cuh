@@ -2,7 +2,9 @@
 // that run them as launches of their own (lstm_wide_bwd.cu at C, H <= 128,
 // lstm_general.cu above), f32 and bf16, sm_90a:
 //   (a) the gate recompute Z = [x_t ; h_{t-1}] . W_aug[:C+H] + b for every
-//       (t, row) at once, f32;
+//       (t, row) at once, f32; its x part alone, Z_x = x_t . W_x + b (op
+//       kGatesX, f32), is the general forward's W_h-ring path's
+//       (lstm_general_cluster.cu);
 //   (c) dx = dgates . W_x^T, rounded once, and dW_aug = [x ; h_{t-1}]^T .
 //       dgates over fixed chunks of kDwChunkRows rows into f32 partials (the
 //       bias row, the dgates column sums, taken by the chunk's first row
@@ -65,7 +67,7 @@ constexpr int kDwChunkRows = 2048;  // dW's K rows a chunk
 constexpr int kStages = 3;          // the cp.async ring
 constexpr int kTile = 128;          // the largest tile side
 
-enum Op { kGates, kDx, kDw };
+enum Op { kGates, kDx, kDw, kGatesX };
 
 template <typename T>
 struct Prod {
@@ -154,7 +156,7 @@ __device__ __forceinline__ void prod_k(const Prod<T>& p, long long* k0,
     *k1 = min(p.TB, *k0 + kDwChunkRows);
   } else {
     *k0 = 0;
-    *k1 = op == kGates ? p.C + p.H : 4 * p.H;
+    *k1 = op == kGates ? p.C + p.H : op == kGatesX ? p.C : 4 * p.H;
   }
 }
 
@@ -168,7 +170,11 @@ __device__ __forceinline__ void stage_ab(T* as, int lda, T* bs, int ldb,
                                          bool vec) {
   const int nk = (int)min((long long)kBK, k1 - kb);
   const int G = 4 * p.H;
-  if (op == kGates) {
+  if constexpr (op == kGatesX) {
+    // x (TB, C) alone: A's columns and W's rows past C are zero
+    stage<false>(as, lda, p, p.x, p.TB, p.C, m0, kBM, (int)kb, kBK, vec);
+    stage<false>(bs, ldb, p, p.w, p.C, G, kb, kBK, n0, kBN, vec);
+  } else if (op == kGates) {
     // A: k columns past nk read [x ; h]'s next columns or zeros; W's rows
     // past C + H are zero, so they add nothing
     stage<true>(as, lda, p, (const T*)nullptr, 0, 0, m0, kBM, (int)kb, kBK,
@@ -204,10 +210,14 @@ __device__ __forceinline__ void column_sums(const T* bs, int ldb, float* sum) {
 
 // f32: thread (tm, tn) owns rows 2 tm + 32 c + {0, 1} (c < MC) and columns
 // 2 tn + 32 c + {0, 1} (c < NC) of the (32 MC) x (32 NC) tile.
-// Two blocks an SM (128 registers) but for dx's full 128-column tile, whose
-// 8 x 8 thread tile needs more and runs one block an SM unspilled.
+// Two blocks an SM (128 registers) but for dx's and Z_x's full 128-column
+// tiles, whose 8 x 8 thread tile needs more and runs one block an SM
+// unspilled (Z_x's spilled 28 bytes at two: 3.70 ms against 3.78 at one,
+// C = H = 256, T = 124, B = 2048 on an H100).
 template <Op op, int MC, int NC>
-__global__ void __launch_bounds__(kThreads, op == kDx && NC == 4 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads,
+                                  (op == kDx || op == kGatesX) && NC == 4 ? 1
+                                                                          : 2)
     wide_prod_f32_kernel(Prod<float> p) {
   constexpr int kBM = 32 * MC, kBN = 32 * NC, kBK = 32;
   constexpr bool kAkm = op == kDw;  // A staged [k][m]
@@ -326,7 +336,9 @@ __global__ void __launch_bounds__(kThreads, op == kDx && NC == 4 ? 1 : 2)
     for (int e = 0; e < 2; ++e) {
       const int n = n0 + 2 * tn + 32 * c + e;
       bias[2 * c + e] =
-          op == kGates && n < N ? p.w[(long long)(p.C + p.H) * G + n] : 0.f;
+          (op == kGates || op == kGatesX) && n < N
+              ? p.w[(long long)(p.C + p.H) * G + n]
+              : 0.f;
     }
 #pragma unroll
   for (int ci = 0; ci < MC; ++ci)
@@ -346,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, op == kDx && NC == 4 ? 1 : 2)
           if (n + 1 < N) out[n + 1] = v1;
           continue;
         }
-        float* out = op == kGates
+        float* out = op == kGates || op == kGatesX
                          ? p.z + m * G
                          : p.partials +
                                ((long long)blockIdx.z * (p.C + p.H + 1) + m) *

@@ -31,9 +31,12 @@ launch (``general_fwd_plan``, ``general_fwd_path``): the cluster path,
 4 or 8 CTAs over R rows that run the batch in one wave and fit a CTA
 (bf16 at sizes 160 and 256, f32 at 160): each CTA keeps its units' slice
 of W_h on chip, h_t crosses the cluster through distributed shared
-memory, x_t . W_x runs off the chain, bf16 on the tensor cores; and the
-streaming path, ``csrc/lstm_general.cu``'s ``general_fwd_kernel``, for
-every shape the plan refuses (f32 at 256, every shape at 1024): one block
+memory, x_t . W_x runs off the chain, bf16 on the tensor cores (f32 at
+193-256, where no such CTA fits, keeps the h tile instead and streams
+W_h's slice through a ring, after one product of x_t . W_x + b over all
+T, ``general_fwd_ring_cfg``); and the streaming path,
+``csrc/lstm_general.cu``'s ``general_fwd_kernel``, for every shape the
+plan refuses (f32 past 256, every shape at 1024): one block
 per 8 batch rows walks time with h and c in shared memory and W read
 through L2 each step. K3 there runs ``csrc/lstm_prod.cuh``'s gate
 recompute and products (the wide K3's) around a reverse recurrence on one
@@ -120,6 +123,12 @@ CLUSTER_MAX_THREADS = {torch.bfloat16: 512, torch.float32: 480}
 CLUSTER_MAX_THREADS_X2 = 320  # bf16 warps of two unit blocks
 CLUSTER_MAX_SLOTS = 16
 CLUSTER_CHUNK = 16
+# its W_h-ring path (``cluster_fwd_f32_whring_kernel``, f32 where no CTA of
+# the kernels above fits): warps of 48 rows and 8 units, threads a CTA at
+# most (168 registers a thread), W_h's k a ring slot holds
+CLUSTER_RING_ROWS = 48
+CLUSTER_RING_MAX_THREADS = 384
+CLUSTER_RING_CHUNK = 64
 GENERAL_FWD_PLAN_BATCH = 2048
 # clusters of N CTAs an H100 80GB HBM3 (132 SMs) holds at once, one CTA an
 # SM (``lstm_general_cluster_capacity``): its GPCs' SMs split into clusters
@@ -330,6 +339,35 @@ def _ceil(a, b):
     return -(-a // b)
 
 
+def general_fwd_ring_cfg(C, H, N, R):
+    """The W_h-ring path's launch shape (``lstm_general_cluster.cu``'s
+    ``make_ring_cfg``, f32): clusters of N CTAs over R rows, a multiple of
+    CLUSTER_RING_ROWS; the [R][H] f32 h tile (H rounded up to 8, plus 4)
+    and S ring slots of W_h's chunk of CLUSTER_RING_CHUNK k
+    ([CLUSTER_RING_CHUNK][4hh] f32; x_t . W_x + b is a product of its own
+    before the walk). The same dict as
+    ``general_fwd_cfg``'s (``ub`` 1, never ``resident``) with ``ring``
+    True, or None where it does not fit one CTA."""
+    if not (1 <= C <= GENERAL_MAX_C and 1 <= H <= GENERAL_MAX_H):
+        return None
+    if N not in (2, 4, 8) or R < CLUSTER_RING_ROWS or R % CLUSTER_RING_ROWS:
+        return None
+    hh = _ceil(_ceil(H, N), 8) * 8
+    threads = 32 * (hh // 8) * (R // CLUSTER_RING_ROWS)
+    if threads > CLUSTER_RING_MAX_THREADS:
+        return None
+    G, C16 = 4 * hh, CLUSTER_CHUNK * _ceil(C, CLUSTER_CHUNK)
+    kh = _ceil(H, 8) * 8
+    w_off = R * (kh + 4) * 4
+    slot = CLUSTER_RING_CHUNK * G * 4
+    if w_off + 2 * slot > CLUSTER_SMEM_MAX:
+        return None
+    slots = min((CLUSTER_SMEM_MAX - w_off) // slot, CLUSTER_MAX_SLOTS)
+    return {"hh": hh, "ub": 1, "threads": threads, "slots": slots,
+            "resident": False, "smem": w_off + slots * slot,
+            "layout": N * G * (C16 + kh + 1), "ring": True}
+
+
 def general_fwd_cfg(C, H, dtype, N, R):
     """``lstm_general_cluster.cu``'s launch shape for clusters of N CTAs over
     R rows (its ``make_cfg``; the card's ``lstm_general_cluster_cfg`` gives
@@ -340,8 +378,18 @@ def general_fwd_cfg(C, H, dtype, N, R):
     slice and a step's x tile fit in shared memory beside W_h's slice and
     the h tile), ``slots`` (else the x / W_x ring's k16 chunks; 0 when
     resident), ``smem`` (bytes) and ``layout`` (elements of
-    ``general_fwd_weights``), or None where the shape does not fit one
-    CTA."""
+    ``general_fwd_weights``) and ``ring`` (False), or None where the shape
+    does not fit one CTA. ``general_fwd_cfg`` is what the library launches
+    at (N, R): this shape where it fits, else in f32 the W_h-ring path's
+    (``general_fwd_ring_cfg``)."""
+    cfg = _general_fwd_tile_cfg(C, H, dtype, N, R)
+    if cfg is None and dtype == torch.float32:
+        return general_fwd_ring_cfg(C, H, N, R)
+    return cfg
+
+
+def _general_fwd_tile_cfg(C, H, dtype, N, R):
+    """``general_fwd_cfg`` of the kernels of ``make_cfg``, or None."""
     if not (1 <= C <= GENERAL_MAX_C and 1 <= H <= GENERAL_MAX_H):
         return None
     if N not in (2, 4, 8) or R < 32 or R % 32:
@@ -375,7 +423,7 @@ def general_fwd_cfg(C, H, dtype, N, R):
         return None
     return {"hh": hh, "ub": ub, "threads": threads, "slots": slots,
             "resident": resident, "smem": smem,
-            "layout": N * G * (C16 + kh + 1)}
+            "layout": N * G * (C16 + kh + 1), "ring": False}
 
 
 def general_fwd_plan(C, H, dtype, clusters=None):
@@ -392,19 +440,26 @@ def general_fwd_plan(C, H, dtype, clusters=None):
     waits on L2 every k16 chunk: at bf16 160 N = 4 with R = 96 beats N = 2
     with R = 32 though a CTA does 1.5x the work), then the least work a CTA
     (R x hh, rows and units rounded up), then the deepest ring, then the
-    smaller cluster."""
+    smaller cluster. Where no such CTA fits, f32 takes the W_h-ring path
+    (``general_fwd_ring_cfg``) by the same key, R then the fewest rows, a
+    multiple of CLUSTER_RING_ROWS, that run the batch in one wave (f32 at
+    193-256: N = 8, R = 144)."""
     clusters = clusters or H100_CLUSTERS
-    best = None
-    for N in (2, 4, 8):
-        # the fewest rows a cluster with which the batch takes one wave
-        R = _ceil(_ceil(GENERAL_FWD_PLAN_BATCH, clusters[N]), 32) * 32
-        cfg = general_fwd_cfg(C, H, dtype, N, R)
-        if cfg is None:
-            continue
-        key = (not cfg["resident"], R * cfg["hh"], -cfg["slots"], N)
-        if best is None or key < best[0]:
-            best = key, (N, R, cfg["smem"])
-    return None if best is None else best[1]
+    for ring in (False, True):
+        rows = CLUSTER_RING_ROWS if ring else 32
+        best = None
+        for N in (2, 4, 8):
+            # the fewest rows a cluster with which the batch takes one wave
+            R = _ceil(_ceil(GENERAL_FWD_PLAN_BATCH, clusters[N]), rows) * rows
+            cfg = general_fwd_cfg(C, H, dtype, N, R)
+            if cfg is None or cfg["ring"] != ring:
+                continue
+            key = (not cfg["resident"], R * cfg["hh"], -cfg["slots"], N)
+            if best is None or key < best[0]:
+                best = key, (N, R, cfg["smem"])
+        if best is not None:
+            return best[1]
+    return None
 
 
 def general_fwd_path(dtype, C, H, clusters=None):
@@ -589,6 +644,8 @@ def _cluster_library():
         lib.lstm_general_cluster_fwd.argtypes = ([i32] + [ptr] * 5
                                                  + [i32] * 6 + [ptr])
         lib.lstm_general_cluster_fwd.restype = i32
+        lib.lstm_general_ring_fwd.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        lib.lstm_general_ring_fwd.restype = i32
         lib.lstm_general_cluster_cfg.argtypes = [i32] * 5 + [ptr]
         lib.lstm_general_cluster_cfg.restype = i32
         lib.lstm_general_cluster_capacity.argtypes = [i32]
@@ -617,7 +674,9 @@ def _general_fwd_launch(leg, x, w_aug, C, H):
     """(launch, error string, path) of a general K1/K2 call: the cluster
     kernel behind the main-shape launchers' signature where
     ``general_fwd_plan`` takes the shape on this card, else the streaming
-    ``general_fwd_kernel``."""
+    ``general_fwd_kernel``. The f32 W_h-ring kernel (``general_fwd_cfg``'s
+    ``ring``) takes a Z_x scratch of (T, B, 4H) f32, allocated a call (1.04
+    GB at T = 124, B = 2048, H = 256)."""
     plan = general_fwd_plan(C, H, x.dtype,
                             cluster_capacity(x.device.index or 0))
     bf16 = int(x.dtype == torch.bfloat16)
@@ -628,8 +687,23 @@ def _general_fwd_launch(leg, x, w_aug, C, H):
                 lib.lstm_general_error_string, "stream")
     N, R, _ = plan
     lib = _cluster_library()
-    wl = general_fwd_weights(w_aug, C, N,
-                             general_fwd_cfg(C, H, x.dtype, N, R)["hh"])
+    cfg = general_fwd_cfg(C, H, x.dtype, N, R)
+    wl = general_fwd_weights(w_aug, C, N, cfg["hh"])
+
+    def ring(x_ptr, _w_ptr, out_ptr, *rest):
+        if leg == "last":  # (out, T, B, C, H, stream)
+            hs_ptr, cs_ptr, last_ptr = None, None, out_ptr
+        else:  # (hs, cs, T, B, C, H, stream)
+            (hs_ptr, cs_ptr, last_ptr), rest = (out_ptr, rest[0], None), \
+                rest[1:]
+        T, B = rest[:2]
+        zx = torch.empty((T, B, 4 * H), dtype=torch.float32, device=x.device)
+        return lib.lstm_general_ring_fwd(
+            x_ptr, w_aug.data_ptr(), wl.data_ptr(), zx.data_ptr(), hs_ptr,
+            cs_ptr, last_ptr, *rest[:4], N, R, 3, rest[4])
+
+    if cfg["ring"]:
+        return ring, lib.lstm_general_cluster_error_string, "cluster"
 
     def launch(x_ptr, _w_ptr, out_ptr, *rest):
         if leg == "last":  # (out, T, B, C, H, stream)

@@ -432,10 +432,12 @@ def test_lstm_libraries_match_the_shape_rule(cuda):
 # the plain versions at C or H past 128: the model's sizes 160 and 256, C !=
 # H, C = 1 and H = 129 (one unit past a block's 128 slots), C and H off the
 # products' 16-byte staging (bf16: off 8; the cluster kernels' x staging:
-# C = 161, 257), H odd (unpaired stores), a batch off and below a block's 8
-# rows and a cluster's R, one row, more rows than one wave of clusters
-# (2100), T = 1, and the limit 1024; today's tolerances, a repeated call
-# repeats the bits, and each K1/K2 launch takes the plan's path
+# C = 161, 257, 193), H odd (unpaired stores; 199 on the f32 W_h-ring
+# path, whose last W_h chunk is k8 there), a batch off and below a block's
+# 8 rows and a cluster's R, one row, more rows than one wave of clusters
+# (2100; 2200 on the W_h-ring path at 256: 16 clusters of 144), T = 1,
+# and the limit 1024; today's tolerances, a repeated call repeats the
+# bits, and each K1/K2 launch takes the plan's path
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,B,C,H", [(5, 37, 160, 160), (3, 16, 256, 256),
@@ -443,7 +445,9 @@ def test_lstm_libraries_match_the_shape_rule(cuda):
                                      (2, 13, 257, 131), (1, 3, 129, 1),
                                      (3, 20, 130, 200), (2, 3, 1024, 1024),
                                      (4, 70, 161, 160), (3, 1, 160, 133),
-                                     (2, 2100, 160, 160)])
+                                     (2, 2100, 160, 160),
+                                     (2, 2200, 256, 256),
+                                     (3, 37, 193, 199)])
 def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
     assert K.route("bwd", dtype, C, H) == "general"
     path = K.general_fwd_path(dtype, C, H,
@@ -489,41 +493,58 @@ def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
 def test_lstm_general_cluster_library_matches_the_plan(cuda):
     """lstm_general_cluster.cu's launch shapes are ``general_fwd_cfg``'s;
     it refuses a cluster size, a row count or a shape outside its budget
-    before it reads a pointer; the card holds the clusters ``H100_CLUSTERS``
-    says (on an H100 80GB HBM3), and the plan's clusters at 160 and 256 run
-    in one wave; K1 at T = 0 is h_{-1} = 0 on the cluster path."""
+    before it reads a pointer (the f32 W_h-ring path's included: rows in
+    48s, its own entry); the card holds the clusters ``H100_CLUSTERS`` says (on an H100
+    80GB HBM3), and the plan's clusters at 160 and 256 run in one wave
+    (f32 at 256 on the W_h-ring path); K1 at T = 0 is h_{-1} = 0 on the
+    cluster paths."""
     import ctypes
 
     lib = K._cluster_library()
-    info = (ctypes.c_longlong * 7)()
+    info = (ctypes.c_longlong * 8)()
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = int(dtype == torch.bfloat16)
         for C, H in ((160, 160), (256, 256), (144, 200), (1, 129),
-                     (129, 1), (257, 131), (1024, 1024)):
-            for N, R in ((2, 32), (4, 64), (8, 128), (4, 96), (8, 160)):
+                     (129, 1), (257, 131), (1024, 1024), (193, 199),
+                     (257, 257)):
+            for N, R in ((2, 32), (4, 64), (8, 128), (4, 96), (8, 160),
+                         (8, 144), (4, 48), (8, 192)):
                 cfg = K.general_fwd_cfg(C, H, dtype, N, R)
                 rc = lib.lstm_general_cluster_cfg(bf16, C, H, N, R, info)
-                if cfg is None:
-                    assert rc == -1, (dtype, C, H, N, R)
+                # each entry refuses what is not its own before it reads
+                # a pointer: the W_h-ring kernel's shapes are
+                # lstm_general_ring_fwd's (f32 alone), the rest the other's
+                if cfg is None or cfg["ring"]:
                     assert lib.lstm_general_cluster_fwd(
                         bf16, *[None] * 5, 1, 1, C, H, N, R, None) != 0
+                if not bf16 and (cfg is None or not cfg["ring"]):
+                    assert lib.lstm_general_ring_fwd(
+                        *[None] * 7, 1, 1, C, H, N, R, 3, None) != 0
+                if cfg is None:
+                    assert rc == -1, (dtype, C, H, N, R)
                     continue
                 assert rc == 0 and list(info) == [
                     cfg["hh"], cfg["ub"], cfg["threads"], cfg["slots"],
-                    int(cfg["resident"]), cfg["smem"], cfg["layout"]]
-        for bad in ((3, 64), (16, 256), (4, 48), (4, 16)):
+                    int(cfg["resident"]), cfg["smem"], cfg["layout"],
+                    int(cfg["ring"])]
+        for bad in ((3, 64), (16, 256), (4, 40), (4, 16)):
             assert lib.lstm_general_cluster_cfg(bf16, 160, 160, *bad,
                                                 info) == -1
+        assert lib.lstm_general_cluster_cfg(bf16, 160, 160, 4, 48,
+                                            info) == -bf16
     # the card's cluster capacity is the table the CPU tests plan with
     caps = K.cluster_capacity(cuda.index or 0)
     if torch.cuda.get_device_properties(cuda).name == "NVIDIA H100 80GB HBM3":
         assert caps == K.H100_CLUSTERS, caps
     for dtype, C in ((torch.bfloat16, 160), (torch.bfloat16, 256),
-                     (torch.float32, 160)):
+                     (torch.float32, 160), (torch.float32, 256)):
         N, R, _ = K.general_fwd_plan(C, C, dtype, caps)
         assert -(-K.GENERAL_FWD_PLAN_BATCH // R) <= caps[N], (dtype, C)
-    params, x = _case(0, 5, 160, 160, torch.bfloat16, cuda)
-    assert not K.lstm_last(params, x).float().abs().max().item()
+        assert K.general_fwd_cfg(C, C, dtype, N, R)["ring"] == (
+            dtype == torch.float32 and C == 256)
+    for dtype, C in ((torch.bfloat16, 160), (torch.float32, 256)):
+        params, x = _case(0, 5, C, C, dtype, cuda)
+        assert not K.lstm_last(params, x).float().abs().max().item()
 
 
 # the general K3's recurrence alone (``general_recurrence``) against its

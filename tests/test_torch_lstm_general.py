@@ -47,9 +47,9 @@ def test_general_lstm_matches_pallas(pallas_interpret, C, H, dtype, tol,
     against ``_fwd_call``, ``_fwd_last_call`` and ``_bwd_call`` in
     interpret mode, and ``lstm_fused`` / ``lstm_last_fused`` end to end;
     the backward on the JAX forward's hs and cs. No kernel launches. (256,
-    256) is the widest shape the forward's cluster plan takes in bf16 (f32
-    refuses it), (300, 300) one it refuses in both dtypes: the plain twins
-    pin the contract on both sides of the plan's limit."""
+    256) is the widest shape the forward's cluster plan takes (f32 on the
+    W_h-ring path), (300, 300) one it refuses in both dtypes: the plain
+    twins pin the contract on both sides of the plan's limit."""
     assert K.route("fwd", dtype, C, H) == "general"
     T, B = 8, 16
     x, w_aug, dhs = _case(T, B, C, H, dtype, seed=C + H)
@@ -163,9 +163,15 @@ def test_general_weights_layout(C, H):
 
 # the cluster plan over C, H in 129..1024 (C != H included): what it takes
 # fits a CTA's 227 KB and runs GENERAL_FWD_PLAN_BATCH rows in one wave of
-# the clusters an H100 holds; what it refuses runs the streaming kernel
+# the clusters an H100 holds, on the W_h-ring path (f32, rows a multiple of
+# 48) only where no CTA of the other kernels fits; what it refuses runs the
+# streaming kernel
 _PLAN_SIDES = (129, 130, 144, 160, 192, 200, 255, 256, 257, 300, 384, 512,
                640, 1000, 1024)
+
+
+def _one_wave_rows(n, rows, caps):
+    return -(-(-(-2048 // caps[n])) // rows) * rows
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -177,29 +183,45 @@ def test_general_fwd_plan_grid(dtype, C):
             continue
         plan = K.general_fwd_plan(C, H, dtype)
         path = K.general_fwd_path(dtype, C, H)
-        # the one-wave R of each N, and whether its CTA fits
-        fits = {n: K.general_fwd_cfg(C, H, dtype, n, -(-(-(-2048 // caps[n]))
-                                                       // 32) * 32)
-                for n in (2, 4, 8)}
+        # the one-wave R of each N and each path, and whether its CTA fits
+        fits, ring_fits = {}, {}
+        for n in (2, 4, 8):
+            cfg = K.general_fwd_cfg(C, H, dtype, n, _one_wave_rows(n, 32,
+                                                                   caps))
+            fits[n] = cfg if cfg and not cfg["ring"] else None
+            cfg = K.general_fwd_cfg(C, H, dtype, n, _one_wave_rows(
+                n, K.CLUSTER_RING_ROWS, caps))
+            ring_fits[n] = cfg if cfg and cfg["ring"] else None
         if plan is None:
             assert path == "stream", (C, H)
             assert not any(fits.values()), (C, H)
+            assert not any(ring_fits.values()), (C, H)
             continue
         assert path == "cluster", (C, H)
         N, R, smem = plan
         cfg = K.general_fwd_cfg(C, H, dtype, N, R)
-        assert cfg == fits[N]
-        assert N in (2, 4, 8) and R % 32 == 0
+        assert N in (2, 4, 8)
         assert smem == cfg["smem"] <= K.CLUSTER_SMEM_MAX == 232448
         clusters = -(-K.GENERAL_FWD_PLAN_BATCH // R)
         assert clusters <= caps[N] and clusters * N <= 132  # one wave
         assert clusters * R >= K.GENERAL_FWD_PLAN_BATCH == 2048
-        assert cfg["threads"] <= (K.CLUSTER_MAX_THREADS_X2 if cfg["ub"] == 2
-                                  else K.CLUSTER_MAX_THREADS[dtype])
-        assert cfg["ub"] == 1 or (dtype == BF16 and cfg["hh"] % 16 == 0)
         assert (cfg["slots"] == 0 if cfg["resident"]
                 else 2 <= cfg["slots"] <= K.CLUSTER_MAX_SLOTS)
         assert N * cfg["hh"] >= H and cfg["hh"] % (8 * cfg["ub"]) == 0
+        if cfg["ring"]:  # only where no other CTA fits
+            assert not any(fits.values()), (C, H)
+            assert dtype == F32 and cfg == ring_fits[N]
+            assert R % K.CLUSTER_RING_ROWS == 0 and cfg["ub"] == 1
+            assert not cfg["resident"]
+            assert cfg["threads"] == 32 * (cfg["hh"] // 8) * (R // 48) \
+                <= K.CLUSTER_RING_MAX_THREADS == 384
+            fits = ring_fits
+        else:
+            assert cfg == fits[N] and R % 32 == 0
+            assert cfg["threads"] <= (K.CLUSTER_MAX_THREADS_X2
+                                      if cfg["ub"] == 2
+                                      else K.CLUSTER_MAX_THREADS[dtype])
+            assert cfg["ub"] == 1 or (dtype == BF16 and cfg["hh"] % 16 == 0)
         # W_x resident first, then the least work a CTA (rows x units)
         work = R * cfg["hh"]
         for n, alt in fits.items():
@@ -207,31 +229,39 @@ def test_general_fwd_plan_grid(dtype, C):
                 continue
             assert cfg["resident"] or not alt["resident"], (C, H, n)
             if alt["resident"] == cfg["resident"]:
-                rows = -(-(-(-2048 // caps[n])) // 32) * 32
+                rows = _one_wave_rows(n, 48 if cfg["ring"] else 32, caps)
                 assert work <= rows * alt["hh"], (C, H, n)
 
 
 def test_general_fwd_plan_takes_the_model_widths():
-    """bf16 at 160 and 256 and f32 at 160 run the cluster kernel in one
+    """bf16 at 160 and 256 and f32 at 160 run the cluster kernels in one
     wave of the clusters an H100 holds (66 of 2, 30 of 4, 15 of 8 CTAs): 4
     CTAs of 96 rows at bf16 160 (W_x resident), 8 of 160 at bf16 256
     (warps of two unit blocks), 4 of 96 at f32 160.
-    f32 at 256 does not fit (at N = 8 one wave needs 160 rows: W_h's slice
-    and the h tile take 297,472 bytes; at N = 4 and 2 W_h's slice alone is
-    262,144 and 524,288) and streams; so does every shape at 1024; a card
-    holding more clusters gets fewer rows a cluster."""
+    At f32 256 no CTA of those kernels fits (at N = 8 one wave needs 160
+    rows: W_h's slice and the h tile take 297,472 bytes; at N = 4 and 2
+    W_h's slice alone is 262,144 and 524,288): it takes the W_h-ring path,
+    8 CTAs of 144 rows (``test_general_fwd_ring_takes_f32_at_256``). f32
+    at 512 and every shape at 1024 stream; a card holding more clusters
+    gets fewer rows a cluster."""
     assert K.H100_CLUSTERS == {2: 66, 4: 30, 8: 15}
     assert K.general_fwd_plan(160, 160, BF16)[:2] == (4, 96)
     assert K.general_fwd_plan(256, 256, BF16)[:2] == (8, 160)
     assert K.general_fwd_plan(160, 160, F32)[:2] == (4, 96)
-    assert K.general_fwd_plan(256, 256, F32) is None
-    assert K.general_fwd_path(F32, 256, 256) == "stream"
+    assert K.general_fwd_plan(256, 256, F32)[:2] == (8, 144)
+    assert K.general_fwd_cfg(256, 256, F32, 8, 144)["ring"]
+    assert K.general_fwd_path(F32, 256, 256) == "cluster"
     assert K.route("fwd", F32, 256, 256) == "general"
+    assert K.general_fwd_plan(512, 512, F32) is None
+    assert K.general_fwd_path(F32, 512, 512) == "stream"
     for dtype in (F32, BF16):
         assert K.general_fwd_plan(1024, 1024, dtype) is None
         assert K.general_fwd_path(dtype, 1024, 1024) == "stream"
         assert K.general_fwd_cfg(160, 160, dtype, 3, 64) is None
-        assert K.general_fwd_cfg(160, 160, dtype, 4, 48) is None
+        assert K.general_fwd_cfg(160, 160, dtype, 4, 40) is None
+    # 48 rows: no kernel of 32-row warps; in f32 the W_h-ring path's
+    assert K.general_fwd_cfg(160, 160, BF16, 4, 48) is None
+    assert K.general_fwd_cfg(160, 160, F32, 4, 48)["ring"]
     cfg = K.general_fwd_cfg(160, 160, BF16, 4, 96)
     assert cfg["resident"] and (cfg["hh"], cfg["ub"]) == (40, 1)
     assert cfg["threads"] == 480
@@ -241,6 +271,39 @@ def test_general_fwd_plan_takes_the_model_widths():
     assert K.general_fwd_cfg(200, 200, BF16, 8, 160)["hh"] == 32
     assert K.general_fwd_plan(256, 256, BF16, {2: 66, 4: 33, 8: 16})[:2] == (
         8, 128)
+    # the plans the other kernels took stay theirs
+    for C, dtype in ((160, BF16), (256, BF16), (160, F32)):
+        N, R, _ = K.general_fwd_plan(C, C, dtype)
+        assert not K.general_fwd_cfg(C, C, dtype, N, R)["ring"]
+
+
+def test_general_fwd_ring_takes_f32_at_256():
+    """f32 at C = H = 256 on the W_h-ring path: clusters of 8 CTAs of 32
+    units over 144 rows (one wave of 15 clusters needs 137; the warps own
+    48 rows), 12 warps of 8 units; shared memory the [144][260] f32 h tile
+    and 2 ring slots of W_h's k64 chunk, [64][128] f32 (x_t . W_x + b is
+    a product before the walk). The path takes f32 alone, rows in 48s and
+    at most 384 threads; f32 at 193 (an hh of 25 rounds up to 32) takes the
+    same CTA shape, 257 (hh 40: 15 warps) streams."""
+    assert K.general_fwd_plan(256, 256, F32) == (8, 144, 215296)
+    cfg = K.general_fwd_cfg(256, 256, F32, 8, 144)
+    assert (cfg["hh"], cfg["ub"], cfg["threads"], cfg["slots"],
+            cfg["resident"], cfg["ring"]) == (32, 1, 384, 2, False, True)
+    h_tile = 144 * (256 + 4) * 4
+    slot = K.CLUSTER_RING_CHUNK * 128 * 4
+    assert h_tile == 149760 and slot == 32768
+    assert cfg["smem"] == h_tile + 2 * slot == 215296
+    assert h_tile + 3 * slot > K.CLUSTER_SMEM_MAX
+    assert cfg["layout"] == 8 * 128 * (256 + 256 + 1)
+    assert cfg == K.general_fwd_ring_cfg(256, 256, 8, 144)
+    assert K.general_fwd_cfg(256, 256, BF16, 8, 144) is None
+    assert K.general_fwd_ring_cfg(256, 256, 8, 160) is None  # not 48s
+    assert K.general_fwd_ring_cfg(256, 256, 4, 96) is None   # 16 warps
+    assert K.general_fwd_ring_cfg(256, 256, 8, 192) is None  # 16 warps
+    assert K.general_fwd_ring_cfg(257, 257, 8, 144) is None  # 15 warps
+    assert K.general_fwd_plan(193, 193, F32)[:2] == (8, 144)
+    assert K.general_fwd_cfg(193, 193, F32, 8, 144)["hh"] == 32
+    assert K.general_fwd_plan(257, 257, F32) is None
 
 
 def _layout_spec(C, H, N, hh, bf16):
@@ -267,16 +330,18 @@ def _layout_spec(C, H, N, hh, bf16):
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("C,H,N,R", [(20, 37, 4, 32), (17, 129, 2, 32),
-                                     (1, 9, 8, 64), (20, 200, 8, 160)])
+                                     (1, 9, 8, 64), (20, 200, 8, 160),
+                                     (20, 200, 8, 144)])
 def test_general_fwd_weights_round_trip(dtype, C, H, N, R):
     """``general_fwd_weights`` holds every element of W_aug exactly once,
     where the cluster kernel reads it (W_x, then W_h, then the bias; bf16
     gate-column-major, f32 k-major; a CTA's 4hh columns contiguous), and
     zeros everywhere else; the layout reads back to W_aug. (20, 200) at N =
     8, R = 160 is bf16's layout for warps of two unit blocks (hh rounded up
-    to 16)."""
+    to 16); at R = 144 f32's is the W_h-ring path's (the same layout)."""
     bf16 = dtype == BF16
-    # (f32 takes no CTA of 160 rows at H = 200: its layout at 32 rows)
+    # (f32 takes no CTA of 160 rows at H = 200, bf16 none of 144: the
+    # layout at 32 rows)
     cfg = (K.general_fwd_cfg(C, H, dtype, N, R)
            or K.general_fwd_cfg(C, H, dtype, N, 32))
     hh = cfg["hh"]
@@ -308,8 +373,9 @@ def test_general_fwd_weights_round_trip(dtype, C, H, N, R):
 def test_general_fwd_launch_picks_the_path_by_shape(monkeypatch):
     """``_general_fwd_launch`` decides the path from the plan alone, before
     any launch: the cluster library with the plan's N and R where the plan
-    takes the shape, the streaming library where it refuses it; a launch
-    that returns an error raises (``_raise_on``), with no second try on the
+    takes the shape (f32 at 256 its W_h-ring entry, the product and the
+    walk), the streaming library where it refuses it; a launch that
+    returns an error raises (``_raise_on``), with no second try on the
     other path."""
     calls = []
 
@@ -330,7 +396,8 @@ def test_general_fwd_launch_picks_the_path_by_shape(monkeypatch):
     for dtype, C, H, want in ((BF16, 160, 160, "cluster"),
                               (BF16, 256, 256, "cluster"),
                               (F32, 160, 160, "cluster"),
-                              (F32, 256, 256, "stream"),
+                              (F32, 256, 256, "cluster"),
+                              (F32, 512, 512, "stream"),
                               (BF16, 1024, 1024, "stream")):
         x = torch.zeros((2, 3, C), dtype=dtype)
         w_aug = torch.zeros((C + H + 1, 4 * H), dtype=dtype)
@@ -342,7 +409,16 @@ def test_general_fwd_launch_picks_the_path_by_shape(monkeypatch):
             rest = (2, 3, C, H, 0) if leg == "last" else (0, 2, 3, C, H, 0)
             err = launch(1, 2, 3, *rest)
             assert [c[0] for c in calls] == [want]
-            if want == "cluster":
+            if want == "cluster" and K.general_fwd_cfg(
+                    C, H, dtype, *K.general_fwd_plan(C, H, dtype)[:2])["ring"]:
+                # the W_h-ring kernel, Z_x's product and the walk (parts 3)
+                N, R, _ = K.general_fwd_plan(C, H, dtype)
+                assert calls[0][1] == "lstm_general_ring_fwd"
+                assert calls[0][2][-6:] == (C, H, N, R, 3, 0)
+                assert calls[0][2][0] == 1
+                outs = (None, None, 3) if leg == "last" else (3, 0, None)
+                assert calls[0][2][4:7] == outs
+            elif want == "cluster":
                 N, R, _ = K.general_fwd_plan(C, H, dtype)
                 assert calls[0][1] == "lstm_general_cluster_fwd"
                 assert calls[0][2][-3:-1] == (N, R)
