@@ -6,6 +6,8 @@ K3's reverse recurrences, goes, on one NVIDIA GPU.
     python3 chip_lstm_bwd_variants.py --wide [--parent DIR]
     python3 chip_lstm_bwd_variants.py --general
     python3 chip_lstm_bwd_variants.py --compare-parent DIR
+    python3 chip_lstm_bwd_variants.py --products [--quick]
+    python3 chip_lstm_bwd_variants.py --products-split
 
 Builds the f32 training LSTM backward (``csrc/lstm_bwd_f32.cu``) as it is
 and in variants that each take one piece of a step away (textual edits of
@@ -48,12 +50,16 @@ dgates as float4 over 4 k; then the kernel as it is at the other
 one-wave plans, and the streaming ``general_rec_kernel`` alone at every
 shape.
 ``--compare-parent DIR`` times the general K3 of the parent checkout at
-DIR (on the path its plan takes: its cluster library at this plan's N, R
-and passes where this plan runs one row group, else its streaming
-``lstm_general_bwd``) and of this one (its path by the plan) in one
-call, parent / this / this / parent, with each one's recurrence alone
-and split by part, beside cuDNN's backward with TF32 off, at C = H = 160
-and 256, f32 and bf16.
+DIR (its cluster library at this plan's N, R, passes and row groups
+where the plan takes the shape, else its streaming ``lstm_general_bwd``)
+and of this one (its path by the plan) in one call, parent / this / this
+/ parent, with each one's recurrence alone and split by part, beside
+cuDNN's backward with TF32 off, at C = H = 160 and 256, f32 and bf16.
+``--products`` times each f32 product of ``lstm_prod.cuh`` alone, the
+Hopper kernel against the element kernel in turns, beside cuBLAS, at C =
+H = 96-512 and T = 124 and 16, then K1-K3 f32 at 512, T = 124 beside
+cuDNN (``products``, ``legs_512``); ``--products-split`` times edited
+copies of the Hopper kernel at C = H = 256 and 160 (``split_products``).
 
 Imports nothing of JAX or of the JAX package ``remora_tpu``; the build,
 timing and SASS helpers are ``chip_lstm_fwd_variants.py``'s.
@@ -530,13 +536,13 @@ def _typed_general_bwd(lib):
 
 
 def _typed_parent_cluster(lib):
-    """The parent checkout's cluster K3 (N, R and passes; no row groups)."""
+    """The parent checkout's cluster K3 (N, R, passes and row groups)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lstm_general_rec_cluster_bwd.argtypes = ([i32] + [ptr] * 12
-                                                 + [i32] * 7 + [ptr])
+                                                 + [i32] * 8 + [ptr])
     lib.lstm_general_rec_cluster_bwd.restype = i32
     lib.lstm_general_rec_cluster_rec.argtypes = ([i32] + [ptr] * 5
-                                                 + [i32] * 6 + [ptr])
+                                                 + [i32] * 7 + [ptr])
     lib.lstm_general_rec_cluster_rec.restype = i32
     lib.lstm_general_rec_cluster_dw_chunks.argtypes = [i32, i32]
     lib.lstm_general_rec_cluster_dw_chunks.restype = i32
@@ -569,7 +575,7 @@ def _parts_ms(call, calls=3):
             part = "dW sum"
         else:
             op = re.search(r"Op\)(\d)|OpE(\d)E", name)
-            if "wide_prod" not in name or op is None:
+            if not re.search("wide_prod|prod_f32_ws", name) or op is None:
                 continue
             part = ("gates", "dx", "dW")[int(op.group(1) or op.group(2))]
         ms[part] += evt.self_device_time_total / 1e3 / calls
@@ -582,9 +588,9 @@ def compare_general(parent_dir):
     TF32 off as the port's f32 kernels; a yardstick the port never calls),
     at T = 124, B = 2048 and C = H = 160 and 256, f32 and bf16: the parent
     checkout's K3 on the path its plan takes (its
-    ``lstm_general_rec_cluster.cu`` at the same N, R and passes where this
-    plan runs one row group, else its ``lstm_general.cu``'s streaming
-    ``general_rec_kernel``) against this checkout's path
+    ``lstm_general_rec_cluster.cu`` at the same N, R, passes and row
+    groups where the plan takes the shape, else its ``lstm_general.cu``'s
+    streaming ``general_rec_kernel``) against this checkout's path
     (``_general_bwd_launch``), each library called directly on
     preallocated buffers; each design's split by part (torch.profiler) and
     its recurrence alone, parent / this / this / parent; and how far the
@@ -635,8 +641,8 @@ def compare_general(parent_dir):
             run, chunks_of, _err, path = K._general_bwd_launch(
                 dtype, C, H, x.device)
             plan = K.general_rec_plan(C, H, dtype, caps)
-            if plan is not None and plan[4] == 1:
-                npr = plan[0], plan[1], plan[3]
+            if plan is not None:
+                npr = plan[0], plan[1], *plan[3:]
                 parent_path = "cluster"
                 parent_fn = (lambda *a: parent_cluster
                              .lstm_general_rec_cluster_bwd(*a[:-1], *npr,
@@ -729,6 +735,312 @@ def compare_general(parent_dir):
                       flush=True)
 
 
+# the f32 products' widths (C = H) and steps timed by --products, B = 2048
+PRODUCT_WIDTHS = (96, 128, 160, 256, 512)
+PRODUCT_STEPS = (124, 16)
+
+
+def _product_operands(T, B, C, H, seed=0):
+    """x, hs (the forward's range), W_aug and dgates (a gradient's scale),
+    f32 on the card, and W_x^T (dx's operand)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((T, B, C), device="cuda", generator=gen)
+    hs = torch.rand((T, B, H), device="cuda", generator=gen) * 2 - 1
+    w = (torch.rand((C + H + 1, 4 * H), device="cuda", generator=gen) * 2
+         - 1) / H ** 0.5
+    dg = torch.randn((T, B, 4 * H), device="cuda", generator=gen) * 0.1
+    return x, hs, w, dg, w[:C].t().contiguous()
+
+
+def products(widths=PRODUCT_WIDTHS, steps=PRODUCT_STEPS):
+    """``--products``: each f32 product of ``csrc/lstm_prod.cuh`` alone
+    (``lstm_prod.cu``'s entry on preallocated buffers) at T in ``steps``, B
+    = 2048, C = H in ``widths``: the element kernel (``wide_prod_f32_kernel``,
+    the parent design, forced) and the Hopper kernel (``prod_f32_ws_kernel``)
+    in turns, element / ws / ws / element, their outputs held equal bit for
+    bit; beside each the FP32 bound (67 TFLOP/s), its share of the peak and
+    one cuBLAS call on the same operands with TF32 off
+    (``chip_smoke.prod_yardsticks``; a yardstick the port never calls).
+    Then K3, K1 and K2 f32 at C = H = 512, T = 124 beside cuDNN
+    (``legs_512``)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from chip_smoke import prod_work, prod_yardsticks
+    from remora_tpu_torch.infer.infer import full_f32
+    from remora_tpu_torch.kernels import _build
+    from remora_tpu_torch.kernels import lstm as K
+
+    lib = K._prod_library()
+    for line in _build.compile_log("lstm_prod").splitlines():
+        if "prod_f32_ws_kernel" in line or re.search(
+                r"registers|spill", line):
+            print(f"lstm_prod ptxas: {line.strip()}", flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    peak = 67e12
+    B = 2048
+    for width in widths:
+        C = H = width
+        for T in steps:
+            x, hs, w, dg, wxt = _product_operands(T, B, C, H)
+            yardsticks = prod_yardsticks(x, hs, w, dg)
+            chunks = lib.lstm_prod_dw_chunks(T, B)
+            partials = torch.empty((chunks, C + H + 1, 4 * H), device="cuda")
+            total = {"ws": 0.0, "element": 0.0}
+            for op in K.PROD_OPS:
+                flops = prod_work(op, T * B, C, H)[0]
+                outs, calls = {}, {}
+                for path in K.PROD_PATHS:
+                    out = (torch.empty_like(x) if op == "dx" else
+                           torch.empty((C + H + 1, 4 * H), device="cuda")
+                           if op == "dw" else
+                           torch.empty((T, B, 4 * H), device="cuda"))
+                    args = [K.PROD_OPS.index(op),
+                            1 + K.PROD_PATHS.index(path), x.data_ptr(),
+                            hs.data_ptr(), w.data_ptr(), wxt.data_ptr(),
+                            dg.data_ptr(), out.data_ptr(),
+                            partials.data_ptr(), T, B, C, H, stream]
+
+                    def call(args=args, path=path):
+                        err = lib.lstm_prod_f32(*args)
+                        if err != 0:
+                            raise SystemExit(
+                                f"{op} {path} C=H={width} T={T}: "
+                                f"{lib.lstm_prod_error_string(err).decode()}")
+                    outs[path], calls[path] = out, call
+                ms = {}
+                for path in ("element", "ws", "ws", "element"):
+                    ms.setdefault(path, []).append(
+                        time_ms(calls[path], n=7, calls=3))
+                for path in K.PROD_PATHS:
+                    calls[path]()
+                torch.cuda.synchronize()
+                same = torch.equal(outs["ws"], outs["element"])
+                with full_f32():
+                    lib_ms = time_ms(yardsticks[op], n=7, calls=3)
+                best = min(ms["ws"])
+                total["ws"] += best
+                total["element"] += min(ms["element"])
+                bound = flops / peak * 1e3
+                print(f"product {op} C=H={width} T={T} B={B}: element / ws "
+                      f"/ ws / element {ms['element'][0]:.4f} / "
+                      f"{ms['ws'][0]:.4f} / {ms['ws'][1]:.4f} / "
+                      f"{ms['element'][1]:.4f} ms; bound {bound:.4f} ms "
+                      f"({flops / 1e9:.2f} GFLOP): ws {bound / best:.1%} "
+                      f"of the FP32 peak, element "
+                      f"{bound / min(ms['element']):.1%}; cuBLAS (TF32 "
+                      f"off) {lib_ms:.4f} ms; bit for bit {same}",
+                      flush=True)
+                if not same:
+                    raise SystemExit(f"{op} C=H={width} T={T}: the ws and "
+                                     "element outputs differ")
+                del outs
+            print(f"products C=H={width} T={T}: K3's three (gates, dx, dW) "
+                  f"+ Z_x, best of each: ws {total['ws']:.4f} ms, element "
+                  f"{total['element']:.4f} ms", flush=True)
+            del x, hs, w, dg, wxt, partials, yardsticks
+            torch.cuda.empty_cache()
+
+
+# (old, new) textual edits of lstm_prod.cuh for --products-split: the
+# design's pieces taken away (timing only: wrong or no results) and the
+# settings it chose against their alternatives (same bits)
+_WS_NO_LOADS = [
+    ("      ws_expect_arrive(full, kBytes);", "      ws_arrive(full);"),
+    ("                                        int c0, int c1, uint32_t bar) "
+     "{\n  asm volatile(",
+     "                                        int c0, int c1, uint32_t bar) "
+     "{\n  if (c0 != 0x7fffffff) return;\n  asm volatile(")]
+_WS_NO_STORES = [
+    ("          *reinterpret_cast<float4*>(out + (long long)m * G + n) =",
+     "          if (p.B < 0) *reinterpret_cast<float4*>(out + (long long)m "
+     "* G + n) ="),
+    ("          *reinterpret_cast<float4*>(out + (long long)m * N + n) =",
+     "          if (p.B < 0) *reinterpret_cast<float4*>(out + (long long)m "
+     "* N + n) =")]
+_WS_ONE_GROUP = [
+    ("  for (int t = 2 * blockIdx.x + ring; t < g.tiles;",
+     "  for (int t = 2 * blockIdx.x + ring; ring == 0 && t < g.tiles;"),
+    ("  for (int tile = 2 * blockIdx.x + ring; tile < g.tiles;",
+     "  for (int tile = 2 * blockIdx.x + ring; ring == 0 && tile < g.tiles;")]
+_WS_HALF_LOADS = [
+    ("          bt + (4 * kq + kk) * BN + 4 * WN * c);",
+     "          bt + (4 * kq + (kk & 2)) * BN + 4 * WN * c);"),
+    ("            *reinterpret_cast<const float4*>(at + k * BM + 4 * WM * c);",
+     "            *reinterpret_cast<const float4*>(at + (k & ~1) * BM + 4 * "
+     "WM * c);"),
+    ("            *reinterpret_cast<const float4*>(bt + k * BN + 4 * WN * c);",
+     "            *reinterpret_cast<const float4*>(bt + (k & ~1) * BN + 4 * "
+     "WN * c);")]
+_WS_B_PER_K = [("""  float bq[4][TN];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < TN / 4; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          bt + (4 * kq + kk) * BN + 4 * WN * c);
+      bq[kk][4 * c] = v.x;
+      bq[kk][4 * c + 1] = v.y;
+      bq[kk][4 * c + 2] = v.z;
+      bq[kk][4 * c + 3] = v.w;
+    }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float* b = bq[kk];
+""", """#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    float b[TN];
+#pragma unroll
+    for (int c = 0; c < TN / 4; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          bt + (4 * kq + kk) * BN + 4 * WN * c);
+      b[4 * c] = v.x;
+      b[4 * c + 1] = v.y;
+      b[4 * c + 2] = v.z;
+      b[4 * c + 3] = v.w;
+    }
+""")]
+_WS_UNROLL_ALL = [
+    ("    return launch_ws<op, 16, 8, 16>(p, chunks, s);",
+     "    return launch_ws<op, 16, 8, 16, 2, true>(p, chunks, s);"),
+    ("      case 96: return launch_ws<op, 16, 8, 12>(p, chunks, s);",
+     "      case 96: return launch_ws<op, 16, 8, 12, 2, true>(p, chunks, s);"),
+    ("      case 160: return launch_ws<op, 16, 6, 20>(p, chunks, s);",
+     "      case 160: return launch_ws<op, 16, 6, 20, 2, true>(p, chunks, "
+     "s);"),
+    ("#pragma unroll 4\n    for (int k = 0; k < kWsBK; ++k) {",
+     "#pragma unroll\n    for (int k = 0; k < kWsBK; ++k) {")]
+PROD_VARIANTS = {
+    "as is": [],
+    "no TMA loads (timing only)": _WS_NO_LOADS,
+    "no stores (timing only)": _WS_NO_STORES,
+    "one consumer group, half the tiles (timing only)": _WS_ONE_GROUP,
+    "half the shared loads (timing only)": _WS_HALF_LOADS,
+    "3 ring slots for every op": [
+        ("template <Op op, int WM, int TM, int TN, int kSlots = 2,",
+         "template <Op op, int WM, int TM, int TN, int kSlots = 3,")],
+    "registers 32/232": [
+        ("setmaxnreg.dec.sync.aligned.u32 24;",
+         "setmaxnreg.dec.sync.aligned.u32 32;"),
+        ("setmaxnreg.inc.sync.aligned.u32 240;",
+         "setmaxnreg.inc.sync.aligned.u32 232;")],
+    "B rows loaded per k": _WS_B_PER_K,
+    "a whole stage unrolled for every op": _WS_UNROLL_ALL,
+    "dW at 160 in 160 x 64 tiles, at 256 in (16, 8, 16) threads": [
+        ("      case 160: return launch_ws<op, 8, 20, 8, 3>(p, chunks, s);",
+         "      case 160: return launch_ws<op, 8, 20, 4, 3>(p, chunks, s);"),
+        ("      default: return launch_ws<op, 8, 16, 8, 3>(p, chunks, s);",
+         "      default: return launch_ws<op, 16, 8, 16, 3>(p, chunks, s);")],
+}
+
+
+def split_products(widths=(256, 160), T=124, B=2048):
+    """``--products-split``: the Hopper kernel's products as edited copies
+    of ``lstm_prod.cuh`` (``PROD_VARIANTS``: without the TMA loads, the
+    stores, one of the two consumer groups or half the shared loads, all
+    timing only; and the settings it chose against their alternatives,
+    their outputs held to the design's bit for bit), each op alone at C =
+    H in ``widths``, T = 124, B = 2048."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import lstm as K
+
+    _, built = build_variants("lstm_prod.cu", PROD_VARIANTS,
+                              headers=("lstm_prod.cuh", "mma_sm90.cuh"),
+                              edit="lstm_prod.cuh")
+    libs = {}
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, (path, out) in built.items():
+        spills = [n for n in re.findall(r"(\d+) bytes spill stores", out)
+                  if n != "0"]
+        print(f"{name}: spill stores {spills or 'none'}", flush=True)
+        lib = ctypes.CDLL(path)
+        lib.lstm_prod_f32.argtypes = [i32, i32] + [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.lstm_prod_f32.restype = i32
+        libs[name] = lib
+    stream = torch.cuda.current_stream().cuda_stream
+    for width in widths:
+        C = H = width
+        x, hs, w, dg, wxt = _product_operands(T, B, C, H)
+        partials = torch.empty(((T * B + 2047) // 2048, C + H + 1, 4 * H),
+                               device="cuda")
+        for op in K.PROD_OPS:
+            ref = None
+            for name, lib in libs.items():
+                out = (torch.empty_like(x) if op == "dx" else
+                       torch.empty((C + H + 1, 4 * H), device="cuda")
+                       if op == "dw" else
+                       torch.empty((T, B, 4 * H), device="cuda"))
+                args = [K.PROD_OPS.index(op), 1, x.data_ptr(), hs.data_ptr(),
+                        w.data_ptr(), wxt.data_ptr(), dg.data_ptr(),
+                        out.data_ptr(), partials.data_ptr(), T, B, C, H,
+                        stream]
+
+                def call(lib=lib, args=args, name=name):
+                    err = lib.lstm_prod_f32(*args)
+                    if err != 0:
+                        raise SystemExit(f"{name} {op}: launch error {err}")
+                ms = time_ms(call, n=7, calls=3)
+                call()
+                torch.cuda.synchronize()
+                if ref is None:
+                    ref = out
+                same = ("-" if "timing only" in name
+                        else torch.equal(out, ref))
+                print(f"product {op} C=H={width} T={T}, {name}: {ms:.4f} "
+                      f"ms; bits the design's: {same}", flush=True)
+                if same is False:
+                    raise SystemExit(f"{name} {op}: other bits")
+        del x, hs, w, dg, wxt, partials
+        torch.cuda.empty_cache()
+
+
+def legs_512(T=124, B=2048):
+    """K3, K1 and K2 (with cs) f32 at C = H = 512 through the port's entry
+    points (the streaming ``lstm_general.cu`` kernels, K3's products on
+    ``lstm_prod.cuh``) beside cuDNN's backward and forward (TF32 off)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import lstm as K
+
+    C = H = 512
+    gen = torch.Generator(device="cuda").manual_seed(512)
+    bound = 1.0 / H ** 0.5
+    lib_lstm = torch.nn.LSTM(C, H).cuda()
+    with torch.no_grad():
+        for prm in lib_lstm.parameters():
+            prm.uniform_(-bound, bound, generator=gen)
+    lib_lstm.flatten_parameters()
+    params = {"w_ih": lib_lstm.weight_ih_l0.detach(),
+              "w_hh": lib_lstm.weight_hh_l0.detach(),
+              "b_ih": lib_lstm.bias_ih_l0.detach(),
+              "b_hh": lib_lstm.bias_hh_l0.detach()}
+    x = torch.randn((T, B, C), device="cuda", generator=gen)
+    dhs = torch.randn((T, B, H), device="cuda", generator=gen)
+    w = K.make_w_aug(params, torch.float32)
+    hs, cs = K.lstm_fwd(x, w)
+    ms = {
+        "K1": time_ms(lambda: K.lstm_last(params, x), n=3, calls=1),
+        "K2": time_ms(lambda: K.lstm_fwd(x, w), n=3, calls=1),
+        "K3": time_ms(lambda: K.lstm_bwd(x, w, hs, cs, dhs), n=3, calls=1),
+    }
+    xg = x.clone().requires_grad_()
+    out = lib_lstm(xg)[0]
+    inputs = (xg, *lib_lstm.parameters())
+    fwd = cudnn_ms(lambda: lib_lstm(x), n=3, calls=1)
+    bwd = cudnn_ms(lambda: torch.autograd.grad(
+        out, inputs, grad_outputs=dhs, retain_graph=True), n=3, calls=1)
+    path = K.general_fwd_path(torch.float32, C, H)
+    print(f"f32 C=H={C} T={T} B={B} (path {path}): K1 {ms['K1']:.4f} ms, "
+          f"K2 {ms['K2']:.4f} ms, cuDNN "
+          f"forward {fwd:.4f} ms; K3 {ms['K3']:.4f} ms, cuDNN backward "
+          f"{bwd:.4f} ms (TF32 off)", flush=True)
+
+
 def main():
     import torch
 
@@ -737,6 +1049,18 @@ def main():
               file=sys.stderr)
         return 1
     args = sys.argv[1:]
+    if args[:1] == ["--products-split"]:
+        split_products()
+        print(smi_line())
+        return 0
+    if args[:1] == ["--products"]:
+        if args[1:2] == ["--quick"]:  # a first look: 96 and 256, T = 124
+            products(widths=(96, 256), steps=(124,))
+        else:
+            products()
+            legs_512()
+        print(smi_line())
+        return 0
     if args[:1] == ["--compare-parent"]:
         compare_general(args[1])
         print(smi_line())

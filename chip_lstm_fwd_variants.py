@@ -66,6 +66,7 @@ import collections
 import ctypes
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -135,13 +136,15 @@ def sass_mix(nvcc, lib, tag="ILb0ELb0ELb1E"):
     return 0, []
 
 
-def build_variants(source, variants, headers=(), flags=(), csrc=CSRC):
+def build_variants(source, variants, headers=(), flags=(), csrc=CSRC,
+                   edit=None):
     """Build ``<csrc>/<source>`` (the package's ``csrc/`` unless another
     checkout's is given) once per variant (name -> list of (old, new)
-    textual edits), one ``nvcc`` each with the package's flags and
-    ``flags``, all started together, in a temporary directory beside
-    copies of ``headers``. Returns {name: (library path, nvcc output)}. An
-    edit that no longer matches stops the script."""
+    textual edits of ``edit``, one of ``headers``, or else of the
+    source), one ``nvcc`` each with the package's flags and ``flags``, all
+    started together, in a temporary directory beside copies of
+    ``headers``. Returns {name: (library path, nvcc output)}. An edit that
+    no longer matches stops the script."""
     sys.path.insert(0, REPO)
     from remora_tpu_torch.kernels import _build
 
@@ -153,15 +156,23 @@ def build_variants(source, variants, headers=(), flags=(), csrc=CSRC):
             open(os.path.join(tmp, header), "w").write(fh.read())
     jobs = {}
     for k, (name, edits) in enumerate(variants.items()):
-        text = src
+        target = edit or source
+        text = open(os.path.join(tmp, edit)).read() if edit else src
         for old, new in edits:
             if old not in text:
                 raise SystemExit(f"variant {name!r}: edit {old!r} no longer "
-                                 f"matches {source}")
+                                 f"matches {target}")
             text = text.replace(old, new)
-        path = os.path.join(tmp, f"v{k}.cu")
+        vdir = os.path.join(tmp, f"v{k}")
+        os.makedirs(vdir)
+        for header in headers:
+            shutil.copy(os.path.join(tmp, header), vdir)
+        if edit:
+            open(os.path.join(vdir, edit), "w").write(text)
+            text = src
+        path = os.path.join(vdir, f"v{k}.cu")
         open(path, "w").write(text)
-        lib = os.path.join(tmp, f"libv{k}.so")
+        lib = os.path.join(vdir, f"libv{k}.so")
         jobs[name] = lib, subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, *flags, "-o", lib, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -716,7 +727,7 @@ def split_ring(libs, x, w, wl, hs, cs, N, R, tag):
         prod_ms, both_ms, ms = (time_ms(call(lib, parts, name), n=7, calls=3)
                                 for parts in (1, 3, 2))
         regs = ptxas_lines(out, "cluster_fwd_f32_whring_kernelILb0ELb1E")
-        prod_regs = ptxas_lines(out, "wide_prod_f32_kernelILNS0_2OpE3E")
+        prod_regs = ptxas_lines(out, "prod_f32_ws_kernelILNS0_2OpE3E")
         print(f"{tag} {name}: Z_x's product alone {prod_ms:.4f} ms "
               f"({prod_regs}); the product and the walk {both_ms:.4f} ms; "
               f"the walk alone {ms:.4f} ms ({ms / T * 1e3:.3f} us a step; "
@@ -738,14 +749,15 @@ def compare_general(parent_dir, only=None):
     """The general K1 and K2 (with cs) in one call, parent / this design /
     this design / parent, beside cuDNN's forward (``torch.nn.LSTM``, all T
     hidden states; a yardstick the port never calls), at T = 124, B = 2048
-    and C = H = 160 and 256, f32 and bf16: the parent's ``lstm_general.cu``
-    (the streaming ``general_fwd_kernel`` for every shape, on its (C + H +
-    1, H, 4) layout) against this checkout's path (the cluster kernel at
-    the plan's N and R on ``general_fwd_weights``' layout, through
+    and C = H = 160 and 256, f32 and bf16: where this checkout's plan takes
+    the shape, the parent's ``lstm_general_cluster.cu`` and this one's at
+    the same N and R on ``general_fwd_weights``' layout (through
     ``lstm_general_ring_fwd`` with its Z_x scratch where the plan is the
-    W_h-ring kernel's, or the streaming kernel where the plan refuses the
-    shape), each library called directly on preallocated buffers and its
-    layout; ``only``: one (width, dtype name) of them."""
+    W_h-ring kernel's: the parent's Z_x product against this one's), else
+    the parent's streaming ``lstm_general.cu`` (on its (C + H + 1, H, 4)
+    layout) against this one's; each library called directly on
+    preallocated buffers; ``only``: one (width, dtype name) of them. The
+    parent is a checkout whose cluster library has the W_h-ring entry."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -756,6 +768,11 @@ def compare_general(parent_dir, only=None):
                               csrc=os.path.join(parent_dir, "remora_tpu_torch",
                                                 "csrc"))
     parent = _typed_general(ctypes.CDLL(built["parent"][0]))
+    _, built = build_variants(GENERAL_SOURCE, {"parent": []},
+                              headers=("lstm_prod.cuh", "mma_sm90.cuh"),
+                              csrc=os.path.join(parent_dir, "remora_tpu_torch",
+                                                "csrc"))
+    parent_cluster = _typed_cluster(ctypes.CDLL(built["parent"][0]))
     streaming = K._general_library()
     cluster = K._cluster_library()
     caps = K.cluster_capacity(0)
@@ -791,8 +808,10 @@ def compare_general(parent_dir, only=None):
             else:
                 N, R, _ = plan
                 cfg = K.general_fwd_cfg(C, H, dtype, N, R)
-                launchers["change"] = (cluster, K.general_fwd_weights(
-                    w, C, N, cfg["hh"]), (N, R))
+                wl = K.general_fwd_weights(w, C, N, cfg["hh"])
+                # the parent's cluster library on the same plan and layout
+                launchers = {"parent": (parent_cluster, wl, (N, R)),
+                             "change": (cluster, wl, (N, R))}
                 tag = f"cluster N={N} R={R}" + (
                     ", W_h through the ring after Z_x's product"
                     if cfg["ring"] else "")

@@ -283,6 +283,18 @@ class SmokeFailure(Exception):
     pass
 
 
+# each phase's wall, seconds from the previous phase's end (or the start)
+PHASE_WALLS = {}
+_T_START = _T_PHASE = time.monotonic()
+
+
+def phase_done(name):
+    global _T_PHASE
+    now = time.monotonic()
+    PHASE_WALLS[name] = round(now - _T_PHASE, 1)
+    _T_PHASE = now
+
+
 def check(ok, msg):
     if not ok:
         raise SmokeFailure(msg)
@@ -748,7 +760,8 @@ def split_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5,
     "general_rec_cluster_kernel" or "general_rec_group_kernel"
     (``lstm_general_rec_cluster.cu``) or "general_rec_kernel"
     (``lstm_general.cu``) the general K3's (the products are
-    ``lstm_prod.cuh``'s in all of them)."""
+    ``lstm_prod.cuh``'s in all of them: ``prod_f32_ws_kernel`` or, f32 on
+    the element path and bf16, ``wide_prod_*_kernel``)."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -770,7 +783,7 @@ def split_bwd_parts_ms(x, w_aug, hs, cs, dhs, calls=5,
             # the products' Op template argument (kGates, kDx, kDw), as
             # the profiler demangles it or as mangled
             op = re.search(r"Op\)(\d)|OpE(\d)E", name)
-            if "wide_prod" not in name or op is None:
+            if not re.search("wide_prod|prod_f32_ws", name) or op is None:
                 continue
             part = ("gates", "dx", "dW")[int(op.group(1) or op.group(2))]
         ms[part] += us / 1e3 / calls
@@ -1086,14 +1099,163 @@ def check_lstm_fwd_compile():
     check_compile("lstm_fwd_mma", "K1/K2 bf16", ("lstm_fwd_mma_kernel",))
 
 
+# lstm_prod.cuh's f32 products (kernels/lstm.py::lstm_prod_f32) and the
+# TPU kernel lines whose work each is: K3's phase 1 and tail
+# (``_bwd_kernel``), the forward's x_t . W_x (``_fwd_kernel``)
+PROD_REPLACES = {"gates": "remora_tpu/kernels/pallas_lstm.py:251",
+                 "dx": "remora_tpu/kernels/pallas_lstm.py:251",
+                 "dw": "remora_tpu/kernels/pallas_lstm.py:251",
+                 "gates_x": "remora_tpu/kernels/pallas_lstm.py:137"}
+
+
+def prod_work(op, TB, C, H):
+    """(FLOP, bytes) of one f32 product over TB rows: each input read and
+    each output written once."""
+    k = {"gates": C + H, "gates_x": C, "dx": 4 * H, "dw": TB}[op]
+    mn = {"dw": (C + H) * 4 * H, "dx": TB * C}.get(op, TB * 4 * H)
+    reads = {"gates": TB * (C + H) + (C + H + 1) * 4 * H,
+             "gates_x": TB * C + (C + 1) * 4 * H,
+             "dx": TB * 4 * H + C * 4 * H,
+             "dw": TB * (C + H + 4 * H)}[op]
+    return 2.0 * mn * k, 4 * (reads + mn)
+
+
+def prod_yardsticks(x, hs, w_aug, dg):
+    """{op: one cuBLAS call computing the op's product on the same
+    operands} (the yardstick; the port never calls it): [x ; h_{t-1}]
+    and W_x^T built beforehand, the bias row of dW left out."""
+    import torch
+
+    T, B, C = x.shape
+    H = hs.shape[2]
+    xh = torch.cat([x, torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])],
+                   dim=-1).reshape(T * B, C + H)
+    x2, dg2 = x.reshape(T * B, C), dg.reshape(T * B, 4 * H)
+    w_xt = w_aug[:C].t().contiguous()
+    return {
+        "gates": lambda: torch.addmm(w_aug[C + H], xh, w_aug[:C + H]),
+        "gates_x": lambda: torch.addmm(w_aug[C + H], x2, w_aug[:C]),
+        "dx": lambda: torch.matmul(dg2, w_xt),
+        "dw": lambda: torch.matmul(xh.t(), dg2),
+    }
+
+
+def check_prod_f32(width, T=TRAIN_LSTM_T, B=BATCH):
+    """Each f32 product of ``lstm_prod.cuh`` alone (``lstm_prod_f32``) at T,
+    B and C = H = ``width`` on the Hopper kernel (``prod_f32_ws_kernel``,
+    the path the shape takes) against its plain twin on the same operands
+    (Z and Z_x within 1e-4 of their max-abs, dx within 1e-5 abs, dW within
+    1e-4 of its max-abs: K3's limits), bit for bit against the element
+    kernel (``wide_prod_f32_kernel``, forced) and on a repeated call; timed
+    beside the twin, one cuBLAS call on the same operands with TF32 off
+    (``prod_yardsticks``) and the FP32 bound (the element kernel's time:
+    ``chip_lstm_bwd_variants.py --products``). Returns the four kernel
+    records (launches set from the model paths)."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import full_f32
+    from remora_tpu_torch.kernels import lstm as K
+
+    C = H = width
+    rng = np.random.default_rng(width)
+    bound = 1.0 / np.sqrt(H)
+
+    def arr(*shape, scale=1.0, lim=None):
+        a = (rng.uniform(-lim, lim, shape) if lim is not None
+             else rng.normal(size=shape) * scale)
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+
+    x, hs = arr(T, B, C), arr(T, B, H, lim=1.0)
+    w_aug, dg = arr(C + H + 1, 4 * H, lim=bound), arr(T, B, 4 * H, scale=0.1)
+    library = prod_yardsticks(x, hs, w_aug, dg)
+    records = []
+    for op in K.PROD_OPS:
+        check(K.prod_f32_path(op, C, H, x, hs, w_aug, dg) == "ws",
+              f"product {op} at C=H={width} is not on the ws path")
+        ran = dict(K.LAUNCHES_PROD)
+        with full_f32():
+            got = K.lstm_prod_f32(op, x, hs, w_aug, dg)
+            element = K.lstm_prod_f32(op, x, hs, w_aug, dg, path="element")
+            again = K.lstm_prod_f32(op, x, hs, w_aug, dg)
+            want = K.lstm_prod_f32_reference(op, x, hs, w_aug, dg)
+            torch.cuda.synchronize()
+            check(K.LAUNCHES_PROD[op, "ws"] - ran[op, "ws"] == 2
+                  and K.LAUNCHES_PROD[op, "element"]
+                  - ran[op, "element"] == 1,
+                  f"product {op} C=H={width}: launches by path "
+                  f"{K.LAUNCHES_PROD}")
+            err = (got - want).abs().max().item()
+            rel = rel_err(got, want)
+            same = torch.equal(got, element) and torch.equal(again, got)
+            limit = (err, 1e-5) if op == "dx" else (rel, 1e-4)
+            log(f"prod_f32_ws {op} C=H={width} T={T}: max |err| {err:.3e} "
+                f"({rel:.3e} of the max-abs; tolerance "
+                f"{'1e-5 abs' if op == 'dx' else '1e-4 of the max-abs'}), "
+                f"bit for bit with the element kernel and on repeat {same}")
+            check(np.isfinite(limit[0]) and limit[0] <= limit[1],
+                  f"prod_f32_ws {op} C=H={width}: {limit[0]:.3e} > "
+                  f"{limit[1]}")
+            check(same, f"prod_f32_ws {op} C=H={width}: other bits than "
+                  "the element kernel's or its own last call's")
+            del got, element, again, want
+            ms = time_ms(lambda: K.lstm_prod_f32(op, x, hs, w_aug, dg),
+                         n=GENERAL_TIMED)
+            plain_ms = time_ms(lambda: K.lstm_prod_f32_reference(
+                op, x, hs, w_aug, dg), n=3, calls=1)
+            lib_ms = time_ms(library[op], n=GENERAL_TIMED)
+        bound_ms, bound_by = lstm_bound(*prod_work(op, T * B, C, H),
+                                        torch.float32)
+        log(f"prod_f32_ws {op} C=H={width} T={T}: {ms:.4f} ms "
+            f"({bound_ms / ms:.1%} of the FP32 peak), plain {plain_ms:.4f} "
+            f"ms, cuBLAS (TF32 off) {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+            f"ms ({bound_by})")
+        records.append({
+            "name": f"prod_f32_ws_{op}",
+            "route": "cuda",
+            "source": "remora_tpu_torch/csrc/lstm_prod.cuh",
+            "replaces": PROD_REPLACES[op],
+            "launches": None,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": lib_ms,
+            "shape": {"T": T, "B": B, "C": C, "H": H},
+        })
+    return records
+
+
+def check_prod_ran(tag, before, want):
+    """The f32 products launched since ``before`` (a LAUNCHES_PROD copy):
+    ``want`` {op: n} on the ws path (0 on the element path), else fail."""
+    from remora_tpu_torch.kernels import lstm as K
+
+    ran = {key: K.LAUNCHES_PROD[key] - before[key] for key in before}
+    got = {op: ran[op, "ws"] for op in want}
+    log(f"{tag}: f32 products on the ws path {got}")
+    check(got == want and not any(ran[op, "element"] for op in K.PROD_OPS),
+          f"{tag}: f32 products by (op, path) {ran}, want {want} on ws")
+
+
+def prod_launches():
+    """LAUNCHES_PROD as {op: {path: n}}, and the counts set to 0."""
+    from remora_tpu_torch.kernels import lstm as K
+
+    out = {op: {path: K.LAUNCHES_PROD[op, path] for path in K.PROD_PATHS}
+           for op in K.PROD_OPS}
+    K.LAUNCHES_PROD.update(dict.fromkeys(K.LAUNCHES_PROD, 0))
+    return out
+
+
 def check_lstm_wide_compile():
     """The wide LSTM legs' kernels (lstm_wide.cu, lstm_wide_bwd.cu), each
     instantiation: registers logged, no spill."""
     check_compile("lstm_wide", "wide K1/K2", (
         "wide_fwd_f32_kernel", "wide_fwd_bf16_kernel"))
     check_compile("lstm_wide_bwd", "wide K3", (
-        "wide_rec_cluster_kernel", "wide_prod_f32_kernel",
-        "wide_prod_bf16_kernel", "ordered_sum"))
+        "wide_rec_cluster_kernel", "prod_f32_ws_kernel",
+        "wide_prod_f32_kernel", "wide_prod_bf16_kernel", "ordered_sum"))
 
 
 def check_lstm_wide():
@@ -1136,6 +1298,9 @@ def check_lstm_wide():
             for dtype, recs in records[width].items() for rec in recs
             if rec["name"].startswith("lstm_bwd")}
         for width in (WIDE_SIZE, WIDE)}}))
+    # the wide K3's f32 products alone at the model path's width
+    log(json.dumps({f"f32_products_at_{WIDE_SIZE}": check_prod_f32(
+        WIDE_SIZE)}))
     return records[WIDE_SIZE]
 
 
@@ -1147,16 +1312,18 @@ def check_lstm_general_compile():
     lstm_general_rec_cluster.cu's recurrence and the products again), each
     instantiation: registers logged, no spill."""
     check_compile("lstm_general", "general K1-K3", (
-        "general_fwd_kernel", "general_rec_kernel", "wide_prod_f32_kernel",
-        "wide_prod_bf16_kernel", "ordered_sum"))
+        "general_fwd_kernel", "general_rec_kernel", "prod_f32_ws_kernel",
+        "wide_prod_f32_kernel", "wide_prod_bf16_kernel", "ordered_sum"))
     check_compile("lstm_general_cluster", "general K1/K2 cluster", (
         "cluster_fwd_f32_whring_kernel", "cluster_fwd_f32_kernel",
         "cluster_fwd_bf16_x2_kernel", "cluster_fwd_bf16_kernel",
-        "wide_prod_f32_kernel"))
+        "prod_f32_ws_kernel", "wide_prod_f32_kernel"))
     check_compile("lstm_general_rec_cluster", "general K3 cluster", (
         "general_rec_cluster_kernel", "general_rec_group_kernel",
-        "wide_prod_f32_kernel",
+        "prod_f32_ws_kernel", "wide_prod_f32_kernel",
         "wide_prod_bf16_kernel", "ordered_sum"))
+    check_compile("lstm_prod", "f32 products", (
+        "prod_f32_ws_kernel", "wide_prod_f32_kernel", "ordered_sum"))
 
 
 # the general legs before their cluster paths (the first design's
@@ -1443,7 +1610,8 @@ def check_lstm_general():
     dtype, which take 6g's launches into the kernels line, and f32 at
     GENERAL's (the W_h-ring K1, K2 and the row-group K3, which take 6g's
     size-GENERAL leg's) with the streaming K1, K2 and K3 (6g's
-    size-GENERAL_STREAM leg's)."""
+    size-GENERAL_STREAM leg's), and the four f32 products' at GENERAL
+    (``check_prod_f32``; their launches are 6e's and 6g's)."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -1512,9 +1680,11 @@ def check_lstm_general():
     stream_k3 = check_general_stream_k3()
     log(json.dumps({f"general_stream_at_{GENERAL_STREAM}": [*stream_fwd,
                                                             stream_k3]}))
+    # the f32 products alone at GENERAL (K3's and the W_h-ring K1/K2's Z_x)
+    products = check_prod_f32(GENERAL)
     log(f"phase 3e wall {time.monotonic() - t0:.1f} s")
     return records[GENERAL_SIZE], [*records[GENERAL][torch.float32],
-                                   *stream_fwd, stream_k3]
+                                   *stream_fwd, stream_k3], products
 
 
 def profile_serve(handle, arrs, tag, n_walls=5):
@@ -1583,6 +1753,7 @@ def general_ring_leg(root, config, records):
     bwd_paths = K.LAUNCHES_GENERAL_BWD
     for d in (counts, paths, bwd_paths):
         d.update(dict.fromkeys(d, 0))
+    prod_before = dict(K.LAUNCHES_PROD)
     t0 = time.monotonic()
     train_model(
         seed=1, out_path=out, remora_dataset_path=config,
@@ -1601,12 +1772,17 @@ def general_ring_leg(root, config, records):
           and train_bwd_paths == {"cluster": 1, "stream": 0},
           f"{tag}: launches {train_launches}, K1/K2 by path {train_paths}, "
           f"K3 by path {train_bwd_paths}")
+    # K3's products once and Z_x once a K1/K2 launch, on the Hopper kernel
+    check_prod_ran(f"{tag} train", prod_before, {
+        "gates": 1, "dx": 1, "dw": 1, "gates_x": train_paths["cluster"]})
     handle = ModelHandle.load(os.path.join(out, "model_final.checkpoint"))
     arrs = synth_inputs(np.random.default_rng(8), BATCH)
     for d in (counts, paths):
         d.update(dict.fromkeys(d, 0))
+    prod_before = dict(K.LAUNCHES_PROD)
     logits = handle.eval_raw(*arrs).cpu().numpy()
     last = counts["last"]
+    check_prod_ran(f"{tag} serve", prod_before, {"gates_x": 1})
     check(last == 1 and paths == {"cluster": 1, "stream": 0},
           f"{tag}: one batch launched K1 {last} times, by path {paths}")
     with lstm_mode("scan"):
@@ -1641,6 +1817,7 @@ def general_k3_stream_leg(root, config, records):
     bwd_paths = K.LAUNCHES_GENERAL_BWD
     for d in (counts, paths, bwd_paths):
         d.update(dict.fromkeys(d, 0))
+    prod_before = dict(K.LAUNCHES_PROD)
     t0 = time.monotonic()
     train_model(
         seed=1, out_path=out, remora_dataset_path=config,
@@ -1667,6 +1844,8 @@ def general_k3_stream_leg(root, config, records):
           f"path {k3_paths}")
     check(len(losses) == 1 and np.isfinite(losses).all(),
           f"{tag}: batch.log losses {losses}")
+    check_prod_ran(tag, prod_before, {"gates": 1, "dx": 1, "dw": 1,
+                                      "gates_x": 0})
     for rec, leg in zip(records, ("last", "fwd", "bwd")):
         rec["launches"] = launches[leg]
 
@@ -1711,6 +1890,7 @@ def model_path_leg(root, config, records, kind, stream_records=None):
         paths.update(dict.fromkeys(paths, 0))
         bwd_paths = K.LAUNCHES_GENERAL_BWD
         bwd_paths.update(dict.fromkeys(bwd_paths, 0))
+        prod_before = dict(K.LAUNCHES_PROD)
         t0 = time.monotonic()
         train_model(
             seed=1, out_path=out, remora_dataset_path=config,
@@ -1732,6 +1912,10 @@ def model_path_leg(root, config, records, kind, stream_records=None):
         check(train_launches["fwd"] == train_launches["bwd"] == steps,
               f"{tag}: the {kind} K2/K3 launched {train_launches} times for "
               f"{steps} steps")
+        # K3 f32's three products once a step on the Hopper kernel
+        check_prod_ran(tag, prod_before, dict.fromkeys(
+            ("gates", "dx", "dw", "gates_x"), 0 if bf16 else steps) | (
+                {"gates_x": 0}))
         if general:  # the cluster paths, none of it streamed
             log(f"{tag}: general K1/K2 launches by path {paths}, K3 "
                 f"{bwd_paths}")
@@ -3203,7 +3387,7 @@ def _loaded_model(ckpt):
 K3_DW_SUM = r"ordered_sum(<0>|ILi0E)"
 K3_KERNELS = (r"lstm_bwd_\w*kernel|wide_rec_cluster_kernel|"
               r"general_rec_kernel|general_rec_cluster_kernel|"
-              r"wide_prod_\w*|" + K3_DW_SUM)
+              r"wide_prod_\w*|prod_f32_ws_\w*|" + K3_DW_SUM)
 
 
 def profile_train_step(ckpt, bf16, tag, n_walls=10, convbn=None):
@@ -5124,6 +5308,7 @@ def run_phases(stack):
     t0 = time.monotonic()
     _build.build_all()
     log(f"built {_build.sources()} in {time.monotonic() - t0:.1f} s")
+    phase_done("build")
     for name, (secs, out) in _build.BUILD_LOG.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -5136,18 +5321,23 @@ def run_phases(stack):
         torch.float32: check_lstm_last(torch.float32, 1e-5),
         torch.bfloat16: check_lstm_last(torch.bfloat16, 2e-2),
     }
+    phase_done("3")
     check_lstm_bwd_compile()
     train_kernels = {
         torch.float32: check_lstm_train(torch.float32, 1e-5),
         torch.bfloat16: check_lstm_train(torch.bfloat16, 2e-2),
     }
+    phase_done("3b")
     wide_kernels = check_lstm_wide()
-    general_kernels, stream_kernels = check_lstm_general()
+    phase_done("3d")
+    general_kernels, stream_kernels, prod_kernels = check_lstm_general()
+    phase_done("3e")
     if sys.argv[1:] == ["--lstm-kernels"]:
         # phases 1-3b, 3d and 3e only: no main path ran, so no launch counts
         records = list(kernels.values())
         for recs in (*train_kernels.values(), *wide_kernels.values(),
-                     *general_kernels.values(), stream_kernels):
+                     *general_kernels.values(), stream_kernels,
+                     prod_kernels):
             records.extend(recs)
         return finish(records)
     # relative to each output's largest entry: f32 rounding everywhere but
@@ -5161,6 +5351,7 @@ def run_phases(stack):
         torch.bfloat16: check_convbn(torch.bfloat16,
                                      dict(f32_tols, dx=2e-2, dw=2e-4)),
     }
+    phase_done("3c")
 
     batches = make_batches()
     # phase 7 runs last, on the checkpoint, reads and datasets of the
@@ -5177,18 +5368,21 @@ def run_phases(stack):
     log(f"phase 4 bf16: lstm_last launches {launches}")
     check_cpu_agreement(path, batches, logits)
     format_tags(np.concatenate(logits))
+    phase_done("4")
     # phase 5: the streaming driver, the main path; its launch counts
     # are K1's in the kernels line
     refine_path = os.path.join(tmp, "convlstm_size64_refine.npz")
     seeded_checkpoint(refine_path, refine=synth_level_table())
     stream_launches, stream_rates = stream_infer(tmp, path, refine_path,
                                                  smi, sets)
+    phase_done("5")
     # phase 5b: duplex inference; K1's launches there join phase 5's
     t_phase = time.monotonic()
     duplex_launches, duplex_dp, duplex_rates = duplex_infer(
         tmp, path, refine_path, smi, sets)
     duplex_rates["duplex_phase_s"] = time.monotonic() - t_phase
     log(f"phase 5b wall {duplex_rates['duplex_phase_s']:.1f} s")
+    phase_done("5b")
     kernels[torch.float32]["launches"] = (stream_launches["f32"]
                                           + duplex_launches["f32"])
     kernels[torch.bfloat16]["launches"] = (stream_launches["bf16"]
@@ -5214,6 +5408,7 @@ def run_phases(stack):
     final = os.path.join(tmp, "train_f32", "model_final.checkpoint")
     check_train_step_vs_plain(final)
     infer_trained(final)
+    phase_done("6, 6b")
     # 6c: the pallas-mode training path (K6 in every stride-1 block),
     # f32 one step a call and bf16 in windows of 4
     for dtype, bf16, spl, tag in (
@@ -5228,12 +5423,25 @@ def run_phases(stack):
         train_rates[tag] = rates
         profile_train_step(os.path.join(out, "model_final.checkpoint"),
                            bf16, tag, convbn="pallas")
+    phase_done("6c")
     # 6d: a pallas-mode step against the fused-mode step
     check_pallas_step_vs_fused(final)
+    phase_done("6d")
     # 6e: the wide LSTM legs on the model path at size WIDE_SIZE
+    prod_launches()  # the f32 products' counts from 0: 6e's and 6g's runs
     model_path_leg(tmp, config, wide_kernels, "wide")
+    phase_done("6e")
     # 6g: the general LSTM leg on the model path at size GENERAL_SIZE
     model_path_leg(tmp, config, general_kernels, "general", stream_kernels)
+    phase_done("6g")
+    ran = prod_launches()
+    log(f"phases 6e and 6g: f32 products by path {ran}")
+    check(all(ran[op]["element"] == 0 and ran[op]["ws"] >= 1
+              for op in ran),
+          f"phases 6e and 6g: the f32 products ran {ran}, not every op on "
+          "the ws path alone")
+    for rec in prod_kernels:
+        rec["launches"] = ran[rec["name"].removeprefix("prod_f32_ws_")]["ws"]
     # 6f and 5c: data parallel on phase 6's dataset and phase 5's reads
     # and checkpoint; their K1-K3 launches join the kernels line
     dp_launches, dp_rates = data_parallel(tmp, config, sets["ckpt"], smi,
@@ -5241,18 +5449,22 @@ def run_phases(stack):
     kernels[torch.float32]["launches"] += dp_launches["k1"]
     for rec, key in zip(train_kernels[torch.float32], ("k2", "k3")):
         rec["launches"] += dp_launches[key]
+    phase_done("6f, 5c")
 
     log(f"phase 8: {host_memory()}")
     dp_kernels = check_banded_dp()
+    phase_done("8")
     tmp = os.path.join(root, "refine")
     os.makedirs(tmp)
     launches, refine_rates = refine_stage(tmp)
+    phase_done("8b")
     # phase 8c: the prepare driver; K4/K5's launches there and in
     # phase 5b's device-refiner leg join phase 8b's
     t_phase = time.monotonic()
     prepare_launches, prepare_rates = prepare_stage(tmp, smi)
     prepare_rates["prepare_phase_s"] = time.monotonic() - t_phase
     log(f"phase 8c wall {prepare_rates['prepare_phase_s']:.1f} s")
+    phase_done("8c")
     for rec, *ns in zip(dp_kernels, launches, duplex_dp, prepare_launches):
         rec["launches"] = sum(ns)
 
@@ -5265,6 +5477,7 @@ def run_phases(stack):
     cli_rates["cli_phase_s"] = time.monotonic() - t_phase
     log(f"phase 7 wall {cli_rates['cli_phase_s']:.1f} s; launches "
         f"{cli_launches}")
+    phase_done("7")
     kernels[torch.float32]["launches"] += cli_launches["k1_f32"]
     kernels[torch.bfloat16]["launches"] += cli_launches["k1_bf16"]
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -5288,7 +5501,7 @@ def run_phases(stack):
     }}))
     records = list(kernels.values())
     for recs in (*train_kernels.values(), *wide_kernels.values(),
-                 *general_kernels.values(), stream_kernels,
+                 *general_kernels.values(), stream_kernels, prod_kernels,
                  *convbn_kernels.values(),
                  dp_kernels):
         records.extend(recs)
@@ -5338,6 +5551,9 @@ def finish(records):
           "zstandard was imported: the port must read and write POD5 "
           "without it")
 
+    if PHASE_WALLS:
+        log(json.dumps({"phase_walls_s": {
+            **PHASE_WALLS, "total": round(time.monotonic() - _T_START, 1)}}))
     log(json.dumps({"kernels": records}))
     log(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,13 @@ partials fit where all R rows' do not), else ``lstm_general.cu``'s
 ``general_rec_kernel`` (f32 past 256, every shape at 1024). Above 1024 every entry point raises; a launch
 on either path that fails raises, never moving to the other path.
 
+The f32 products of those K3 legs and the W_h-ring K1/K2's Z_x run
+``csrc/lstm_prod.cuh``'s ``prod_f32_ws_kernel`` (persistent blocks, a TMA
+producer warp a ring, two FFMA consumer warpgroups) wherever C and H are
+multiples of 4 and the operands 16-byte aligned (``prod_f32_path``), else
+its element kernel; ``lstm_prod_f32`` runs one product alone on a path
+the caller may force (counts in ``LAUNCHES_PROD``).
+
 The source notes give each kernel's design and bound. Each entry point
 launches its kernel for a CUDA tensor and uses its plain version
 (``lstm_last_reference``, ``lstm_fwd_reference``, ``lstm_bwd_reference``
@@ -153,6 +160,15 @@ CLUSTER_REC_GROUP_N = 8
 CLUSTER_REC_GROUP_UNITS = 32
 CLUSTER_REC_GROUP_ROWS = 48
 CLUSTER_REC_GROUPS = 3
+# ``csrc/lstm_prod.cuh``'s f32 products (K3's gate recompute, dx and dW,
+# the W_h-ring K1/K2's Z_x), by the library's op number, and their two
+# paths: "ws" (``prod_f32_ws_kernel``, Hopper's persistent warp-specialized
+# FFMA GEMM fed by TMA) where ``prod_f32_path`` finds C, H and the operands
+# fit it, else "element" (``wide_prod_f32_kernel``); one launch counted a
+# product run, through ``lstm_prod_f32`` or inside a K3 or K1/K2 call
+PROD_OPS = ("gates", "dx", "dw", "gates_x")
+PROD_PATHS = ("ws", "element")
+LAUNCHES_PROD = {(op, path): 0 for op in PROD_OPS for path in PROD_PATHS}
 
 
 def make_w_aug(params, dtype):
@@ -698,9 +714,13 @@ def _general_fwd_launch(leg, x, w_aug, C, H):
                 rest[1:]
         T, B = rest[:2]
         zx = torch.empty((T, B, 4 * H), dtype=torch.float32, device=x.device)
-        return lib.lstm_general_ring_fwd(
+        err = lib.lstm_general_ring_fwd(
             x_ptr, w_aug.data_ptr(), wl.data_ptr(), zx.data_ptr(), hs_ptr,
             cs_ptr, last_ptr, *rest[:4], N, R, 3, rest[4])
+        if err == 0 and T * B > 0:
+            LAUNCHES_PROD["gates_x", prod_f32_path("gates_x", C, H, x,
+                                                   w_aug)] += 1
+        return err
 
     if cfg["ring"]:
         return ring, lib.lstm_general_cluster_error_string, "cluster"
@@ -951,8 +971,7 @@ def lstm_fwd_reference(x, w_aug, want_cs=True):
     T, B, C = x.shape
     H = w_aug.shape[1] // 4
     w = w_aug[: C + H].float()
-    x_proj = (x.reshape(T * B, C).float() @ w[:C]).reshape(T, B, 4 * H)
-    x_proj = x_proj + w_aug[C + H].float()
+    x_proj = _x_projection(x, w_aug)
     hs = x.new_empty((T, B, H))
     cs = x.new_empty((T, B, H)) if want_cs else None
     h_op = x.new_zeros((B, H))
@@ -965,6 +984,15 @@ def lstm_fwd_reference(x, w_aug, want_cs=True):
         if want_cs:
             cs[t] = c.to(x.dtype)
     return hs, cs
+
+
+def _x_projection(x, w_aug):
+    """x_t . W_x + b of every step, (T, B, 4H) f32 from f32 sums of the
+    operands in x's dtype: the forward's x part (the W_h-ring path's Z_x)."""
+    T, B, C = x.shape
+    H = w_aug.shape[1] // 4
+    z = (x.reshape(T * B, C).float() @ w_aug[: C + H].float()[:C])
+    return z.reshape(T, B, 4 * H) + w_aug[C + H].float()
 
 
 def _xh(x, hs):
@@ -1347,7 +1375,116 @@ def _lstm_bwd_split(kind, x, w_aug, hs, cs, dhs):
     _raise_on(error_string, "lstm_bwd", err)
     LAUNCHES_BWD += 1
     _count_leg(kind, "bwd", path)
+    if x.dtype == torch.float32 and T * B > 0:
+        by_shape = prod_f32_path("gates", C, H, x, hs, w_aug, w_xt, dg)
+        for op in ("gates", "dx", "dw"):
+            LAUNCHES_PROD[op, by_shape] += 1
     return dx, dw
+
+
+# ---------------- the f32 products alone (csrc/lstm_prod.cuh) ----------------
+
+
+def prod_f32_path(op, C, H, *operands):
+    """The path an f32 product takes by shape (``launch_f32_op``'s p.vec):
+    "ws" where C (and H, but for "gates_x", which reads no h) are multiples
+    of 4 and every operand (None for one the op does not read) lies on a
+    16-byte boundary, else "element"."""
+    fits = C % 4 == 0 and (op == "gates_x" or H % 4 == 0) and all(
+        t.data_ptr() % 16 == 0 for t in operands if t is not None)
+    return "ws" if fits else "element"
+
+
+def _prod_library():
+    lib = _build.load("lstm_prod")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_prod_f32.argtypes = [i32, i32] + [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.lstm_prod_f32.restype = i32
+        lib.lstm_prod_dw_chunks.argtypes = [i32, i32]
+        lib.lstm_prod_dw_chunks.restype = i32
+        lib.lstm_prod_error_string.argtypes = [i32]
+        lib.lstm_prod_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def lstm_prod_f32_reference(op, x, hs, w_aug, dg=None):
+    """Plain twin of one f32 product: "gates" Z (T, B, 4H)
+    (``lstm_bwd_gates_reference``), "gates_x" Z_x = x_t . W_x + b (T, B,
+    4H), the forward's x part, "dx" (T, B, C) and "dw" (C + H + 1, 4H)
+    (``lstm_bwd_products_reference``, dgates ``dg``)."""
+    if op == "gates":
+        return lstm_bwd_gates_reference(x, w_aug, hs)
+    if op == "gates_x":
+        return _x_projection(x, w_aug)
+    dx, dw = lstm_bwd_products_reference(x, hs, w_aug, dg)
+    return dx if op == "dx" else dw
+
+
+def lstm_prod_f32(op, x, hs, w_aug, dg=None, path=None):
+    """One of K3's f32 products, or the W_h-ring K1/K2's Z_x, alone
+    (``lstm_prod_f32_reference``, its plain twin, on CPU tensors): ``op``
+    one of PROD_OPS over x (T, B, C), hs (T, B, H; None for "gates_x"),
+    W_aug (C + H + 1, 4H) and, for "dx" and "dw", dgates ``dg`` (T, B, 4H),
+    all f32. On the card ``csrc/lstm_prod.cu`` runs it on ``path``: None
+    the one the shape takes (``prod_f32_path``), "ws" or "element" forced;
+    a forced path the shape refuses raises. Counted in LAUNCHES_PROD by
+    (op, path)."""
+    name = "lstm_prod_f32"
+    if op not in PROD_OPS:
+        raise ValueError(f"{name}: op {op!r} is not one of {PROD_OPS}")
+    if path is not None and path not in PROD_PATHS:
+        raise ValueError(f"{name}: path {path!r} is not one of "
+                         f"{PROD_PATHS}")
+    reads_h, reads_dg = op != "gates_x", op in ("dx", "dw")
+    if reads_h and hs is None or reads_dg and dg is None:
+        raise ValueError(f"{name}: {op} reads hs{' and dg' * reads_dg}")
+    if x.device.type == "cpu":
+        return lstm_prod_f32_reference(op, x, hs, w_aug, dg)
+    T, B, C, H = _check_cuda(name, x, w_aug, *([hs] if reads_h else []))
+    if x.dtype != torch.float32:
+        raise ValueError(f"{name}: f32 only, got {x.dtype}")
+    if reads_dg and (dg.shape != (T, B, 4 * H) or dg.dtype != torch.float32
+                     or dg.device != x.device or not dg.is_contiguous()):
+        raise ValueError(f"{name}: dg must be a contiguous (T, B, 4H) f32 "
+                         f"tensor on {x.device}, got {tuple(dg.shape)} "
+                         f"{dg.dtype}")
+    w_xt = w_aug[:C].t().contiguous() if op == "dx" else None
+    operands = (x, hs if reads_h else None, w_aug, w_xt,
+                dg if reads_dg else None)
+    by_shape = prod_f32_path(op, C, H, *operands)
+    path = by_shape if path is None else path
+    if path == "ws" and by_shape != "ws":
+        raise ValueError(
+            f"{name}: the ws path takes C, H multiples of 4 and 16-byte "
+            f"aligned operands, not C={C}, H={H} at these addresses")
+    lib = _prod_library()
+    dev = x.device
+    partials = None
+    if op == "dx":
+        out = torch.empty_like(x)
+    elif op == "dw":
+        out = torch.empty((C + H + 1, 4 * H), dtype=torch.float32,
+                          device=dev)
+        partials = torch.empty((lib.lstm_prod_dw_chunks(T, B), C + H + 1,
+                                4 * H), dtype=torch.float32, device=dev)
+    else:
+        out = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        err = lib.lstm_prod_f32(
+            PROD_OPS.index(op), 1 + PROD_PATHS.index(path),
+            *map(ptr, operands[:2]), w_aug.data_ptr(), ptr(w_xt),
+            ptr(operands[4]), out.data_ptr(), ptr(partials), T, B, C, H,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib.lstm_prod_error_string, name, err)
+    if T * B > 0:
+        LAUNCHES_PROD[op, path] += 1
+    return out
 
 
 class LSTMFused(torch.autograd.Function):

@@ -1243,3 +1243,105 @@ def test_convbn_k6_autograd_on_card(cuda):
             assert tc["b"].grad.abs().max().item() <= 1e-4
         for got, want in zip(*grads):
             assert _rel(got, want) <= 1e-4
+
+
+# lstm_prod.cuh's f32 products alone (lstm_prod_f32): the Hopper kernel
+# (prod_f32_ws_kernel) against the element kernel (wide_prod_f32_kernel,
+# forced) bit for bit, and both against the plain twin within K3's limits
+# (Z and Z_x 1e-4 of their max-abs, dx 1e-5 abs, dW 1e-4 of its max-abs),
+# a repeated call identical: the model widths 96-256 over 4500 rows (not a
+# multiple of any tile; three dW chunks, the last one short), and ragged
+# shapes: C a multiple of 4 but not of the 32-wide k stage (132, with H =
+# 4), H = 32 beside C = 160, one row a step, TB under one tile
+def _prod_inputs(T, B, C, H, device, seed=3):
+    rng = np.random.default_rng(seed)
+    bound = 1.0 / np.sqrt(H)
+
+    def t(*shape, scale=1.0, uniform=False):
+        a = (rng.uniform(-bound, bound, shape) if uniform
+             else rng.normal(size=shape) * scale)
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    # x, h in (-1, 1) as the forward's, dgates at a gradient's scale
+    return (t(T, B, C), t(T, B, H, uniform=True) * np.sqrt(H),
+            t(C + H + 1, 4 * H, uniform=True), t(T, B, 4 * H, scale=0.1))
+
+
+@pytest.mark.parametrize("op", K.PROD_OPS)
+@pytest.mark.parametrize("T,B,C,H", [(3, 1500, 96, 96), (3, 1500, 128, 128),
+                                     (3, 1500, 160, 160),
+                                     (3, 1500, 256, 256), (5, 23, 160, 32),
+                                     (3, 33, 132, 4), (2, 1, 256, 256)])
+def test_lstm_prod_ws_matches_element_bit_for_bit(cuda, op, T, B, C, H):
+    x, hs, w_aug, dg = _prod_inputs(T, B, C, H, cuda)
+    assert K.prod_f32_path(op, C, H, x, hs, w_aug, dg) == "ws"
+    launches = dict(K.LAUNCHES_PROD)
+    with full_f32():
+        got = K.lstm_prod_f32(op, x, hs, w_aug, dg)
+        element = K.lstm_prod_f32(op, x, hs, w_aug, dg, path="element")
+        again = K.lstm_prod_f32(op, x, hs, w_aug, dg, path="ws")
+        want = K.lstm_prod_f32_reference(op, x, hs, w_aug, dg)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES_PROD[op, "ws"] == launches[op, "ws"] + 2
+    assert K.LAUNCHES_PROD[op, "element"] == launches[op, "element"] + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, element)
+    assert torch.equal(again, got)
+    if op == "dx":
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert _rel(got, want) <= 1e-4
+
+
+def test_lstm_prod_refused_shapes_take_the_element_path(cuda):
+    """C or H off 4 (but H for Z_x, which reads no h) or an operand off 16
+    bytes run the element kernel by shape; forcing the Hopper path there
+    raises before any launch."""
+    x, hs, w_aug, dg = _prod_inputs(3, 40, 130, 129, cuda)
+    launches = dict(K.LAUNCHES_PROD)
+    for op in ("gates", "dx", "dw"):
+        assert K.prod_f32_path(op, 130, 129, x, hs, w_aug, dg) == "element"
+        with pytest.raises(ValueError, match="ws path"):
+            K.lstm_prod_f32(op, x, hs, w_aug, dg, path="ws")
+        with full_f32():
+            got = K.lstm_prod_f32(op, x, hs, w_aug, dg)
+            want = K.lstm_prod_f32_reference(op, x, hs, w_aug, dg)
+        assert _rel(got, want) <= 1e-4
+    assert all(K.LAUNCHES_PROD[op, "element"] == launches[op, "element"] + 1
+               and K.LAUNCHES_PROD[op, "ws"] == launches[op, "ws"]
+               for op in ("gates", "dx", "dw"))
+    x4, hs4, w4, _ = _prod_inputs(3, 40, 132, 129, cuda)
+    assert K.prod_f32_path("gates_x", 132, 129, x4, w4) == "ws"
+    assert K.prod_f32_path("gates", 132, 129, x4, hs4, w4) == "element"
+    off = torch.empty(x4.numel() + 1, device=cuda)[1:].view_as(x4)
+    off.copy_(x4)
+    assert K.prod_f32_path("gates_x", 132, 129, off, w4) == "element"
+    with full_f32():
+        got = K.lstm_prod_f32("gates_x", off, None, w4)
+        want = K.lstm_prod_f32("gates_x", x4, None, w4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("C,H", [(96, 96), (160, 160), (256, 256)])
+def test_lstm_bwd_f32_runs_the_ws_products(cuda, C, H):
+    """K3 f32 on the wide and general legs launches its three products on
+    the Hopper kernel (LAUNCHES_PROD), and the W_h-ring K2 at 256 its Z_x,
+    and K3 stays within its limits of the plain version."""
+    x, w_aug, hs, cs, dhs = _bwd_inputs(3, 50, C, H, torch.float32, cuda)
+    launches = dict(K.LAUNCHES_PROD)
+    with full_f32():
+        dx, dw = K.lstm_bwd(x, w_aug, hs, cs, dhs)
+        dx_ref, dw_ref = K.lstm_bwd_reference(x, w_aug, hs, cs, dhs)
+        K.lstm_fwd(x, w_aug)
+    torch.cuda.synchronize()
+    ran = {k: K.LAUNCHES_PROD[k] - launches[k] for k in launches}
+    ring = int(K.general_fwd_cfg(C, H, torch.float32, *K.general_fwd_plan(
+        C, H, torch.float32, K.cluster_capacity(cuda.index or 0))[:2])[
+            "ring"]) if C > K.WIDE_MAX_C else 0
+    assert ran == {**dict.fromkeys(launches, 0), ("gates", "ws"): 1,
+                   ("dx", "ws"): 1, ("dw", "ws"): 1,
+                   ("gates_x", "ws"): ring}
+    assert ring == (C == 256)
+    assert (dx - dx_ref).abs().max().item() <= 1e-5
+    assert _rel(dw, dw_ref) <= 1e-4

@@ -222,22 +222,33 @@ def test_build_rebuilds_when_its_inputs_change(monkeypatch, fake_nvcc,
     assert ("--fmad=false" in ran()[1]) == (change == "source_flags")
 
 
-@pytest.mark.parametrize("name", ["lstm_fwd_mma", "lstm_bwd_mma",
-                                  "lstm_bwd_f32", "convbn_bwd",
-                                  "lstm_wide", "lstm_wide_bwd",
-                                  "lstm_fwd_f32", "lstm_general"])
-def test_build_key_covers_the_shared_header(fake_nvcc, name):
-    """The package's sources that include the shared header
-    (``mma_sm90.cuh``: the tensor-core and cp.async helpers), copied as they
-    are, rebuild when it changes, and only then."""
+# (source, shared header): every source that includes mma_sm90.cuh (the
+# tensor-core and cp.async helpers) or lstm_prod.cuh (the LSTM products,
+# which include mma_sm90.cuh)
+_SHARED_HEADERS = [
+    *(pytest.param(name, "mma_sm90.cuh", id=name)
+      for name in ("lstm_fwd_mma", "lstm_bwd_mma", "lstm_bwd_f32",
+                   "convbn_bwd", "lstm_wide", "lstm_wide_bwd",
+                   "lstm_fwd_f32", "lstm_general")),
+    *(pytest.param(name, "lstm_prod.cuh", id=f"{name}-lstm_prod")
+      for name in ("lstm_wide_bwd", "lstm_general", "lstm_general_cluster",
+                   "lstm_general_rec_cluster", "lstm_prod")),
+]
+
+
+@pytest.mark.parametrize("name,header", _SHARED_HEADERS)
+def test_build_key_covers_the_shared_header(fake_nvcc, name, header):
+    """The package's sources that include a shared header, copied as they
+    are with the headers, rebuild when the header changes, and only
+    then."""
     csrc, ran = fake_nvcc
     real = Path(_build.__file__).resolve().parent.parent / "csrc"
-    for f in (f"{name}.cu", "mma_sm90.cuh"):
+    for f in (f"{name}.cu", "mma_sm90.cuh", "lstm_prod.cuh"):
         shutil.copy(real / f, csrc / f)
-    assert '#include "mma_sm90.cuh"' in (csrc / f"{name}.cu").read_text()
+    assert f'#include "{header}"' in (csrc / f"{name}.cu").read_text()
     first = _build.library_path(name)
     assert _build.library_path(name) == first and len(ran()) == 1
-    with open(csrc / "mma_sm90.cuh", "a") as fh:
+    with open(csrc / header, "a") as fh:
         fh.write("// a changed helper\n")
     second = _build.library_path(name)
     assert second != first and second.is_file() and len(ran()) == 2
