@@ -66,12 +66,15 @@ timing and SASS helpers are ``chip_lstm_fwd_variants.py``'s.
 """
 
 import ctypes
+import functools
 import os
 import re
+import subprocess
 import sys
+import tempfile
 
 from chip_lstm_fwd_variants import CSRC, REPO, build_variants, cudnn_ms, \
-    sass_mix, smi_line, time_ms
+    ptxas_lines, sass_mix, smi_line, time_ms
 
 SOURCE = "lstm_bwd_f32.cu"
 KERNEL = "lstm_bwd_f32_kernelILb1ELi64ELi64E"
@@ -140,6 +143,10 @@ PARENT_EDITS = {
                         "        bi[H * kRows] = q1;\n"
                         "        bi[2 * H * kRows] = q2;\n"
                         "        bi[3 * H * kRows] = q3;\n", "")],
+    "slots2": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 2;")],
+    "slots3": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 3;")],
     "no_dg_stores": [("          dgm[0] = narrow<T>(q0);\n"
                       "          dgm[H] = narrow<T>(q1);\n"
                       "          dgm[2 * H] = narrow<T>(q2);\n"
@@ -180,6 +187,10 @@ WIDE_EDITS = {
     "no_smem_stores": [
         ("          ds[dsw(g * hh + j, row)] = q[g];", ""),
         ("          ds[row * cfg.ldd + g * hh + j] = narrow<T>(q[g]);", "")],
+    "slots2": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 2;")],
+    "slots3": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 3;")],
     "no_dg_stores": [
         ("        for (int g = 0; g < 4; ++g) dgm[g * H] = narrow<T>(q[g]);",
          "")],
@@ -324,6 +335,10 @@ GENERAL_EDITS = {
         ("    load_now(cpr[k], cs + (t > 0 ? hk - (size_t)B * H : 0), o && "
          "t > 0);\n    load_now(dhr[k], dhs + hk, o);\n",
          "    cpr[k] = narrow<T>(0.5f);\n    dhr[k] = narrow<T>(0.125f);\n")],
+    "slots2": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 2;")],
+    "slots3": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 3;")],
     "no_dg_stores": [
         ("        for (int g = 0; g < 4; ++g) dgm[g * H] = narrow<T>(q[g]);\n",
          "")],
@@ -380,6 +395,10 @@ GROUP_EDITS = {
          "      load_now(cpr[i], cs + (t > 0 ? hk - (size_t)B * H : 0), o && "
          "t > 0);\n      load_now(dhr[i], dhs + hk, o);\n",
          "      ctr[i] = 0.5f;\n      cpr[i] = 0.25f;\n      dhr[i] = 0.125f;\n")],
+    "slots2": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 2;")],
+    "slots3": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 3;")],
     "no_dg_stores": [
         ("          for (int c = 0; c < 4; ++c) dgm[c * H] = q[c];\n", "")],
     "fetch_after_product": [
@@ -1041,6 +1060,252 @@ def legs_512(T=124, B=2048):
           f"{bwd:.4f} ms (TF32 off)", flush=True)
 
 
+# --ring: the L2 read rate, one 4 MiB buffer read by every SM (W_h^T's
+# f32 size at H = 512), through loads that bypass L1 and through TMA bulk
+# copies into a ring of shared-memory slots, as general_rec_ring_kernel
+# streams it
+L2_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+extern "C" __global__ void l2_read_ldg(const float4* __restrict__ buf,
+                                       int n4, int reps, float* out) {
+  float acc = 0.f;
+  for (int r = 0; r < reps; ++r) {
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+      const float4 v = __ldcg(buf + i);
+      acc += v.x + v.y + v.z + v.w;
+    }
+  }
+  if (acc == 12345.f) out[blockIdx.x] = acc;  // keeps the loads
+}
+
+__device__ __forceinline__ void wait_bar(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one thread a block copies all of buf `reps` times into a ring of `slots`
+// slots of `chunk` bytes, `slots` copies in flight
+extern "C" __global__ void l2_read_bulk(const char* __restrict__ buf,
+                                        int chunk, int nchunks, int reps,
+                                        int slots) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  if (threadIdx.x != 0) return;
+  const uint32_t bars = (uint32_t)__cvta_generic_to_shared(sm);
+  const uint32_t ring = bars + 256;
+  for (int s = 0; s < slots; ++s) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(bars + 8 * s) : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  const int total = nchunks * reps;
+  for (int q = 0; q < total; ++q) {
+    const int s = q % slots, n = q / slots;
+    if (n > 0) wait_bar(bars + 8 * s, (n - 1) & 1);
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+        :: "r"(bars + 8 * s), "r"(chunk) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(ring + s * chunk), "l"(buf + (size_t)(q % nchunks) * chunk),
+           "r"(chunk), "r"(bars + 8 * s) : "memory");
+  }
+  for (int q = total > slots ? total - slots : 0; q < total; ++q) {
+    wait_bar(bars + 8 * (q % slots), (q / slots) & 1);
+  }
+}
+
+extern "C" int run_ldg(const void* buf, int n4, int reps, void* out,
+                       int blocks, void* stream) {
+  l2_read_ldg<<<blocks, 512, 0, (cudaStream_t)stream>>>(
+      (const float4*)buf, n4, reps, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int run_bulk(const void* buf, int chunk, int nchunks, int reps,
+                        int slots, int blocks, void* stream) {
+  const int smem = 256 + slots * chunk;
+  cudaFuncSetAttribute(l2_read_bulk,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  l2_read_bulk<<<blocks, 32, smem, (cudaStream_t)stream>>>(
+      (const char*)buf, chunk, nchunks, reps, slots);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def l2_rates(mib=4, reps=8, chunk=16384, slots=(2, 4, 6, 12)):
+    """The card's L2 -> SM read rate: every SM's block reads the same
+    ``mib`` MiB buffer ``reps`` times, by ``ld.global.cg`` (512 threads a
+    block) and by one thread's TMA bulk copies into ``slots`` slots of
+    ``chunk`` bytes (the ring kernel's at H = 512), over all SMs and on
+    one SM alone (the bulk copies at each count of ``slots``). Prints and
+    returns {name: GB/s}."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import _build
+
+    tmp = tempfile.mkdtemp()
+    src = os.path.join(tmp, "l2_probe.cu")
+    open(src, "w").write(L2_PROBE)
+    lib_path = os.path.join(tmp, "libl2_probe.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path,
+                    src], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(lib_path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.run_ldg.argtypes = [ptr, i32, i32, ptr, i32, ptr]
+    lib.run_bulk.argtypes = [ptr] + [i32] * 5 + [ptr]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nbytes = mib << 20
+    buf = torch.rand(nbytes // 4, device="cuda")
+    out = torch.zeros(sms, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for blocks in (sms, 1):
+        def ldg(blocks=blocks):
+            if lib.run_ldg(buf.data_ptr(), nbytes // 16, reps,
+                           out.data_ptr(), blocks, stream):
+                raise SystemExit("l2_read_ldg: launch error")
+
+        def bulk(blocks=blocks, n=6):
+            if lib.run_bulk(buf.data_ptr(), chunk, nbytes // chunk, reps,
+                            n, blocks, stream):
+                raise SystemExit("l2_read_bulk: launch error")
+        for name, fn in (("ld.global.cg", ldg), *(
+                (f"TMA bulk, {n} slots of {chunk >> 10} KiB",
+                 functools.partial(bulk, n=n)) for n in slots)):
+            ms = time_ms(fn, n=5, calls=3)
+            key = f"{name}, {blocks} SM{'s' if blocks > 1 else ''}"
+            rates[key] = blocks * nbytes * reps / ms / 1e6
+            print(f"L2 read rate, {key} reading one {mib} MiB buffer "
+                  f"{reps} times: {rates[key]:.1f} GB/s ({ms:.4f} ms)",
+                  flush=True)
+    return rates
+
+
+# edits of lstm_general_rec_ring.cu for --ring's split of the step (the
+# variants compute wrong numbers on purpose: timings, never results)
+RING_SOURCE = "lstm_general_rec_ring.cu"
+RING_EDITS = {
+    "no_product": [("for (int kk = 0; kk < 4; ++kk) {",
+                    "for (int kk = 0; kk < 0; ++kk) {")],
+    "no_w_loads": [
+        ("in_tile[0] ? *reinterpret_cast<const float4*>(wr + ub[0])\n"
+         "                           : zero4();",
+         "make_float4(1e-3f * kk, 2e-3f, 3e-3f, 4e-3f);"),
+        ("in_tile[1] ? *reinterpret_cast<const float4*>(wr + ub[1])\n"
+         "                           : zero4();",
+         "make_float4(5e-3f, 6e-3f * kk, 7e-3f, 8e-3f);")],
+    "no_a_loads": [
+        ("av[i] = *reinterpret_cast<const float4*>(arow + i * ld +\n"
+         "                                                     c * kChunk + "
+         "kq);",
+         "av[i] = make_float4(1e-3f * i, 1e-3f * c, 1e-3f * kq, 1e-3f);")],
+    "no_gate_math": [("for (int n = 0; n < 16; ++n) {",
+                      "for (int n = 0; n < 0; ++n) {")],
+    "slots2": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 2;")],
+    "slots3": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 3;")],
+    "no_dg_stores": [
+        ("        for (int g = 0; g < 4; ++g) store4<kVec>(dgm + g * H, "
+         "q[g], cnt);\n", "")],
+}
+RING_VARIANTS = {
+    "as is": [],
+    "no product (the ring's waits kept)": RING_EDITS["no_product"],
+    "no W_h^T shared loads": RING_EDITS["no_w_loads"],
+    "no dgates shared loads": RING_EDITS["no_a_loads"],
+    "no W_h^T or dgates shared loads": RING_EDITS["no_w_loads"]
+    + RING_EDITS["no_a_loads"],
+    "no gate math": RING_EDITS["no_gate_math"],
+    "no gate math, no product (the ring alone)": RING_EDITS["no_gate_math"]
+    + RING_EDITS["no_product"],
+    "no dgates device stores": RING_EDITS["no_dg_stores"],
+    "2 ring slots": RING_EDITS["slots2"],
+    "3 ring slots": RING_EDITS["slots3"],
+}
+
+
+def _typed_ring(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_general_rec_ring_rec.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.lstm_general_rec_ring_rec.restype = i32
+    return lib
+
+
+def split_ring(widths=(512, 384, 257), T=124, B=2048):
+    """``--ring``: the L2 read rate (``l2_rates``); then the ring path's
+    walk (``lstm_general_rec_ring_rec``) at T = 124, B = 2048 and C = H =
+    ``widths`` against the streaming ``general_rec_kernel`` on the same
+    inputs (bit for bit: both sum each dh in k order), at clusters of 1
+    and 2 (multicast), and edited copies that split its step, registers
+    and spills each."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import lstm as K
+
+    l2_rates()
+    _, built = build_variants(RING_SOURCE, RING_VARIANTS,
+                              headers=("mma_sm90.cuh", "lstm_prod.cuh"))
+    libs = {name: (_typed_ring(ctypes.CDLL(path)), out)
+            for name, (path, out) in built.items()}
+    streaming = K._general_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    caps = K.cluster_capacity(0)
+    for width in widths:
+        H = width
+        z, cs, dhs, w_ht, dg = _general_rec_case(width, torch.float32, T=T,
+                                                 B=B)
+        wp = K.general_rec_ring_weights(w_ht)
+        plan = K.general_rec_ring_plan(H, H, torch.float32, caps)
+
+        def stream_call():
+            err = streaming.lstm_general_rec(0, z.data_ptr(), cs.data_ptr(),
+                                             dhs.data_ptr(), w_ht.data_ptr(),
+                                             dg.data_ptr(), T, B, H, stream)
+            if err != 0:
+                raise SystemExit(f"general_rec_kernel: error {err}")
+        stream_call()
+        want = dg.clone()
+        ms = time_ms(stream_call, n=3, calls=1)
+        print(f"general K3 walk f32 C=H={H} T={T} streaming "
+              f"general_rec_kernel: {ms:.4f} ms ({ms / T * 1e3:.2f} us a "
+              "step)", flush=True)
+        for name, (lib, out) in libs.items():
+            for N in ((1, 2) if name == "as is" else (1,)):
+                def call(lib=lib, N=N):
+                    err = lib.lstm_general_rec_ring_rec(
+                        z.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+                        wp.data_ptr(), dg.data_ptr(), T, B, H, N, 16,
+                        stream)
+                    if err != 0:
+                        raise SystemExit(f"{name!r}: error {err}")
+                same = ""
+                if name == "as is":
+                    call()
+                    torch.cuda.synchronize()
+                    same = ("; dgates identical to the streaming kernel's"
+                            if torch.equal(dg, want) else
+                            "; dgates DIFFER from the streaming kernel's")
+                ms = time_ms(call, n=5, calls=2)
+                tag = "plan" if N == plan[0] else "other"
+                print(f"general K3 walk f32 C=H={H} T={T} ring N={N} "
+                      f"({tag}) {name}: {ms:.4f} ms ({ms / T * 1e3:.2f} us "
+                      f"a step); {ptxas_lines(out, 'general_rec_ring')}"
+                      f"{same}", flush=True)
+
+
 def main():
     import torch
 
@@ -1049,6 +1314,10 @@ def main():
               file=sys.stderr)
         return 1
     args = sys.argv[1:]
+    if args[:1] == ["--ring"]:
+        split_ring(*([tuple(int(a) for a in args[1:])] if args[1:] else []))
+        print(smi_line())
+        return 0
     if args[:1] == ["--products-split"]:
         split_products()
         print(smi_line())

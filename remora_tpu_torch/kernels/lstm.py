@@ -36,18 +36,23 @@ memory, x_t . W_x runs off the chain, bf16 on the tensor cores (f32 at
 W_h's slice through a ring, after one product of x_t . W_x + b over all
 T, ``general_fwd_ring_cfg``); and the streaming path,
 ``csrc/lstm_general.cu``'s ``general_fwd_kernel``, for every shape the
-plan refuses (f32 past 256, every shape at 1024): one block
+plan refuses (every H past 256, both dtypes): one block
 per 8 batch rows walks time with h and c in shared memory and W read
 through L2 each step. K3 there runs ``csrc/lstm_prod.cuh``'s gate
 recompute and products (the wide K3's) around a reverse recurrence on one
-of two paths, chosen the same way (``general_rec_plan``,
-``general_bwd_path``): ``csrc/lstm_general_rec_cluster.cu``'s clusters of
+of three paths, chosen the same way (``general_rec_plan``,
+``general_rec_ring_plan``, ``general_bwd_path``):
+``csrc/lstm_general_rec_cluster.cu``'s clusters of
 N CTAs, each holding its gate columns' slice of W_h^T and trading partial
 dh sums through distributed shared memory (bf16 at 160 and 256, f32 at
 160; f32 at 193-256 walks the cluster's rows as groups of 48, whose
-partials fit where all R rows' do not), else ``lstm_general.cu``'s
-``general_rec_kernel`` (f32 past 256, every shape at 1024). Above 1024 every entry point raises; a launch
-on either path that fails raises, never moving to the other path.
+partials fit where all R rows' do not); f32 at 257-512,
+``csrc/lstm_general_rec_ring.cu``'s ring path (a CTA of 16 rows walks all
+H units with no exchange, W_h^T's rows streamed by TMA through a ring of
+shared-memory slots, multicast over clusters of two); else
+``lstm_general.cu``'s ``general_rec_kernel`` (bf16 past 256, f32 past
+512). Above 1024 every entry point raises; a launch
+on any path that fails raises, never moving to another path.
 
 The f32 products of those K3 legs and the W_h-ring K1/K2's Z_x run
 ``csrc/lstm_prod.cuh``'s ``prod_f32_ws_kernel`` (persistent blocks, a TMA
@@ -142,9 +147,9 @@ GENERAL_FWD_PLAN_BATCH = 2048
 H100_CLUSTERS = {2: 66, 4: 30, 8: 15}
 # the general K3's launches by path (one per general call of ``lstm_bwd``
 # or ``general_recurrence``): "cluster" ``lstm_general_rec_cluster.cu``,
-# "stream" ``lstm_general.cu``'s ``general_rec_kernel``
-# (``general_bwd_path``)
-LAUNCHES_GENERAL_BWD = dict.fromkeys(("cluster", "stream"), 0)
+# "ring" ``lstm_general_rec_ring.cu``, "stream" ``lstm_general.cu``'s
+# ``general_rec_kernel`` (``general_bwd_path``)
+LAUNCHES_GENERAL_BWD = dict.fromkeys(("cluster", "ring", "stream"), 0)
 # ``lstm_general_rec_cluster.cu``'s budget besides CLUSTER_SMEM_MAX: threads
 # a CTA (its __launch_bounds__: 168 registers a thread), the (row, unit)
 # pairs a thread may own (its instantiations), and the exchange's passes at
@@ -160,6 +165,16 @@ CLUSTER_REC_GROUP_N = 8
 CLUSTER_REC_GROUP_UNITS = 32
 CLUSTER_REC_GROUP_ROWS = 48
 CLUSTER_REC_GROUPS = 3
+# ``lstm_general_rec_ring.cu``'s budget (``general_rec_ring_kernel``, f32):
+# rows a CTA, W_h^T's rows a ring slot, ring slots at most, the mbarriers'
+# bytes, hidden units at most (4 consumer warps of 128); the plan takes it
+# at RING_REC_MIN_H <= H <= RING_REC_MAX_H, where no cluster plan fits
+RING_REC_ROWS = 16
+RING_REC_CHUNK = 8
+RING_REC_MAX_SLOTS = 16
+RING_REC_BAR_BYTES = 256
+RING_REC_MIN_H = 257
+RING_REC_MAX_H = 512
 # ``csrc/lstm_prod.cuh``'s f32 products (K3's gate recompute, dx and dW,
 # the W_h-ring K1/K2's Z_x), by the library's op number, and their two
 # paths: "ws" (``prod_f32_ws_kernel``, Hopper's persistent warp-specialized
@@ -558,7 +573,8 @@ def general_rec_plan(C, H, dtype, clusters=None):
     """The general K3's cluster plan at C inputs and H hidden units in
     ``dtype``: (N, R, shared-memory bytes, passes P, row groups) for
     ``lstm_general_rec_cluster.cu``'s recurrence, or None, where the shape
-    runs the streaming ``general_rec_kernel``. ``clusters`` maps N to the
+    runs the ring path (``general_rec_ring_plan``) or, where that refuses
+    it too, the streaming ``general_rec_kernel``. ``clusters`` maps N to the
     clusters of N CTAs the card holds at once (default ``H100_CLUSTERS``).
     For N in 2, 4, 8, R is the fewest rows (a multiple of 32) with which
     GENERAL_FWD_PLAN_BATCH rows run in one wave of clusters, and P the
@@ -593,12 +609,79 @@ def general_rec_plan(C, H, dtype, clusters=None):
     return None if cfg is None else (N, groups * rows, cfg["smem"], 1, groups)
 
 
+def general_rec_ring_cfg(H, dtype, N, R):
+    """``lstm_general_rec_ring.cu``'s launch shape (its ``make_cfg``; the
+    card's ``lstm_general_rec_ring_cfg`` gives the same): f32, CTAs of R =
+    RING_REC_ROWS rows in clusters of N (1, or 2 that multicast W_h^T's
+    chunks), 1 <= H <= RING_REC_MAX_H. A dict of ``hp`` (H rounded up to
+    4), ``warps`` (consumer warps of 128 units: ceil(hp / 128)),
+    ``threads`` (those and one producer warp), ``slots`` (ring slots of
+    RING_REC_CHUNK rows of W_h^T, [RING_REC_CHUNK][hp] f32, as many as fit,
+    at most RING_REC_MAX_SLOTS) and ``smem`` (bytes: the mbarriers, the
+    dgates tile [R][4hp] f32, the dc carry tile [R][hp] f32 and the
+    ring), or None where it does not take the shape or fewer than two
+    slots fit."""
+    if dtype != torch.float32 or not 1 <= H <= RING_REC_MAX_H:
+        return None
+    if N not in (1, 2) or R != RING_REC_ROWS:
+        return None
+    hp = _ceil(H, 4) * 4
+    warps = _ceil(hp, 128)
+    w_off = RING_REC_BAR_BYTES + R * 4 * hp * 4 + R * hp * 4
+    slot = RING_REC_CHUNK * hp * 4
+    if w_off + 2 * slot > CLUSTER_SMEM_MAX:
+        return None
+    slots = min((CLUSTER_SMEM_MAX - w_off) // slot, RING_REC_MAX_SLOTS)
+    return {"hp": hp, "warps": warps, "threads": 32 * (warps + 1),
+            "slots": slots, "smem": w_off + slots * slot}
+
+
+def general_rec_ring_plan(C, H, dtype, clusters=None):
+    """The general K3's ring plan at C inputs and H hidden units in
+    ``dtype``: (N, R, shared-memory bytes) for ``lstm_general_rec_ring.cu``,
+    or None. It takes f32 at RING_REC_MIN_H <= H <= RING_REC_MAX_H (where
+    ``general_rec_plan`` finds no cluster that holds W_h^T's slice), any C:
+    CTAs of R = RING_REC_ROWS rows, GENERAL_FWD_PLAN_BATCH rows in one wave
+    of 128 CTAs, in clusters of N = 2 that multicast each chunk of W_h^T
+    (half the L2 reads) where the card holds the batch's clusters of 2 at
+    once (``clusters``, default ``H100_CLUSTERS``), else N = 1."""
+    clusters = clusters or H100_CLUSTERS
+    if not 1 <= C <= GENERAL_MAX_C or dtype != torch.float32:
+        return None
+    if not RING_REC_MIN_H <= H <= RING_REC_MAX_H:
+        return None
+    R = RING_REC_ROWS
+    ctas = _ceil(GENERAL_FWD_PLAN_BATCH, R)
+    N = 1 if ctas else 1
+    cfg = general_rec_ring_cfg(H, dtype, N, R)
+    return None if cfg is None else (N, R, cfg["smem"])
+
+
+def general_rec_ring_weights(w_ht):
+    """``lstm_general_rec_ring.cu``'s layout of W_h^T (4H, H)
+    (``wide_bwd_weights``' first): (4hp, hp) f32, hp = H rounded up to 4,
+    row g hp + u' gate g of unit u' (W_h^T's row g H + u'), zero past H in
+    rows and columns, so every ring chunk is one 16-byte-aligned copy.
+    W_h^T itself where H is a multiple of 4."""
+    G, H = w_ht.shape
+    hp = _ceil(H, 4) * 4
+    if hp == H:
+        return w_ht
+    out = w_ht.new_zeros((4, hp, hp))
+    out[:, :H, :H] = w_ht.reshape(4, H, H)
+    return out.reshape(4 * hp, hp)
+
+
 def general_bwd_path(dtype, C, H, clusters=None):
     """The path of a general K3 call (``route`` "general"): "cluster" where
-    ``general_rec_plan`` takes the shape, else "stream". Chosen by shape
-    before the launch; a launch that fails raises on its path."""
-    return "stream" if general_rec_plan(C, H, dtype, clusters) is None \
-        else "cluster"
+    ``general_rec_plan`` takes the shape, "ring" where
+    ``general_rec_ring_plan`` does, else "stream". Chosen by shape before
+    the launch; a launch that fails raises on its path."""
+    if general_rec_plan(C, H, dtype, clusters) is not None:
+        return "cluster"
+    if general_rec_ring_plan(C, H, dtype, clusters) is not None:
+        return "ring"
+    return "stream"
 
 
 @functools.lru_cache(maxsize=None)
@@ -781,13 +864,47 @@ def _general_rec_library():
     return lib
 
 
+def _general_rec_ring_library():
+    lib = _build.load("lstm_general_rec_ring")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_general_rec_ring_bwd.argtypes = ([i32] + [ptr] * 12
+                                                  + [i32] * 6 + [ptr])
+        lib.lstm_general_rec_ring_bwd.restype = i32
+        lib.lstm_general_rec_ring_rec.argtypes = ([ptr] * 5 + [i32] * 5
+                                                  + [ptr])
+        lib.lstm_general_rec_ring_rec.restype = i32
+        lib.lstm_general_rec_ring_cfg.argtypes = [i32] * 3 + [ptr]
+        lib.lstm_general_rec_ring_cfg.restype = i32
+        lib.lstm_general_rec_ring_dw_chunks.argtypes = [i32, i32]
+        lib.lstm_general_rec_ring_dw_chunks.restype = i32
+        lib.lstm_general_rec_ring_error_string.argtypes = [i32]
+        lib.lstm_general_rec_ring_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
 def _general_bwd_launch(dtype, C, H, device):
     """(run, dW chunks, error string, path) of a general K3 call: the
     cluster library behind ``lstm_general_bwd``'s signature, with the
     plan's N, R, P and row groups, where ``general_rec_plan`` takes the
-    shape on this card, else ``lstm_general.cu``'s streaming K3."""
-    plan = general_rec_plan(C, H, dtype, cluster_capacity(device.index or 0))
+    shape on this card; the ring library with its plan's N and R where
+    ``general_rec_ring_plan`` does (its W_h^T pointer the
+    ``general_rec_ring_weights`` layout); else ``lstm_general.cu``'s
+    streaming K3."""
+    caps = cluster_capacity(device.index or 0)
+    plan = general_rec_plan(C, H, dtype, caps)
     if plan is None:
+        ring = general_rec_ring_plan(C, H, dtype, caps)
+        if ring is not None:
+            lib = _general_rec_ring_library()
+
+            def run_ring(*args):  # (bf16, 12 pointers, T, B, C, H, stream)
+                return lib.lstm_general_rec_ring_bwd(*args[:-1], *ring[:2],
+                                                     args[-1])
+
+            return (run_ring, lib.lstm_general_rec_ring_dw_chunks,
+                    lib.lstm_general_rec_ring_error_string, "ring")
         lib = _general_library()
         return (lib.lstm_general_bwd, lib.lstm_general_bwd_dw_chunks,
                 lib.lstm_general_error_string, "stream")
@@ -806,8 +923,9 @@ def general_recurrence(z, cs, dhs, w_aug):
     """The general K3's reverse recurrence alone: dgates (T, B, 4H) in cs's
     dtype (``lstm_bwd_recurrence_reference``, its plain version, on CPU
     tensors) on the path ``general_bwd_path`` picks for the shape:
-    ``lstm_general_rec_cluster.cu``'s clusters or ``lstm_general.cu``'s
-    ``general_rec_kernel``. Counted in LAUNCHES_GENERAL_BWD by path."""
+    ``lstm_general_rec_cluster.cu``'s clusters, ``lstm_general_rec_ring.cu``
+    or ``lstm_general.cu``'s ``general_rec_kernel``. Counted in
+    LAUNCHES_GENERAL_BWD by path."""
     if cs.device.type == "cpu":
         return lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)
     name = "general_recurrence"
@@ -834,13 +952,23 @@ def general_recurrence(z, cs, dhs, w_aug):
     bf16 = int(cs.dtype == torch.bfloat16)
     w_ht = w_aug[C:C + H].t().contiguous()
     dg = torch.empty((T, B, 4 * H), dtype=cs.dtype, device=cs.device)
-    plan = general_rec_plan(C, H, cs.dtype,
-                            cluster_capacity(cs.device.index or 0))
+    caps = cluster_capacity(cs.device.index or 0)
+    plan = general_rec_plan(C, H, cs.dtype, caps)
+    ring = None if plan is not None else general_rec_ring_plan(C, H,
+                                                                cs.dtype,
+                                                                caps)
+    if ring is not None:
+        w_ht = general_rec_ring_weights(w_ht)
     ptrs = (z.data_ptr(), cs.data_ptr(), dhs.data_ptr(), w_ht.data_ptr(),
             dg.data_ptr())
     with torch.cuda.device(cs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan is None:
+        if ring is not None:
+            lib, path = _general_rec_ring_library(), "ring"
+            err = lib.lstm_general_rec_ring_rec(*ptrs, T, B, H, *ring[:2],
+                                                stream)
+            error_string = lib.lstm_general_rec_ring_error_string
+        elif plan is None:
             lib, path = _general_library(), "stream"
             err = lib.lstm_general_rec(bf16, *ptrs, T, B, H, stream)
             error_string = lib.lstm_general_error_string
@@ -1343,7 +1471,9 @@ def _lstm_bwd_split(kind, x, w_aug, hs, cs, dhs):
     ``lstm_wide_bwd.cu``'s recurrence on clusters of two CTAs (dh = dgates .
     W_h^T, each CTA's slice of W_h^T in shared memory; a cluster the card
     cannot hold raises), "general" ``lstm_general_rec_cluster.cu``'s on
-    clusters of N CTAs where ``general_rec_plan`` takes the shape, else
+    clusters of N CTAs where ``general_rec_plan`` takes the shape,
+    ``lstm_general_rec_ring.cu``'s where ``general_rec_ring_plan`` does
+    (f32 at 257-512: 16 rows a CTA, W_h^T streamed by TMA), else
     ``lstm_general.cu``'s (one block per 8 rows, W_h^T read through L2)."""
     global LAUNCHES_BWD
     T, B, C = x.shape
@@ -1359,6 +1489,8 @@ def _lstm_bwd_split(kind, x, w_aug, hs, cs, dhs):
                                      lib.lstm_wide_bwd_error_string)
     dev = x.device
     w_ht, w_xt = wide_bwd_weights(w_aug, C)
+    if path == "ring":
+        w_ht = general_rec_ring_weights(w_ht)
     z = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     dg = torch.empty((T, B, 4 * H), dtype=x.dtype, device=dev)
     dx = torch.empty_like(x)

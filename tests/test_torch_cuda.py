@@ -447,7 +447,10 @@ def test_lstm_libraries_match_the_shape_rule(cuda):
                                      (4, 70, 161, 160), (3, 1, 160, 133),
                                      (2, 2100, 160, 160),
                                      (2, 2200, 256, 256),
-                                     (3, 37, 193, 199)])
+                                     (3, 37, 193, 199), (2, 20, 512, 512),
+                                     (3, 2100, 512, 512), (2, 17, 160, 512),
+                                     (1, 9, 1024, 300), (3, 40, 300, 257),
+                                     (4, 2048, 384, 384)])
 def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
     assert K.route("bwd", dtype, C, H) == "general"
     path = K.general_fwd_path(dtype, C, H,
@@ -551,15 +554,18 @@ def test_lstm_general_cluster_library_matches_the_plan(cuda):
 # plain twin on the same Z: the cluster path at the model's sizes 160 (both
 # dtypes) and 256 (bf16: two passes; f32: row groups), batches off a
 # cluster's R rows and beyond one wave, H off the 8-unit tiles, T = 1; the
-# streaming path where the plan refuses (f32 at 512); dgates within 1e-5
-# (f32) or 2e-2 (bf16) of their largest entry, a repeated call identical,
-# one launch a call on the plan's path
+# ring path (f32 at 257-512: 512 in one wave and past it, C != H, H off 4
+# (257) and off 64 (300), 384) where bf16 and f32 past 512 stream; dgates
+# within 1e-5 (f32) or 2e-2 (bf16) of their largest entry, a repeated call
+# identical, one launch a call on the plan's path
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,B,C,H", [(6, 37, 160, 160), (4, 100, 256, 256),
                                      (3, 161, 144, 200), (1, 9, 160, 160),
                                      (3, 2100, 160, 160), (5, 40, 129, 133),
                                      (3, 2200, 256, 256), (1, 50, 240, 240),
-                                     (2, 20, 512, 512)])
+                                     (2, 20, 512, 512), (3, 2100, 512, 512),
+                                     (2, 17, 160, 512), (1, 9, 1024, 300),
+                                     (3, 40, 300, 257), (4, 2048, 384, 384)])
 def test_general_recurrence_matches_twin(cuda, T, B, C, H, dtype):
     params, x = _case(T, B, C, H, dtype, cuda, seed=H)
     w_aug = _w_aug(params)
@@ -570,8 +576,8 @@ def test_general_recurrence_matches_twin(cuda, T, B, C, H, dtype):
                               K.cluster_capacity(cuda.index or 0))
     if (C, H) in ((160, 160), (256, 256)):
         assert path == "cluster"
-    if H == 512:
-        assert path == "stream"
+    if H > 256:
+        assert path == ("ring" if dtype == torch.float32 else "stream")
     paths = dict(K.LAUNCHES_GENERAL_BWD)
     with full_f32():
         hs, cs = K.lstm_fwd_reference(x, w_aug)
@@ -634,6 +640,42 @@ def test_general_rec_cluster_library_matches_the_plan(cuda):
                      (torch.float32, 160), (torch.float32, 256)):
         N, R = K.general_rec_plan(C, C, dtype, caps)[:2]
         assert -(-K.GENERAL_FWD_PLAN_BATCH // R) <= caps[N], (dtype, C)
+
+
+def test_general_rec_ring_library_matches_the_plan(cuda):
+    """lstm_general_rec_ring.cu's launch shapes are
+    ``general_rec_ring_cfg``'s; it refuses bf16, a cluster size, row count
+    or shape outside its budget, and a W_h^T layout off 16 bytes, before
+    it reads a pointer; the plan's CTAs at 257-512 run the batch in one
+    wave."""
+    import ctypes
+
+    lib = K._general_rec_ring_library()
+    info = (ctypes.c_longlong * 5)()
+    for H in (1, 8, 129, 256, 257, 300, 384, 511, 512, 513, 1024):
+        for N in (1, 2, 3, 4):
+            for R in (8, 16, 32):
+                cfg = K.general_rec_ring_cfg(H, torch.float32, N, R)
+                rc = lib.lstm_general_rec_ring_cfg(H, N, R, info)
+                if cfg is None:
+                    assert rc == -1, (H, N, R)
+                    assert lib.lstm_general_rec_ring_rec(
+                        *[None] * 5, 1, 1, H, N, R, None) != 0
+                    continue
+                assert rc == 0 and list(info) == [
+                    cfg["hp"], cfg["warps"], cfg["threads"], cfg["slots"],
+                    cfg["smem"]], (H, N, R)
+    assert lib.lstm_general_rec_ring_bwd(
+        1, *[None] * 12, 1, 1, 160, 512, 2, 16, None) != 0
+    assert lib.lstm_general_rec_ring_bwd(
+        0, *[None] * 12, 1, 1, 1025, 512, 2, 16, None) != 0
+    assert lib.lstm_general_rec_ring_rec(
+        None, None, None, 4, None, 1, 1, 512, 2, 16, None) != 0
+    caps = K.cluster_capacity(cuda.index or 0)
+    for H in (257, 300, 384, 512):
+        N, R, _ = K.general_rec_ring_plan(H, H, torch.float32, caps)
+        ctas = -(-K.GENERAL_FWD_PLAN_BATCH // R)
+        assert ctas <= (132 if N == 1 else N * caps[N]), H
 
 
 def test_lstm_fused_autograd_general_on_card(cuda):
