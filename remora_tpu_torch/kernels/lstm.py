@@ -48,8 +48,8 @@ dh sums through distributed shared memory (bf16 at 160 and 256, f32 at
 160; f32 at 193-256 walks the cluster's rows as groups of 48, whose
 partials fit where all R rows' do not); f32 at 257-512,
 ``csrc/lstm_general_rec_ring.cu``'s ring path (a CTA of 16 rows walks all
-H units with no exchange, W_h^T's rows streamed by TMA through a ring of
-shared-memory slots, multicast over clusters of two); else
+H units with no exchange between CTAs, W_h^T's rows streamed by TMA
+through a ring of shared-memory slots); else
 ``lstm_general.cu``'s ``general_rec_kernel`` (bf16 past 256, f32 past
 512). Above 1024 every entry point raises; a launch
 on any path that fails raises, never moving to another path.
@@ -167,8 +167,9 @@ CLUSTER_REC_GROUP_ROWS = 48
 CLUSTER_REC_GROUPS = 3
 # ``lstm_general_rec_ring.cu``'s budget (``general_rec_ring_kernel``, f32):
 # rows a CTA, W_h^T's rows a ring slot, ring slots at most, the mbarriers'
-# bytes, hidden units at most (4 consumer warps of 128); the plan takes it
-# at RING_REC_MIN_H <= H <= RING_REC_MAX_H, where no cluster plan fits
+# bytes, hidden units at most (two groups of 4 consumer warps of 128
+# units); the plan takes it at RING_REC_MIN_H <= H <= RING_REC_MAX_H, where
+# no cluster plan fits
 RING_REC_ROWS = 16
 RING_REC_CHUNK = 8
 RING_REC_MAX_SLOTS = 16
@@ -609,21 +610,20 @@ def general_rec_plan(C, H, dtype, clusters=None):
     return None if cfg is None else (N, groups * rows, cfg["smem"], 1, groups)
 
 
-def general_rec_ring_cfg(H, dtype, N, R):
+def general_rec_ring_cfg(H, dtype, R):
     """``lstm_general_rec_ring.cu``'s launch shape (its ``make_cfg``; the
     card's ``lstm_general_rec_ring_cfg`` gives the same): f32, CTAs of R =
-    RING_REC_ROWS rows in clusters of N (1, or 2 that multicast W_h^T's
-    chunks), 1 <= H <= RING_REC_MAX_H. A dict of ``hp`` (H rounded up to
-    4), ``warps`` (consumer warps of 128 units: ceil(hp / 128)),
-    ``threads`` (those and one producer warp), ``slots`` (ring slots of
-    RING_REC_CHUNK rows of W_h^T, [RING_REC_CHUNK][hp] f32, as many as fit,
-    at most RING_REC_MAX_SLOTS) and ``smem`` (bytes: the mbarriers, the
-    dgates tile [R][4hp] f32, the dc carry tile [R][hp] f32 and the
-    ring), or None where it does not take the shape or fewer than two
-    slots fit."""
+    RING_REC_ROWS rows (no cluster), 1 <= H <= RING_REC_MAX_H. A dict of
+    ``hp`` (H rounded up to 4), ``warps`` (consumer warps a group, two
+    groups that take every other chunk: ceil(hp / 128)), ``threads`` (both
+    groups and one producer warp), ``slots`` (ring slots of RING_REC_CHUNK
+    rows of W_h^T, [RING_REC_CHUNK][hp] f32, as many as fit, at most
+    RING_REC_MAX_SLOTS) and ``smem`` (bytes: the mbarriers, the dgates tile
+    [R][4hp] f32, the groups' exchange tile [R][hp] f32 and the ring), or
+    None where it does not take the shape or fewer than two slots fit."""
     if dtype != torch.float32 or not 1 <= H <= RING_REC_MAX_H:
         return None
-    if N not in (1, 2) or R != RING_REC_ROWS:
+    if R != RING_REC_ROWS:
         return None
     hp = _ceil(H, 4) * 4
     warps = _ceil(hp, 128)
@@ -632,29 +632,24 @@ def general_rec_ring_cfg(H, dtype, N, R):
     if w_off + 2 * slot > CLUSTER_SMEM_MAX:
         return None
     slots = min((CLUSTER_SMEM_MAX - w_off) // slot, RING_REC_MAX_SLOTS)
-    return {"hp": hp, "warps": warps, "threads": 32 * (warps + 1),
+    return {"hp": hp, "warps": warps, "threads": 32 * (2 * warps + 1),
             "slots": slots, "smem": w_off + slots * slot}
 
 
-def general_rec_ring_plan(C, H, dtype, clusters=None):
+def general_rec_ring_plan(C, H, dtype):
     """The general K3's ring plan at C inputs and H hidden units in
-    ``dtype``: (N, R, shared-memory bytes) for ``lstm_general_rec_ring.cu``,
+    ``dtype``: (R, shared-memory bytes) for ``lstm_general_rec_ring.cu``,
     or None. It takes f32 at RING_REC_MIN_H <= H <= RING_REC_MAX_H (where
     ``general_rec_plan`` finds no cluster that holds W_h^T's slice), any C:
-    CTAs of R = RING_REC_ROWS rows, GENERAL_FWD_PLAN_BATCH rows in one wave
-    of 128 CTAs, in clusters of N = 2 that multicast each chunk of W_h^T
-    (half the L2 reads) where the card holds the batch's clusters of 2 at
-    once (``clusters``, default ``H100_CLUSTERS``), else N = 1."""
-    clusters = clusters or H100_CLUSTERS
+    CTAs of R = RING_REC_ROWS rows with no cluster (each streams all of
+    W_h^T a step; GENERAL_FWD_PLAN_BATCH rows are one wave of 128 CTAs), so
+    the card's cluster capacity does not enter."""
     if not 1 <= C <= GENERAL_MAX_C or dtype != torch.float32:
         return None
     if not RING_REC_MIN_H <= H <= RING_REC_MAX_H:
         return None
-    R = RING_REC_ROWS
-    ctas = _ceil(GENERAL_FWD_PLAN_BATCH, R)
-    N = 1 if ctas else 1
-    cfg = general_rec_ring_cfg(H, dtype, N, R)
-    return None if cfg is None else (N, R, cfg["smem"])
+    cfg = general_rec_ring_cfg(H, dtype, RING_REC_ROWS)
+    return None if cfg is None else (RING_REC_ROWS, cfg["smem"])
 
 
 def general_rec_ring_weights(w_ht):
@@ -679,7 +674,7 @@ def general_bwd_path(dtype, C, H, clusters=None):
     the launch; a launch that fails raises on its path."""
     if general_rec_plan(C, H, dtype, clusters) is not None:
         return "cluster"
-    if general_rec_ring_plan(C, H, dtype, clusters) is not None:
+    if general_rec_ring_plan(C, H, dtype) is not None:
         return "ring"
     return "stream"
 
@@ -869,12 +864,12 @@ def _general_rec_ring_library():
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.lstm_general_rec_ring_bwd.argtypes = ([i32] + [ptr] * 12
-                                                  + [i32] * 6 + [ptr])
+                                                  + [i32] * 5 + [ptr])
         lib.lstm_general_rec_ring_bwd.restype = i32
-        lib.lstm_general_rec_ring_rec.argtypes = ([ptr] * 5 + [i32] * 5
+        lib.lstm_general_rec_ring_rec.argtypes = ([ptr] * 5 + [i32] * 4
                                                   + [ptr])
         lib.lstm_general_rec_ring_rec.restype = i32
-        lib.lstm_general_rec_ring_cfg.argtypes = [i32] * 3 + [ptr]
+        lib.lstm_general_rec_ring_cfg.argtypes = [i32] * 2 + [ptr]
         lib.lstm_general_rec_ring_cfg.restype = i32
         lib.lstm_general_rec_ring_dw_chunks.argtypes = [i32, i32]
         lib.lstm_general_rec_ring_dw_chunks.restype = i32
@@ -889,18 +884,18 @@ def _general_bwd_launch(dtype, C, H, device):
     cluster library behind ``lstm_general_bwd``'s signature, with the
     plan's N, R, P and row groups, where ``general_rec_plan`` takes the
     shape on this card; the ring library with its plan's N and R where
-    ``general_rec_ring_plan`` does (its W_h^T pointer the
+    ``general_rec_ring_plan`` does (its R; its W_h^T pointer the
     ``general_rec_ring_weights`` layout); else ``lstm_general.cu``'s
     streaming K3."""
     caps = cluster_capacity(device.index or 0)
     plan = general_rec_plan(C, H, dtype, caps)
     if plan is None:
-        ring = general_rec_ring_plan(C, H, dtype, caps)
+        ring = general_rec_ring_plan(C, H, dtype)
         if ring is not None:
             lib = _general_rec_ring_library()
 
             def run_ring(*args):  # (bf16, 12 pointers, T, B, C, H, stream)
-                return lib.lstm_general_rec_ring_bwd(*args[:-1], *ring[:2],
+                return lib.lstm_general_rec_ring_bwd(*args[:-1], ring[0],
                                                      args[-1])
 
             return (run_ring, lib.lstm_general_rec_ring_dw_chunks,
@@ -955,8 +950,7 @@ def general_recurrence(z, cs, dhs, w_aug):
     caps = cluster_capacity(cs.device.index or 0)
     plan = general_rec_plan(C, H, cs.dtype, caps)
     ring = None if plan is not None else general_rec_ring_plan(C, H,
-                                                                cs.dtype,
-                                                                caps)
+                                                                cs.dtype)
     if ring is not None:
         w_ht = general_rec_ring_weights(w_ht)
     ptrs = (z.data_ptr(), cs.data_ptr(), dhs.data_ptr(), w_ht.data_ptr(),
@@ -965,7 +959,7 @@ def general_recurrence(z, cs, dhs, w_aug):
         stream = torch.cuda.current_stream().cuda_stream
         if ring is not None:
             lib, path = _general_rec_ring_library(), "ring"
-            err = lib.lstm_general_rec_ring_rec(*ptrs, T, B, H, *ring[:2],
+            err = lib.lstm_general_rec_ring_rec(*ptrs, T, B, H, ring[0],
                                                 stream)
             error_string = lib.lstm_general_rec_ring_error_string
         elif plan is None:
