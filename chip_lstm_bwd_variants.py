@@ -1200,7 +1200,7 @@ def l2_rates(mib=4, reps=8, chunk=16384, slots=(2, 4, 6, 12)):
 # variants compute wrong numbers on purpose: timings, never results)
 RING_SOURCE = "lstm_general_rec_ring.cu"
 RING_EDITS = {
-    "no_product": [("for (int kk = 0; kk < 4; ++kk) {",
+    "no_product": [("for (int kk = 0; kk < 2; ++kk) {",
                     "for (int kk = 0; kk < 0; ++kk) {")],
     "no_w_loads": [
         ("in_tile[0] ? *reinterpret_cast<const float4*>(wr + ub[0])\n"
@@ -1210,10 +1210,10 @@ RING_EDITS = {
          "                         : zero4();",
          "make_float4(5e-3f, 6e-3f * kk, 7e-3f, 8e-3f);")],
     "no_a_loads": [
-        ("av[i] = *reinterpret_cast<const float4*>(arow + i * ld +\n"
+        ("av[i] = *reinterpret_cast<const float2*>(arow + i * ld +\n"
          "                                                   c * kChunk + "
-         "kq);",
-         "av[i] = make_float4(1e-3f * i, 1e-3f * c, 1e-3f * kq, 1e-3f);")],
+         "kp);",
+         "av[i] = make_float2(1e-3f * i, 1e-3f * c + 1e-3f * kp);")],
     "no_gate_math": [("for (int n = 0; n < 8; ++n) {",
                       "for (int n = 0; n < 0; ++n) {")],
     "slots2": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
