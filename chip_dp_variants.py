@@ -23,6 +23,7 @@ variant's registers and spills. An edit that no longer matches the source
 stops the script: update it with the kernel.
 
     python3 chip_dp_variants.py --traceback [--compare-parent DIR]
+    python3 chip_dp_variants.py --block-256
 
 splits K5, the traceback walk (``dp_traceback_staged_kernel``), at the
 same micro-batch (the rows K4 writes for it, dwell_penalty): a pointer
@@ -39,6 +40,10 @@ must hold no global load. ``--compare-parent DIR`` also builds the
 parent commit unpacked into the gitignored ``parent_checkout/``) and
 times its K5 against this one in one call, parent / this / this / parent,
 paths equal.
+
+``--block-256`` times K4's block path, which bands wider than 128 run,
+at the same micro-batch padded to W = 256 beside its bound, its paths
+held to the native host DP.
 
 Imports nothing of JAX or of the JAX package ``remora_tpu``; the build and
 timing helpers are ``chip_lstm_fwd_variants.py``'s, the reads
@@ -353,6 +358,65 @@ def split_traceback(parent_dir=None):
               f"{name} {ms:.4f} ms" for name, ms in turns), flush=True)
 
 
+def block_at_256(W=256):
+    """``--block-256``: K4's block path (``dp_forward_kernel``, which every
+    band-width bucket past 128 runs) through ``dp_forward`` at phase 8's
+    micro-batch padded to the bucket W = 256, both algorithms: the paths
+    (``banded_dp_batch``) equal to the native host DP's, its ms beside its
+    bound (the larger of the serial fold chain of the read that needs the
+    longest, ``chip_smoke.dp_chain_cycles`` at the card's max SM clock,
+    and the bytes it must move at 3.35 TB/s: signal, levels, bands and the
+    W-wide int16 traceback rows) and the staged path's time on the same
+    reads at their own bucket (128)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import (DP_BASES, DP_READS, FOLD_STEP_CYCLES,
+                            PEAK_BYTES_PER_S, STAY_STEP_CYCLES,
+                            dp_chain_cycles, dp_reads, dp_tensors,
+                            max_sm_clock_hz, width_bucket)
+    from remora_tpu_torch.io.native import banded_dp_path
+    from remora_tpu_torch.kernels import banded_dp as K
+    from remora_tpu_torch.refine.refiner import DEFAULT_REFINE_SHORT_DWELL_PEN
+
+    cuda = torch.device("cuda")
+    sdp_np = np.asarray(DEFAULT_REFINE_SHORT_DWELL_PEN, np.float32)
+    sdp = torch.from_numpy(sdp_np).to(cuda)
+    batch = dp_reads(9, DP_READS, DP_BASES)
+    own = width_bucket(batch)
+    for algo in ("Viterbi", "dwell_penalty"):
+        dwell = algo == "dwell_penalty"
+        sig, lvl, st, wd, sl = dp_tensors(batch, W, cuda)
+        R, N = lvl.shape
+        path, tb, _ = K.banded_dp_batch(sig, lvl, st, wd, sl, sdp, algo=algo,
+                                        w_max=W)
+        got = path.cpu().numpy()
+        native = [banded_dp_path(s, lv, bd, sdp_np, algo)
+                  for s, lv, bd in batch]
+        diffs = sum(int((got[r, :lv.size + 1] != native[r]).sum())
+                    for r, (_s, lv, _b) in enumerate(batch))
+        if diffs or tb.shape[2] != W:
+            raise SystemExit(f"K4 {algo} at W={W}: {diffs} path entries "
+                             "differ from the native host DP")
+        ms = time_ms(lambda: K.dp_forward(sig, lvl, st, wd, sdp, dwell, W))
+        cycles, rows, suffix = dp_chain_cycles(st, wd, sdp.numel(), dwell)
+        chain_ms = cycles / max_sm_clock_hz() * 1e3
+        fwd_bytes = (sig.numel() * 4 + 3 * R * N * 4 + sdp.numel() * 4
+                     + tb.numel() * 2)
+        bytes_ms = fwd_bytes / PEAK_BYTES_PER_S * 1e3
+        s128 = dp_tensors(batch, own, cuda)
+        staged_ms = time_ms(lambda: K.dp_forward(*s128[:4], sdp, dwell, own))
+        print(f"K4 {algo} block path (dp_forward_kernel), {R} reads x {N} "
+              f"bases at W={W}: {ms:.4f} ms ({ms / N * 1e3:.4f} us a base), "
+              f"paths equal to the native host DP; bound "
+              f"{max(chain_ms, bytes_ms):.4f} ms (chain {rows} folded rows "
+              f"x {FOLD_STEP_CYCLES} + {suffix} suffix rows x "
+              f"{STAY_STEP_CYCLES} cycles = {chain_ms:.4f} ms; bytes "
+              f"{fwd_bytes / 1e6:.2f} MB = {bytes_ms:.4f} ms); the staged "
+              f"path on the same reads at their bucket W={own}: "
+              f"{staged_ms:.4f} ms", flush=True)
+
+
 def main():
     import torch
 
@@ -361,6 +425,10 @@ def main():
               file=sys.stderr)
         return 1
     args = sys.argv[1:]
+    if args[:1] == ["--block-256"]:
+        block_at_256()
+        print(smi_line())
+        return 0
     if args[:1] == ["--traceback"]:
         parent = None
         if args[1:2] == ["--compare-parent"]:

@@ -5,7 +5,9 @@ K3's reverse recurrences, goes, on one NVIDIA GPU.
     python3 chip_lstm_bwd_variants.py
     python3 chip_lstm_bwd_variants.py --wide [--parent DIR]
     python3 chip_lstm_bwd_variants.py --general
-    python3 chip_lstm_bwd_variants.py --compare-parent DIR
+    python3 chip_lstm_bwd_variants.py --compare-parent DIR [512]
+    python3 chip_lstm_bwd_variants.py --ring [WIDTH ...]
+    python3 chip_lstm_bwd_variants.py --legs-512
     python3 chip_lstm_bwd_variants.py --products [--quick]
     python3 chip_lstm_bwd_variants.py --products-split
 
@@ -55,6 +57,16 @@ where the plan takes the shape, else its streaming ``lstm_general_bwd``)
 and of this one (its path by the plan) in one call, parent / this / this
 / parent, with each one's recurrence alone and split by part, beside
 cuDNN's backward with TF32 off, at C = H = 160 and 256, f32 and bf16.
+``--ring [WIDTH ...]`` measures the card's L2 read rate (every SM
+reading one 4 MiB buffer, by loads and by TMA bulk copies) and splits the
+ring path's walk (``lstm_general_rec_ring.cu``, f32 at 257-512; edited
+copies: no product, no shared loads of W_h^T or of dgates, no gate math,
+no dgates stores, 2 ring slots, no gate-math input loads, the inputs
+loaded as used) at T = 124, B = 2048 and C = H = 512, 384 and 257 beside
+the streaming ``general_rec_kernel``. ``--compare-parent DIR 512`` times
+the general K3 f32 at C = H = 512, T = 124 and 16 (the parent streamed
+it) instead of the default cases. ``--legs-512`` times K1-K3 at 512, T =
+124, f32 and bf16, beside cuDNN.
 ``--products`` times each f32 product of ``lstm_prod.cuh`` alone, the
 Hopper kernel against the element kernel in turns, beside cuBLAS, at C =
 H = 96-512 and T = 124 and 16, then K1-K3 f32 at 512, T = 124 beside
@@ -605,19 +617,28 @@ def _parts_ms(call, calls=3):
     return ms
 
 
-def compare_general(parent_dir):
+# --compare-parent's cases: (C = H, T, dtypes), B = 2048; with a width
+# after DIR, that width's (512: f32 at T = 124 and 16, the ring path)
+COMPARE_CASES = {
+    None: [(160, 124, ("f32", "bf16")), (256, 124, ("f32", "bf16"))],
+    512: [(512, 124, ("f32",)), (512, 16, ("f32",))],
+}
+
+
+def compare_general(parent_dir, cases=COMPARE_CASES[None]):
     """The general K3 in one call, parent / this design / this design /
     parent, beside cuDNN's backward (``torch.nn.LSTM``, data and weights,
     TF32 off as the port's f32 kernels; a yardstick the port never calls),
-    at T = 124, B = 2048 and C = H = 160 and 256, f32 and bf16: the parent
+    at B = 2048 and each of ``cases`` (C = H, T, dtypes): the parent
     checkout's K3 on the path its plan takes (its
     ``lstm_general_rec_cluster.cu`` at the same N, R, passes and row
     groups where the plan takes the shape, else its ``lstm_general.cu``'s
-    streaming ``general_rec_kernel``) against this checkout's path
-    (``_general_bwd_launch``), each library called directly on
-    preallocated buffers; each design's split by part (torch.profiler) and
-    its recurrence alone, parent / this / this / parent; and how far the
-    two designs' dx and dW differ."""
+    streaming ``general_rec_kernel``: the ring path is this design's, so
+    where this checkout takes it the parent streamed) against this
+    checkout's path (``_general_bwd_launch``), each library called
+    directly on preallocated buffers; each design's split by part
+    (torch.profiler) and its recurrence alone, parent / this / this /
+    parent; and how far the two designs' dx and dW differ."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -635,14 +656,15 @@ def compare_general(parent_dir):
     parent_cluster = _typed_parent_cluster(ctypes.CDLL(built["parent"][0]))
     this_cluster = _typed_rec(K._general_rec_library())
     this_stream = _typed_general_bwd(K._general_library())
+    this_ring = _typed_ring(K._general_rec_ring_library())
     caps = K.cluster_capacity(0)
     stream = torch.cuda.current_stream().cuda_stream
-    T, B = 124, 2048
-    for width in (160, 256):
+    B = 2048
+    for width, T, sfxs in cases:
         C = H = width
-        for dtype in (torch.float32, torch.bfloat16):
+        for sfx in sfxs:
+            dtype = torch.bfloat16 if sfx == "bf16" else torch.float32
             flag = int(dtype == torch.bfloat16)
-            sfx = "bf16" if flag else "f32"
             gen = torch.Generator(device="cuda").manual_seed(width)
             bound = 1.0 / H ** 0.5
             lib_lstm = torch.nn.LSTM(C, H).cuda()
@@ -664,6 +686,9 @@ def compare_general(parent_dir):
             run, chunks_of, _err, path = K._general_bwd_launch(
                 dtype, C, H, x.device)
             plan = K.general_rec_plan(C, H, dtype, caps)
+            # the W_h^T each design's recurrence reads
+            w_this = (K.general_rec_ring_weights(w_ht) if path == "ring"
+                      else w_ht)
             if plan is not None:
                 npr = plan[0], plan[1], *plan[3:]
                 parent_path = "cluster"
@@ -680,7 +705,11 @@ def compare_general(parent_dir):
                 parent_fn = parent.lstm_general_bwd
                 parent_chunks = parent.lstm_general_bwd_dw_chunks
                 parent_rec = parent.lstm_general_rec
-            if plan is None:
+            if path == "ring":
+                ring_r = K.general_rec_ring_plan(C, H, dtype)[0]
+                this_rec = (lambda *a: this_ring.lstm_general_rec_ring_rec(
+                    *a[1:-1], ring_r, a[-1]))
+            elif plan is None:
                 this_rec = this_stream.lstm_general_rec
             else:
                 this_rec = (lambda *a: this_cluster
@@ -689,16 +718,17 @@ def compare_general(parent_dir):
             with full_f32():
                 z = K.lstm_bwd_gates_reference(x, w, hs)
             outs, recs = {}, {}
-            for name, fn, chunks, rec in (
-                    ("parent", parent_fn, parent_chunks(T, B), parent_rec),
-                    ("change", run, chunks_of(T, B), this_rec)):
+            for name, fn, chunks, rec, w_rec in (
+                    ("parent", parent_fn, parent_chunks(T, B), parent_rec,
+                     w_ht),
+                    ("change", run, chunks_of(T, B), this_rec, w_this)):
                 zb = torch.empty((T, B, 4 * H), device="cuda")
                 dg = torch.empty((T, B, 4 * H), device="cuda", dtype=dtype)
                 dx = torch.empty_like(x)
                 partials = torch.empty((chunks, C + H + 1, 4 * H),
                                        device="cuda")
                 dw = torch.empty((C + H + 1, 4 * H), device="cuda")
-                args = [flag, x.data_ptr(), w.data_ptr(), w_ht.data_ptr(),
+                args = [flag, x.data_ptr(), w.data_ptr(), w_rec.data_ptr(),
                         w_xt.data_ptr(), hs.data_ptr(), cs.data_ptr(),
                         dhs.data_ptr(), zb.data_ptr(), dg.data_ptr(),
                         dx.data_ptr(), partials.data_ptr(), dw.data_ptr(),
@@ -712,7 +742,7 @@ def compare_general(parent_dir):
                 dg_alone = torch.empty((T, B, 4 * H), device="cuda",
                                        dtype=dtype)
                 rargs = [flag, z.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-                         w_ht.data_ptr(), dg_alone.data_ptr(), T, B, H,
+                         w_rec.data_ptr(), dg_alone.data_ptr(), T, B, H,
                          stream]
 
                 def rcall(rec=rec, rargs=rargs, name=name):
@@ -741,7 +771,8 @@ def compare_general(parent_dir):
             ddw = ((dw_p - dw_c).abs().max() / dw_p.abs().max()).item()
             dg_p, dg_c = recs["parent"][1].float(), recs["change"][1].float()
             ddg = ((dg_p - dg_c).abs().max() / dg_p.abs().max()).item()
-            print(f"general K3 {sfx} C=H={width} (parent: {parent_path} "
+            print(f"general K3 {sfx} C=H={width} T={T} (parent: "
+                  f"{parent_path} "
                   f"path, change: {path} path, plan {plan}): parent / "
                   f"change / change / parent {ms['parent'][0]:.4f} / "
                   f"{ms['change'][0]:.4f} / {ms['change'][1]:.4f} / "
@@ -752,7 +783,7 @@ def compare_general(parent_dir):
                   f"differ by dx {ddx:.3e}, dW {ddw:.3e} of its max-abs, "
                   f"dgates {ddg:.3e} of theirs", flush=True)
             for name in ("parent", "change"):
-                print(f"general K3 {sfx} C=H={width} {name} by part "
+                print(f"general K3 {sfx} C=H={width} T={T} {name} by part "
                       "(torch.profiler): " + ", ".join(
                           f"{k} {v:.4f} ms" for k, v in parts[name].items()),
                       flush=True)
@@ -1021,47 +1052,55 @@ def split_products(widths=(256, 160), T=124, B=2048):
         torch.cuda.empty_cache()
 
 
-def legs_512(T=124, B=2048):
-    """K3, K1 and K2 (with cs) f32 at C = H = 512 through the port's entry
-    points (the streaming ``lstm_general.cu`` kernels, K3's products on
-    ``lstm_prod.cuh``) beside cuDNN's backward and forward (TF32 off)."""
+def legs_512(T=124, B=2048, dtypes=("f32",)):
+    """K3, K1 and K2 (with cs) at C = H = 512 through the port's entry
+    points (f32: K1/K2 on the streaming ``lstm_general.cu`` kernel, K3's
+    walk on the ring path, ``lstm_general_rec_ring.cu``, its products on
+    ``lstm_prod.cuh``; bf16: every leg streamed) beside cuDNN's backward
+    and forward (TF32 off), in each of ``dtypes``."""
     import torch
 
     sys.path.insert(0, REPO)
     from remora_tpu_torch.kernels import lstm as K
 
     C = H = 512
-    gen = torch.Generator(device="cuda").manual_seed(512)
-    bound = 1.0 / H ** 0.5
-    lib_lstm = torch.nn.LSTM(C, H).cuda()
-    with torch.no_grad():
-        for prm in lib_lstm.parameters():
-            prm.uniform_(-bound, bound, generator=gen)
-    lib_lstm.flatten_parameters()
-    params = {"w_ih": lib_lstm.weight_ih_l0.detach(),
-              "w_hh": lib_lstm.weight_hh_l0.detach(),
-              "b_ih": lib_lstm.bias_ih_l0.detach(),
-              "b_hh": lib_lstm.bias_hh_l0.detach()}
-    x = torch.randn((T, B, C), device="cuda", generator=gen)
-    dhs = torch.randn((T, B, H), device="cuda", generator=gen)
-    w = K.make_w_aug(params, torch.float32)
-    hs, cs = K.lstm_fwd(x, w)
-    ms = {
-        "K1": time_ms(lambda: K.lstm_last(params, x), n=3, calls=1),
-        "K2": time_ms(lambda: K.lstm_fwd(x, w), n=3, calls=1),
-        "K3": time_ms(lambda: K.lstm_bwd(x, w, hs, cs, dhs), n=3, calls=1),
-    }
-    xg = x.clone().requires_grad_()
-    out = lib_lstm(xg)[0]
-    inputs = (xg, *lib_lstm.parameters())
-    fwd = cudnn_ms(lambda: lib_lstm(x), n=3, calls=1)
-    bwd = cudnn_ms(lambda: torch.autograd.grad(
-        out, inputs, grad_outputs=dhs, retain_graph=True), n=3, calls=1)
-    path = K.general_fwd_path(torch.float32, C, H)
-    print(f"f32 C=H={C} T={T} B={B} (path {path}): K1 {ms['K1']:.4f} ms, "
-          f"K2 {ms['K2']:.4f} ms, cuDNN "
-          f"forward {fwd:.4f} ms; K3 {ms['K3']:.4f} ms, cuDNN backward "
-          f"{bwd:.4f} ms (TF32 off)", flush=True)
+    for sfx in dtypes:
+        dtype = torch.bfloat16 if sfx == "bf16" else torch.float32
+        gen = torch.Generator(device="cuda").manual_seed(512)
+        bound = 1.0 / H ** 0.5
+        lib_lstm = torch.nn.LSTM(C, H).cuda()
+        with torch.no_grad():
+            for prm in lib_lstm.parameters():
+                prm.uniform_(-bound, bound, generator=gen)
+        lib_lstm = lib_lstm.to(dtype)
+        lib_lstm.flatten_parameters()
+        params = {"w_ih": lib_lstm.weight_ih_l0.detach(),
+                  "w_hh": lib_lstm.weight_hh_l0.detach(),
+                  "b_ih": lib_lstm.bias_ih_l0.detach(),
+                  "b_hh": lib_lstm.bias_hh_l0.detach()}
+        x = torch.randn((T, B, C), device="cuda", generator=gen).to(dtype)
+        dhs = torch.randn((T, B, H), device="cuda",
+                          generator=gen).to(dtype)
+        w = K.make_w_aug(params, dtype)
+        hs, cs = K.lstm_fwd(x, w)
+        ms = {
+            "K1": time_ms(lambda: K.lstm_last(params, x), n=3, calls=1),
+            "K2": time_ms(lambda: K.lstm_fwd(x, w), n=3, calls=1),
+            "K3": time_ms(lambda: K.lstm_bwd(x, w, hs, cs, dhs), n=3,
+                          calls=1),
+        }
+        xg = x.clone().requires_grad_()
+        out = lib_lstm(xg)[0]
+        inputs = (xg, *lib_lstm.parameters())
+        fwd = cudnn_ms(lambda: lib_lstm(x), n=3, calls=1)
+        bwd = cudnn_ms(lambda: torch.autograd.grad(
+            out, inputs, grad_outputs=dhs, retain_graph=True), n=3, calls=1)
+        print(f"{sfx} C=H={C} T={T} B={B} (K1/K2 path "
+              f"{K.general_fwd_path(dtype, C, H)}, K3 path "
+              f"{K.general_bwd_path(dtype, C, H)}): K1 {ms['K1']:.4f} ms, "
+              f"K2 {ms['K2']:.4f} ms, cuDNN forward {fwd:.4f} ms; K3 "
+              f"{ms['K3']:.4f} ms, cuDNN backward {bwd:.4f} ms (TF32 off)",
+              flush=True)
 
 
 # --ring: the L2 read rate, one 4 MiB buffer read by every SM (W_h^T's
@@ -1314,6 +1353,10 @@ def main():
               file=sys.stderr)
         return 1
     args = sys.argv[1:]
+    if args[:1] == ["--legs-512"]:
+        legs_512(dtypes=("f32", "bf16"))
+        print(smi_line())
+        return 0
     if args[:1] == ["--ring"]:
         split_ring(*([tuple(int(a) for a in args[1:])] if args[1:] else []))
         print(smi_line())
@@ -1331,7 +1374,8 @@ def main():
         print(smi_line())
         return 0
     if args[:1] == ["--compare-parent"]:
-        compare_general(args[1])
+        compare_general(args[1], COMPARE_CASES[int(args[2]) if args[2:]
+                                               else None])
         print(smi_line())
         return 0
     if args[:1] == ["--general"]:

@@ -34,7 +34,8 @@ printed):
    ``lstm_general.cu``'s streaming path; K3's recurrence on
    ``lstm_general_rec_cluster.cu``'s clusters where
    ``kernels.lstm.general_rec_plan`` takes the shape (f32 at 256 in row
-   groups, ``general_rec_group_kernel``), else on ``lstm_general.cu``'s
+   groups, ``general_rec_group_kernel``), f32 at 257-512 on
+   ``lstm_general_rec_ring.cu``'s ring path, else on ``lstm_general.cu``'s
    ``general_rec_kernel``; the recurrence alone also held to its plain
    twin on the same Z and timed) at T=124, B=2048 and C=H=160 (the shape
    6g gives it; these records take 6g's launches into the kernels line)
@@ -46,10 +47,11 @@ printed):
    (``PARENT_GENERAL_MS``), bounds, chains, ``torch.nn.LSTM`` times, the
    path, cluster size, rows, passes and row groups, registers and spills,
    the card's cluster capacity, and K3 by part; and K1, K2 (with and
-   without cs) and K3 f32 at C=H=512 (T=16), which every cluster plan
-   refuses, on the streaming ``general_fwd_kernel`` and
-   ``general_rec_kernel`` against their plain versions (their records take
-   6g's size-512 leg's launches);
+   without cs) f32 at C=H=512 (T=16), which every forward cluster plan
+   refuses, on the streaming ``general_fwd_kernel``, and K3 there on the
+   ring path (``general_rec_ring_kernel``, beside the parent's streaming
+   time, its registers and spills), against their plain versions (their
+   records take 6g's size-512 leg's launches);
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -127,9 +129,10 @@ printed):
    shapes (merge_conv1 320 -> 160); then size 256 in f32: one train step
    and one served batch, K1/K2 once each on the cluster path's W_h-ring
    kernel, K3 once on the row-group cluster path, none streamed, logits
-   held to the scan; then size 512 in f32, which every cluster plan
-   refuses, one train step of 512 chunks, K2 and K3 once each and K1 (its
-   validation) on the streaming paths; (6f) data-parallel
+   held to the scan; then size 512 in f32, which every forward cluster
+   plan refuses, one train step of 512 chunks, K2 and K3 once each and K1
+   (its validation), K1/K2 on the streaming path and K3 on the ring path,
+   none of K3 streamed; (6f) data-parallel
    training, the launch and all-reduce counts set to 0 first: (a)
    ``train_model`` over
    a one-rank NCCL group on cuda:0, 4 steps of 2048 (SGD), K2/K3 once a
@@ -204,7 +207,9 @@ printed):
    line (K1, K2/K3, K4/K5);
 9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``; a run in which any
-   phase imported zstandard fails.
+   phase imported zstandard fails. Each phase's wall is printed on a line
+   of its own as the phase ends (``phase_done``), and all of them again
+   in one ``phase_walls_s`` line before the kernels line.
 
 Phases 5, 5b, 5c, 7 and 8c read real POD5 files through the port's
 ``io.pod5.DatasetReader`` in every stage, the forked ExtractSignal and
@@ -289,10 +294,13 @@ _T_START = _T_PHASE = time.monotonic()
 
 
 def phase_done(name):
+    """Record phase ``name``'s wall and print it on a line of its own."""
     global _T_PHASE
     now = time.monotonic()
     PHASE_WALLS[name] = round(now - _T_PHASE, 1)
     _T_PHASE = now
+    log(f"phase {name} wall {PHASE_WALLS[name]} s "
+        f"({now - _T_START:.1f} s since the start)")
 
 
 def check(ok, msg):
@@ -510,6 +518,21 @@ def lstm_chain_instrs(kind, C, H):
         depth = 4 * hh // 16 if dtype == torch.bfloat16 else 4 * hh
         return 1 + 1 + N + 1 + 2 + 3 + 1 + 1 + 1 + depth + 1 + 1 \
             + (P - 1) * (depth + 1 + 1 + 1 + N) + (2 if groups > 1 else 0)
+    if kind == "general_bwd_ring":
+        # K3 general f32 at 257-512, the ring path
+        # (lstm_general_rec_ring.cu::general_rec_ring_kernel; the gate
+        # recompute and the products are other launches): LDS dh_c (the
+        # exchange tile) -> FADD dhs -> dc (FMUL, FFMA) -> dgates (3 FMUL)
+        # -> STS -> BAR -> per chunk (an mbarrier wait) its k into one
+        # accumulator: 2hp dependent FFMA a group -> STS the partial ->
+        # BAR -> LDS -> FADD (the groups' sum) -> STS
+        import torch
+
+        from remora_tpu_torch.kernels import lstm as K
+
+        hp = K.general_rec_ring_cfg(H, torch.float32, K.RING_REC_ROWS)["hp"]
+        return 1 + 1 + 2 + 3 + 1 + 1 + 2 * hp // K.RING_REC_CHUNK \
+            + 2 * hp + 1 + 1 + 1 + 1 + 1
     if kind == "general_bwd":
         # K3 general, the streaming path (lstm_general.cu::general_rec_kernel; the gate
         # recompute and the products are other launches): BAR -> LDS the dh
@@ -579,6 +602,10 @@ def lstm_kernel_of(leg, dtype, C, H):
                 "remora_tpu_torch/csrc/lstm_general.cu",
                 "general_stream_fwd")
     if kind == "general":
+        if general_path(dtype, C, H, leg) == "ring":
+            return ("lstm_bwd_general_ring_f32",
+                    "remora_tpu_torch/csrc/lstm_general_rec_ring.cu",
+                    "general_bwd_ring")
         if general_path(dtype, C, H, leg) == "cluster":
             if K.general_rec_plan(C, H, dtype, K.cluster_capacity(0))[4] > 1:
                 return (f"lstm_bwd_general_groups_{sfx}",
@@ -609,8 +636,9 @@ def lstm_kernel_of(leg, dtype, C, H):
 
 
 def general_path(dtype, C, H, leg="fwd"):
-    """The general leg's path on this card ("cluster" or "stream"), as
-    ``kernels.lstm`` picks it: K1/K2's, or K3's for ``leg`` "bwd"."""
+    """The general leg's path on this card ("cluster" or "stream"; K3 also
+    "ring"), as ``kernels.lstm`` picks it: K1/K2's, or K3's for ``leg``
+    "bwd"."""
     from remora_tpu_torch.kernels import lstm as K
 
     path = K.general_bwd_path if leg == "bwd" else K.general_fwd_path
@@ -630,7 +658,8 @@ def general_fwd_ring(dtype, C, H):
 def path_fields(leg, dtype, C, H):
     """A general record's path, cluster size and rows a cluster
     (``general_fwd_plan`` on this card; K3's ``general_rec_plan``, with
-    the exchange's passes and the row groups); {} for any other kernel."""
+    the exchange's passes and the row groups, or its ring plan: rows a
+    CTA, no cluster); {} for any other kernel."""
     from remora_tpu_torch.kernels import lstm as K
 
     if K.route(leg, dtype, C, H) != "general":
@@ -638,6 +667,11 @@ def path_fields(leg, dtype, C, H):
     caps = K.cluster_capacity(0)
     if leg == "bwd":
         plan = K.general_rec_plan(C, H, dtype, caps)
+        ring = K.general_rec_ring_plan(C, H, dtype)
+        if plan is None and ring is not None:  # CTAs of R rows, no cluster
+            return {"path": "ring", "cluster_ctas": 1,
+                    "cluster_rows": ring[0], "passes": None,
+                    "row_groups": None}
         if plan is None:
             return {"path": "stream", "cluster_ctas": None,
                     "cluster_rows": None, "passes": None, "row_groups": None}
@@ -1309,7 +1343,8 @@ def check_lstm_general_compile():
     recurrence, and lstm_prod.cuh's products and the ordered dW sum it
     launches; lstm_general_cluster.cu's forwards and the W_h-ring path's
     Z_x product;
-    lstm_general_rec_cluster.cu's recurrence and the products again), each
+    lstm_general_rec_cluster.cu's recurrence and the products again;
+    lstm_general_rec_ring.cu's recurrence and the products), each
     instantiation: registers logged, no spill."""
     check_compile("lstm_general", "general K1-K3", (
         "general_fwd_kernel", "general_rec_kernel", "prod_f32_ws_kernel",
@@ -1322,6 +1357,9 @@ def check_lstm_general_compile():
         "general_rec_cluster_kernel", "general_rec_group_kernel",
         "prod_f32_ws_kernel", "wide_prod_f32_kernel",
         "wide_prod_bf16_kernel", "ordered_sum"))
+    check_compile("lstm_general_rec_ring", "general K3 ring", (
+        "general_rec_ring_kernel", "prod_f32_ws_kernel",
+        "wide_prod_f32_kernel", "ordered_sum"))
     check_compile("lstm_prod", "f32 products", (
         "prod_f32_ws_kernel", "wide_prod_f32_kernel", "ordered_sum"))
 
@@ -1337,6 +1375,9 @@ PARENT_GENERAL_MS = {
     ("fwd", "f32", 256): 14.1321, ("fwd", "bf16", 256): 14.6810,
     ("bwd", "f32", 160): 16.9088, ("bwd", "bf16", 160): 10.6175,
     ("bwd", "f32", 256): 31.5380, ("bwd", "bf16", 256): 16.6665,
+    # K3 f32 at GENERAL_STREAM, T = GENERAL_STREAM_T, on the streaming
+    # general_rec_kernel before the ring path (PERF.md, PR 24's run)
+    ("bwd", "f32", 512): 21.2180,
 }
 
 
@@ -1388,15 +1429,28 @@ def check_general_recurrence(dtype, width):
             "max_rel_err": err}
 
 
-def check_general_stream_k3():
-    """Phase 3e's streaming K3 (``lstm_general.cu::general_rec_kernel``
-    between ``lstm_prod.cuh``'s products): f32 at T = GENERAL_STREAM_T, B =
-    BATCH and C = H = GENERAL_STREAM, a shape ``general_rec_plan``
-    refuses. dx within 1e-5 abs and dW within 1e-4 of its max-abs of
-    ``lstm_bwd_reference``, the recurrence alone's dgates within 1e-5 of
-    their max-abs of its plain twin on the same Z, each repeated bit for
-    bit; K3 timed beside its bound, chain, plain version and cuDNN's
-    backward (TF32 off). Returns its kernel record (launches from 6g)."""
+def ring_kernel_registers():
+    """(registers, spill store bytes) of ``general_rec_ring_kernel``'s
+    instantiations, from its library's nvcc log."""
+    from remora_tpu_torch.kernels import _build
+
+    return [(regs, st + ld) for name, regs, st, ld in ptxas_kernels(
+        _build.compile_log("lstm_general_rec_ring"))
+        if "general_rec_ring_kernel" in name]
+
+
+def check_general_ring_k3():
+    """Phase 3e's K3 f32 at C = H = GENERAL_STREAM on the ring path
+    (``lstm_general_rec_ring.cu::general_rec_ring_kernel`` between
+    ``lstm_prod.cuh``'s products), T = GENERAL_STREAM_T, B = BATCH: a
+    shape ``general_rec_plan`` refuses and the ring plan takes. dx within
+    1e-5 abs and dW within 1e-4 of its max-abs of ``lstm_bwd_reference``,
+    the recurrence alone's dgates within 1e-5 of their max-abs of its
+    plain twin on the same Z, each repeated bit for bit, two launches on
+    the ring path and none elsewhere; K3 timed beside the parent design
+    (PARENT_GENERAL_MS: the streaming kernel), its bound, chain, plain
+    version and cuDNN's backward (TF32 off), with the ring kernel's
+    registers and spills. Returns its kernel record (launches from 6g)."""
     import torch
 
     from remora_tpu_torch.infer.infer import full_f32
@@ -1410,8 +1464,8 @@ def check_general_stream_k3():
     dhs = torch.from_numpy(np.random.default_rng(6).normal(
         size=(T, B, H)).astype(np.float32)).cuda()
     name, source, chain = lstm_kernel_of("bwd", dtype, C, H)
-    check(name == "lstm_bwd_general_stream_f32",
-          f"phase 3e: K3 at f32 C=H={C} is {name}, not the streaming path")
+    check(name == "lstm_bwd_general_ring_f32",
+          f"phase 3e: K3 at f32 C=H={C} is {name}, not the ring path")
     with full_f32():
         hs, cs = K.lstm_fwd_reference(x, w_aug)
         paths = dict(K.LAUNCHES_GENERAL_BWD)
@@ -1430,8 +1484,8 @@ def check_general_stream_k3():
             f"dW {dw_rel:.3e} of its max-abs (tolerance 1e-4), the "
             f"recurrence's dgates {dg_rel:.3e} of theirs against the twin "
             f"(tolerance 1e-5); K3 launches by path {ran}")
-        check(ran == {"cluster": 0, "stream": 2},
-              f"phase 3e: K3 at f32 C=H={C} ran {ran}, not the stream")
+        check(ran == {"cluster": 0, "ring": 2, "stream": 0},
+              f"phase 3e: K3 at f32 C=H={C} ran {ran}, not the ring path")
         check(np.isfinite(err) and err <= 1e-5,
               f"{name} C=H={C}: dx disagrees ({err:.3e} > 1e-5)")
         check(np.isfinite(dw_rel) and dw_rel <= 1e-4,
@@ -1468,10 +1522,17 @@ def check_general_stream_k3():
     bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
     rec_bound = wide_bwd_part_bounds(T, B, C, H, dtype)["recurrence"]
     chain_ms = lstm_chain_bound_ms(chain, T, C, H)
-    log(f"{name} C=H={C} T={T}: kernel {ms:.4f} ms (the recurrence alone "
-        f"{rec_ms:.4f}, bound {rec_bound:.4f}), plain {plain_ms:.4f} ms, "
-        f"torch.nn.LSTM backward {lib_ms:.4f} ms (TF32 off), bound "
-        f"{bound_ms:.4f} ms ({bound_by}), chain {chain_ms:.4f} ms")
+    parent_ms = PARENT_GENERAL_MS[("bwd", "f32", C)]
+    regs = ring_kernel_registers()
+    check(regs and all(sp == 0 for _, sp in regs),
+          f"{name}: general_rec_ring_kernel registers / spill bytes {regs}")
+    log(f"{name} C=H={C} T={T} (path {path_fields('bwd', dtype, C, H)}): "
+        f"kernel {ms:.4f} ms (the parent's streaming general_rec_kernel "
+        f"{parent_ms:.4f}; the recurrence alone {rec_ms:.4f}, bound "
+        f"{rec_bound:.4f}), plain {plain_ms:.4f} ms, torch.nn.LSTM "
+        f"backward {lib_ms:.4f} ms (TF32 off), bound {bound_ms:.4f} ms "
+        f"({bound_by}), chain {chain_ms:.4f} ms; general_rec_ring_kernel "
+        f"(registers, spill bytes) by instantiation {regs}")
     return with_chain({
         "name": name,
         "route": "cuda",
@@ -1487,6 +1548,9 @@ def check_general_stream_k3():
         "shape": {"T": T, "B": B, "C": C, "H": H},
         "recurrence": {"ms": rec_ms, "bound_ms": rec_bound,
                        "max_rel_err": dg_rel},
+        "parent_ms": parent_ms,
+        "registers": [r for r, _ in regs],
+        "spill_bytes": [sp for _, sp in regs],
         **path_fields("bwd", dtype, C, H),
     }, chain_ms)
 
@@ -1601,9 +1665,10 @@ def check_lstm_general():
     = H = GENERAL; K1/K2 on the cluster path (``lstm_general_cluster.cu``;
     f32 at GENERAL on its W_h-ring kernel), K3 on the cluster path (f32 at
     GENERAL in row groups); the streaming paths (``lstm_general.cu``) at
-    f32 GENERAL_STREAM, which every plan refuses (K1/K2 at
-    GENERAL_STREAM_T steps, ``check_general_stream_fwd``; K3,
-    ``check_general_stream_k3``); each repeated bit for bit, timed beside
+    f32 GENERAL_STREAM, which every forward plan refuses (K1/K2 at
+    GENERAL_STREAM_T steps, ``check_general_stream_fwd``), and K3 there on
+    the ring path (``lstm_general_rec_ring.cu``, ``check_general_ring_k3``);
+    each repeated bit for bit, timed beside
     its bound, its chain, its plain version, ``torch.nn.LSTM`` and the
     parent design (PARENT_GENERAL_MS). The GENERAL records are logged as a
     line of their own; returns the GENERAL_SIZE records (K1, K2, K3) by
@@ -1677,14 +1742,14 @@ def check_lstm_general():
                   f"phase 3e: the {dtype} recurrence at C=H={width} ran "
                   f"the {recs[2]['recurrence']['path']} path")
     stream_fwd = check_general_stream_fwd()
-    stream_k3 = check_general_stream_k3()
-    log(json.dumps({f"general_stream_at_{GENERAL_STREAM}": [*stream_fwd,
-                                                            stream_k3]}))
+    ring_k3 = check_general_ring_k3()
+    log(json.dumps({f"general_at_{GENERAL_STREAM}": [*stream_fwd,
+                                                     ring_k3]}))
     # the f32 products alone at GENERAL (K3's and the W_h-ring K1/K2's Z_x)
     products = check_prod_f32(GENERAL)
     log(f"phase 3e wall {time.monotonic() - t0:.1f} s")
     return records[GENERAL_SIZE], [*records[GENERAL][torch.float32],
-                                   *stream_fwd, stream_k3], products
+                                   *stream_fwd, ring_k3], products
 
 
 def profile_serve(handle, arrs, tag, n_walls=5):
@@ -1740,8 +1805,8 @@ def general_ring_leg(root, config, records):
     groups), then its checkpoint through ``ModelHandle.load`` for one
     batch (K1 once), logits finite and held to the same handle with
     REMORA_TPU_LSTM=scan; no launch of K1/K2 streams; then
-    ``general_k3_stream_leg``. Sets the records' launches (K1, K2, K3
-    here, the streaming K1, K2 and K3 there)."""
+    ``general_512_leg``. Sets the records' launches (K1, K2, K3 here, the
+    streaming K1 and K2 and the ring K3 there)."""
     from remora_tpu_torch.infer.infer import ModelHandle
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.train import optim
@@ -1769,7 +1834,7 @@ def general_ring_leg(root, config, records):
         f"K3 by path {train_bwd_paths}")
     check(train_launches["fwd"] == train_launches["bwd"] == 1
           and train_paths["stream"] == 0 and train_paths["cluster"] >= 1
-          and train_bwd_paths == {"cluster": 1, "stream": 0},
+          and train_bwd_paths == {"cluster": 1, "ring": 0, "stream": 0},
           f"{tag}: launches {train_launches}, K1/K2 by path {train_paths}, "
           f"K3 by path {train_bwd_paths}")
     # K3's products once and Z_x once a K1/K2 launch, on the Hopper kernel
@@ -1796,17 +1861,18 @@ def general_ring_leg(root, config, records):
     k1["launches"] = last
     k2["launches"] = train_launches["fwd"]
     k3["launches"] = train_launches["bwd"]
-    general_k3_stream_leg(root, config, stream_records)
+    general_512_leg(root, config, stream_records)
 
 
-def general_k3_stream_leg(root, config, records):
+def general_512_leg(root, config, records):
     """Phase 6g's size-GENERAL_STREAM leg: ConvLSTM_w_ref at size
-    GENERAL_STREAM in f32, which every cluster plan refuses, so it runs
-    the streaming ``general_fwd_kernel`` and ``general_rec_kernel`` on the
-    model path: ``train_model`` for one step of GENERAL_STREAM_BATCH
-    chunks, K2 and K3 once each and K1 (its validation) at least once, all
-    on the streaming paths, finite losses. Sets the streaming K1, K2 and K3
-    records' launches."""
+    GENERAL_STREAM in f32, which every forward cluster plan refuses, so
+    its K1/K2 run the streaming ``general_fwd_kernel`` and its K3 the ring
+    path (``general_rec_ring_kernel``) on the model path: ``train_model``
+    for one step of GENERAL_STREAM_BATCH chunks, K2 and K3 once each and
+    K1 (its validation) at least once, K1/K2 streamed, K3 on the ring path
+    and never streamed, finite losses. Sets the streaming K1 and K2 and
+    the ring K3 records' launches."""
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.train import optim
     from remora_tpu_torch.train.train import train_model
@@ -1839,7 +1905,7 @@ def general_k3_stream_leg(root, config, records):
     check(launches["fwd"] == launches["bwd"] == 1 and launches["last"] >= 1
           and fwd_paths == {"cluster": 0,
                             "stream": launches["fwd"] + launches["last"]}
-          and k3_paths == {"cluster": 0, "stream": 1},
+          and k3_paths == {"cluster": 0, "ring": 1, "stream": 0},
           f"{tag}: launches {launches}, K1/K2 by path {fwd_paths}, K3 by "
           f"path {k3_paths}")
     check(len(losses) == 1 and np.isfinite(losses).all(),
@@ -1864,8 +1930,8 @@ def model_path_leg(root, config, records, kind, stream_records=None):
     recurrence on ``lstm_general_rec_cluster.cu``'s: no launch streams),
     held to the same handle and step with REMORA_TPU_LSTM=scan,
     then ``general_ring_leg`` (size GENERAL f32, K1/K2 on the W_h-ring
-    kernel, and size GENERAL_STREAM on the streaming paths;
-    ``stream_records``). Sets the records' launches from the train and
+    kernel, and size GENERAL_STREAM, K1/K2 streamed and K3 on the ring
+    path; ``stream_records``). Sets the records' launches from the train and
     serve runs."""
     import torch
 
@@ -1921,7 +1987,7 @@ def model_path_leg(root, config, records, kind, stream_records=None):
                 f"{bwd_paths}")
             check(paths["stream"] == 0 and paths["cluster"] >= steps,
                   f"{tag}: general K1/K2 by path {paths}")
-            check(bwd_paths == {"cluster": steps, "stream": 0},
+            check(bwd_paths == {"cluster": steps, "ring": 0, "stream": 0},
                   f"{tag}: general K3 by path {bwd_paths} for {steps} "
                   "steps")
         check(len(losses) == steps and np.isfinite(losses).all(),

@@ -39,7 +39,7 @@ F32, BF16 = torch.float32, torch.bfloat16
 @pytest.mark.parametrize("dtype,tol,dw_tol", [(F32, 1e-5, 1e-4),
                                               (BF16, 2e-2, 2e-2)])
 @pytest.mark.parametrize("C,H", [(160, 160), (144, 200), (256, 256),
-                                 (300, 300)])
+                                 (300, 300), (512, 512)])
 def test_general_lstm_matches_pallas(pallas_interpret, C, H, dtype, tol,
                                      dw_tol):
     """K1, K2 and K3's plain versions at the general leg's widths (what
@@ -49,9 +49,10 @@ def test_general_lstm_matches_pallas(pallas_interpret, C, H, dtype, tol,
     the backward on the JAX forward's hs and cs. No kernel launches. (256,
     256) is the widest shape the forward's cluster plan takes (f32 on the
     W_h-ring path), (300, 300) one it refuses in both dtypes: the plain
-    twins pin the contract on both sides of the plan's limit."""
+    twins pin the contract on both sides of the plan's limit. (512, 512),
+    the widest the K3 ring path takes, at T = 3 and B = 5 to stay small."""
     assert K.route("fwd", dtype, C, H) == "general"
-    T, B = 8, 16
+    T, B = (3, 5) if H == 512 else (8, 16)
     x, w_aug, dhs = _case(T, B, C, H, dtype, seed=C + H)
     params = {"w_ih": w_aug[:C].T, "w_hh": w_aug[C:C + H].T,
               "b_ih": w_aug[C + H], "b_hh": torch.zeros_like(w_aug[C + H])}
@@ -457,6 +458,26 @@ def _rec_fits(H, dtype, caps):
     return out
 
 
+def _ring_cfg(H, R=16):
+    """``lstm_general_rec_ring.cu``'s ``make_cfg`` rebuilt from its
+    description: hp = H rounded up to 4; two groups of ceil(hp / 128)
+    consumer warps and a producer warp; shared memory the 256 bytes of
+    mbarriers, the dgates tile [R][4hp] f32, the exchange tile [R][hp] f32
+    and as many ring slots of 8 W_h^T rows, [8][hp] f32, as fit in 232,448
+    bytes (16 at most, 2 at least); None past 512 units."""
+    if not 1 <= H <= 512 or R != 16:
+        return None
+    hp = -(-H // 4) * 4
+    warps = -(-hp // 128)
+    fixed = 256 + R * 4 * hp * 4 + R * hp * 4
+    slot = 8 * hp * 4
+    slots = min((232448 - fixed) // slot, 16)
+    if slots < 2:
+        return None
+    return {"hp": hp, "warps": warps, "threads": 32 * (2 * warps + 1),
+            "slots": slots, "smem": fixed + slots * slot}
+
+
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("C", _PLAN_SIDES)
 def test_general_rec_plan_grid(dtype, C):
@@ -468,10 +489,17 @@ def test_general_rec_plan_grid(dtype, C):
         path = K.general_bwd_path(dtype, C, H)
         fits = _rec_fits(H, dtype, caps)
         group = _group_fit(H, dtype, caps)
+        ring = K.general_rec_ring_plan(C, H, dtype)
         if plan is None:
-            assert path == "stream", (C, H)
             assert not any(fits.values()) and group is None, (C, H)
+            # the ring path: f32 at 257-512 alone, its shape the C++ plan's
+            if dtype == F32 and 257 <= H <= 512:
+                assert path == "ring" and ring == (16, _ring_cfg(H)[
+                    "smem"]), (C, H)
+            else:
+                assert path == "stream" and ring is None, (C, H)
             continue
+        assert ring is None or H > 256, (C, H)
         assert path == "cluster", (C, H)
         N, R, smem, P, groups = plan
         if groups > 1:  # the row-group path: only where no pass count fits
@@ -523,7 +551,9 @@ def test_general_rec_plan_takes_the_model_widths():
     (W_h^T's slice and the dgates tile of all 160 rows take 217,600 bytes
     before any partials) on 8 x 144 rows walked as 3 groups of 48: W_h^T's
     128 x 256 f32 slice, two 48 x 132 f32 dgates tiles and an 8 x 48 x 32
-    f32 receive tile; f32 at 512 and every shape at 1024 stream."""
+    f32 receive tile; f32 at 257-512 finds no cluster either and takes the
+    ring path (``test_general_rec_ring_takes_f32_at_257_to_512``); bf16
+    past 256 and every shape at 1024 stream."""
     assert K.general_rec_plan(160, 160, BF16) == (2, 32, 146432, 1, 1)
     assert K.general_rec_plan(160, 160, F32) == (4, 96, 229376, 1, 1)
     assert K.general_rec_plan(256, 256, BF16) == (8, 160, 215552, 2, 1)
@@ -554,7 +584,8 @@ def test_general_rec_plan_takes_the_model_widths():
     assert K.general_rec_plan(256, 256, F32, {2: 66, 4: 30, 8: 14}) is None
     assert K.general_rec_plan(224, 224, F32) == (8, 144, smem, 1, 3)
     assert K.general_rec_plan(512, 512, F32) is None
-    assert K.general_bwd_path(F32, 512, 512) == "stream"
+    assert K.general_bwd_path(F32, 512, 512) == "ring"
+    assert K.general_bwd_path(BF16, 512, 512) == "stream"
     for dtype in (F32, BF16):
         assert K.general_rec_plan(1024, 1024, dtype) is None
         assert K.general_bwd_path(dtype, 1024, 1024) == "stream"
@@ -582,12 +613,69 @@ def test_general_rec_plan_takes_the_model_widths():
         4, 64)
 
 
+@pytest.mark.parametrize("C,H", [(257, 257), (300, 300), (384, 384),
+                                 (512, 512), (160, 512), (1024, 300),
+                                 (300, 257), (1, 384)])
+def test_general_rec_ring_takes_f32_at_257_to_512(C, H):
+    """K3's f32 recurrence at 257-512 units, any C, on the ring path: CTAs
+    of R = 16 rows and no cluster, the plan's batch of 2048 rows one wave
+    of 128 CTAs (an H100 has 132 SMs), the launch shape the C++ plan's
+    (``_ring_cfg``): at 512, two groups of 4 consumer warps (288 threads)
+    and 4 ring slots of 16 KiB beside the 128 KiB dgates tile and the 32
+    KiB exchange tile, 229,632 bytes. bf16 there, and f32 at 256 or past
+    512, never take it."""
+    R, smem = K.general_rec_ring_plan(C, H, F32)
+    cfg = K.general_rec_ring_cfg(H, F32, R)
+    assert R == K.RING_REC_ROWS == 16
+    assert -(-K.GENERAL_FWD_PLAN_BATCH // R) == 128 <= 132
+    assert cfg == _ring_cfg(H) and smem == cfg["smem"]
+    assert smem <= K.CLUSTER_SMEM_MAX and cfg["slots"] >= 2
+    assert cfg["threads"] <= 288 and cfg["hp"] % 4 == 0
+    assert 128 * cfg["warps"] >= cfg["hp"]
+    assert K.general_rec_plan(C, H, F32) is None
+    assert K.general_bwd_path(F32, C, H) == "ring"
+    assert K.general_bwd_path(BF16, C, H) == "stream"
+    assert K.general_rec_ring_plan(C, H, BF16) is None
+    if H == 512:
+        assert (cfg["warps"], cfg["threads"], cfg["slots"], smem) == (
+            4, 288, 4, 229632)
+        assert 256 + 16 * 2048 * 4 + 16 * 512 * 4 + 4 * 8 * 512 * 4 == smem
+    for bad in (256, 513, 1024):
+        assert K.general_rec_ring_plan(C, bad, F32) is None
+        assert K.general_bwd_path(F32, C, bad) != "ring"
+    assert K.general_rec_ring_cfg(H, F32, 32) is None
+    assert K.general_rec_ring_cfg(H, BF16, 16) is None
+    assert K.general_rec_ring_cfg(513, F32, 16) is None
+
+
+@pytest.mark.parametrize("H", [257, 300, 301, 512])
+def test_general_rec_ring_weights_layout(H):
+    """The ring path's W_h^T layout (4hp, hp): row g hp + u' is W_h^T's row
+    g H + u' (W_aug's column), zero past H in rows and columns; W_h^T
+    itself where H is a multiple of 4. Rebuilt here in numpy."""
+    C = 7
+    rng = np.random.default_rng(H)
+    w_aug = rng.normal(size=(C + H + 1, 4 * H)).astype(np.float32)
+    w_ht, _ = K.wide_bwd_weights(torch.from_numpy(w_aug), C)
+    got = K.general_rec_ring_weights(w_ht)
+    hp = -(-H // 4) * 4
+    want = np.zeros((4 * hp, hp), np.float32)
+    for g in range(4):
+        for uk in range(H):
+            want[g * hp + uk, :H] = w_aug[C:C + H, g * H + uk]
+    assert got.shape == (4 * hp, hp) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+    if H % 4 == 0:
+        assert got is w_ht
+
+
 def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
     """``_general_bwd_launch`` decides K3's path from the plan alone, before
     any launch: the cluster library with the plan's N, R, passes and row
-    groups (f32 at 256: 3) where the plan takes the shape, ``lstm_general.cu``'s K3 where it refuses
-    it; a launch that returns an error raises (``_raise_on``), with no
-    second try on the other path."""
+    groups (f32 at 256: 3) where the plan takes the shape, the ring library
+    with its R where the ring plan does (f32 at 512), ``lstm_general.cu``'s
+    K3 where both refuse it; a launch that returns an error raises
+    (``_raise_on``), with no second try on another path."""
     calls = []
 
     class Fake:
@@ -601,6 +689,7 @@ def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
             return call
 
     monkeypatch.setattr(K, "_general_rec_library", lambda: Fake("cluster"))
+    monkeypatch.setattr(K, "_general_rec_ring_library", lambda: Fake("ring"))
     monkeypatch.setattr(K, "_general_library", lambda: Fake("stream"))
     monkeypatch.setattr(K, "cluster_capacity",
                         lambda index: K.H100_CLUSTERS)
@@ -608,7 +697,9 @@ def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
                               (BF16, 256, 256, "cluster"),
                               (F32, 160, 160, "cluster"),
                               (F32, 256, 256, "cluster"),
-                              (F32, 512, 512, "stream"),
+                              (F32, 512, 512, "ring"),
+                              (F32, 300, 257, "ring"),
+                              (BF16, 512, 512, "stream"),
                               (BF16, 1024, 1024, "stream")):
         calls.clear()
         run, _chunks, _error_string, path = K._general_bwd_launch(
@@ -621,12 +712,16 @@ def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
             assert calls[0][1] == "lstm_general_rec_cluster_bwd"
             assert calls[0][2][-5:] == (N, R, P, groups, 0)
             assert calls[0][2][13:17] == (2, 3, C, H)
+        elif want == "ring":
+            R, _ = K.general_rec_ring_plan(C, H, dtype)
+            assert calls[0][1] == "lstm_general_rec_ring_bwd"
+            assert calls[0][2][-6:] == (2, 3, C, H, R, 0)
         else:
             assert calls[0][1] == "lstm_general_bwd"
             assert calls[0][2][-5:] == (2, 3, C, H, 0)
         with pytest.raises(RuntimeError, match="kernel launch failed"):
             K._raise_on(lambda e: b"refused", "lstm_bwd", err)
-    assert set(K.LAUNCHES_GENERAL_BWD) == {"cluster", "stream"}
+    assert set(K.LAUNCHES_GENERAL_BWD) == {"cluster", "ring", "stream"}
 
 
 def test_general_recurrence_on_the_cpu_is_the_plain_twin():
