@@ -1376,7 +1376,7 @@ PARENT_GENERAL_MS = {
     ("bwd", "f32", 160): 16.9088, ("bwd", "bf16", 160): 10.6175,
     ("bwd", "f32", 256): 31.5380, ("bwd", "bf16", 256): 16.6665,
     # K3 f32 at GENERAL_STREAM, T = GENERAL_STREAM_T, on the streaming
-    # general_rec_kernel before the ring path (PERF.md, PR 24's run)
+    # general_rec_kernel before the ring path (PERF.md section 6)
     ("bwd", "f32", 512): 21.2180,
 }
 
