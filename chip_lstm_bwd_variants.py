@@ -706,9 +706,8 @@ def compare_general(parent_dir, cases=COMPARE_CASES[None]):
                 parent_chunks = parent.lstm_general_bwd_dw_chunks
                 parent_rec = parent.lstm_general_rec
             if path == "ring":
-                ring_r = K.general_rec_ring_plan(C, H, dtype)[0]
                 this_rec = (lambda *a: this_ring.lstm_general_rec_ring_rec(
-                    *a[1:-1], ring_r, a[-1]))
+                    *a[1:]))
             elif plan is None:
                 this_rec = this_stream.lstm_general_rec
             else:
@@ -1259,7 +1258,10 @@ RING_EDITS = {
                 "c.slots = 2;")],
     "no_input_loads": [("const int cnt = rf + i < rows ? nu[qd] : 0;",
                         "const int cnt = 0;")],
-    "ahead0": [("constexpr int kAhead = 1;", "constexpr int kAhead = 0;")],
+    "ahead0": [("#pragma unroll\n    for (int n = 0; n < 1; ++n) "
+                "fetch(in[n], t, n);\n", ""),
+               ("if (n + 1 < 8) fetch(in[(n + 1) & 1], t, n + 1);",
+                "fetch(in[n & 1], t, n);")],
     "no_dg_stores": [
         ("      for (int g = 0; g < 4; ++g) store4<kVec>(dgm + g * H, "
          "q[g], cnt);\n", "")],
@@ -1282,7 +1284,7 @@ RING_VARIANTS = {
 
 def _typed_ring(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_general_rec_ring_rec.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.lstm_general_rec_ring_rec.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
     lib.lstm_general_rec_ring_rec.restype = i32
     return lib
 
@@ -1310,7 +1312,6 @@ def split_ring(widths=(512, 384, 257), T=124, B=2048):
         z, cs, dhs, w_ht, dg = _general_rec_case(width, torch.float32, T=T,
                                                  B=B)
         wp = K.general_rec_ring_weights(w_ht)
-        R = K.general_rec_ring_plan(H, H, torch.float32)[0]
 
         def stream_call():
             err = streaming.lstm_general_rec(0, z.data_ptr(), cs.data_ptr(),
@@ -1328,7 +1329,7 @@ def split_ring(widths=(512, 384, 257), T=124, B=2048):
             def call(lib=lib, name=name):
                 err = lib.lstm_general_rec_ring_rec(
                     z.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-                    wp.data_ptr(), dg.data_ptr(), T, B, H, R, stream)
+                    wp.data_ptr(), dg.data_ptr(), T, B, H, stream)
                 if err != 0:
                     raise SystemExit(f"{name!r}: error {err}")
             same = ""
@@ -1339,8 +1340,9 @@ def split_ring(widths=(512, 384, 257), T=124, B=2048):
                 same = (f"; dgates {diff:.3e} of their max-abs from the "
                         "streaming kernel's")
             ms = time_ms(call, n=5, calls=2)
-            print(f"general K3 walk f32 C=H={H} T={T} ring R={R} {name}: "
-                  f"{ms:.4f} ms ({ms / T * 1e3:.2f} us a step); "
+            print(f"general K3 walk f32 C=H={H} T={T} ring R="
+                  f"{K.RING_REC_ROWS} {name}: {ms:.4f} ms "
+                  f"({ms / T * 1e3:.2f} us a step); "
                   f"{ptxas_lines(out, 'general_rec_ring')}{same}",
                   flush=True)
 

@@ -47,11 +47,13 @@ printed):
    (``PARENT_GENERAL_MS``), bounds, chains, ``torch.nn.LSTM`` times, the
    path, cluster size, rows, passes and row groups, registers and spills,
    the card's cluster capacity, and K3 by part; and K1, K2 (with and
-   without cs) f32 at C=H=512 (T=16), which every forward cluster plan
+   without cs) at C=H=512 (T=16), which every forward cluster plan
    refuses, on the streaming ``general_fwd_kernel``, and K3 there on the
-   ring path (``general_rec_ring_kernel``, beside the parent's streaming
-   time, its registers and spills), against their plain versions (their
-   records take 6g's size-512 leg's launches);
+   ring path in f32 (``general_rec_ring_kernel``, timed in turns with the
+   parent's streaming K3 on the same inputs, its registers and spills)
+   and on the streaming ``general_rec_kernel`` in bf16, each dtype,
+   against their plain versions (their records take 6g's size-512 leg's
+   launches);
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -129,10 +131,11 @@ printed):
    shapes (merge_conv1 320 -> 160); then size 256 in f32: one train step
    and one served batch, K1/K2 once each on the cluster path's W_h-ring
    kernel, K3 once on the row-group cluster path, none streamed, logits
-   held to the scan; then size 512 in f32, which every forward cluster
-   plan refuses, one train step of 512 chunks, K2 and K3 once each and K1
-   (its validation), K1/K2 on the streaming path and K3 on the ring path,
-   none of K3 streamed; (6f) data-parallel
+   held to the scan; then size 512, which every forward cluster plan
+   refuses, one train step of 512 chunks in f32 and in bf16, K2 and K3
+   once each and K1 (its validation), K1/K2 on the streaming path, K3 on
+   the ring path in f32 and streamed in bf16, and the f32 step held to the
+   same step with the scan at 512 chunks; (6f) data-parallel
    training, the launch and all-reduce counts set to 0 first: (a)
    ``train_model`` over
    a one-rank NCCL group on cuda:0, 4 steps of 2048 (SGD), K2/K3 once a
@@ -530,7 +533,7 @@ def lstm_chain_instrs(kind, C, H):
 
         from remora_tpu_torch.kernels import lstm as K
 
-        hp = K.general_rec_ring_cfg(H, torch.float32, K.RING_REC_ROWS)["hp"]
+        hp = K.general_rec_ring_cfg(H, torch.float32)["hp"]
         return 1 + 1 + 2 + 3 + 1 + 1 + 2 * hp // K.RING_REC_CHUNK \
             + 2 * hp + 1 + 1 + 1 + 1 + 1
     if kind == "general_bwd":
@@ -1375,9 +1378,6 @@ PARENT_GENERAL_MS = {
     ("fwd", "f32", 256): 14.1321, ("fwd", "bf16", 256): 14.6810,
     ("bwd", "f32", 160): 16.9088, ("bwd", "bf16", 160): 10.6175,
     ("bwd", "f32", 256): 31.5380, ("bwd", "bf16", 256): 16.6665,
-    # K3 f32 at GENERAL_STREAM, T = GENERAL_STREAM_T, on the streaming
-    # general_rec_kernel before the ring path (PERF.md section 6)
-    ("bwd", "f32", 512): 21.2180,
 }
 
 
@@ -1439,33 +1439,75 @@ def ring_kernel_registers():
         if "general_rec_ring_kernel" in name]
 
 
-def check_general_ring_k3():
-    """Phase 3e's K3 f32 at C = H = GENERAL_STREAM on the ring path
+def stream_bwd_call(x, w_aug, hs, cs, dhs):
+    """(call, dx, dW) of ``lstm_general.cu``'s streaming K3
+    (``lstm_general_bwd``: ``general_rec_kernel`` between the products) on
+    f32 operands, through its library with buffers of its own, whatever
+    path ``general_bwd_path`` picks: the parent design at a shape the ring
+    path takes. Not counted in LAUNCHES_GENERAL_BWD."""
+    import torch
+
+    from remora_tpu_torch.kernels import lstm as K
+
+    T, B, C = x.shape
+    H = w_aug.shape[1] // 4
+    lib = K._general_library()
+    w_ht, w_xt = K.wide_bwd_weights(w_aug, C)
+    z = torch.empty((T, B, 4 * H), device=x.device)
+    dg = torch.empty((T, B, 4 * H), device=x.device)
+    dx = torch.empty_like(x)
+    partials = torch.empty((lib.lstm_general_bwd_dw_chunks(T, B),
+                            C + H + 1, 4 * H), device=x.device)
+    dw = torch.empty((C + H + 1, 4 * H), device=x.device)
+    args = [0, x.data_ptr(), w_aug.data_ptr(), w_ht.data_ptr(),
+            w_xt.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+            z.data_ptr(), dg.data_ptr(), dx.data_ptr(), partials.data_ptr(),
+            dw.data_ptr(), T, B, C, H,
+            torch.cuda.current_stream().cuda_stream]
+
+    def call():
+        err = lib.lstm_general_bwd(*args)
+        check(err == 0, f"lstm_general_bwd: launch error {err}")
+
+    return call, dx, dw
+
+
+def check_general_k3_stream_width(dtype):
+    """Phase 3e's K3 at C = H = GENERAL_STREAM, T = GENERAL_STREAM_T, B =
+    BATCH, a shape ``general_rec_plan`` refuses: f32 on the ring path
     (``lstm_general_rec_ring.cu::general_rec_ring_kernel`` between
-    ``lstm_prod.cuh``'s products), T = GENERAL_STREAM_T, B = BATCH: a
-    shape ``general_rec_plan`` refuses and the ring plan takes. dx within
-    1e-5 abs and dW within 1e-4 of its max-abs of ``lstm_bwd_reference``,
-    the recurrence alone's dgates within 1e-5 of their max-abs of its
-    plain twin on the same Z, each repeated bit for bit, two launches on
-    the ring path and none elsewhere; K3 timed beside the parent design
-    (PARENT_GENERAL_MS: the streaming kernel), its bound, chain, plain
-    version and cuDNN's backward (TF32 off), with the ring kernel's
+    ``lstm_prod.cuh``'s products), bf16 on the streaming path
+    (``lstm_general.cu::general_rec_kernel``, the only one there). dx
+    within 1e-5 abs (bf16 2e-2) and dW within 1e-4 of its max-abs (bf16
+    2e-2) of ``lstm_bwd_reference``, the recurrence alone's dgates within
+    1e-5 (bf16 2e-2) of their max-abs of its plain twin on the same Z, each
+    repeated bit for bit, two launches on the path and none elsewhere; K3
+    timed beside its bound, chain, plain version and cuDNN's backward (TF32
+    off). f32 also holds the parent design (the streaming K3,
+    ``stream_bwd_call``) to the same limits and times it in turns with the
+    ring path (ring, parent, parent, ring), and logs the ring kernel's
     registers and spills. Returns its kernel record (launches from 6g)."""
     import torch
 
     from remora_tpu_torch.infer.infer import full_f32
     from remora_tpu_torch.kernels import lstm as K
 
-    dtype = torch.float32
+    f32 = dtype == torch.float32
+    sfx = "f32" if f32 else "bf16"
+    want_path = "ring" if f32 else "stream"
+    tols = ({"dx": 1e-5, "dw": 1e-4, "dg": 1e-5} if f32 else
+            dict.fromkeys(("dx", "dw", "dg"), 2e-2))
     C = H = GENERAL_STREAM
     params, x = lstm_case(dtype, T=GENERAL_STREAM_T, C=C, H=H, seed=5)
     T, B, _ = x.shape
     w_aug = K.make_w_aug(params, dtype)
     dhs = torch.from_numpy(np.random.default_rng(6).normal(
-        size=(T, B, H)).astype(np.float32)).cuda()
+        size=(T, B, H)).astype(np.float32)).cuda().to(dtype)
     name, source, chain = lstm_kernel_of("bwd", dtype, C, H)
-    check(name == "lstm_bwd_general_ring_f32",
-          f"phase 3e: K3 at f32 C=H={C} is {name}, not the ring path")
+    check(name == f"lstm_bwd_general_{want_path}_{sfx}",
+          f"phase 3e: K3 at {sfx} C=H={C} is {name}, not the {want_path} "
+          "path")
+    parent = {}
     with full_f32():
         hs, cs = K.lstm_fwd_reference(x, w_aug)
         paths = dict(K.LAUNCHES_GENERAL_BWD)
@@ -1478,32 +1520,58 @@ def check_general_ring_k3():
         again = K.lstm_bwd(x, w_aug, hs, cs, dhs)
         dg_again = K.general_recurrence(z, cs, dhs, w_aug)
         torch.cuda.synchronize()
-        err = (dx - dx_ref).abs().max().item()
+        err = (dx.float() - dx_ref.float()).abs().max().item()
         dw_rel, dg_rel = rel_err(dw, dw_ref), rel_err(dg, dg_ref)
-        log(f"{name} C=H={C} T={T}: max |dx| {err:.3e} (tolerance 1e-5), "
-            f"dW {dw_rel:.3e} of its max-abs (tolerance 1e-4), the "
-            f"recurrence's dgates {dg_rel:.3e} of theirs against the twin "
-            f"(tolerance 1e-5); K3 launches by path {ran}")
-        check(ran == {"cluster": 0, "ring": 2, "stream": 0},
-              f"phase 3e: K3 at f32 C=H={C} ran {ran}, not the ring path")
-        check(np.isfinite(err) and err <= 1e-5,
-              f"{name} C=H={C}: dx disagrees ({err:.3e} > 1e-5)")
-        check(np.isfinite(dw_rel) and dw_rel <= 1e-4,
-              f"{name} C=H={C}: dW disagrees ({dw_rel:.3e} > 1e-4)")
-        check(np.isfinite(dg_rel) and dg_rel <= 1e-5,
-              f"{name} C=H={C}: dgates disagree ({dg_rel:.3e} > 1e-5)")
+        log(f"{name} C=H={C} T={T}: max |dx| {err:.3e} (tolerance "
+            f"{tols['dx']}), dW {dw_rel:.3e} of its max-abs (tolerance "
+            f"{tols['dw']}), the recurrence's dgates {dg_rel:.3e} of theirs "
+            f"against the twin (tolerance {tols['dg']}); K3 launches by "
+            f"path {ran}")
+        check(ran == {p: 2 * (p == want_path) for p in ran},
+              f"phase 3e: K3 at {sfx} C=H={C} ran {ran}, not the "
+              f"{want_path} path")
+        check(np.isfinite(err) and err <= tols["dx"],
+              f"{name} C=H={C}: dx disagrees ({err:.3e} > {tols['dx']})")
+        check(np.isfinite(dw_rel) and dw_rel <= tols["dw"],
+              f"{name} C=H={C}: dW disagrees ({dw_rel:.3e} > {tols['dw']})")
+        check(np.isfinite(dg_rel) and dg_rel <= tols["dg"],
+              f"{name} C=H={C}: dgates disagree ({dg_rel:.3e} > "
+              f"{tols['dg']})")
         check(torch.equal(again[0], dx) and torch.equal(again[1], dw)
               and torch.equal(dg_again, dg),
               f"{name} C=H={C}: a second call gave other bits")
-        ms = time_ms(lambda: K.lstm_bwd(x, w_aug, hs, cs, dhs),
-                     n=GENERAL_TIMED)
+
+        def kernel():
+            return K.lstm_bwd(x, w_aug, hs, cs, dhs)
+
+        if f32:
+            call, p_dx, p_dw = stream_bwd_call(x, w_aug, hs, cs, dhs)
+            call()
+            torch.cuda.synchronize()
+            parent["max_abs_err"] = (p_dx - dx_ref).abs().max().item()
+            parent["dw_rel"] = rel_err(p_dw, dw_ref)
+            log(f"{name} C=H={C} T={T}: the parent's streaming K3 on the "
+                f"same inputs: max |dx| {parent['max_abs_err']:.3e}, dW "
+                f"{parent['dw_rel']:.3e} of its max-abs")
+            check(parent["max_abs_err"] <= tols["dx"]
+                  and parent["dw_rel"] <= tols["dw"],
+                  f"the streaming K3 at f32 C=H={C} disagrees: {parent}")
+            turns = [(who, time_ms(fn, n=GENERAL_TIMED)) for who, fn in (
+                ("ring", kernel), ("parent", call), ("parent", call),
+                ("ring", kernel))]
+            ms = statistics.mean(t for who, t in turns if who == "ring")
+            parent["ms"] = statistics.mean(
+                t for who, t in turns if who == "parent")
+            parent["turns_ms"] = [t for _, t in turns]
+        else:
+            ms = time_ms(kernel, n=GENERAL_TIMED)
         rec_ms = time_ms(lambda: K.general_recurrence(z, cs, dhs, w_aug),
                          n=GENERAL_TIMED)
         plain_ms = time_ms(
             lambda: K.lstm_bwd_reference(x, w_aug, hs, cs, dhs), n=3,
             calls=1)
         # the yardstick only: cuDNN's backward (data and weights)
-        lib_lstm = torch.nn.LSTM(C, H).cuda()
+        lib_lstm = torch.nn.LSTM(C, H).cuda().to(dtype)
         with torch.no_grad():
             lib_lstm.weight_ih_l0.copy_(params["w_ih"])
             lib_lstm.weight_hh_l0.copy_(params["w_hh"])
@@ -1516,23 +1584,35 @@ def check_general_ring_k3():
         lib_ms = time_ms(lambda: torch.autograd.grad(
             out, inputs, grad_outputs=dhs, retain_graph=True),
             n=GENERAL_TIMED)
+    isz = x.element_size()
     flops = 3 * 2.0 * T * B * (C + H) * 4 * H
-    io_bytes = (2 * T * B * C + 3 * T * B * H) * 4 \
-        + 2 * (C + H + 1) * 4 * H * 4
+    # x, hs, cs, dhs and W read, dx and the f32 dW written
+    io_bytes = (2 * T * B * C + 3 * T * B * H) * isz \
+        + (C + H + 1) * 4 * H * (isz + 4)
     bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
     rec_bound = wide_bwd_part_bounds(T, B, C, H, dtype)["recurrence"]
     chain_ms = lstm_chain_bound_ms(chain, T, C, H)
-    parent_ms = PARENT_GENERAL_MS[("bwd", "f32", C)]
-    regs = ring_kernel_registers()
-    check(regs and all(sp == 0 for _, sp in regs),
-          f"{name}: general_rec_ring_kernel registers / spill bytes {regs}")
+    extra = {}
+    if f32:
+        regs = ring_kernel_registers()
+        check(regs and all(sp == 0 for _, sp in regs),
+              f"{name}: general_rec_ring_kernel registers / spill bytes "
+              f"{regs}")
+        extra = {"parent_ms": parent["ms"],
+                 "parent_max_abs_err": parent["max_abs_err"],
+                 "registers": [r for r, _ in regs],
+                 "spill_bytes": [sp for _, sp in regs]}
+        log(f"{name} C=H={C} T={T}: in turns (ring, parent, parent, ring) "
+            f"{parent['turns_ms']} ms; general_rec_ring_kernel (registers, "
+            f"spill bytes) by instantiation {regs}")
     log(f"{name} C=H={C} T={T} (path {path_fields('bwd', dtype, C, H)}): "
-        f"kernel {ms:.4f} ms (the parent's streaming general_rec_kernel "
-        f"{parent_ms:.4f}; the recurrence alone {rec_ms:.4f}, bound "
-        f"{rec_bound:.4f}), plain {plain_ms:.4f} ms, torch.nn.LSTM "
-        f"backward {lib_ms:.4f} ms (TF32 off), bound {bound_ms:.4f} ms "
-        f"({bound_by}), chain {chain_ms:.4f} ms; general_rec_ring_kernel "
-        f"(registers, spill bytes) by instantiation {regs}")
+        f"kernel {ms:.4f} ms"
+        + (f" (the parent's streaming general_rec_kernel {parent['ms']:.4f}"
+           ", this run)" if f32 else "")
+        + f"; the recurrence alone {rec_ms:.4f}, bound {rec_bound:.4f}; "
+        f"plain {plain_ms:.4f} ms, torch.nn.LSTM backward {lib_ms:.4f} ms "
+        f"(TF32 off), bound {bound_ms:.4f} ms ({bound_by}), chain "
+        f"{chain_ms:.4f} ms")
     return with_chain({
         "name": name,
         "route": "cuda",
@@ -1548,36 +1628,36 @@ def check_general_ring_k3():
         "shape": {"T": T, "B": B, "C": C, "H": H},
         "recurrence": {"ms": rec_ms, "bound_ms": rec_bound,
                        "max_rel_err": dg_rel},
-        "parent_ms": parent_ms,
-        "registers": [r for r, _ in regs],
-        "spill_bytes": [sp for _, sp in regs],
+        **extra,
         **path_fields("bwd", dtype, C, H),
     }, chain_ms)
 
 
-def check_general_stream_fwd():
-    """Phase 3e's streaming K1/K2 (``lstm_general.cu::general_fwd_kernel``):
-    f32 at T = GENERAL_STREAM_T, B = BATCH and C = H = GENERAL_STREAM, a
-    shape ``general_fwd_plan`` refuses. K1's h_(T-1), K2's hs and cs (with
-    and without cs) within 1e-5 abs of the plain versions, each repeated
-    bit for bit, and K2's hs the same without cs; launched on the
-    streaming path alone; timed beside their bound, chain, plain versions
-    and cuDNN's forward (TF32 off). Returns their kernel records (K1, K2;
-    launches from 6g's size-GENERAL_STREAM leg)."""
+def check_general_stream_fwd(dtype):
+    """Phase 3e's streaming K1/K2 (``lstm_general.cu::general_fwd_kernel``)
+    in ``dtype`` at T = GENERAL_STREAM_T, B = BATCH and C = H =
+    GENERAL_STREAM, a shape ``general_fwd_plan`` refuses. K1's h_(T-1),
+    K2's hs and cs (with and without cs) within 1e-5 abs (bf16 2e-2) of
+    the plain versions, each repeated bit for bit, and K2's hs the same
+    without cs; launched on the streaming path alone; timed beside their
+    bound, chain, plain versions and cuDNN's forward (TF32 off). Returns
+    their kernel records (K1, K2; launches from 6g's size-GENERAL_STREAM
+    leg)."""
     import torch
 
     from remora_tpu_torch.infer.infer import full_f32
     from remora_tpu_torch.kernels import lstm as K
 
-    dtype = torch.float32
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
     C = H = GENERAL_STREAM
     params, x = lstm_case(dtype, T=GENERAL_STREAM_T, C=C, H=H, seed=7)
     T, B, _ = x.shape
     w_aug = K.make_w_aug(params, dtype)
     names = [lstm_kernel_of(leg, dtype, C, H) for leg in ("last", "fwd")]
-    check([n[0] for n in names] == ["lstm_last_general_stream_f32",
-                                    "lstm_fwd_general_stream_f32"],
-          f"phase 3e: K1/K2 at f32 C=H={C} are {names}, not the stream")
+    check([n[0] for n in names] == [f"lstm_last_general_stream_{sfx}",
+                                    f"lstm_fwd_general_stream_{sfx}"],
+          f"phase 3e: K1/K2 at {sfx} C=H={C} are {names}, not the stream")
     with full_f32():
         paths = dict(K.LAUNCHES_GENERAL_FWD)
         last = K.lstm_last(params, x)
@@ -1588,21 +1668,21 @@ def check_general_stream_fwd():
         hs_ref, cs_ref = K.lstm_fwd_reference(x, w_aug)
         again = (K.lstm_last(params, x), *K.lstm_fwd(x, w_aug))
         torch.cuda.synchronize()
-        errs = {name: (a - b).abs().max().item()
+        errs = {name: (a.float() - b.float()).abs().max().item()
                 for name, a, b in (("h_(T-1)", last, last_ref),
                                    ("hs", hs, hs_ref), ("cs", cs, cs_ref))}
-        log(f"general K1/K2 f32 C=H={C} T={T}: max |d| "
+        log(f"general K1/K2 {sfx} C=H={C} T={T}: max |d| "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-            + f" (tolerance 1e-5); K1/K2 launches by path {ran}")
+            + f" (tolerance {tol}); K1/K2 launches by path {ran}")
         check(ran == {"cluster": 0, "stream": 3},
-              f"phase 3e: K1/K2 at f32 C=H={C} ran {ran}, not the stream")
+              f"phase 3e: K1/K2 at {sfx} C=H={C} ran {ran}, not the stream")
         for k, v in errs.items():
-            check(np.isfinite(v) and v <= 1e-5,
-                  f"general K1/K2 f32 C=H={C}: {k} disagrees ({v:.3e} > "
-                  "1e-5)")
+            check(np.isfinite(v) and v <= tol,
+                  f"general K1/K2 {sfx} C=H={C}: {k} disagrees ({v:.3e} > "
+                  f"{tol})")
         check(all(torch.equal(a, b) for a, b in zip(again, (last, hs, cs)))
               and torch.equal(hs_nocs, hs),
-              f"general K1/K2 f32 C=H={C}: a second call gave other bits, "
+              f"general K1/K2 {sfx} C=H={C}: a second call gave other bits, "
               "or hs without cs differs")
         ms = {"last": time_ms(lambda: K.lstm_last(params, x),
                               n=GENERAL_TIMED),
@@ -1614,7 +1694,7 @@ def check_general_stream_fwd():
                  "fwd": time_ms(lambda: K.lstm_fwd_reference(x, w_aug), n=3,
                                 calls=1)}
         # the yardstick only: cuDNN's forward, all T hidden states
-        lib_lstm = torch.nn.LSTM(C, H).cuda()
+        lib_lstm = torch.nn.LSTM(C, H).cuda().to(dtype)
         with torch.no_grad():
             lib_lstm.weight_ih_l0.copy_(params["w_ih"])
             lib_lstm.weight_hh_l0.copy_(params["w_hh"])
@@ -1623,16 +1703,17 @@ def check_general_stream_fwd():
         lib_lstm.flatten_parameters()
         with torch.no_grad():
             lib_ms = time_ms(lambda: lib_lstm(x), n=GENERAL_TIMED)
+    isz = x.element_size()
     flops = 2.0 * T * B * (C + H) * 4 * H
-    w_bytes = (C + H + 1) * 4 * H * 4
+    w_bytes = (C + H + 1) * 4 * H * isz
     records = []
     for (name, source, chain), leg, err, replaces, io_bytes in (
             (*names[:1], "last", errs["h_(T-1)"],
              "remora_tpu/kernels/pallas_lstm.py:181",
-             (T * B * C + B * H) * 4 + w_bytes),
+             (T * B * C + B * H) * isz + w_bytes),
             (*names[1:], "fwd", max(errs["hs"], errs["cs"]),
              "remora_tpu/kernels/pallas_lstm.py:137",
-             (T * B * C + 2 * T * B * H) * 4 + w_bytes)):
+             (T * B * C + 2 * T * B * H) * isz + w_bytes)):
         bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
         chain_ms = lstm_chain_bound_ms(chain, T, C, H)
         log(f"{name} C=H={C} T={T}: kernel {ms[leg]:.4f} ms, plain "
@@ -1664,19 +1745,21 @@ def check_lstm_general():
     H = GENERAL_SIZE (the shape phase 6g's model path gives them) and at C
     = H = GENERAL; K1/K2 on the cluster path (``lstm_general_cluster.cu``;
     f32 at GENERAL on its W_h-ring kernel), K3 on the cluster path (f32 at
-    GENERAL in row groups); the streaming paths (``lstm_general.cu``) at
-    f32 GENERAL_STREAM, which every forward plan refuses (K1/K2 at
-    GENERAL_STREAM_T steps, ``check_general_stream_fwd``), and K3 there on
-    the ring path (``lstm_general_rec_ring.cu``, ``check_general_ring_k3``);
-    each repeated bit for bit, timed beside
-    its bound, its chain, its plain version, ``torch.nn.LSTM`` and the
-    parent design (PARENT_GENERAL_MS). The GENERAL records are logged as a
-    line of their own; returns the GENERAL_SIZE records (K1, K2, K3) by
-    dtype, which take 6g's launches into the kernels line, and f32 at
-    GENERAL's (the W_h-ring K1, K2 and the row-group K3, which take 6g's
-    size-GENERAL leg's) with the streaming K1, K2 and K3 (6g's
-    size-GENERAL_STREAM leg's), and the four f32 products' at GENERAL
-    (``check_prod_f32``; their launches are 6e's and 6g's)."""
+    GENERAL in row groups); at GENERAL_STREAM, which every forward plan
+    refuses, GENERAL_STREAM_T steps of K1/K2 on the streaming path
+    (``lstm_general.cu``, ``check_general_stream_fwd``) and of K3 on the
+    ring path in f32 (``lstm_general_rec_ring.cu``) and the streaming
+    path in bf16 (``check_general_k3_stream_width``), each dtype; each
+    repeated bit for bit, timed beside its bound, its chain, its plain
+    version, ``torch.nn.LSTM`` and the parent design (PARENT_GENERAL_MS;
+    at GENERAL_STREAM the f32 K3's parent timed in this run). The GENERAL
+    records are logged as a line of their own; returns the GENERAL_SIZE
+    records (K1, K2, K3) by dtype, which take 6g's launches into the
+    kernels line, and f32 at GENERAL's (the W_h-ring K1, K2 and the
+    row-group K3, which take 6g's size-GENERAL leg's) with K1, K2 and K3
+    at GENERAL_STREAM, f32 then bf16 (6g's size-GENERAL_STREAM leg's), and
+    the four f32 products' at GENERAL (``check_prod_f32``; their launches
+    are 6e's and 6g's)."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -1741,15 +1824,19 @@ def check_lstm_general():
             check(recs[2]["recurrence"]["path"] == "cluster",
                   f"phase 3e: the {dtype} recurrence at C=H={width} ran "
                   f"the {recs[2]['recurrence']['path']} path")
-    stream_fwd = check_general_stream_fwd()
-    ring_k3 = check_general_ring_k3()
-    log(json.dumps({f"general_at_{GENERAL_STREAM}": [*stream_fwd,
-                                                     ring_k3]}))
+    # at GENERAL_STREAM: f32 (K1/K2 streamed, K3 on the ring path), then
+    # bf16 (every leg streamed), the order 6g's size-GENERAL_STREAM leg
+    # sets their launches in
+    wide_records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        wide_records += [*check_general_stream_fwd(dtype),
+                         check_general_k3_stream_width(dtype)]
+    log(json.dumps({f"general_at_{GENERAL_STREAM}": wide_records}))
     # the f32 products alone at GENERAL (K3's and the W_h-ring K1/K2's Z_x)
     products = check_prod_f32(GENERAL)
     log(f"phase 3e wall {time.monotonic() - t0:.1f} s")
     return records[GENERAL_SIZE], [*records[GENERAL][torch.float32],
-                                   *stream_fwd, ring_k3], products
+                                   *wide_records], products
 
 
 def profile_serve(handle, arrs, tag, n_walls=5):
@@ -1806,7 +1893,7 @@ def general_ring_leg(root, config, records):
     batch (K1 once), logits finite and held to the same handle with
     REMORA_TPU_LSTM=scan; no launch of K1/K2 streams; then
     ``general_512_leg``. Sets the records' launches (K1, K2, K3 here, the
-    streaming K1 and K2 and the ring K3 there)."""
+    size-GENERAL_STREAM K1, K2 and K3 in f32 and bf16 there)."""
     from remora_tpu_torch.infer.infer import ModelHandle
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.train import optim
@@ -1866,54 +1953,72 @@ def general_ring_leg(root, config, records):
 
 def general_512_leg(root, config, records):
     """Phase 6g's size-GENERAL_STREAM leg: ConvLSTM_w_ref at size
-    GENERAL_STREAM in f32, which every forward cluster plan refuses, so
-    its K1/K2 run the streaming ``general_fwd_kernel`` and its K3 the ring
-    path (``general_rec_ring_kernel``) on the model path: ``train_model``
-    for one step of GENERAL_STREAM_BATCH chunks, K2 and K3 once each and
-    K1 (its validation) at least once, K1/K2 streamed, K3 on the ring path
-    and never streamed, finite losses. Sets the streaming K1 and K2 and
-    the ring K3 records' launches."""
+    GENERAL_STREAM, which every forward cluster plan refuses, so its K1/K2
+    run the streaming ``general_fwd_kernel`` on the model path, and its K3
+    the ring path (``general_rec_ring_kernel``) in f32 and the streaming
+    ``general_rec_kernel`` in bf16: ``train_model`` for one step of
+    GENERAL_STREAM_BATCH chunks in each dtype, K2 and K3 once each and K1
+    (its validation) at least once, K1/K2 streamed, K3 on its path alone,
+    finite losses; the f32 checkpoint's step held to the same step with
+    REMORA_TPU_LSTM=scan at GENERAL_STREAM_BATCH rows
+    (``check_train_step_vs_plain``, K3 on the ring path). Sets the
+    ``records``' launches: K1, K2, K3 in f32, then in bf16."""
+    import torch
+
     from remora_tpu_torch.kernels import lstm as K
     from remora_tpu_torch.train import optim
     from remora_tpu_torch.train.train import train_model
 
-    tag = f"general_stream_size{GENERAL_STREAM}_f32"
-    out = os.path.join(root, tag)
     counts, paths = K.LAUNCHES_GENERAL, K.LAUNCHES_GENERAL_FWD
     bwd_paths = K.LAUNCHES_GENERAL_BWD
-    for d in (counts, paths, bwd_paths):
-        d.update(dict.fromkeys(d, 0))
-    prod_before = dict(K.LAUNCHES_PROD)
-    t0 = time.monotonic()
-    train_model(
-        seed=1, out_path=out, remora_dataset_path=config,
-        chunk_context=None, kmer_context_bases=None,
-        batch_size=GENERAL_STREAM_BATCH, model_name="ConvLSTM_w_ref",
-        size=GENERAL_STREAM,
-        train_opts=optim.TrainOpts(epochs=1, lr_scheduler_str="constant",
-                                   learning_rate=2e-3),
-        chunks_per_epoch=GENERAL_STREAM_BATCH,
-        num_test_chunks=GENERAL_STREAM_BATCH)
-    launches, fwd_paths = dict(counts), dict(paths)
-    k3_paths = dict(bwd_paths)
-    with open(os.path.join(out, "batch.log")) as fh:
-        losses = [float(line.split()[1]) for line in fh.readlines()[1:]]
-    log(f"{tag}: train_model 1 step of {GENERAL_STREAM_BATCH} in "
-        f"{time.monotonic() - t0:.1f} s; general launches {launches}, "
-        f"K1/K2 by path {fwd_paths}, K3 by path {k3_paths}; losses "
-        f"{losses}")
-    check(launches["fwd"] == launches["bwd"] == 1 and launches["last"] >= 1
-          and fwd_paths == {"cluster": 0,
-                            "stream": launches["fwd"] + launches["last"]}
-          and k3_paths == {"cluster": 0, "ring": 1, "stream": 0},
-          f"{tag}: launches {launches}, K1/K2 by path {fwd_paths}, K3 by "
-          f"path {k3_paths}")
-    check(len(losses) == 1 and np.isfinite(losses).all(),
-          f"{tag}: batch.log losses {losses}")
-    check_prod_ran(tag, prod_before, {"gates": 1, "dx": 1, "dw": 1,
-                                      "gates_x": 0})
-    for rec, leg in zip(records, ("last", "fwd", "bwd")):
-        rec["launches"] = launches[leg]
+    for dtype, recs in ((torch.float32, records[:3]),
+                        (torch.bfloat16, records[3:])):
+        bf16 = dtype == torch.bfloat16
+        k3_path = "stream" if bf16 else "ring"
+        sfx = "bf16" if bf16 else "f32"
+        tag = f"general_stream_size{GENERAL_STREAM}_{sfx}"
+        out = os.path.join(root, tag)
+        for d in (counts, paths, bwd_paths):
+            d.update(dict.fromkeys(d, 0))
+        prod_before = dict(K.LAUNCHES_PROD)
+        t0 = time.monotonic()
+        train_model(
+            seed=1, out_path=out, remora_dataset_path=config,
+            chunk_context=None, kmer_context_bases=None,
+            batch_size=GENERAL_STREAM_BATCH, model_name="ConvLSTM_w_ref",
+            size=GENERAL_STREAM,
+            train_opts=optim.TrainOpts(epochs=1, lr_scheduler_str="constant",
+                                       learning_rate=2e-3),
+            chunks_per_epoch=GENERAL_STREAM_BATCH,
+            num_test_chunks=GENERAL_STREAM_BATCH, bf16_compute=bf16)
+        launches, fwd_paths = dict(counts), dict(paths)
+        k3_paths = dict(bwd_paths)
+        with open(os.path.join(out, "batch.log")) as fh:
+            losses = [float(line.split()[1]) for line in fh.readlines()[1:]]
+        log(f"{tag}: train_model 1 step of {GENERAL_STREAM_BATCH} in "
+            f"{time.monotonic() - t0:.1f} s; general launches {launches}, "
+            f"K1/K2 by path {fwd_paths}, K3 by path {k3_paths}; losses "
+            f"{losses}")
+        check(launches["fwd"] == launches["bwd"] == 1
+              and launches["last"] >= 1
+              and fwd_paths == {"cluster": 0,
+                                "stream": launches["fwd"] + launches["last"]}
+              and k3_paths == {p: int(p == k3_path) for p in k3_paths},
+              f"{tag}: launches {launches}, K1/K2 by path {fwd_paths}, K3 "
+              f"by path {k3_paths}")
+        check(len(losses) == 1 and np.isfinite(losses).all(),
+              f"{tag}: batch.log losses {losses}")
+        # K3 f32's products on the Hopper kernel; bf16 launches none
+        check_prod_ran(tag, prod_before, {"gates": int(not bf16),
+                                          "dx": int(not bf16),
+                                          "dw": int(not bf16),
+                                          "gates_x": 0})
+        for rec, leg in zip(recs, ("last", "fwd", "bwd")):
+            rec["launches"] = launches[leg]
+        if not bf16:
+            check_train_step_vs_plain(
+                os.path.join(out, "model_final.checkpoint"), kind="general",
+                batch=GENERAL_STREAM_BATCH, bwd_path="ring")
 
 
 def model_path_leg(root, config, records, kind, stream_records=None):
@@ -1930,9 +2035,9 @@ def model_path_leg(root, config, records, kind, stream_records=None):
     recurrence on ``lstm_general_rec_cluster.cu``'s: no launch streams),
     held to the same handle and step with REMORA_TPU_LSTM=scan,
     then ``general_ring_leg`` (size GENERAL f32, K1/K2 on the W_h-ring
-    kernel, and size GENERAL_STREAM, K1/K2 streamed and K3 on the ring
-    path; ``stream_records``). Sets the records' launches from the train and
-    serve runs."""
+    kernel, and size GENERAL_STREAM in f32 and bf16, K1/K2 streamed and K3
+    on the ring path in f32; ``stream_records``). Sets the records'
+    launches from the train and serve runs."""
     import torch
 
     from remora_tpu_torch.infer.infer import ModelHandle
@@ -3434,10 +3539,10 @@ def trim_leg(root, config, smi, n_passes=5):
     return launches
 
 
-def _train_batch(seed=5):
+def _train_batch(seed=5, batch=BATCH):
     rng = np.random.default_rng(seed)
-    sigs, seqs, maps, lens = synth_inputs(rng, BATCH)
-    return sigs, seqs, maps, lens, rng.integers(0, 2, BATCH).astype(np.int64)
+    sigs, seqs, maps, lens = synth_inputs(rng, batch)
+    return sigs, seqs, maps, lens, rng.integers(0, 2, batch).astype(np.int64)
 
 
 def _loaded_model(ckpt):
@@ -3537,13 +3642,15 @@ def plain_lstm_train():
         K.lstm_fwd, K.lstm_bwd = kernels
 
 
-def check_train_step_vs_plain(ckpt, kind=None):
-    """One f32 train step (forward, loss, backward) with K2/K3 against the
-    same step with their plain versions, from the same checkpoint and
-    batch: loss <= 1e-5, LSTM and fc gradients <= 1e-4 relative. ``kind``
-    "wide": the kernels' step must run on the wide kernels (lstm_wide.cu,
-    lstm_wide_bwd.cu); "general": on lstm_general.cu, and the step it is
-    held to runs with REMORA_TPU_LSTM=scan (the scan in layers.lstm)."""
+def check_train_step_vs_plain(ckpt, kind=None, batch=BATCH, bwd_path=None):
+    """One f32 train step (forward, loss, backward) of ``batch`` chunks
+    with K2/K3 against the same step with their plain versions, from the
+    same checkpoint and batch: loss <= 1e-5, LSTM and fc gradients <= 1e-4
+    relative. ``kind`` "wide": the kernels' step must run on the wide
+    kernels (lstm_wide.cu, lstm_wide_bwd.cu); "general": on the general
+    leg, and the step it is held to runs with REMORA_TPU_LSTM=scan (the
+    scan in layers.lstm); ``bwd_path``: the general K3 must run on that
+    path once."""
     import torch
 
     from remora_tpu_torch.infer.infer import _put, full_f32
@@ -3554,7 +3661,8 @@ def check_train_step_vs_plain(ckpt, kind=None):
     from remora_tpu_torch.train import train as T
 
     sigs, seqs, maps, lens, labels = (
-        _put(a, torch.device("cuda")) for a in _train_batch(seed=6))
+        _put(a, torch.device("cuda")) for a in _train_batch(seed=6,
+                                                            batch=batch))
     results = []
     for plain in (False, True):
         model, meta = _loaded_model(ckpt)
@@ -3562,6 +3670,7 @@ def check_train_step_vs_plain(ckpt, kind=None):
         launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
         split = K.LAUNCHES_GENERAL if kind == "general" else K.LAUNCHES_WIDE
         split_launches = dict(split)
+        bwd_before = dict(K.LAUNCHES_GENERAL_BWD)
         ref = (lstm_mode("scan") if kind == "general" else plain_lstm_train())
         with (ref if plain else contextlib.nullcontext()), full_f32():
             bb, ab = meta["kmer_context_bases"]
@@ -3579,6 +3688,13 @@ def check_train_step_vs_plain(ckpt, kind=None):
         check(ran_split == ((1, 1) if kind and not plain else (0, 0)),
               f"train step (plain={plain}) launched the {kind or 'wide'} "
               f"K2/K3 {ran_split} times")
+        if bwd_path is not None:
+            ran_bwd = {k: K.LAUNCHES_GENERAL_BWD[k] - bwd_before[k]
+                       for k in bwd_before}
+            check(ran_bwd == {k: int(k == bwd_path and not plain)
+                              for k in ran_bwd},
+                  f"train step (plain={plain}): general K3 by path "
+                  f"{ran_bwd}, not once on the {bwd_path} path")
         grads = {name: p.grad for name, p in T.sorted_params(model)
                  if name.split("/")[0] in ("lstm1", "lstm2", "fc")
                  and p.grad is not None}
@@ -3589,7 +3705,9 @@ def check_train_step_vs_plain(ckpt, kind=None):
                   / g.abs().max().clamp(min=1e-30)).item()
            for name, g in p_grads.items()}
     ref_name = "the scan" if kind == "general" else "plain LSTM"
-    log(f"train step{f' ({kind})' if kind else ''}, kernels vs {ref_name}: "
+    log(f"train step{f' ({kind})' if kind else ''} of {batch}"
+        f"{f' (K3 on the {bwd_path} path)' if bwd_path else ''}, kernels vs "
+        f"{ref_name}: "
         f"loss {k_loss:.6f} vs "
         f"{p_loss:.6f} (|d| {dloss:.3e}, tolerance 1e-5); worst relative "
         f"gradient gap {max(rel.values()):.3e} ({max(rel, key=rel.get)}; "

@@ -610,7 +610,7 @@ def general_rec_plan(C, H, dtype, clusters=None):
     return None if cfg is None else (N, groups * rows, cfg["smem"], 1, groups)
 
 
-def general_rec_ring_cfg(H, dtype, R):
+def general_rec_ring_cfg(H, dtype):
     """``lstm_general_rec_ring.cu``'s launch shape (its ``make_cfg``; the
     card's ``lstm_general_rec_ring_cfg`` gives the same): f32, CTAs of R =
     RING_REC_ROWS rows (no cluster), 1 <= H <= RING_REC_MAX_H. A dict of
@@ -623,8 +623,7 @@ def general_rec_ring_cfg(H, dtype, R):
     None where it does not take the shape or fewer than two slots fit."""
     if dtype != torch.float32 or not 1 <= H <= RING_REC_MAX_H:
         return None
-    if R != RING_REC_ROWS:
-        return None
+    R = RING_REC_ROWS
     hp = _ceil(H, 4) * 4
     warps = _ceil(hp, 128)
     w_off = RING_REC_BAR_BYTES + R * 4 * hp * 4 + R * hp * 4
@@ -648,7 +647,7 @@ def general_rec_ring_plan(C, H, dtype):
         return None
     if not RING_REC_MIN_H <= H <= RING_REC_MAX_H:
         return None
-    cfg = general_rec_ring_cfg(H, dtype, RING_REC_ROWS)
+    cfg = general_rec_ring_cfg(H, dtype)
     return None if cfg is None else (RING_REC_ROWS, cfg["smem"])
 
 
@@ -864,12 +863,12 @@ def _general_rec_ring_library():
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.lstm_general_rec_ring_bwd.argtypes = ([i32] + [ptr] * 12
-                                                  + [i32] * 5 + [ptr])
+                                                  + [i32] * 4 + [ptr])
         lib.lstm_general_rec_ring_bwd.restype = i32
-        lib.lstm_general_rec_ring_rec.argtypes = ([ptr] * 5 + [i32] * 4
+        lib.lstm_general_rec_ring_rec.argtypes = ([ptr] * 5 + [i32] * 3
                                                   + [ptr])
         lib.lstm_general_rec_ring_rec.restype = i32
-        lib.lstm_general_rec_ring_cfg.argtypes = [i32] * 2 + [ptr]
+        lib.lstm_general_rec_ring_cfg.argtypes = [i32, ptr]
         lib.lstm_general_rec_ring_cfg.restype = i32
         lib.lstm_general_rec_ring_dw_chunks.argtypes = [i32, i32]
         lib.lstm_general_rec_ring_dw_chunks.restype = i32
@@ -883,22 +882,16 @@ def _general_bwd_launch(dtype, C, H, device):
     """(run, dW chunks, error string, path) of a general K3 call: the
     cluster library behind ``lstm_general_bwd``'s signature, with the
     plan's N, R, P and row groups, where ``general_rec_plan`` takes the
-    shape on this card; the ring library with its plan's N and R where
-    ``general_rec_ring_plan`` does (its R; its W_h^T pointer the
-    ``general_rec_ring_weights`` layout); else ``lstm_general.cu``'s
-    streaming K3."""
+    shape on this card; the ring library where ``general_rec_ring_plan``
+    does (its W_h^T pointer the ``general_rec_ring_weights`` layout); else
+    ``lstm_general.cu``'s streaming K3."""
     caps = cluster_capacity(device.index or 0)
     plan = general_rec_plan(C, H, dtype, caps)
     if plan is None:
-        ring = general_rec_ring_plan(C, H, dtype)
-        if ring is not None:
+        if general_rec_ring_plan(C, H, dtype) is not None:
             lib = _general_rec_ring_library()
-
-            def run_ring(*args):  # (bf16, 12 pointers, T, B, C, H, stream)
-                return lib.lstm_general_rec_ring_bwd(*args[:-1], ring[0],
-                                                     args[-1])
-
-            return (run_ring, lib.lstm_general_rec_ring_dw_chunks,
+            return (lib.lstm_general_rec_ring_bwd,
+                    lib.lstm_general_rec_ring_dw_chunks,
                     lib.lstm_general_rec_ring_error_string, "ring")
         lib = _general_library()
         return (lib.lstm_general_bwd, lib.lstm_general_bwd_dw_chunks,
@@ -959,8 +952,7 @@ def general_recurrence(z, cs, dhs, w_aug):
         stream = torch.cuda.current_stream().cuda_stream
         if ring is not None:
             lib, path = _general_rec_ring_library(), "ring"
-            err = lib.lstm_general_rec_ring_rec(*ptrs, T, B, H, ring[0],
-                                                stream)
+            err = lib.lstm_general_rec_ring_rec(*ptrs, T, B, H, stream)
             error_string = lib.lstm_general_rec_ring_error_string
         elif plan is None:
             lib, path = _general_library(), "stream"

@@ -644,31 +644,30 @@ def test_general_rec_cluster_library_matches_the_plan(cuda):
 
 def test_general_rec_ring_library_matches_the_plan(cuda):
     """lstm_general_rec_ring.cu's launch shapes are
-    ``general_rec_ring_cfg``'s; it refuses bf16, a row count or shape
-    outside its budget, and a W_h^T layout off 16 bytes, before it reads a
+    ``general_rec_ring_cfg``'s; it refuses bf16, a shape outside its
+    budget, and a W_h^T layout off 16 bytes, before it reads a
     pointer; the plan's CTAs at 257-512 run the batch in one wave."""
     import ctypes
 
     lib = K._general_rec_ring_library()
     info = (ctypes.c_longlong * 5)()
     for H in (1, 8, 129, 256, 257, 300, 384, 511, 512, 513, 1024):
-        for R in (8, 16, 32):
-            cfg = K.general_rec_ring_cfg(H, torch.float32, R)
-            rc = lib.lstm_general_rec_ring_cfg(H, R, info)
-            if cfg is None:
-                assert rc == -1, (H, R)
-                assert lib.lstm_general_rec_ring_rec(
-                    *[None] * 5, 1, 1, H, R, None) != 0
-                continue
-            assert rc == 0 and list(info) == [
-                cfg["hp"], cfg["warps"], cfg["threads"], cfg["slots"],
-                cfg["smem"]], (H, R)
+        cfg = K.general_rec_ring_cfg(H, torch.float32)
+        rc = lib.lstm_general_rec_ring_cfg(H, info)
+        if cfg is None:
+            assert rc == -1, H
+            assert lib.lstm_general_rec_ring_rec(
+                *[None] * 5, 1, 1, H, None) != 0
+            continue
+        assert rc == 0 and list(info) == [
+            cfg["hp"], cfg["warps"], cfg["threads"], cfg["slots"],
+            cfg["smem"]], H
     assert lib.lstm_general_rec_ring_bwd(
-        1, *[None] * 12, 1, 1, 160, 512, 16, None) != 0
+        1, *[None] * 12, 1, 1, 160, 512, None) != 0
     assert lib.lstm_general_rec_ring_bwd(
-        0, *[None] * 12, 1, 1, 1025, 512, 16, None) != 0
+        0, *[None] * 12, 1, 1, 1025, 512, None) != 0
     assert lib.lstm_general_rec_ring_rec(
-        None, None, None, 4, None, 1, 1, 512, 16, None) != 0
+        None, None, None, 4, None, 1, 1, 512, None) != 0
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for H in (257, 300, 384, 512):
         R, _ = K.general_rec_ring_plan(H, H, torch.float32)

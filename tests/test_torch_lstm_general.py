@@ -458,15 +458,17 @@ def _rec_fits(H, dtype, caps):
     return out
 
 
-def _ring_cfg(H, R=16):
+def _ring_cfg(H):
     """``lstm_general_rec_ring.cu``'s ``make_cfg`` rebuilt from its
     description: hp = H rounded up to 4; two groups of ceil(hp / 128)
     consumer warps and a producer warp; shared memory the 256 bytes of
     mbarriers, the dgates tile [R][4hp] f32, the exchange tile [R][hp] f32
     and as many ring slots of 8 W_h^T rows, [8][hp] f32, as fit in 232,448
-    bytes (16 at most, 2 at least); None past 512 units."""
-    if not 1 <= H <= 512 or R != 16:
+    bytes (16 at most, 2 at least), R = 16 rows a CTA; None past 512
+    units."""
+    if not 1 <= H <= 512:
         return None
+    R = 16
     hp = -(-H // 4) * 4
     warps = -(-hp // 128)
     fixed = 256 + R * 4 * hp * 4 + R * hp * 4
@@ -625,7 +627,7 @@ def test_general_rec_ring_takes_f32_at_257_to_512(C, H):
     KiB exchange tile, 229,632 bytes. bf16 there, and f32 at 256 or past
     512, never take it."""
     R, smem = K.general_rec_ring_plan(C, H, F32)
-    cfg = K.general_rec_ring_cfg(H, F32, R)
+    cfg = K.general_rec_ring_cfg(H, F32)
     assert R == K.RING_REC_ROWS == 16
     assert -(-K.GENERAL_FWD_PLAN_BATCH // R) == 128 <= 132
     assert cfg == _ring_cfg(H) and smem == cfg["smem"]
@@ -643,9 +645,8 @@ def test_general_rec_ring_takes_f32_at_257_to_512(C, H):
     for bad in (256, 513, 1024):
         assert K.general_rec_ring_plan(C, bad, F32) is None
         assert K.general_bwd_path(F32, C, bad) != "ring"
-    assert K.general_rec_ring_cfg(H, F32, 32) is None
-    assert K.general_rec_ring_cfg(H, BF16, 16) is None
-    assert K.general_rec_ring_cfg(513, F32, 16) is None
+    assert K.general_rec_ring_cfg(H, BF16) is None
+    assert K.general_rec_ring_cfg(513, F32) is None
 
 
 @pytest.mark.parametrize("H", [257, 300, 301, 512])
@@ -713,9 +714,8 @@ def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
             assert calls[0][2][-5:] == (N, R, P, groups, 0)
             assert calls[0][2][13:17] == (2, 3, C, H)
         elif want == "ring":
-            R, _ = K.general_rec_ring_plan(C, H, dtype)
             assert calls[0][1] == "lstm_general_rec_ring_bwd"
-            assert calls[0][2][-6:] == (2, 3, C, H, R, 0)
+            assert calls[0][2][-5:] == (2, 3, C, H, 0)
         else:
             assert calls[0][1] == "lstm_general_bwd"
             assert calls[0][2][-5:] == (2, 3, C, H, 0)
