@@ -1055,11 +1055,16 @@ def legs_512(T=124, B=2048, dtypes=("f32",)):
     """K3, K1 and K2 (with cs) at C = H = 512 through the port's entry
     points (f32: K1/K2 on the streaming ``lstm_general.cu`` kernel, K3's
     walk on the ring path, ``lstm_general_rec_ring.cu``, its products on
-    ``lstm_prod.cuh``; bf16: every leg streamed) beside cuDNN's backward
-    and forward (TF32 off), in each of ``dtypes``."""
+    ``lstm_prod.cuh``; bf16: K1/K2 on the forward's ring path,
+    ``lstm_general_fwd_ring.cu``, K3 streamed) beside cuDNN's backward and
+    forward (TF32 off), in each of ``dtypes``. In bf16 the streaming K1/K2
+    (the ring path's parent design) runs on the same inputs, held to the
+    plain twin and timed in turns with the ring path (ring, stream,
+    stream, ring), and the ring path's walk is timed alone."""
     import torch
 
     sys.path.insert(0, REPO)
+    from chip_smoke import ring_walk_call, stream_fwd_call
     from remora_tpu_torch.kernels import lstm as K
 
     C = H = 512
@@ -1100,6 +1105,32 @@ def legs_512(T=124, B=2048, dtypes=("f32",)):
               f"K2 {ms['K2']:.4f} ms, cuDNN forward {fwd:.4f} ms; K3 "
               f"{ms['K3']:.4f} ms, cuDNN backward {bwd:.4f} ms (TF32 off)",
               flush=True)
+        if sfx != "bf16":
+            continue
+        last = K.lstm_last(params, x)
+        for leg, ring_call, want in (
+                ("last", lambda: K.lstm_last(params, x), (last,)),
+                ("fwd", lambda: K.lstm_fwd(x, w), (hs, cs))):
+            call, outs = stream_fwd_call(leg, x, w)
+            call()
+            torch.cuda.synchronize()
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(outs, want))
+            turns = [time_ms(fn, n=3, calls=1) for fn in (
+                ring_call, call, call, ring_call)]
+            print(f"bf16 C=H={C} T={T} B={B} K{1 if leg == 'last' else 2}: "
+                  f"ring / stream / stream / ring {turns} ms (the streaming "
+                  f"kernel {err:.3e} from the ring path's outputs)",
+                  flush=True)
+        walk, outs = ring_walk_call(x, w)
+        walk()
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(outs, (hs, cs)))
+        walk_ms = time_ms(walk, n=3, calls=1)
+        print(f"bf16 C=H={C} T={T} B={B}: the ring walk alone {walk_ms:.4f} "
+              f"ms ({walk_ms / T * 1e3:.2f} us a step; {err:.3e} from K2's "
+              "outputs)", flush=True)
 
 
 # --ring: the L2 read rate, one 4 MiB buffer read by every SM (W_h^T's

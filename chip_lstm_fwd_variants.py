@@ -7,6 +7,7 @@
     python3 chip_lstm_fwd_variants.py --general [WIDTH DTYPE]
     python3 chip_lstm_fwd_variants.py --compare-parent DIR
     python3 chip_lstm_fwd_variants.py --compare-general DIR [WIDTH DTYPE]
+    python3 chip_lstm_fwd_variants.py --fwd-ring [WIDTH ...]
 
 Builds ``remora_tpu_torch/csrc/lstm_fwd_mma.cu`` as it is and in variants
 that each take one piece of a step away or make it cheaper (textual edits
@@ -50,6 +51,14 @@ without the gate math, without the stores, and the exchange alone (in
 16- and 8-byte stores).
 ``--general 256 f32`` runs one width and dtype.
 ``--compare-general DIR [WIDTH DTYPE]`` runs the general part alone.
+``--fwd-ring [WIDTH ...]`` splits the walk of the general forward's bf16
+ring path (``lstm_general_fwd_ring.cu``'s ``fwd_ring_kernel``, K2 with cs
+at T = 124, B = 2048 and C = H = 512, or each WIDTH, from the plain
+twin's Z_x through ``lstm_general_fwd_ring_walk``): as it is, without the
+h product (the ring's waits kept), without W_h's shared loads, without
+the gate math, without Z_x's shared loads, without Z_x's L2 prefetch,
+without the hs/cs stores, and with 2 ring slots; registers and spills
+per variant.
 ``--compare-parent DIR`` times the main-shape f32 K1 and K2 (with cs; T =
 124, B = 2048, C = H = 64), the wide K1 and K2 (with cs) and the general
 K1 and K2 (with cs) of the parent checkout at DIR and of this one in one
@@ -598,6 +607,103 @@ RING_VARIANTS = {
 }
 
 
+FWD_RING_SOURCE = "lstm_general_fwd_ring.cu"
+FWD_RING_EDITS = {
+    "no_product": [("        for (int ub = 0; ub < kMaxUB; ++ub) {\n"
+                    "          if (ub + 1 < kMaxUB) load_b(",
+                    "        for (int ub = 0; ub < 0; ++ub) {\n"
+                    "          if (ub + 1 < kMaxUB) load_b(")],
+    "no_w_loads": [("          ldsm_x4(b[0], wb);\n"
+                    "          ldsm_x4(b[1], wb + 512);",
+                    "          for (int i = 0; i < 4; ++i) {\n"
+                    "            b[0][i] = wb + i;\n"
+                    "            b[1][i] = wb + 512 + i;\n"
+                    "          }")],
+    "no_gate_math": [
+        ("            const float ig = sigmoid(acc[ub][0][e]);\n"
+         "            const float fg = sigmoid(acc[ub][1][e]);\n"
+         "            const float gg = tanhf(acc[ub][2][e]);\n"
+         "            const float og = sigmoid(acc[ub][3][e]);",
+         "            const float ig = acc[ub][0][e] * 1e-3f;\n"
+         "            const float fg = acc[ub][1][e] * 1e-3f;\n"
+         "            const float gg = acc[ub][2][e] * 1e-3f;\n"
+         "            const float og = acc[ub][3][e] * 1e-3f;"),
+        ("h2[v] = og * tanhf(c2[v]);", "h2[v] = og * c2[v];")],
+    "no_zx_loads": [("const bool ok = ub < nub && g + 8 * s < rows && u < H;",
+                     "const bool ok = false;")],
+    "no_zx_prefetch": [
+        ("      if (hf == 0) prefetch_zx(t + 1);\n", ""),
+        ("    prefetch_zx(0);\n", "")],
+    "no_stores": [("if (store && ub < nub && st_row < rows && u0 < H) {",
+                   "if (false) {")],
+    "slots2": [("c.slots = slots < kMaxSlots ? (int)slots : kMaxSlots;",
+                "c.slots = 2;")],
+}
+FWD_RING_VARIANTS = {
+    "as is": [],
+    "no h product (the ring's waits kept)": FWD_RING_EDITS["no_product"],
+    "no W_h shared loads": FWD_RING_EDITS["no_w_loads"],
+    "no gate math": FWD_RING_EDITS["no_gate_math"],
+    "no Z_x shared loads (zeros)": FWD_RING_EDITS["no_zx_loads"],
+    "no Z_x L2 prefetch": FWD_RING_EDITS["no_zx_prefetch"],
+    "no hs/cs stores": FWD_RING_EDITS["no_stores"],
+    "2 ring slots": FWD_RING_EDITS["slots2"],
+}
+
+
+def split_fwd_ring(widths=(512,), T=124, B=2048):
+    """``--fwd-ring``: the bf16 ring path's walk alone
+    (``lstm_general_fwd_ring_walk``, K2 with cs, on the plain twin's Z_x)
+    at T = 124, B = 2048 and C = H = ``widths``, as it is and in edited
+    copies that take one piece of a step away, registers and spills each;
+    the streaming ``general_fwd_kernel`` (K2 with cs) beside it."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from remora_tpu_torch.kernels import lstm as K
+
+    _, built = build_variants(FWD_RING_SOURCE, FWD_RING_VARIANTS,
+                              headers=("mma_sm90.cuh", "lstm_prod.cuh"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = {}
+    for name, (path, out) in built.items():
+        lib = ctypes.CDLL(path)
+        lib.lstm_general_fwd_ring_walk.argtypes = [ptr] * 5 + [i32] * 3 \
+            + [ptr]
+        lib.lstm_general_fwd_ring_walk.restype = i32
+        libs[name] = lib
+        print(f"{name}: {ptxas_lines(out, 'fwd_ring_kernel')}", flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for H in widths:
+        C = H
+        bound = 1.0 / H ** 0.5
+        x = torch.randn((T, B, C), device="cuda", generator=gen).bfloat16()
+        w = ((torch.rand((C + H + 1, 4 * H), device="cuda", generator=gen)
+              * 2 - 1) * bound).bfloat16()
+        zx = K._x_projection(x, w)
+        wr = K.general_fwd_bf16_ring_weights(w, C)
+        hs = torch.empty((T, B, H), device="cuda", dtype=torch.bfloat16)
+        cs = torch.empty_like(hs)
+        for name, lib in libs.items():
+            def call(lib=lib, name=name):
+                err = lib.lstm_general_fwd_ring_walk(
+                    zx.data_ptr(), wr.data_ptr(), hs.data_ptr(),
+                    cs.data_ptr(), None, T, B, H, stream)
+                if err != 0:
+                    raise SystemExit(f"variant {name!r}: launch error {err}")
+            ms = time_ms(call, n=5, calls=2)
+            print(f"C=H={H} T={T} {name}: walk {ms:.4f} ms "
+                  f"({ms / T * 1e3:.2f} us a step)", flush=True)
+        lib = K._general_library()
+        w_il = K.general_weights(w)
+        ms = time_ms(lambda: lib.lstm_general_fwd(
+            1, x.data_ptr(), w_il.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            T, B, C, H, stream), n=3, calls=1)
+        print(f"C=H={H} T={T}: the streaming general_fwd_kernel {ms:.4f} ms "
+              f"({ms / T * 1e3:.2f} us a step)", flush=True)
+
+
 def _typed_cluster(lib):
     """``lib`` (an ``lstm_general_cluster.cu`` library) with its launchers
     typed."""
@@ -1089,6 +1195,10 @@ def main():
     if args[:1] == ["--compare-general"]:
         compare_general(args[1], (int(args[2]), args[3]) if len(args) == 4
                         else None)
+        print(smi_line())
+        return 0
+    if args[:1] == ["--fwd-ring"]:
+        split_fwd_ring(tuple(int(a) for a in args[1:]) or (512,))
         print(smi_line())
         return 0
     if args[:1] == ["--general"]:

@@ -30,7 +30,8 @@ printed):
    part, and lines of the wide K1/K2 beside cuDNN's forward and of the
    wide K3 beside cuDNN's backward at both widths; (3e) the general LSTM
    leg (C or H past 128: K1/K2 on ``lstm_general_cluster.cu``'s cluster
-   path where ``kernels.lstm.general_fwd_plan`` takes the shape, else on
+   path where ``kernels.lstm.general_fwd_plan`` takes the shape, bf16 at
+   257-512 on ``lstm_general_fwd_ring.cu``'s ring path, else on
    ``lstm_general.cu``'s streaming path; K3's recurrence on
    ``lstm_general_rec_cluster.cu``'s clusters where
    ``kernels.lstm.general_rec_plan`` takes the shape (f32 at 256 in row
@@ -48,12 +49,14 @@ printed):
    path, cluster size, rows, passes and row groups, registers and spills,
    the card's cluster capacity, and K3 by part; and K1, K2 (with and
    without cs) at C=H=512 (T=16), which every forward cluster plan
-   refuses, on the streaming ``general_fwd_kernel``, and K3 there on the
-   ring path in f32 (``general_rec_ring_kernel``, timed in turns with the
-   parent's streaming K3 on the same inputs, its registers and spills)
-   and on the streaming ``general_rec_kernel`` in bf16, each dtype,
-   against their plain versions (their records take 6g's size-512 leg's
-   launches);
+   refuses, on the streaming ``general_fwd_kernel`` in f32 and on the ring
+   path in bf16 (``fwd_ring_kernel`` after Z_x's product, timed in turns
+   with the parent's streaming kernel on the same inputs, the walk alone
+   timed, its registers and spills), and K3 there on the ring path in f32
+   (``general_rec_ring_kernel``, timed in turns with the parent's
+   streaming K3 on the same inputs, its registers and spills) and on the
+   streaming ``general_rec_kernel`` in bf16, each dtype, against their
+   plain versions (their records take 6g's size-512 leg's launches);
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -133,9 +136,12 @@ printed):
    kernel, K3 once on the row-group cluster path, none streamed, logits
    held to the scan; then size 512, which every forward cluster plan
    refuses, one train step of 512 chunks in f32 and in bf16, K2 and K3
-   once each and K1 (its validation), K1/K2 on the streaming path, K3 on
-   the ring path in f32 and streamed in bf16, and the f32 step held to the
-   same step with the scan at 512 chunks; (6f) data-parallel
+   once each and K1 (its validation, in f32 on the master weights, so
+   streamed), K2 on the streaming path in f32 and on the ring path in
+   bf16, K3 on the ring path in f32 and streamed in bf16, the f32 step held to the same step with the scan at 512
+   chunks, and the bf16 checkpoint served for one batch of 512 (K1 once
+   on the ring path, ML bytes within 1 of the plain LSTM's); (6f)
+   data-parallel
    training, the launch and all-reduce counts set to 0 first: (a)
    ``train_model`` over
    a one-rank NCCL group on cuda:0, 4 steps of 2048 (SGD), K2/K3 once a
@@ -279,10 +285,11 @@ GENERAL, GENERAL_SIZE, GENERAL_STEPS = 256, 160, 2
 # samples of CALLS_PER_SAMPLE calls for the general leg's times: its calls
 # take 9-35 ms, so fewer samples keep phase 3e's wall down
 GENERAL_TIMED = 5
-# the general K3's streaming path (lstm_general.cu::general_rec_kernel),
-# f32 at C = H = GENERAL_STREAM, which no cluster plan takes: held to its
-# plain version at GENERAL_STREAM_T steps (3e), and on the model path at
-# size GENERAL_STREAM for one step of GENERAL_STREAM_BATCH chunks (6g)
+# C = H = GENERAL_STREAM, which no cluster plan takes (K1/K2 on the
+# streaming path in f32 and the ring path in bf16, K3 on the ring path in
+# f32 and streamed in bf16): held to their plain versions at
+# GENERAL_STREAM_T steps (3e), and on the model path at size
+# GENERAL_STREAM for one step of GENERAL_STREAM_BATCH chunks (6g)
 GENERAL_STREAM, GENERAL_STREAM_T, GENERAL_STREAM_BATCH = 512, 16, 512
 PALLAS_EPOCHS = 2  # the REMORA_TPU_CONVBN=pallas legs: 2 epochs of 12 steps
 
@@ -486,6 +493,20 @@ def lstm_chain_instrs(kind, C, H):
         # -> st.shared::cluster h -> cluster BAR (arrive B)
         return 1 + 1 + -(-H // 16) + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 + 1 \
             + 1 + 1
+    if kind == "general_fwd_bf16_ring":
+        # K1/K2 general bf16 at 257-512, the ring path
+        # (lstm_general_fwd_ring.cu::fwd_ring_kernel; Z_x is a product
+        # before the walk, each step's rows loaded across the barrier
+        # before it): BAR -> LDSM h_{t-1} -> kp / 16 dependent HMMA (a
+        # chunk's mbarrier wait and W_h's LDSM off the chain) -> the gates'
+        # activations -> c = f c + i g (FMUL, FFMA) -> tanh(c) -> h = o
+        # tanh(c) -> pack to bf16 -> 3 SHFL (the quad's trade) -> STS h_t
+        import torch
+
+        from remora_tpu_torch.kernels import lstm as K
+
+        kp = K.general_fwd_bf16_ring_cfg(H, torch.bfloat16)["kp"]
+        return 1 + 1 + kp // 16 + ACT_CHAIN + 2 + ACT_CHAIN + 1 + 1 + 3 + 1
     if kind == "general_stream_fwd":
         # K1/K2 general, the streaming path (lstm_general.cu::
         # general_fwd_kernel, either dtype: x_t . W_x and h_{t-1} . W_h
@@ -597,6 +618,10 @@ def lstm_kernel_of(leg, dtype, C, H):
             return (f"lstm_{leg}_general_whring_{sfx}",
                     "remora_tpu_torch/csrc/lstm_general_cluster.cu",
                     "general_fwd_ring")
+        if general_path(dtype, C, H) == "ring":
+            return (f"lstm_{leg}_general_ring_{sfx}",
+                    "remora_tpu_torch/csrc/lstm_general_fwd_ring.cu",
+                    "general_fwd_bf16_ring")
         if general_path(dtype, C, H) == "cluster":
             return (f"lstm_{leg}_general_cluster_{sfx}",
                     "remora_tpu_torch/csrc/lstm_general_cluster.cu",
@@ -639,8 +664,8 @@ def lstm_kernel_of(leg, dtype, C, H):
 
 
 def general_path(dtype, C, H, leg="fwd"):
-    """The general leg's path on this card ("cluster" or "stream"; K3 also
-    "ring"), as ``kernels.lstm`` picks it: K1/K2's, or K3's for ``leg``
+    """The general leg's path on this card ("cluster", "ring" or
+    "stream"), as ``kernels.lstm`` picks it: K1/K2's, or K3's for ``leg``
     "bwd"."""
     from remora_tpu_torch.kernels import lstm as K
 
@@ -660,9 +685,9 @@ def general_fwd_ring(dtype, C, H):
 
 def path_fields(leg, dtype, C, H):
     """A general record's path, cluster size and rows a cluster
-    (``general_fwd_plan`` on this card; K3's ``general_rec_plan``, with
-    the exchange's passes and the row groups, or its ring plan: rows a
-    CTA, no cluster); {} for any other kernel."""
+    (``general_fwd_plan`` on this card, or K1/K2's ring plan: rows a CTA,
+    no cluster; K3's ``general_rec_plan``, with the exchange's passes and
+    the row groups, or its ring plan); {} for any other kernel."""
     from remora_tpu_torch.kernels import lstm as K
 
     if K.route(leg, dtype, C, H) != "general":
@@ -682,6 +707,9 @@ def path_fields(leg, dtype, C, H):
                 "cluster_rows": plan[1], "passes": plan[3],
                 "row_groups": plan[4]}
     plan = K.general_fwd_plan(C, H, dtype, caps)
+    ring = K.general_fwd_bf16_ring_plan(C, H, dtype)
+    if plan is None and ring is not None:  # CTAs of R rows, no cluster
+        return {"path": "ring", "cluster_ctas": 1, "cluster_rows": ring[0]}
     if plan is None:
         return {"path": "stream", "cluster_ctas": None, "cluster_rows": None}
     return {"path": "cluster", "cluster_ctas": plan[0],
@@ -1347,6 +1375,7 @@ def check_lstm_general_compile():
     launches; lstm_general_cluster.cu's forwards and the W_h-ring path's
     Z_x product;
     lstm_general_rec_cluster.cu's recurrence and the products again;
+    lstm_general_fwd_ring.cu's walk and its bf16 Z_x product;
     lstm_general_rec_ring.cu's recurrence and the products), each
     instantiation: registers logged, no spill."""
     check_compile("lstm_general", "general K1-K3", (
@@ -1360,6 +1389,8 @@ def check_lstm_general_compile():
         "general_rec_cluster_kernel", "general_rec_group_kernel",
         "prod_f32_ws_kernel", "wide_prod_f32_kernel",
         "wide_prod_bf16_kernel", "ordered_sum"))
+    check_compile("lstm_general_fwd_ring", "general K1/K2 ring", (
+        "fwd_ring_kernel", "wide_prod_bf16_kernel"))
     check_compile("lstm_general_rec_ring", "general K3 ring", (
         "general_rec_ring_kernel", "prod_f32_ws_kernel",
         "wide_prod_f32_kernel", "ordered_sum"))
@@ -1633,31 +1664,98 @@ def check_general_k3_stream_width(dtype):
     }, chain_ms)
 
 
-def check_general_stream_fwd(dtype):
-    """Phase 3e's streaming K1/K2 (``lstm_general.cu::general_fwd_kernel``)
-    in ``dtype`` at T = GENERAL_STREAM_T, B = BATCH and C = H =
-    GENERAL_STREAM, a shape ``general_fwd_plan`` refuses. K1's h_(T-1),
-    K2's hs and cs (with and without cs) within 1e-5 abs (bf16 2e-2) of
-    the plain versions, each repeated bit for bit, and K2's hs the same
-    without cs; launched on the streaming path alone; timed beside their
-    bound, chain, plain versions and cuDNN's forward (TF32 off). Returns
-    their kernel records (K1, K2; launches from 6g's size-GENERAL_STREAM
-    leg)."""
+def stream_fwd_call(leg, x, w_aug):
+    """(call, outputs) of ``lstm_general.cu``'s streaming K1 (``leg``
+    "last": (h_(T-1),)) or K2 with cs ((hs, cs); ``general_fwd_kernel``) in
+    x's dtype, through its library with buffers of its own, whatever path
+    ``general_fwd_path`` picks: the parent design at a shape the ring path
+    takes. Not counted in LAUNCHES_GENERAL_FWD."""
+    import torch
+
+    from remora_tpu_torch.kernels import lstm as K
+
+    T, B, C = x.shape
+    H = w_aug.shape[1] // 4
+    lib = K._general_library()
+    w_il = K.general_weights(w_aug)
+    bf16 = int(x.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    if leg == "last":
+        outs = (torch.empty((B, H), dtype=x.dtype, device=x.device),)
+        fn, ptrs = lib.lstm_general_last, (outs[0].data_ptr(),)
+    else:
+        outs = tuple(torch.empty((T, B, H), dtype=x.dtype, device=x.device)
+                     for _ in range(2))
+        fn, ptrs = lib.lstm_general_fwd, tuple(t.data_ptr() for t in outs)
+    args = (bf16, x.data_ptr(), w_il.data_ptr(), *ptrs, T, B, C, H, stream)
+
+    def call():
+        err = fn(*args)
+        check(err == 0, f"streaming {leg}: launch error {err}")
+
+    return call, outs
+
+
+def ring_walk_call(x, w_aug):
+    """(call, (hs, cs)) of the ring path's walk alone
+    (``lstm_general_fwd_ring.cu``'s ``lstm_general_fwd_ring_walk``, K2 with
+    cs) on the plain twin's Z_x, with buffers of its own: the walk's time
+    without Z_x's product."""
+    import torch
+
+    from remora_tpu_torch.kernels import lstm as K
+
+    T, B, C = x.shape
+    H = w_aug.shape[1] // 4
+    lib = K._general_fwd_ring_library()
+    zx = K._x_projection(x, w_aug)
+    wr = K.general_fwd_bf16_ring_weights(w_aug, C)
+    outs = tuple(torch.empty((T, B, H), dtype=x.dtype, device=x.device)
+                 for _ in range(2))
+    args = (zx.data_ptr(), wr.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), None, T, B, H,
+            torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        err = lib.lstm_general_fwd_ring_walk(*args)
+        check(err == 0, f"the ring walk: launch error {err}")
+
+    return call, outs
+
+
+def check_general_fwd_512(dtype):
+    """Phase 3e's K1/K2 in ``dtype`` at T = GENERAL_STREAM_T, B = BATCH and
+    C = H = GENERAL_STREAM, a shape ``general_fwd_plan`` refuses: bf16 on
+    the ring path (``lstm_general_fwd_ring.cu``: Z_x's product, then
+    ``fwd_ring_kernel``), f32 on the streaming path
+    (``lstm_general.cu::general_fwd_kernel``). K1's h_(T-1), K2's hs and cs
+    (with and without cs) within 1e-5 abs (bf16 2e-2) of the plain
+    versions, each repeated bit for bit, and K2's hs the same without cs;
+    launched on the dtype's path alone; timed beside their bound, chain,
+    plain versions and cuDNN's forward (TF32 off). bf16 also holds the
+    parent design (the streaming kernel, ``stream_fwd_call``) to the same
+    limits, times it in turns with the ring path (ring, parent, parent,
+    ring) and times the walk alone (``ring_walk_call``). Returns their
+    kernel records (K1, K2; launches from 6g's size-GENERAL_STREAM leg)."""
     import torch
 
     from remora_tpu_torch.infer.infer import full_f32
     from remora_tpu_torch.kernels import lstm as K
 
-    sfx = "f32" if dtype == torch.float32 else "bf16"
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    bf16 = dtype == torch.bfloat16
+    sfx = "bf16" if bf16 else "f32"
+    want_path = "ring" if bf16 else "stream"
+    tol = 2e-2 if bf16 else 1e-5
     C = H = GENERAL_STREAM
     params, x = lstm_case(dtype, T=GENERAL_STREAM_T, C=C, H=H, seed=7)
     T, B, _ = x.shape
     w_aug = K.make_w_aug(params, dtype)
     names = [lstm_kernel_of(leg, dtype, C, H) for leg in ("last", "fwd")]
-    check([n[0] for n in names] == [f"lstm_last_general_stream_{sfx}",
-                                    f"lstm_fwd_general_stream_{sfx}"],
-          f"phase 3e: K1/K2 at {sfx} C=H={C} are {names}, not the stream")
+    check([n[0] for n in names] == [f"lstm_last_general_{want_path}_{sfx}",
+                                    f"lstm_fwd_general_{want_path}_{sfx}"],
+          f"phase 3e: K1/K2 at {sfx} C=H={C} are {names}, not the "
+          f"{want_path} path")
+    parent = {}
     with full_f32():
         paths = dict(K.LAUNCHES_GENERAL_FWD)
         last = K.lstm_last(params, x)
@@ -1674,8 +1772,9 @@ def check_general_stream_fwd(dtype):
         log(f"general K1/K2 {sfx} C=H={C} T={T}: max |d| "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + f" (tolerance {tol}); K1/K2 launches by path {ran}")
-        check(ran == {"cluster": 0, "stream": 3},
-              f"phase 3e: K1/K2 at {sfx} C=H={C} ran {ran}, not the stream")
+        check(ran == {p: 3 * (p == want_path) for p in ran},
+              f"phase 3e: K1/K2 at {sfx} C=H={C} ran {ran}, not the "
+              f"{want_path} path")
         for k, v in errs.items():
             check(np.isfinite(v) and v <= tol,
                   f"general K1/K2 {sfx} C=H={C}: {k} disagrees ({v:.3e} > "
@@ -1684,9 +1783,39 @@ def check_general_stream_fwd(dtype):
               and torch.equal(hs_nocs, hs),
               f"general K1/K2 {sfx} C=H={C}: a second call gave other bits, "
               "or hs without cs differs")
-        ms = {"last": time_ms(lambda: K.lstm_last(params, x),
-                              n=GENERAL_TIMED),
-              "fwd": time_ms(lambda: K.lstm_fwd(x, w_aug), n=GENERAL_TIMED)}
+        calls = {"last": lambda: K.lstm_last(params, x),
+                 "fwd": lambda: K.lstm_fwd(x, w_aug)}
+        if bf16:
+            ms, parent = {}, {"ms": {}, "turns_ms": {}}
+            for leg, refs in (("last", (last_ref,)),
+                              ("fwd", (hs_ref, cs_ref))):
+                call, outs = stream_fwd_call(leg, x, w_aug)
+                call()
+                torch.cuda.synchronize()
+                parent[f"{leg}_max_abs_err"] = max(
+                    (a.float() - b.float()).abs().max().item()
+                    for a, b in zip(outs, refs))
+                check(parent[f"{leg}_max_abs_err"] <= tol,
+                      f"the streaming {leg} at bf16 C=H={C} disagrees: "
+                      f"{parent}")
+                turns = [(who, time_ms(fn, n=GENERAL_TIMED)) for who, fn in (
+                    ("ring", calls[leg]), ("parent", call),
+                    ("parent", call), ("ring", calls[leg]))]
+                ms[leg] = statistics.mean(t for w, t in turns if w == "ring")
+                parent["ms"][leg] = statistics.mean(
+                    t for w, t in turns if w == "parent")
+                parent["turns_ms"][leg] = [t for _, t in turns]
+            walk, walk_outs = ring_walk_call(x, w_aug)
+            walk()
+            torch.cuda.synchronize()
+            walk_err = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(walk_outs, (hs_ref, cs_ref)))
+            check(walk_err <= tol, f"the ring walk alone at bf16 C=H={C}: "
+                  f"{walk_err:.3e} from the plain twin")
+            walk_ms = time_ms(walk, n=GENERAL_TIMED)
+        else:
+            ms = {leg: time_ms(fn, n=GENERAL_TIMED)
+                  for leg, fn in calls.items()}
         nocs_ms = time_ms(lambda: K.lstm_fwd(x, w_aug, want_cs=False),
                           n=GENERAL_TIMED)
         plain = {"last": time_ms(lambda: K.lstm_last_reference(params, x),
@@ -1706,6 +1835,22 @@ def check_general_stream_fwd(dtype):
     isz = x.element_size()
     flops = 2.0 * T * B * (C + H) * 4 * H
     w_bytes = (C + H + 1) * 4 * H * isz
+    extra = {}
+    if bf16:
+        from remora_tpu_torch.kernels import _build
+
+        regs = [(r, st + ld) for n, r, st, ld in ptxas_kernels(
+            _build.compile_log("lstm_general_fwd_ring"))
+            if "fwd_ring_kernel" in n]
+        extra = {"registers": [r for r, _ in regs],
+                 "spill_bytes": [sp for _, sp in regs],
+                 "walk_ms": walk_ms, "walk_us_a_step": walk_ms / T * 1e3,
+                 "walk_max_abs_err": walk_err}
+        log(f"general K1/K2 bf16 C=H={C} T={T}: in turns (ring, parent, "
+            f"parent, ring) {parent['turns_ms']} ms; the walk alone "
+            f"{walk_ms:.4f} ms ({walk_ms / T * 1e3:.2f} us a step); "
+            f"fwd_ring_kernel (registers, spill bytes) by instantiation "
+            f"{regs}")
     records = []
     for (name, source, chain), leg, err, replaces, io_bytes in (
             (*names[:1], "last", errs["h_(T-1)"],
@@ -1716,10 +1861,12 @@ def check_general_stream_fwd(dtype):
              (T * B * C + 2 * T * B * H) * isz + w_bytes)):
         bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
         chain_ms = lstm_chain_bound_ms(chain, T, C, H)
-        log(f"{name} C=H={C} T={T}: kernel {ms[leg]:.4f} ms, plain "
-            f"{plain[leg]:.4f} ms, torch.nn.LSTM forward {lib_ms:.4f} ms "
-            f"(TF32 off), bound {bound_ms:.4f} ms ({bound_by}), chain "
-            f"{chain_ms:.4f} ms")
+        log(f"{name} C=H={C} T={T}: kernel {ms[leg]:.4f} ms"
+            + (f" (the parent's streaming general_fwd_kernel "
+               f"{parent['ms'][leg]:.4f}, this run)" if bf16 else "")
+            + f", plain {plain[leg]:.4f} ms, torch.nn.LSTM forward "
+            f"{lib_ms:.4f} ms (TF32 off), bound {bound_ms:.4f} ms "
+            f"({bound_by}), chain {chain_ms:.4f} ms")
         records.append(with_chain({
             "name": name,
             "route": "cuda",
@@ -1733,6 +1880,9 @@ def check_general_stream_fwd(dtype):
             "bound_by": bound_by,
             "library_ms": lib_ms,
             "shape": {"T": T, "B": B, "C": C, "H": H},
+            **({"parent_ms": parent["ms"][leg],
+                "parent_max_abs_err": parent[f"{leg}_max_abs_err"],
+                **extra} if bf16 else {}),
             **path_fields(leg, dtype, C, H),
         }, chain_ms))
     records[1]["nocs_ms"] = nocs_ms
@@ -1745,9 +1895,11 @@ def check_lstm_general():
     H = GENERAL_SIZE (the shape phase 6g's model path gives them) and at C
     = H = GENERAL; K1/K2 on the cluster path (``lstm_general_cluster.cu``;
     f32 at GENERAL on its W_h-ring kernel), K3 on the cluster path (f32 at
-    GENERAL in row groups); at GENERAL_STREAM, which every forward plan
-    refuses, GENERAL_STREAM_T steps of K1/K2 on the streaming path
-    (``lstm_general.cu``, ``check_general_stream_fwd``) and of K3 on the
+    GENERAL in row groups); at GENERAL_STREAM, which every forward cluster
+    plan refuses, GENERAL_STREAM_T steps of K1/K2 on the ring path in bf16
+    (``lstm_general_fwd_ring.cu``, the parent's streaming kernel timed in
+    turns) and the streaming path in f32 (``lstm_general.cu``;
+    ``check_general_fwd_512``) and of K3 on the
     ring path in f32 (``lstm_general_rec_ring.cu``) and the streaming
     path in bf16 (``check_general_k3_stream_width``), each dtype; each
     repeated bit for bit, timed beside its bound, its chain, its plain
@@ -1825,11 +1977,11 @@ def check_lstm_general():
                   f"phase 3e: the {dtype} recurrence at C=H={width} ran "
                   f"the {recs[2]['recurrence']['path']} path")
     # at GENERAL_STREAM: f32 (K1/K2 streamed, K3 on the ring path), then
-    # bf16 (every leg streamed), the order 6g's size-GENERAL_STREAM leg
-    # sets their launches in
+    # bf16 (K1/K2 on the forward's ring path, K3 streamed), the order 6g's
+    # size-GENERAL_STREAM leg sets their launches in
     wide_records = []
     for dtype in (torch.float32, torch.bfloat16):
-        wide_records += [*check_general_stream_fwd(dtype),
+        wide_records += [*check_general_fwd_512(dtype),
                          check_general_k3_stream_width(dtype)]
     log(json.dumps({f"general_at_{GENERAL_STREAM}": wide_records}))
     # the f32 products alone at GENERAL (K3's and the W_h-ring K1/K2's Z_x)
@@ -1920,7 +2072,8 @@ def general_ring_leg(root, config, records):
         f"general launches {train_launches}, K1/K2 by path {train_paths}, "
         f"K3 by path {train_bwd_paths}")
     check(train_launches["fwd"] == train_launches["bwd"] == 1
-          and train_paths["stream"] == 0 and train_paths["cluster"] >= 1
+          and train_paths["stream"] == train_paths["ring"] == 0
+          and train_paths["cluster"] >= 1
           and train_bwd_paths == {"cluster": 1, "ring": 0, "stream": 0},
           f"{tag}: launches {train_launches}, K1/K2 by path {train_paths}, "
           f"K3 by path {train_bwd_paths}")
@@ -1935,7 +2088,7 @@ def general_ring_leg(root, config, records):
     logits = handle.eval_raw(*arrs).cpu().numpy()
     last = counts["last"]
     check_prod_ran(f"{tag} serve", prod_before, {"gates_x": 1})
-    check(last == 1 and paths == {"cluster": 1, "stream": 0},
+    check(last == 1 and paths == {"cluster": 1, "ring": 0, "stream": 0},
           f"{tag}: one batch launched K1 {last} times, by path {paths}")
     with lstm_mode("scan"):
         plain = handle.eval_raw(*arrs).cpu().numpy()
@@ -1954,15 +2107,21 @@ def general_ring_leg(root, config, records):
 def general_512_leg(root, config, records):
     """Phase 6g's size-GENERAL_STREAM leg: ConvLSTM_w_ref at size
     GENERAL_STREAM, which every forward cluster plan refuses, so its K1/K2
-    run the streaming ``general_fwd_kernel`` on the model path, and its K3
+    run the streaming ``general_fwd_kernel`` in f32 and the ring path
+    (``lstm_general_fwd_ring.cu``) in bf16 on the model path, and its K3
     the ring path (``general_rec_ring_kernel``) in f32 and the streaming
     ``general_rec_kernel`` in bf16: ``train_model`` for one step of
     GENERAL_STREAM_BATCH chunks in each dtype, K2 and K3 once each and K1
-    (its validation) at least once, K1/K2 streamed, K3 on its path alone,
+    (its validation, in f32 on the master weights in both dtypes, so on
+    the streaming path) at least once, K2 and K3 each on its path alone,
     finite losses; the f32 checkpoint's step held to the same step with
     REMORA_TPU_LSTM=scan at GENERAL_STREAM_BATCH rows
-    (``check_train_step_vs_plain``, K3 on the ring path). Sets the
-    ``records``' launches: K1, K2, K3 in f32, then in bf16."""
+    (``check_train_step_vs_plain``, K3 on the ring path); the bf16
+    checkpoint served through ``ModelHandle.load`` in bf16 for one batch
+    of GENERAL_STREAM_BATCH chunks (K1 once on the ring path), its ML bytes
+    within 1 of the plain LSTM's. Sets the ``records``' launches: K1, K2,
+    K3 in f32 (K1: both legs' validations), then in bf16 (K1: the served
+    batch's)."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -1975,6 +2134,7 @@ def general_512_leg(root, config, records):
                         (torch.bfloat16, records[3:])):
         bf16 = dtype == torch.bfloat16
         k3_path = "stream" if bf16 else "ring"
+        k12_path = "ring" if bf16 else "stream"
         sfx = "bf16" if bf16 else "f32"
         tag = f"general_stream_size{GENERAL_STREAM}_{sfx}"
         out = os.path.join(root, tag)
@@ -1999,10 +2159,12 @@ def general_512_leg(root, config, records):
             f"{time.monotonic() - t0:.1f} s; general launches {launches}, "
             f"K1/K2 by path {fwd_paths}, K3 by path {k3_paths}; losses "
             f"{losses}")
+        # K2 runs in the step's dtype, K1 (the validation's forward) in
+        # f32 on the master weights in both legs: the streaming path
+        want_fwd = {p: launches["fwd"] * (p == k12_path)
+                    + launches["last"] * (p == "stream") for p in fwd_paths}
         check(launches["fwd"] == launches["bwd"] == 1
-              and launches["last"] >= 1
-              and fwd_paths == {"cluster": 0,
-                                "stream": launches["fwd"] + launches["last"]}
+              and launches["last"] >= 1 and fwd_paths == want_fwd
               and k3_paths == {p: int(p == k3_path) for p in k3_paths},
               f"{tag}: launches {launches}, K1/K2 by path {fwd_paths}, K3 "
               f"by path {k3_paths}")
@@ -2013,12 +2175,47 @@ def general_512_leg(root, config, records):
                                           "dx": int(not bf16),
                                           "dw": int(not bf16),
                                           "gates_x": 0})
+        if bf16:
+            # the validation's f32 K1 launches are the f32 record's; the
+            # bf16 K1's are the served batch's
+            records[0]["launches"] += launches["last"]
+            launches["last"] = serve_bf16_512(
+                os.path.join(out, "model_final.checkpoint"), tag)
         for rec, leg in zip(recs, ("last", "fwd", "bwd")):
             rec["launches"] = launches[leg]
         if not bf16:
             check_train_step_vs_plain(
                 os.path.join(out, "model_final.checkpoint"), kind="general",
                 batch=GENERAL_STREAM_BATCH, bwd_path="ring")
+
+
+def serve_bf16_512(ckpt, tag):
+    """6g's bf16 size-GENERAL_STREAM checkpoint through ``ModelHandle.load``
+    in bf16 for one batch of GENERAL_STREAM_BATCH chunks: K1 once, on the
+    ring path, logits finite and their ML bytes within 1 of the same
+    handle's with the plain LSTM. Returns K1's launches."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import ModelHandle
+    from remora_tpu_torch.kernels import lstm as K
+
+    handle = ModelHandle.load(ckpt, compute_dtype=torch.bfloat16)
+    arrs = synth_inputs(np.random.default_rng(9), GENERAL_STREAM_BATCH)
+    before = dict(K.LAUNCHES_GENERAL_FWD)
+    logits = handle.eval_raw(*arrs).cpu().numpy()
+    ran = {k: K.LAUNCHES_GENERAL_FWD[k] - before[k] for k in before}
+    with plain_lstm():
+        plain = handle.eval_raw(*arrs).cpu().numpy()
+    diff = int(np.abs(ml_bytes(logits) - ml_bytes(plain)).max())
+    moved = int((ml_bytes(logits) != ml_bytes(plain)).sum())
+    log(f"{tag}: a served bf16 batch of {GENERAL_STREAM_BATCH}: K1 by path "
+        f"{ran}; ML bytes vs the plain LSTM: {moved} moved, max |delta| "
+        f"{diff} (tolerance 1)")
+    check(ran == {p: int(p == "ring") for p in ran},
+          f"{tag}: the served batch launched K1 by path {ran}")
+    check(np.isfinite(logits).all() and diff <= 1,
+          f"{tag}: served logits non-finite or ML bytes moved by {diff}")
+    return ran["ring"]
 
 
 def model_path_leg(root, config, records, kind, stream_records=None):
@@ -2035,9 +2232,10 @@ def model_path_leg(root, config, records, kind, stream_records=None):
     recurrence on ``lstm_general_rec_cluster.cu``'s: no launch streams),
     held to the same handle and step with REMORA_TPU_LSTM=scan,
     then ``general_ring_leg`` (size GENERAL f32, K1/K2 on the W_h-ring
-    kernel, and size GENERAL_STREAM in f32 and bf16, K1/K2 streamed and K3
-    on the ring path in f32; ``stream_records``). Sets the records'
-    launches from the train and serve runs."""
+    kernel, and size GENERAL_STREAM in f32 and bf16, K1/K2 streamed in f32
+    and on the ring path in bf16, K3 on the ring path in f32;
+    ``stream_records``). Sets the records' launches from the train and
+    serve runs."""
     import torch
 
     from remora_tpu_torch.infer.infer import ModelHandle
@@ -2109,7 +2307,7 @@ def model_path_leg(root, config, records, kind, stream_records=None):
         logits = handle.eval_raw(*arrs).cpu().numpy()
         last_launches = counts["last"]
         if general:
-            check(paths == {"cluster": 1, "stream": 0},
+            check(paths == {"cluster": 1, "ring": 0, "stream": 0},
                   f"{tag}: the served batch's K1 by path {paths}")
         with reference[0]():
             plain = handle.eval_raw(*arrs).cpu().numpy()

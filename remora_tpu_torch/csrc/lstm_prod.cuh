@@ -3,8 +3,9 @@
 // lstm_general.cu above), f32 and bf16, sm_90a:
 //   (a) the gate recompute Z = [x_t ; h_{t-1}] . W_aug[:C+H] + b for every
 //       (t, row) at once, f32; its x part alone, Z_x = x_t . W_x + b (op
-//       kGatesX, f32), is the general forward's W_h-ring path's
-//       (lstm_general_cluster.cu);
+//       kGatesX, f32 out), is the general forward's W_h-ring path's
+//       (lstm_general_cluster.cu, f32 operands) and its ring path's
+//       (lstm_general_fwd_ring.cu, bf16 operands);
 //   (c) dx = dgates . W_x^T, rounded once, and dW_aug = [x ; h_{t-1}]^T .
 //       dgates over fixed chunks of kDwChunkRows rows into f32 partials (the
 //       bias row, the dgates column sums, taken by the chunk's first row
@@ -60,7 +61,8 @@
 //     pointer are not 16-byte multiples. Epilogues store float2 (dx, whose
 //     C may be odd, by element), the bias held in registers.
 //   wide_prod_bf16_kernel: the same staging, 64 k a stage, on mma.sync
-//     (128 x 128 tiles, 8 warps of 64 x 32, ldmatrix from padded tiles).
+//     (128 x 128 tiles, 8 warps of 64 x 32, ldmatrix from padded tiles);
+//     the gates and Z_x add the bias after the k sum, as the f32 kernels.
 
 #pragma once
 
@@ -513,7 +515,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int n = n0 + wn * 32 + nt * 8 + 2 * q + e;
-      bias[nt][e] = op == kGates && n < N
+      bias[nt][e] = (op == kGates || op == kGatesX) && n < N
                         ? widen(p.w[(long long)(p.C + p.H) * G + n])
                         : 0.f;
     }
@@ -539,7 +541,7 @@ __global__ void __launch_bounds__(kThreads, 2)
             if (n + 1 < N) out[n + 1] = narrow<bf16_bits>(v1);
           }
         } else {
-          float* out = op == kGates
+          float* out = op == kGates || op == kGatesX
                            ? p.z + m * G
                            : p.partials +
                                  ((long long)blockIdx.z * (p.C + p.H + 1) + m) *

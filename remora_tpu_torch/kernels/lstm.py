@@ -34,9 +34,14 @@ of W_h on chip, h_t crosses the cluster through distributed shared
 memory, x_t . W_x runs off the chain, bf16 on the tensor cores (f32 at
 193-256, where no such CTA fits, keeps the h tile instead and streams
 W_h's slice through a ring, after one product of x_t . W_x + b over all
-T, ``general_fwd_ring_cfg``); and the streaming path,
-``csrc/lstm_general.cu``'s ``general_fwd_kernel``, for every shape the
-plan refuses (every H past 256, both dtypes): one block
+T, ``general_fwd_ring_cfg``); the ring path,
+``csrc/lstm_general_fwd_ring.cu``, bf16 at 257-512 units
+(``general_fwd_bf16_ring_plan``): x_t . W_x + b for all T as one
+tensor-core product, then a CTA of 16 rows walks all H units with no
+exchange between CTAs, W_h streamed by TMA through a ring of shared-memory
+slots into ``mma.sync``; and the streaming path,
+``csrc/lstm_general.cu``'s ``general_fwd_kernel``, for the shapes no other
+path takes (f32 past 256, bf16 past 512): one block
 per 8 batch rows walks time with h and c in shared memory and W read
 through L2 each step. K3 there runs ``csrc/lstm_prod.cuh``'s gate
 recompute and products (the wide K3's) around a reverse recurrence on one
@@ -124,9 +129,10 @@ GENERAL_MAX_H = 1024
 # own count above moves too)
 LAUNCHES_GENERAL = dict.fromkeys(("last", "fwd", "bwd"), 0)
 # the general K1/K2 launches by path (one per general call of ``lstm_last``
-# or ``lstm_fwd``): "cluster" ``lstm_general_cluster.cu``, "stream"
-# ``lstm_general.cu``'s ``general_fwd_kernel`` (``general_fwd_path``)
-LAUNCHES_GENERAL_FWD = dict.fromkeys(("cluster", "stream"), 0)
+# or ``lstm_fwd``): "cluster" ``lstm_general_cluster.cu``, "ring"
+# ``lstm_general_fwd_ring.cu``, "stream" ``lstm_general.cu``'s
+# ``general_fwd_kernel`` (``general_fwd_path``)
+LAUNCHES_GENERAL_FWD = dict.fromkeys(("cluster", "ring", "stream"), 0)
 # ``lstm_general_cluster.cu``'s budget: a block's shared memory, threads a
 # CTA by dtype (its __launch_bounds__), ring slots at most, k a slot holds,
 # and the batch its plan sizes a wave for (the model paths' batch)
@@ -176,6 +182,19 @@ RING_REC_MAX_SLOTS = 16
 RING_REC_BAR_BYTES = 256
 RING_REC_MIN_H = 257
 RING_REC_MAX_H = 512
+# ``lstm_general_fwd_ring.cu``'s budget (``fwd_ring_kernel``, bf16 K1/K2):
+# rows a CTA (one m16 tile), warps a CTA (8-unit blocks split among them;
+# no producer warp), W_h's k a ring slot holds (one mma step), ring slots
+# at most, the mbarriers' and slot counters' bytes, hidden units at most;
+# the plan takes it at
+# FWD_RING_MIN_H <= H <= FWD_RING_MAX_H, where no cluster plan fits
+FWD_RING_ROWS = 16
+FWD_RING_WARPS = 8
+FWD_RING_CHUNK = 16
+FWD_RING_MAX_SLOTS = 16
+FWD_RING_BAR_BYTES = 256
+FWD_RING_MIN_H = 257
+FWD_RING_MAX_H = 512
 # ``csrc/lstm_prod.cuh``'s f32 products (K3's gate recompute, dx and dW,
 # the W_h-ring K1/K2's Z_x), by the library's op number, and their two
 # paths: "ws" (``prod_f32_ws_kernel``, Hopper's persistent warp-specialized
@@ -461,7 +480,9 @@ def _general_fwd_tile_cfg(C, H, dtype, N, R):
 def general_fwd_plan(C, H, dtype, clusters=None):
     """The general forward's cluster plan at C inputs and H hidden units in
     ``dtype``: (N, R, shared-memory bytes) for ``lstm_general_cluster.cu``,
-    or None, where the shape runs the streaming ``general_fwd_kernel``.
+    or None, where the shape runs the ring path
+    (``general_fwd_bf16_ring_plan``) or, where that refuses it too, the
+    streaming ``general_fwd_kernel``.
     ``clusters`` maps N to the clusters of N CTAs the card holds at once
     (default ``H100_CLUSTERS``). For N in 2, 4, 8, R is the fewest rows (a
     multiple of 32) with which GENERAL_FWD_PLAN_BATCH rows run in one wave
@@ -494,12 +515,81 @@ def general_fwd_plan(C, H, dtype, clusters=None):
     return None
 
 
+def general_fwd_bf16_ring_cfg(H, dtype):
+    """``lstm_general_fwd_ring.cu``'s launch shape (its ``make_cfg``; the
+    card's ``lstm_general_fwd_ring_cfg`` gives the same): bf16, CTAs of R =
+    FWD_RING_ROWS rows (no cluster), 1 <= H <= FWD_RING_MAX_H. A dict of
+    ``hp`` (H rounded up to 8: the 8-unit blocks), ``kp`` (H rounded up to
+    16: the mma steps), ``ub`` (blocks a warp, ceil(hp / 8 /
+    FWD_RING_WARPS)), ``threads`` (FWD_RING_WARPS warps; the last warp
+    done with a slot refills it), ``slots`` (ring slots, each the larger
+    of W_h's k16 chunk over all 4hp gate columns, [4hp][16] bf16, and half
+    a step's Z_x rows, [R / 2][4H + 8] f32; as many as fit, at most
+    FWD_RING_MAX_SLOTS) and ``smem`` (bytes: the mbarriers and slot
+    counters, the two h tiles [R][kp + 8] bf16 and the ring), or None where
+    it does not take the shape or fewer than two slots fit."""
+    if dtype != torch.bfloat16 or not 1 <= H <= FWD_RING_MAX_H:
+        return None
+    R = FWD_RING_ROWS
+    hp, kp = _ceil(H, 8) * 8, _ceil(H, FWD_RING_CHUNK) * FWD_RING_CHUNK
+    w_off = FWD_RING_BAR_BYTES + 2 * R * (kp + 8) * 2
+    slot = max(4 * hp * FWD_RING_CHUNK * 2, R // 2 * (4 * H + 8) * 4)
+    if w_off + 2 * slot > CLUSTER_SMEM_MAX:
+        return None
+    slots = min((CLUSTER_SMEM_MAX - w_off) // slot, FWD_RING_MAX_SLOTS)
+    return {"hp": hp, "kp": kp, "ub": _ceil(hp // 8, FWD_RING_WARPS),
+            "threads": 32 * FWD_RING_WARPS, "slots": slots,
+            "smem": w_off + slots * slot}
+
+
+def general_fwd_bf16_ring_plan(C, H, dtype):
+    """The general K1/K2's ring plan at C inputs and H hidden units in
+    ``dtype``: (R, shared-memory bytes) for ``lstm_general_fwd_ring.cu``,
+    or None. It takes bf16 at FWD_RING_MIN_H <= H <= FWD_RING_MAX_H (where
+    ``general_fwd_plan`` finds no cluster that holds W_h's slice), any C:
+    CTAs of R = FWD_RING_ROWS rows with no cluster (each streams all of
+    W_h a step; GENERAL_FWD_PLAN_BATCH rows are one wave of 128 CTAs), so
+    the card's cluster capacity does not enter."""
+    if not 1 <= C <= GENERAL_MAX_C or dtype != torch.bfloat16:
+        return None
+    if not FWD_RING_MIN_H <= H <= FWD_RING_MAX_H:
+        return None
+    cfg = general_fwd_bf16_ring_cfg(H, dtype)
+    return None if cfg is None else (FWD_RING_ROWS, cfg["smem"])
+
+
+def general_fwd_bf16_ring_weights(w_aug, C):
+    """``lstm_general_fwd_ring.cu``'s layout of W_h (W_aug's rows C ..
+    C + H - 1), in W_aug's dtype and device: (kp / 16, 4hp, 16), chunk c's
+    column n holding k = 16 c .. 16 c + 15 of gate n % 32 // 8 of unit 8
+    (n // 32) + n % 8 (``general_fwd_weights``' bf16 column order), the two
+    8-k halves of a column swapped where n & 4 (the kernel's ldmatrix reads
+    8 columns of 32 bytes: the swap puts them on 8 distinct bank quads);
+    zero past H in k and units. Flat, so each ring slot is one contiguous
+    copy."""
+    H = w_aug.shape[1] // 4
+    hp = _ceil(H, 8) * 8
+    kp = _ceil(H, FWD_RING_CHUNK) * FWD_RING_CHUNK
+    w = w_aug.new_zeros((kp, 4, hp))
+    w[:H, :, :H] = w_aug[C:C + H].reshape(H, 4, H)
+    # [k][n], n = 32 b + 8 j + e, then [c][n][half][8]
+    w = w.reshape(kp, 4, hp // 8, 8).permute(0, 2, 1, 3).reshape(kp, 4 * hp)
+    w = w.reshape(kp // 16, 2, 8, 4 * hp).permute(0, 3, 1, 2)
+    swap = ((torch.arange(4 * hp, device=w.device) >> 2) & 1).bool()
+    w = torch.where(swap[None, :, None, None], w.flip(2), w)
+    return w.contiguous().reshape(-1)
+
+
 def general_fwd_path(dtype, C, H, clusters=None):
     """The path of a general K1/K2 call (``route`` "general"): "cluster"
-    where ``general_fwd_plan`` takes the shape, else "stream". Chosen by
-    shape before the launch; a launch that fails raises on its path."""
-    return "stream" if general_fwd_plan(C, H, dtype, clusters) is None \
-        else "cluster"
+    where ``general_fwd_plan`` takes the shape, "ring" where
+    ``general_fwd_bf16_ring_plan`` does, else "stream". Chosen by shape
+    before the launch; a launch that fails raises on its path."""
+    if general_fwd_plan(C, H, dtype, clusters) is not None:
+        return "cluster"
+    if general_fwd_bf16_ring_plan(C, H, dtype) is not None:
+        return "ring"
+    return "stream"
 
 
 def general_rec_group_cfg(H, dtype, N, R, groups):
@@ -766,13 +856,33 @@ def cluster_capacity(index):
 def _general_fwd_launch(leg, x, w_aug, C, H):
     """(launch, error string, path) of a general K1/K2 call: the cluster
     kernel behind the main-shape launchers' signature where
-    ``general_fwd_plan`` takes the shape on this card, else the streaming
+    ``general_fwd_plan`` takes the shape on this card, the ring library
+    where ``general_fwd_bf16_ring_plan`` does, else the streaming
     ``general_fwd_kernel``. The f32 W_h-ring kernel (``general_fwd_cfg``'s
-    ``ring``) takes a Z_x scratch of (T, B, 4H) f32, allocated a call (1.04
-    GB at T = 124, B = 2048, H = 256)."""
+    ``ring``) and the ring library take a Z_x scratch of (T, B, 4H) f32,
+    allocated a call (1.04 GB at T = 124, B = 2048, H = 256; 2.08 GB at
+    512)."""
     plan = general_fwd_plan(C, H, x.dtype,
                             cluster_capacity(x.device.index or 0))
     bf16 = int(x.dtype == torch.bfloat16)
+    if plan is None and general_fwd_bf16_ring_plan(C, H, x.dtype):
+        lib = _general_fwd_ring_library()
+        wr = general_fwd_bf16_ring_weights(w_aug, C)
+
+        def ring(x_ptr, w_ptr, out_ptr, *rest):
+            if leg == "last":  # (out, T, B, C, H, stream)
+                hs_ptr, cs_ptr, last_ptr = None, None, out_ptr
+            else:  # (hs, cs, T, B, C, H, stream)
+                (hs_ptr, cs_ptr, last_ptr), rest = (out_ptr, rest[0], None), \
+                    rest[1:]
+            T, B = rest[:2]
+            zx = torch.empty((T, B, 4 * H), dtype=torch.float32,
+                             device=x.device)
+            return lib.lstm_general_fwd_ring(
+                x_ptr, w_ptr, wr.data_ptr(), zx.data_ptr(), hs_ptr, cs_ptr,
+                last_ptr, *rest)
+
+        return ring, lib.lstm_general_fwd_ring_error_string, "ring"
     if plan is None:
         lib = _general_library()
         fn = lib.lstm_general_last if leg == "last" else lib.lstm_general_fwd
@@ -813,6 +923,23 @@ def _general_fwd_launch(leg, x, w_aug, C, H):
             R, rest[4])
 
     return launch, lib.lstm_general_cluster_error_string, "cluster"
+
+
+def _general_fwd_ring_library():
+    lib = _build.load("lstm_general_fwd_ring")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_general_fwd_ring.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.lstm_general_fwd_ring.restype = i32
+        lib.lstm_general_fwd_ring_walk.argtypes = [ptr] * 5 + [i32] * 3 \
+            + [ptr]
+        lib.lstm_general_fwd_ring_walk.restype = i32
+        lib.lstm_general_fwd_ring_cfg.argtypes = [i32, ptr]
+        lib.lstm_general_fwd_ring_cfg.restype = i32
+        lib.lstm_general_fwd_ring_error_string.argtypes = [i32]
+        lib.lstm_general_fwd_ring_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
 
 
 def _general_library():
@@ -1008,8 +1135,8 @@ def lstm_last(params, x):
     in x's dtype. f32 runs full-f32 arithmetic (``lstm_fwd_f32.cu``); bf16
     takes bf16 operands (h included) with f32 sums and f32 h/c carries on
     the tensor cores (``lstm_fwd_mma.cu``, last-only). Shapes those
-    kernels refuse run ``lstm_wide.cu`` or, above C, H = 128,
-    ``lstm_general.cu`` (``route``)."""
+    kernels refuse run ``lstm_wide.cu`` or, above C, H = 128, the general
+    leg on the path ``general_fwd_path`` picks (``route``)."""
     global LAUNCHES
     if x.device.type == "cpu":
         return lstm_last_reference(params, x)
@@ -1058,7 +1185,7 @@ def lstm_last(params, x):
 
 def _count_leg(kind, leg, path=None):
     """One launch of ``leg`` on the wide or the general kernels (``path``:
-    the general leg's, "cluster" or "stream")."""
+    the general leg's, "cluster", "ring" or "stream")."""
     if kind == "wide":
         LAUNCHES_WIDE[leg] += 1
     elif kind == "general":
@@ -1248,8 +1375,8 @@ def lstm_fwd(x, w_aug, want_cs=True):
     """K2: (hs, cs) of a forward LSTM over x (T, B, C), each (T, B, H) in
     x's dtype; cs is None unless ``want_cs``. f32 runs
     ``lstm_fwd_f32.cu``, bf16 ``lstm_fwd_mma.cu``; shapes
-    those kernels refuse ``lstm_wide.cu`` or, above C, H = 128,
-    ``lstm_general.cu`` (``route``)."""
+    those kernels refuse ``lstm_wide.cu`` or, above C, H = 128, the
+    general leg on the path ``general_fwd_path`` picks (``route``)."""
     global LAUNCHES_FWD
     if x.device.type == "cpu":
         return lstm_fwd_reference(x, w_aug, want_cs)

@@ -436,8 +436,11 @@ def test_lstm_libraries_match_the_shape_rule(cuda):
 # path, whose last W_h chunk is k8 there), a batch off and below a block's
 # 8 rows and a cluster's R, one row, more rows than one wave of clusters
 # (2100; 2200 on the W_h-ring path at 256: 16 clusters of 144), T = 1,
-# and the limit 1024; today's tolerances, a repeated call repeats the
-# bits, and each K1/K2 launch takes the plan's path
+# and the limit 1024; bf16 at 257-512 on the forward's ring path (512 in
+# one wave and past it, C != H, H off 8 (257, 511) and off 64 (300), 384,
+# one row and a batch off its 16-row CTAs at 511); today's tolerances, a
+# repeated call repeats the bits, hs is the same without cs, and each
+# K1/K2 launch takes the plan's path
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,B,C,H", [(5, 37, 160, 160), (3, 16, 256, 256),
@@ -450,11 +453,15 @@ def test_lstm_libraries_match_the_shape_rule(cuda):
                                      (3, 37, 193, 199), (2, 20, 512, 512),
                                      (3, 2100, 512, 512), (2, 17, 160, 512),
                                      (1, 9, 1024, 300), (3, 40, 300, 257),
-                                     (4, 2048, 384, 384)])
+                                     (4, 2048, 384, 384), (3, 1, 200, 511),
+                                     (2, 17, 511, 511)])
 def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
     assert K.route("bwd", dtype, C, H) == "general"
     path = K.general_fwd_path(dtype, C, H,
                               K.cluster_capacity(cuda.index or 0))
+    if H > 256:
+        assert path == ("ring" if dtype == torch.bfloat16 and H <= 512
+                        else "stream")
     params, x = _case(T, B, C, H, dtype, cuda)
     w_aug = _w_aug(params)
     dhs = torch.from_numpy(np.random.default_rng(1).normal(
@@ -672,6 +679,59 @@ def test_general_rec_ring_library_matches_the_plan(cuda):
     for H in (257, 300, 384, 512):
         R, _ = K.general_rec_ring_plan(H, H, torch.float32)
         assert -(-K.GENERAL_FWD_PLAN_BATCH // R) <= sms, H
+
+
+def test_general_fwd_ring_library_matches_the_plan(cuda):
+    """lstm_general_fwd_ring.cu's launch shapes are
+    ``general_fwd_bf16_ring_cfg``'s; it refuses a shape outside its
+    budget, a call that is neither K1 nor K2, and a Z_x or a W_h layout
+    off 16 bytes, before it reads a pointer; the plan's CTAs at 257-512
+    run the batch in one wave; K1 at T = 0 is h_{-1} = 0; the walk alone
+    from the Z_x the plain twin gives equals the whole call's hs and cs."""
+    import ctypes
+
+    lib = K._general_fwd_ring_library()
+    info = (ctypes.c_longlong * 6)()
+    for H in (1, 256, 257, 300, 384, 511, 512, 513):
+        cfg = K.general_fwd_bf16_ring_cfg(H, torch.bfloat16)
+        rc = lib.lstm_general_fwd_ring_cfg(H, info)
+        if cfg is None:
+            assert rc == -1, H
+            assert lib.lstm_general_fwd_ring_walk(
+                16, 16, 16, None, None, 1, 1, H, None) != 0
+            continue
+        assert rc == 0 and list(info) == [
+            cfg["hp"], cfg["kp"], cfg["ub"], cfg["threads"], cfg["slots"],
+            cfg["smem"]], H
+    for C in (0, K.GENERAL_MAX_C + 1):
+        assert lib.lstm_general_fwd_ring(
+            None, None, 16, 16, 16, None, None, 1, 1, C, 512, None) != 0
+    for hs, out in ((None, None), (16, 16)):  # neither K1 nor K2, or both
+        assert lib.lstm_general_fwd_ring_walk(
+            16, 16, hs, None, out, 1, 1, 512, None) != 0
+    for zx, wr in ((4, 16), (16, 4)):  # off 16 bytes
+        assert lib.lstm_general_fwd_ring_walk(
+            zx, wr, 16, None, None, 1, 1, 512, None) != 0
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for H in (257, 300, 384, 512):
+        R, _ = K.general_fwd_bf16_ring_plan(H, H, torch.bfloat16)
+        assert -(-K.GENERAL_FWD_PLAN_BATCH // R) <= sms, H
+    params, x = _case(0, 5, 300, 300, torch.bfloat16, cuda)
+    assert not K.lstm_last(params, x).float().abs().max().item()
+    T, B, C, H = 3, 40, 96, 512
+    params, x = _case(T, B, C, H, torch.bfloat16, cuda)
+    w_aug = _w_aug(params)
+    hs, cs = K.lstm_fwd(x, w_aug)
+    zx = K._x_projection(x, w_aug)
+    wr = K.general_fwd_bf16_ring_weights(w_aug, C)
+    got = torch.empty_like(hs), torch.empty_like(cs)
+    err = lib.lstm_general_fwd_ring_walk(
+        zx.data_ptr(), wr.data_ptr(), got[0].data_ptr(), got[1].data_ptr(),
+        None, T, B, H, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for a, b in zip(got, (hs, cs)):
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2
 
 
 def test_lstm_fused_autograd_general_on_card(cuda):

@@ -48,9 +48,11 @@ def test_general_lstm_matches_pallas(pallas_interpret, C, H, dtype, tol,
     interpret mode, and ``lstm_fused`` / ``lstm_last_fused`` end to end;
     the backward on the JAX forward's hs and cs. No kernel launches. (256,
     256) is the widest shape the forward's cluster plan takes (f32 on the
-    W_h-ring path), (300, 300) one it refuses in both dtypes: the plain
-    twins pin the contract on both sides of the plan's limit. (512, 512),
-    the widest the K3 ring path takes, at T = 3 and B = 5 to stay small."""
+    W_h-ring path), (300, 300) one it refuses in both dtypes (bf16 then
+    runs the forward's ring path, f32 streams): the plain twins pin the
+    contract on both sides of the plan's limit. (512, 512), the widest the
+    K3 ring path and the forward's bf16 ring path take, at T = 3 and B = 5
+    to stay small."""
     assert K.route("fwd", dtype, C, H) == "general"
     T, B = (3, 5) if H == 512 else (8, 16)
     x, w_aug, dhs = _case(T, B, C, H, dtype, seed=C + H)
@@ -166,7 +168,7 @@ def test_general_weights_layout(C, H):
 # fits a CTA's 227 KB and runs GENERAL_FWD_PLAN_BATCH rows in one wave of
 # the clusters an H100 holds, on the W_h-ring path (f32, rows a multiple of
 # 48) only where no CTA of the other kernels fits; what it refuses runs the
-# streaming kernel
+# forward's ring path (bf16 at 257-512) or the streaming kernel
 _PLAN_SIDES = (129, 130, 144, 160, 192, 200, 255, 256, 257, 300, 384, 512,
                640, 1000, 1024)
 
@@ -194,7 +196,8 @@ def test_general_fwd_plan_grid(dtype, C):
                 n, K.CLUSTER_RING_ROWS, caps))
             ring_fits[n] = cfg if cfg and cfg["ring"] else None
         if plan is None:
-            assert path == "stream", (C, H)
+            want = "ring" if dtype == BF16 and 257 <= H <= 512 else "stream"
+            assert path == want, (C, H)
             assert not any(fits.values()), (C, H)
             assert not any(ring_fits.values()), (C, H)
             continue
@@ -255,6 +258,10 @@ def test_general_fwd_plan_takes_the_model_widths():
     assert K.route("fwd", F32, 256, 256) == "general"
     assert K.general_fwd_plan(512, 512, F32) is None
     assert K.general_fwd_path(F32, 512, 512) == "stream"
+    # bf16 at 512 takes the forward's ring path, CTAs of 16 rows
+    assert K.general_fwd_plan(512, 512, BF16) is None
+    assert K.general_fwd_path(BF16, 512, 512) == "ring"
+    assert K.general_fwd_bf16_ring_plan(512, 512, BF16) == (16, 230912)
     for dtype in (F32, BF16):
         assert K.general_fwd_plan(1024, 1024, dtype) is None
         assert K.general_fwd_path(dtype, 1024, 1024) == "stream"
@@ -391,6 +398,7 @@ def test_general_fwd_launch_picks_the_path_by_shape(monkeypatch):
             return call
 
     monkeypatch.setattr(K, "_cluster_library", lambda: Fake("cluster"))
+    monkeypatch.setattr(K, "_general_fwd_ring_library", lambda: Fake("ring"))
     monkeypatch.setattr(K, "_general_library", lambda: Fake("stream"))
     monkeypatch.setattr(K, "cluster_capacity",
                         lambda index: K.H100_CLUSTERS)
@@ -398,7 +406,12 @@ def test_general_fwd_launch_picks_the_path_by_shape(monkeypatch):
                               (BF16, 256, 256, "cluster"),
                               (F32, 160, 160, "cluster"),
                               (F32, 256, 256, "cluster"),
+                              (BF16, 512, 512, "ring"),
+                              (BF16, 300, 257, "ring"),
+                              (BF16, 1024, 511, "ring"),
                               (F32, 512, 512, "stream"),
+                              (F32, 300, 257, "stream"),
+                              (BF16, 512, 513, "stream"),
                               (BF16, 1024, 1024, "stream")):
         x = torch.zeros((2, 3, C), dtype=dtype)
         w_aug = torch.zeros((C + H + 1, 4 * H), dtype=dtype)
@@ -423,12 +436,102 @@ def test_general_fwd_launch_picks_the_path_by_shape(monkeypatch):
                 N, R, _ = K.general_fwd_plan(C, H, dtype)
                 assert calls[0][1] == "lstm_general_cluster_fwd"
                 assert calls[0][2][-3:-1] == (N, R)
+            elif want == "ring":
+                # Z_x's product and the walk: x and W_aug as passed, the
+                # ring layout and a Z_x scratch, the outputs, the shape
+                assert calls[0][1] == "lstm_general_fwd_ring"
+                assert calls[0][2][:2] == (1, 2)
+                outs = (None, None, 3) if leg == "last" else (3, 0, None)
+                assert calls[0][2][4:7] == outs
+                assert calls[0][2][-5:] == (2, 3, C, H, 0)
             else:
                 assert calls[0][1] == ("lstm_general_last" if leg == "last"
                                        else "lstm_general_fwd")
             with pytest.raises(RuntimeError, match="kernel launch failed"):
                 K._raise_on(lambda e: b"refused", "lstm_fwd", err)
-    assert set(K.LAUNCHES_GENERAL_FWD) == {"cluster", "stream"}
+    assert set(K.LAUNCHES_GENERAL_FWD) == {"cluster", "ring", "stream"}
+
+
+def _fwd_ring_cfg(H):
+    """``lstm_general_fwd_ring.cu``'s ``make_cfg`` rebuilt from its
+    description: hp = H rounded up to 8 (8-unit blocks), kp = H rounded up
+    to 16 (mma steps); 8 warps of ceil(hp / 64) blocks each (no producer
+    warp); shared memory 256 bytes of mbarriers and slot counters, two h
+    tiles [R][kp + 8] bf16 and as many ring slots as fit in 232,448 bytes
+    (16 at most, 2 at least), each the larger of W_h's k16 chunk over all
+    4hp gate columns, [4hp][16] bf16, and 8 rows of Z_x padded by 8
+    floats, [8][4H + 8] f32, R = 16 rows a CTA; None past 512 units."""
+    if not 1 <= H <= 512:
+        return None
+    hp, kp = -(-H // 8) * 8, -(-H // 16) * 16
+    fixed = 256 + 2 * 16 * (kp + 8) * 2
+    slot = max(4 * hp * 16 * 2, 8 * (4 * H + 8) * 4)
+    slots = min((232448 - fixed) // slot, 16)
+    if slots < 2:
+        return None
+    return {"hp": hp, "kp": kp, "ub": -(-hp // 64), "threads": 256,
+            "slots": slots, "smem": fixed + slots * slot}
+
+
+# the forward's ring plan over the plan's sides (C != H included): bf16 at
+# 257-512 takes "ring" at its make_cfg's shape, at most 256 keeps its
+# cluster plan, past 512 and f32 past 256 stream
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("C", _PLAN_SIDES)
+def test_general_fwd_bf16_ring_plan_grid(dtype, C):
+    for H in (1, 8, 100, *_PLAN_SIDES, 511):
+        if K.route("fwd", dtype, C, H) != "general":
+            continue
+        ring = K.general_fwd_bf16_ring_plan(C, H, dtype)
+        path = K.general_fwd_path(dtype, C, H)
+        cfg = K.general_fwd_bf16_ring_cfg(H, dtype)
+        if dtype == BF16:
+            assert cfg == _fwd_ring_cfg(H), H
+        else:
+            assert cfg is None
+        if dtype == BF16 and 257 <= H <= 512:
+            assert path == "ring" and K.general_fwd_plan(C, H, dtype) is None
+            assert ring == (16, cfg["smem"]), (C, H)
+            assert cfg["smem"] <= K.CLUSTER_SMEM_MAX
+            assert 2 <= cfg["slots"] <= K.FWD_RING_MAX_SLOTS
+            assert 8 * cfg["ub"] * K.FWD_RING_WARPS >= cfg["hp"] >= H
+            # GENERAL_FWD_PLAN_BATCH rows: one wave of 128 CTAs
+            assert -(-K.GENERAL_FWD_PLAN_BATCH // ring[0]) <= 132
+        else:
+            assert ring is None, (C, H)
+            assert path == ("cluster" if H <= 256 else "stream"), (C, H)
+            assert (path == "cluster") == (
+                K.general_fwd_plan(C, H, dtype) is not None)
+
+
+@pytest.mark.parametrize("C,H", [(7, 257), (3, 300), (20, 301), (1, 511),
+                                 (5, 512)])
+def test_general_fwd_bf16_ring_weights_layout(C, H):
+    """The forward's ring layout of W_h (kp / 16, 4hp, 16): chunk c's
+    column n holds k = 16 c .. 16 c + 15 of gate (n % 32) // 8 of unit 8
+    (n // 32) + n % 8, its two 8-k halves swapped where n & 4, zero past H
+    in k and units. Rebuilt here in numpy, and read back to W_aug's W_h
+    rows."""
+    rng = np.random.default_rng(H + C)
+    w_aug = rng.normal(size=(C + H + 1, 4 * H)).astype(np.float32)
+    got = K.general_fwd_bf16_ring_weights(
+        torch.from_numpy(w_aug).to(BF16), C)
+    hp, kp = -(-H // 8) * 8, -(-H // 16) * 16
+    assert got.dtype == BF16 and got.shape == (kp * 4 * hp,)
+    want = np.zeros((kp // 16, 4 * hp, 16), np.float32)
+    n = np.arange(4 * hp)
+    unit, gate = 8 * (n // 32) + n % 8, (n % 32) // 8
+    for k in range(H):
+        half = (k % 16) // 8 ^ ((n >> 2) & 1)
+        ok = unit < H
+        want[k // 16, n[ok], 8 * half[ok] + k % 8] = w_aug[
+            C + k, gate[ok] * H + unit[ok]]
+    want = torch.from_numpy(want).to(BF16).float().numpy()
+    np.testing.assert_array_equal(got.float().numpy().reshape(want.shape),
+                                  want)
+    # every element of W_h once; the rest zero
+    assert np.count_nonzero(want) == np.count_nonzero(
+        torch.from_numpy(w_aug[C:C + H]).to(BF16).float().numpy())
 
 
 # K3's cluster plan over the same sides (C != H included): what it takes
