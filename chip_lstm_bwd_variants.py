@@ -6,7 +6,7 @@ K3's reverse recurrences, goes, on one NVIDIA GPU.
     python3 chip_lstm_bwd_variants.py --wide [--parent DIR]
     python3 chip_lstm_bwd_variants.py --general
     python3 chip_lstm_bwd_variants.py --compare-parent DIR [512]
-    python3 chip_lstm_bwd_variants.py --ring [WIDTH ...]
+    python3 chip_lstm_bwd_variants.py --ring [--dtype f32|bf16] [WIDTH ...]
     python3 chip_lstm_bwd_variants.py --legs-512
     python3 chip_lstm_bwd_variants.py --products [--quick]
     python3 chip_lstm_bwd_variants.py --products-split
@@ -57,13 +57,21 @@ where the plan takes the shape, else its streaming ``lstm_general_bwd``)
 and of this one (its path by the plan) in one call, parent / this / this
 / parent, with each one's recurrence alone and split by part, beside
 cuDNN's backward with TF32 off, at C = H = 160 and 256, f32 and bf16.
-``--ring [WIDTH ...]`` measures the card's L2 read rate (every SM
-reading one 4 MiB buffer, by loads and by TMA bulk copies) and splits the
-ring path's walk (``lstm_general_rec_ring.cu``, f32 at 257-512; edited
-copies: no product, no shared loads of W_h^T or of dgates, no gate math,
-no dgates stores, 2 ring slots, no gate-math input loads, the inputs
-loaded as used) at T = 124, B = 2048 and C = H = 512, 384 and 257 beside
-the streaming ``general_rec_kernel``. ``--compare-parent DIR 512`` times
+``--ring [--dtype f32|bf16] [WIDTH ...]`` measures the card's L2 read
+rate (every SM reading one 4 MiB buffer, by loads and by TMA bulk copies;
+with f32) and splits the ring path's walk (``lstm_general_rec_ring.cu``
+at 257-512) at T = 124, B = 2048 and C = H = 512, 384 and 257 beside the
+streaming ``general_rec_kernel``, in both dtypes unless one is named. f32
+(``general_rec_ring_kernel``; edited copies): no product, no shared
+loads of W_h^T or of dgates, no gate math, no dgates stores, 2 ring
+slots, no gate-math input loads, the inputs loaded as used. bf16
+(``general_rec_ring_bf16_kernel``; edited copies): CTA 0's clock64 sums
+of the gate math and the product a step, each chunk released before its
+HMMA, the next step's inputs prefetched into L2 (by TMA 16 chunks ahead,
+or by each thread's prefetch at the product's start), the HMMA twice, no
+HMMA, no product, no gate math, no dgates bulk stores, the c values by
+each lane's loads, no Z or c items, tanh.approx, no barrier after the
+product, and no gate math with no Z or c items. ``--compare-parent DIR 512`` times
 the general K3 f32 at C = H = 512, T = 124 and 16 (the parent streamed
 it) instead of the default cases. ``--legs-512`` times K1-K3 at 512, T =
 124, f32 and bf16, beside cuDNN.
@@ -635,7 +643,7 @@ def compare_general(parent_dir, cases=COMPARE_CASES[None]):
     groups where the plan takes the shape, else its ``lstm_general.cu``'s
     streaming ``general_rec_kernel``: the ring path is this design's, so
     where this checkout takes it the parent streamed) against this
-    checkout's path (``_general_bwd_launch``), each library called
+    checkout's path (``_general_k3_launch``), each library called
     directly on preallocated buffers; each design's split by part
     (torch.profiler) and its recurrence alone, parent / this / this /
     parent; and how far the two designs' dx and dW differ."""
@@ -654,9 +662,6 @@ def compare_general(parent_dir, cases=COMPARE_CASES[None]):
                               headers=("lstm_prod.cuh", "mma_sm90.cuh"),
                               csrc=parent_csrc)
     parent_cluster = _typed_parent_cluster(ctypes.CDLL(built["parent"][0]))
-    this_cluster = _typed_rec(K._general_rec_library())
-    this_stream = _typed_general_bwd(K._general_library())
-    this_ring = _typed_ring(K._general_rec_ring_library())
     caps = K.cluster_capacity(0)
     stream = torch.cuda.current_stream().cuda_stream
     B = 2048
@@ -683,11 +688,11 @@ def compare_general(parent_dir, cases=COMPARE_CASES[None]):
             w = K.make_w_aug(params, dtype)
             hs, cs = K.lstm_fwd(x, w)
             w_ht, w_xt = K.wide_bwd_weights(w, C)
-            run, chunks_of, _err, path = K._general_bwd_launch(
+            path, run, this_rec, chunks_of, _err = K._general_k3_launch(
                 dtype, C, H, x.device)
             plan = K.general_rec_plan(C, H, dtype, caps)
             # the W_h^T each design's recurrence reads
-            w_this = (K.general_rec_ring_weights(w_ht) if path == "ring"
+            w_this = (K.general_rec_ring_layout(w, C) if path == "ring"
                       else w_ht)
             if plan is not None:
                 npr = plan[0], plan[1], *plan[3:]
@@ -705,15 +710,6 @@ def compare_general(parent_dir, cases=COMPARE_CASES[None]):
                 parent_fn = parent.lstm_general_bwd
                 parent_chunks = parent.lstm_general_bwd_dw_chunks
                 parent_rec = parent.lstm_general_rec
-            if path == "ring":
-                this_rec = (lambda *a: this_ring.lstm_general_rec_ring_rec(
-                    *a[1:]))
-            elif plan is None:
-                this_rec = this_stream.lstm_general_rec
-            else:
-                this_rec = (lambda *a: this_cluster
-                            .lstm_general_rec_cluster_rec(
-                                *a[:-1], *plan[:2], *plan[3:], a[-1]))
             with full_f32():
                 z = K.lstm_bwd_gates_reference(x, w, hs)
             outs, recs = {}, {}
@@ -1056,15 +1052,16 @@ def legs_512(T=124, B=2048, dtypes=("f32",)):
     points (f32: K1/K2 on the streaming ``lstm_general.cu`` kernel, K3's
     walk on the ring path, ``lstm_general_rec_ring.cu``, its products on
     ``lstm_prod.cuh``; bf16: K1/K2 on the forward's ring path,
-    ``lstm_general_fwd_ring.cu``, K3 streamed) beside cuDNN's backward and
-    forward (TF32 off), in each of ``dtypes``. In bf16 the streaming K1/K2
-    (the ring path's parent design) runs on the same inputs, held to the
-    plain twin and timed in turns with the ring path (ring, stream,
-    stream, ring), and the ring path's walk is timed alone."""
+    ``lstm_general_fwd_ring.cu``, K3's walk on the ring path's
+    ``general_rec_ring_bf16_kernel``) beside cuDNN's backward and forward
+    (TF32 off), in each of ``dtypes``. In bf16 the streaming K1/K2 and K3
+    (the ring paths' parent designs) run on the same inputs, held to the
+    ring paths' outputs and timed in turns with them (ring, stream,
+    stream, ring), and the ring paths' walks are timed alone."""
     import torch
 
     sys.path.insert(0, REPO)
-    from chip_smoke import ring_walk_call, stream_fwd_call
+    from chip_smoke import ring_walk_call, stream_bwd_call, stream_fwd_call
     from remora_tpu_torch.kernels import lstm as K
 
     C = H = 512
@@ -1131,6 +1128,24 @@ def legs_512(T=124, B=2048, dtypes=("f32",)):
         print(f"bf16 C=H={C} T={T} B={B}: the ring walk alone {walk_ms:.4f} "
               f"ms ({walk_ms / T * 1e3:.2f} us a step; {err:.3e} from K2's "
               "outputs)", flush=True)
+        dx, dw = K.lstm_bwd(x, w, hs, cs, dhs)
+        call, s_dx, s_dw = stream_bwd_call(x, w, hs, cs, dhs)
+        call()
+        torch.cuda.synchronize()
+        err = (s_dx.float() - dx.float()).abs().max().item()
+        dw_rel = ((s_dw - dw).abs().max() / dw.abs().max()).item()
+        turns = [time_ms(fn, n=3, calls=1) for fn in (
+            lambda: K.lstm_bwd(x, w, hs, cs, dhs), call, call,
+            lambda: K.lstm_bwd(x, w, hs, cs, dhs))]
+        print(f"bf16 C=H={C} T={T} B={B} K3: ring / stream / stream / ring "
+              f"{turns} ms (the streaming K3's dx {err:.3e} from the ring "
+              f"path's, dW {dw_rel:.3e} of its max-abs)", flush=True)
+        z = K.lstm_bwd_gates_reference(x, w, hs)
+        rec_ms = time_ms(lambda: K.general_recurrence(z, cs, dhs, w), n=3,
+                         calls=1)
+        print(f"bf16 C=H={C} T={T} B={B}: K3's ring walk alone "
+              f"{rec_ms:.4f} ms ({rec_ms / T * 1e3:.2f} us a step)",
+              flush=True)
 
 
 # --ring: the L2 read rate, one 4 MiB buffer read by every SM (W_h^T's
@@ -1297,6 +1312,67 @@ RING_EDITS = {
         ("      for (int g = 0; g < 4; ++g) store4<kVec>(dgm + g * H, "
          "q[g], cnt);\n", "")],
 }
+# edits of the bf16 walk (general_rec_ring_bf16_kernel) for --ring's bf16
+# split; each matches that kernel's text alone
+RING_BF16_EDITS = {
+    "no_mma": [("          mma_16816(acc[2 * p], a[kk], &b[kk][p][0]);\n"
+                "          mma_16816(acc[2 * p + 1], a[kk], &b[kk][p][2]);"
+                "\n", "")],
+    "no_ldsm": [
+        ("        ldsm_x4(a[kk], a_base + (uint32_t)((kc * kBfChunk + 16 * "
+         "kk) * 2));\n", ""),
+        ("          ldsm_x4(b[kk][p], w + b_row[p] + b_seg[kk]);\n", "")],
+    "no_gate_math": [("        const bool mine = j < nub;\n",
+                      "        const bool mine = j < nub;\n"
+                      "        if (j >= 0) continue;\n")],
+    "no_dg_stores": [("      for (int r = 0; r < rows; ++r) {\n"
+                      "        bulk_store(",
+                      "      for (int r = 0; r < 0; ++r) {\n"
+                      "        bulk_store(")],
+    "c_loads": [("  constexpr bool kCRing = kVec;",
+                 "  constexpr bool kCRing = false;")],
+    "no_inputs": [("    const int half = kCRing ? j / 3 : j / 2, e = kCRing "
+                   "? j % 3 : j % 2;",
+                   "    if (j >= 0) {\n      prod::ws_expect_arrive(bar, 0u);"
+                   "\n      return;\n    }\n    const int half = kCRing ? "
+                   "j / 3 : j / 2, e = kCRing ? j % 3 : j % 2;")],
+    # CTA 0's thread 0 sums clock64() over each step's gate math (to the
+    # barrier after it) and product (to the barrier after it) and leaves
+    # both sums in dg's first 16 bytes (the walk as it is otherwise)
+    "clocks": [
+        ("  int s = 0;  // the ring's next item: slot s, phase",
+         "  int s = 0;  // the ring's next item: slot s, phase\n"
+         "  unsigned long long clk_g = 0, clk_p = 0, clk0 = 0;"),
+        ("    // 1. the gate math, rows 0-7 then 8-15",
+         "    clk0 = clock64();\n    // 1. the gate math, rows 0-7 then 8-15"),
+        ("    consumers_sync(kBfConsumers);  // the A tile holds dgates_t\n",
+         "    consumers_sync(kBfConsumers);  // the A tile holds dgates_t\n"
+         "    clk_g += clock64() - clk0;\n    clk0 = clock64();\n"),
+        ("    consumers_sync(kBfConsumers);  // every warp is done with the A "
+         "tile\n",
+         "    consumers_sync(kBfConsumers);  // every warp is done with the A "
+         "tile\n    clk_p += clock64() - clk0;\n"),
+        ("  if (kVec && tid == 0) bulk_wait<false>();\n",
+         "  if (kVec && tid == 0) bulk_wait<false>();\n"
+         "  if (blockIdx.x == 0 && tid == 0) {\n"
+         "    reinterpret_cast<unsigned long long*>(dg)[0] = clk_g;\n"
+         "    reinterpret_cast<unsigned long long*>(dg)[1] = clk_p;\n"
+         "  }\n")],
+}
+RING_BF16_VARIANTS = {
+    "as is": [],
+    "phase clocks": RING_BF16_EDITS["clocks"],
+    "no HMMA (ldmatrix and the ring's waits kept)": RING_BF16_EDITS["no_mma"],
+    "no product (no ldmatrix, no HMMA; the ring's waits kept)":
+        RING_BF16_EDITS["no_mma"] + RING_BF16_EDITS["no_ldsm"],
+    "no gate math (the product and the ring)":
+        RING_BF16_EDITS["no_gate_math"],
+    "no dgates device stores (bulk)": RING_BF16_EDITS["no_dg_stores"],
+    "c values by each lane's loads (no c items)": RING_BF16_EDITS["c_loads"],
+    "no Z or c items (W_h^T's chunks alone)": RING_BF16_EDITS["no_inputs"],
+    "no gate math and no Z or c items":
+        RING_BF16_EDITS["no_gate_math"] + RING_BF16_EDITS["no_inputs"],
+}
 RING_VARIANTS = {
     "as is": [],
     "no product (the ring's waits kept)": RING_EDITS["no_product"],
@@ -1315,67 +1391,89 @@ RING_VARIANTS = {
 
 def _typed_ring(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_general_rec_ring_rec.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.lstm_general_rec_ring_rec.argtypes = ([i32] + [ptr] * 5 + [i32] * 3
+                                              + [ptr])
     lib.lstm_general_rec_ring_rec.restype = i32
     return lib
 
 
-def split_ring(widths=(512, 384, 257), T=124, B=2048):
-    """``--ring``: the L2 read rate (``l2_rates``); then the ring path's
-    walk (``lstm_general_rec_ring_rec``) at T = 124, B = 2048 and C = H =
-    ``widths`` beside the streaming ``general_rec_kernel`` on the same
-    inputs (how far their dgates differ), and edited copies that split its
-    step, registers and spills each."""
+def split_ring(widths=(512, 384, 257), T=124, B=2048,
+               dtypes=("f32", "bf16")):
+    """``--ring``: the L2 read rate (``l2_rates``, with f32); then, in each
+    of ``dtypes``, the ring path's walk (``lstm_general_rec_ring_rec``) at
+    T = 124, B = 2048 and C = H = ``widths`` beside the streaming
+    ``general_rec_kernel`` on the same inputs (how far their dgates
+    differ), and edited copies that split its step (f32
+    ``general_rec_ring_kernel``: RING_VARIANTS; bf16
+    ``general_rec_ring_bf16_kernel``: RING_BF16_VARIANTS), registers and
+    spills each."""
     import torch
 
     sys.path.insert(0, REPO)
     from remora_tpu_torch.kernels import lstm as K
 
-    l2_rates()
-    _, built = build_variants(RING_SOURCE, RING_VARIANTS,
-                              headers=("mma_sm90.cuh", "lstm_prod.cuh"))
-    libs = {name: (_typed_ring(ctypes.CDLL(path)), out)
-            for name, (path, out) in built.items()}
+    if "f32" in dtypes:
+        l2_rates()
     streaming = K._general_library()
     stream = torch.cuda.current_stream().cuda_stream
-    for width in widths:
-        H = width
-        z, cs, dhs, w_ht, dg = _general_rec_case(width, torch.float32, T=T,
-                                                 B=B)
-        wp = K.general_rec_ring_weights(w_ht)
+    for sfx in dtypes:
+        bf16 = int(sfx == "bf16")
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        kernel = ("general_rec_ring_bf16_kernel" if bf16
+                  else "general_rec_ring_kernel")
+        _, built = build_variants(
+            RING_SOURCE, RING_BF16_VARIANTS if bf16 else RING_VARIANTS,
+            headers=("mma_sm90.cuh", "lstm_prod.cuh"))
+        libs = {name: (_typed_ring(ctypes.CDLL(path)), out)
+                for name, (path, out) in built.items()}
+        for width in widths:
+            H = width
+            z, cs, dhs, w_ht, dg = _general_rec_case(width, dtype, T=T, B=B)
+            if bf16:
+                w_aug = torch.zeros((H + H + 1, 4 * H), device="cuda",
+                                    dtype=dtype)
+                w_aug[H:2 * H] = w_ht.t()
+                wp = K.general_rec_ring_bf16_weights(w_aug, H)
+            else:
+                wp = K.general_rec_ring_weights(w_ht)
 
-        def stream_call():
-            err = streaming.lstm_general_rec(0, z.data_ptr(), cs.data_ptr(),
-                                             dhs.data_ptr(), w_ht.data_ptr(),
-                                             dg.data_ptr(), T, B, H, stream)
-            if err != 0:
-                raise SystemExit(f"general_rec_kernel: error {err}")
-        stream_call()
-        want = dg.clone()
-        ms = time_ms(stream_call, n=3, calls=1)
-        print(f"general K3 walk f32 C=H={H} T={T} streaming "
-              f"general_rec_kernel: {ms:.4f} ms ({ms / T * 1e3:.2f} us a "
-              "step)", flush=True)
-        for name, (lib, out) in libs.items():
-            def call(lib=lib, name=name):
-                err = lib.lstm_general_rec_ring_rec(
-                    z.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-                    wp.data_ptr(), dg.data_ptr(), T, B, H, stream)
+            def stream_call():
+                err = streaming.lstm_general_rec(
+                    bf16, z.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+                    w_ht.data_ptr(), dg.data_ptr(), T, B, H, stream)
                 if err != 0:
-                    raise SystemExit(f"{name!r}: error {err}")
-            same = ""
-            if name == "as is":
-                call()
-                torch.cuda.synchronize()
-                diff = ((dg - want).abs().max() / want.abs().max()).item()
-                same = (f"; dgates {diff:.3e} of their max-abs from the "
-                        "streaming kernel's")
-            ms = time_ms(call, n=5, calls=2)
-            print(f"general K3 walk f32 C=H={H} T={T} ring R="
-                  f"{K.RING_REC_ROWS} {name}: {ms:.4f} ms "
-                  f"({ms / T * 1e3:.2f} us a step); "
-                  f"{ptxas_lines(out, 'general_rec_ring')}{same}",
-                  flush=True)
+                    raise SystemExit(f"general_rec_kernel: error {err}")
+            stream_call()
+            want = dg.clone()
+            ms = time_ms(stream_call, n=3, calls=1)
+            print(f"general K3 walk {sfx} C=H={H} T={T} streaming "
+                  f"general_rec_kernel: {ms:.4f} ms ({ms / T * 1e3:.2f} us a "
+                  "step)", flush=True)
+            for name, (lib, out) in libs.items():
+                def call(lib=lib, name=name):
+                    err = lib.lstm_general_rec_ring_rec(
+                        bf16, z.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+                        wp.data_ptr(), dg.data_ptr(), T, B, H, stream)
+                    if err != 0:
+                        raise SystemExit(f"{name!r}: error {err}")
+                same = ""
+                if name == "as is":
+                    call()
+                    torch.cuda.synchronize()
+                    diff = ((dg.float() - want.float()).abs().max()
+                            / want.float().abs().max()).item()
+                    same = (f"; dgates {diff:.3e} of their max-abs from the "
+                            "streaming kernel's")
+                ms = time_ms(call, n=5, calls=2)
+                if name == "phase clocks":  # CTA 0's sums, SM cycles
+                    clk = dg.view(-1).view(torch.int64)[:2].tolist()
+                    same = (f"; CTA 0's clock64 a step: gate math "
+                            f"{clk[0] / T:.0f} cycles, product "
+                            f"{clk[1] / max(1, T - 1):.0f}")
+                print(f"general K3 walk {sfx} C=H={H} T={T} ring R="
+                      f"{K.RING_REC_ROWS} {name}: {ms:.4f} ms "
+                      f"({ms / T * 1e3:.2f} us a step); "
+                      f"{ptxas_lines(out, kernel)}{same}", flush=True)
 
 
 def main():
@@ -1391,7 +1489,11 @@ def main():
         print(smi_line())
         return 0
     if args[:1] == ["--ring"]:
-        split_ring(*([tuple(int(a) for a in args[1:])] if args[1:] else []))
+        dtypes = ("f32", "bf16")
+        if args[1:2] == ["--dtype"]:
+            dtypes, args = (args[2],), args[2:]
+        widths = tuple(int(a) for a in args[1:]) or (512, 384, 257)
+        split_ring(widths, dtypes=dtypes)
         print(smi_line())
         return 0
     if args[:1] == ["--products-split"]:

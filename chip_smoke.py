@@ -35,7 +35,7 @@ printed):
    ``lstm_general.cu``'s streaming path; K3's recurrence on
    ``lstm_general_rec_cluster.cu``'s clusters where
    ``kernels.lstm.general_rec_plan`` takes the shape (f32 at 256 in row
-   groups, ``general_rec_group_kernel``), f32 at 257-512 on
+   groups, ``general_rec_group_kernel``), both dtypes at 257-512 on
    ``lstm_general_rec_ring.cu``'s ring path, else on ``lstm_general.cu``'s
    ``general_rec_kernel``; the recurrence alone also held to its plain
    twin on the same Z and timed) at T=124, B=2048 and C=H=160 (the shape
@@ -52,11 +52,12 @@ printed):
    refuses, on the streaming ``general_fwd_kernel`` in f32 and on the ring
    path in bf16 (``fwd_ring_kernel`` after Z_x's product, timed in turns
    with the parent's streaming kernel on the same inputs, the walk alone
-   timed, its registers and spills), and K3 there on the ring path in f32
-   (``general_rec_ring_kernel``, timed in turns with the parent's
-   streaming K3 on the same inputs, its registers and spills) and on the
-   streaming ``general_rec_kernel`` in bf16, each dtype, against their
-   plain versions (their records take 6g's size-512 leg's launches);
+   timed, its registers and spills), and K3 there on the ring path in
+   both dtypes (``general_rec_ring_kernel`` in f32,
+   ``general_rec_ring_bf16_kernel`` on ``mma.sync`` in bf16, each timed in
+   turns with the parent's streaming K3 on the same inputs, its registers
+   and spills), each dtype, against their plain versions (their records
+   take 6g's size-512 leg's launches);
 4. the inference path at full width: a seeded ConvLSTM_w_ref (size 64,
    9-mer, chunk context (200, 200)) saved and loaded through
    ``ModelHandle.load``, fed 8 batches of 2048 synthetic raw chunks (the
@@ -138,9 +139,10 @@ printed):
    refuses, one train step of 512 chunks in f32 and in bf16, K2 and K3
    once each and K1 (its validation, in f32 on the master weights, so
    streamed), K2 on the streaming path in f32 and on the ring path in
-   bf16, K3 on the ring path in f32 and streamed in bf16, the f32 step held to the same step with the scan at 512
-   chunks, and the bf16 checkpoint served for one batch of 512 (K1 once
-   on the ring path, ML bytes within 1 of the plain LSTM's); (6f)
+   bf16, K3 on the ring path in both dtypes, the f32 step held to the
+   same step with the scan at 512 chunks, and the bf16 checkpoint served
+   for one batch of 512 (K1 once on the ring path, ML bytes within 1 of
+   the plain LSTM's); (6f)
    data-parallel
    training, the launch and all-reduce counts set to 0 first: (a)
    ``train_model`` over
@@ -287,7 +289,7 @@ GENERAL, GENERAL_SIZE, GENERAL_STEPS = 256, 160, 2
 GENERAL_TIMED = 5
 # C = H = GENERAL_STREAM, which no cluster plan takes (K1/K2 on the
 # streaming path in f32 and the ring path in bf16, K3 on the ring path in
-# f32 and streamed in bf16): held to their plain versions at
+# both dtypes): held to their plain versions at
 # GENERAL_STREAM_T steps (3e), and on the model path at size
 # GENERAL_STREAM for one step of GENERAL_STREAM_BATCH chunks (6g)
 GENERAL_STREAM, GENERAL_STREAM_T, GENERAL_STREAM_BATCH = 512, 16, 512
@@ -557,6 +559,19 @@ def lstm_chain_instrs(kind, C, H):
         hp = K.general_rec_ring_cfg(H, torch.float32)["hp"]
         return 1 + 1 + 2 + 3 + 1 + 1 + 2 * hp // K.RING_REC_CHUNK \
             + 2 * hp + 1 + 1 + 1 + 1 + 1
+    if kind == "general_bwd_ring_mma":
+        # K3 general bf16 at 257-512, the ring path
+        # (lstm_general_rec_ring.cu::general_rec_ring_bf16_kernel; dh_c
+        # stays in the accumulators, the chunks' mbarrier waits and W_h^T's
+        # LDSM are off the chain): FADD dhs -> dc (FMUL, FFMA) -> dgates
+        # (3 FMUL) -> pack to bf16 -> STS the A tile -> BAR -> LDSM ->
+        # 4hp / 16 dependent HMMA (one chain a tile, k in order) -> BAR
+        import torch
+
+        from remora_tpu_torch.kernels import lstm as K
+
+        hp = K.general_rec_ring_cfg(H, torch.bfloat16)["hp"]
+        return 1 + 2 + 3 + 1 + 1 + 1 + 1 + 4 * hp // 16 + 1
     if kind == "general_bwd":
         # K3 general, the streaming path (lstm_general.cu::general_rec_kernel; the gate
         # recompute and the products are other launches): BAR -> LDS the dh
@@ -631,9 +646,9 @@ def lstm_kernel_of(leg, dtype, C, H):
                 "general_stream_fwd")
     if kind == "general":
         if general_path(dtype, C, H, leg) == "ring":
-            return ("lstm_bwd_general_ring_f32",
+            return (f"lstm_bwd_general_ring_{sfx}",
                     "remora_tpu_torch/csrc/lstm_general_rec_ring.cu",
-                    "general_bwd_ring")
+                    "general_bwd_ring_mma" if bf16 else "general_bwd_ring")
         if general_path(dtype, C, H, leg) == "cluster":
             if K.general_rec_plan(C, H, dtype, K.cluster_capacity(0))[4] > 1:
                 return (f"lstm_bwd_general_groups_{sfx}",
@@ -1376,8 +1391,8 @@ def check_lstm_general_compile():
     Z_x product;
     lstm_general_rec_cluster.cu's recurrence and the products again;
     lstm_general_fwd_ring.cu's walk and its bf16 Z_x product;
-    lstm_general_rec_ring.cu's recurrence and the products), each
-    instantiation: registers logged, no spill."""
+    lstm_general_rec_ring.cu's recurrences, f32 and bf16, and the
+    products), each instantiation: registers logged, no spill."""
     check_compile("lstm_general", "general K1-K3", (
         "general_fwd_kernel", "general_rec_kernel", "prod_f32_ws_kernel",
         "wide_prod_f32_kernel", "wide_prod_bf16_kernel", "ordered_sum"))
@@ -1392,8 +1407,9 @@ def check_lstm_general_compile():
     check_compile("lstm_general_fwd_ring", "general K1/K2 ring", (
         "fwd_ring_kernel", "wide_prod_bf16_kernel"))
     check_compile("lstm_general_rec_ring", "general K3 ring", (
-        "general_rec_ring_kernel", "prod_f32_ws_kernel",
-        "wide_prod_f32_kernel", "ordered_sum"))
+        "general_rec_ring_kernel", "general_rec_ring_bf16_kernel",
+        "prod_f32_ws_kernel", "wide_prod_f32_kernel",
+        "wide_prod_bf16_kernel", "ordered_sum"))
     check_compile("lstm_prod", "f32 products", (
         "prod_f32_ws_kernel", "wide_prod_f32_kernel", "ordered_sum"))
 
@@ -1460,22 +1476,28 @@ def check_general_recurrence(dtype, width):
             "max_rel_err": err}
 
 
-def ring_kernel_registers():
-    """(registers, spill store bytes) of ``general_rec_ring_kernel``'s
-    instantiations, from its library's nvcc log."""
+def ring_kernel_registers(dtype):
+    """(registers, spill store bytes) of the ring K3's walk in ``dtype``,
+    each instantiation (``general_rec_ring_kernel`` in f32,
+    ``general_rec_ring_bf16_kernel`` in bf16), from its library's nvcc
+    log."""
+    import torch
+
     from remora_tpu_torch.kernels import _build
 
+    kernel = ("general_rec_ring_bf16_kernel" if dtype == torch.bfloat16
+              else "general_rec_ring_kernel")
     return [(regs, st + ld) for name, regs, st, ld in ptxas_kernels(
         _build.compile_log("lstm_general_rec_ring"))
-        if "general_rec_ring_kernel" in name]
+        if kernel in name]
 
 
 def stream_bwd_call(x, w_aug, hs, cs, dhs):
     """(call, dx, dW) of ``lstm_general.cu``'s streaming K3
-    (``lstm_general_bwd``: ``general_rec_kernel`` between the products) on
-    f32 operands, through its library with buffers of its own, whatever
-    path ``general_bwd_path`` picks: the parent design at a shape the ring
-    path takes. Not counted in LAUNCHES_GENERAL_BWD."""
+    (``lstm_general_bwd``: ``general_rec_kernel`` between the products) in
+    x's dtype, through its library with buffers of its own, whatever path
+    ``general_bwd_path`` picks: the parent design at a shape the ring path
+    takes. Not counted in LAUNCHES_GENERAL_BWD."""
     import torch
 
     from remora_tpu_torch.kernels import lstm as K
@@ -1485,15 +1507,15 @@ def stream_bwd_call(x, w_aug, hs, cs, dhs):
     lib = K._general_library()
     w_ht, w_xt = K.wide_bwd_weights(w_aug, C)
     z = torch.empty((T, B, 4 * H), device=x.device)
-    dg = torch.empty((T, B, 4 * H), device=x.device)
+    dg = torch.empty((T, B, 4 * H), device=x.device, dtype=x.dtype)
     dx = torch.empty_like(x)
     partials = torch.empty((lib.lstm_general_bwd_dw_chunks(T, B),
                             C + H + 1, 4 * H), device=x.device)
     dw = torch.empty((C + H + 1, 4 * H), device=x.device)
-    args = [0, x.data_ptr(), w_aug.data_ptr(), w_ht.data_ptr(),
-            w_xt.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-            z.data_ptr(), dg.data_ptr(), dx.data_ptr(), partials.data_ptr(),
-            dw.data_ptr(), T, B, C, H,
+    args = [int(x.dtype == torch.bfloat16), x.data_ptr(), w_aug.data_ptr(),
+            w_ht.data_ptr(), w_xt.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            dhs.data_ptr(), z.data_ptr(), dg.data_ptr(), dx.data_ptr(),
+            partials.data_ptr(), dw.data_ptr(), T, B, C, H,
             torch.cuda.current_stream().cuda_stream]
 
     def call():
@@ -1505,19 +1527,19 @@ def stream_bwd_call(x, w_aug, hs, cs, dhs):
 
 def check_general_k3_stream_width(dtype):
     """Phase 3e's K3 at C = H = GENERAL_STREAM, T = GENERAL_STREAM_T, B =
-    BATCH, a shape ``general_rec_plan`` refuses: f32 on the ring path
-    (``lstm_general_rec_ring.cu::general_rec_ring_kernel`` between
-    ``lstm_prod.cuh``'s products), bf16 on the streaming path
-    (``lstm_general.cu::general_rec_kernel``, the only one there). dx
-    within 1e-5 abs (bf16 2e-2) and dW within 1e-4 of its max-abs (bf16
-    2e-2) of ``lstm_bwd_reference``, the recurrence alone's dgates within
-    1e-5 (bf16 2e-2) of their max-abs of its plain twin on the same Z, each
-    repeated bit for bit, two launches on the path and none elsewhere; K3
-    timed beside its bound, chain, plain version and cuDNN's backward (TF32
-    off). f32 also holds the parent design (the streaming K3,
-    ``stream_bwd_call``) to the same limits and times it in turns with the
-    ring path (ring, parent, parent, ring), and logs the ring kernel's
-    registers and spills. Returns its kernel record (launches from 6g)."""
+    BATCH, a shape ``general_rec_plan`` refuses, on the ring path in both
+    dtypes (``lstm_general_rec_ring.cu``: ``general_rec_ring_kernel`` in
+    f32, ``general_rec_ring_bf16_kernel`` on ``mma.sync`` in bf16, between
+    ``lstm_prod.cuh``'s products). dx within 1e-5 abs (bf16 2e-2) and dW
+    within 1e-4 of its max-abs (bf16 2e-2) of ``lstm_bwd_reference``, the
+    recurrence alone's dgates within 1e-5 (bf16 2e-2) of their max-abs of
+    its plain twin on the same Z, each repeated bit for bit, two launches
+    on the ring path and none elsewhere; K3 timed beside its bound, chain,
+    plain version and cuDNN's backward (TF32 off). The parent design (the
+    streaming K3, ``stream_bwd_call``) is held to the same limits and timed
+    in turns with the ring path (ring, parent, parent, ring), and the ring
+    kernel's registers and spills are logged (no spill). Returns its
+    kernel record (launches from 6g)."""
     import torch
 
     from remora_tpu_torch.infer.infer import full_f32
@@ -1525,7 +1547,7 @@ def check_general_k3_stream_width(dtype):
 
     f32 = dtype == torch.float32
     sfx = "f32" if f32 else "bf16"
-    want_path = "ring" if f32 else "stream"
+    want_path = "ring"
     tols = ({"dx": 1e-5, "dw": 1e-4, "dg": 1e-5} if f32 else
             dict.fromkeys(("dx", "dw", "dg"), 2e-2))
     C = H = GENERAL_STREAM
@@ -1575,27 +1597,25 @@ def check_general_k3_stream_width(dtype):
         def kernel():
             return K.lstm_bwd(x, w_aug, hs, cs, dhs)
 
-        if f32:
-            call, p_dx, p_dw = stream_bwd_call(x, w_aug, hs, cs, dhs)
-            call()
-            torch.cuda.synchronize()
-            parent["max_abs_err"] = (p_dx - dx_ref).abs().max().item()
-            parent["dw_rel"] = rel_err(p_dw, dw_ref)
-            log(f"{name} C=H={C} T={T}: the parent's streaming K3 on the "
-                f"same inputs: max |dx| {parent['max_abs_err']:.3e}, dW "
-                f"{parent['dw_rel']:.3e} of its max-abs")
-            check(parent["max_abs_err"] <= tols["dx"]
-                  and parent["dw_rel"] <= tols["dw"],
-                  f"the streaming K3 at f32 C=H={C} disagrees: {parent}")
-            turns = [(who, time_ms(fn, n=GENERAL_TIMED)) for who, fn in (
-                ("ring", kernel), ("parent", call), ("parent", call),
-                ("ring", kernel))]
-            ms = statistics.mean(t for who, t in turns if who == "ring")
-            parent["ms"] = statistics.mean(
-                t for who, t in turns if who == "parent")
-            parent["turns_ms"] = [t for _, t in turns]
-        else:
-            ms = time_ms(kernel, n=GENERAL_TIMED)
+        call, p_dx, p_dw = stream_bwd_call(x, w_aug, hs, cs, dhs)
+        call()
+        torch.cuda.synchronize()
+        parent["max_abs_err"] = (p_dx.float()
+                                 - dx_ref.float()).abs().max().item()
+        parent["dw_rel"] = rel_err(p_dw, dw_ref)
+        log(f"{name} C=H={C} T={T}: the parent's streaming K3 on the "
+            f"same inputs: max |dx| {parent['max_abs_err']:.3e}, dW "
+            f"{parent['dw_rel']:.3e} of its max-abs")
+        check(parent["max_abs_err"] <= tols["dx"]
+              and parent["dw_rel"] <= tols["dw"],
+              f"the streaming K3 at {sfx} C=H={C} disagrees: {parent}")
+        turns = [(who, time_ms(fn, n=GENERAL_TIMED)) for who, fn in (
+            ("ring", kernel), ("parent", call), ("parent", call),
+            ("ring", kernel))]
+        ms = statistics.mean(t for who, t in turns if who == "ring")
+        parent["ms"] = statistics.mean(
+            t for who, t in turns if who == "parent")
+        parent["turns_ms"] = [t for _, t in turns]
         rec_ms = time_ms(lambda: K.general_recurrence(z, cs, dhs, w_aug),
                          n=GENERAL_TIMED)
         plain_ms = time_ms(
@@ -1623,24 +1643,22 @@ def check_general_k3_stream_width(dtype):
     bound_ms, bound_by = lstm_bound(flops, io_bytes, dtype)
     rec_bound = wide_bwd_part_bounds(T, B, C, H, dtype)["recurrence"]
     chain_ms = lstm_chain_bound_ms(chain, T, C, H)
-    extra = {}
-    if f32:
-        regs = ring_kernel_registers()
-        check(regs and all(sp == 0 for _, sp in regs),
-              f"{name}: general_rec_ring_kernel registers / spill bytes "
-              f"{regs}")
-        extra = {"parent_ms": parent["ms"],
-                 "parent_max_abs_err": parent["max_abs_err"],
-                 "registers": [r for r, _ in regs],
-                 "spill_bytes": [sp for _, sp in regs]}
-        log(f"{name} C=H={C} T={T}: in turns (ring, parent, parent, ring) "
-            f"{parent['turns_ms']} ms; general_rec_ring_kernel (registers, "
-            f"spill bytes) by instantiation {regs}")
+    kernel_name = ("general_rec_ring_kernel" if f32
+                   else "general_rec_ring_bf16_kernel")
+    regs = ring_kernel_registers(dtype)
+    check(regs and all(sp == 0 for _, sp in regs),
+          f"{name}: {kernel_name} registers / spill bytes {regs}")
+    extra = {"parent_ms": parent["ms"],
+             "parent_max_abs_err": parent["max_abs_err"],
+             "registers": [r for r, _ in regs],
+             "spill_bytes": [sp for _, sp in regs]}
+    log(f"{name} C=H={C} T={T}: in turns (ring, parent, parent, ring) "
+        f"{parent['turns_ms']} ms; {kernel_name} (registers, spill bytes) "
+        f"by instantiation {regs}")
     log(f"{name} C=H={C} T={T} (path {path_fields('bwd', dtype, C, H)}): "
-        f"kernel {ms:.4f} ms"
-        + (f" (the parent's streaming general_rec_kernel {parent['ms']:.4f}"
-           ", this run)" if f32 else "")
-        + f"; the recurrence alone {rec_ms:.4f}, bound {rec_bound:.4f}; "
+        f"kernel {ms:.4f} ms (the parent's streaming general_rec_kernel "
+        f"{parent['ms']:.4f}, this run); the recurrence alone {rec_ms:.4f}, "
+        f"bound {rec_bound:.4f}; "
         f"plain {plain_ms:.4f} ms, torch.nn.LSTM backward {lib_ms:.4f} ms "
         f"(TF32 off), bound {bound_ms:.4f} ms ({bound_by}), chain "
         f"{chain_ms:.4f} ms")
@@ -1899,9 +1917,9 @@ def check_lstm_general():
     plan refuses, GENERAL_STREAM_T steps of K1/K2 on the ring path in bf16
     (``lstm_general_fwd_ring.cu``, the parent's streaming kernel timed in
     turns) and the streaming path in f32 (``lstm_general.cu``;
-    ``check_general_fwd_512``) and of K3 on the
-    ring path in f32 (``lstm_general_rec_ring.cu``) and the streaming
-    path in bf16 (``check_general_k3_stream_width``), each dtype; each
+    ``check_general_fwd_512``) and of K3 on the ring path in both dtypes
+    (``lstm_general_rec_ring.cu``, the parent's streaming K3 timed in
+    turns; ``check_general_k3_stream_width``), each dtype; each
     repeated bit for bit, timed beside its bound, its chain, its plain
     version, ``torch.nn.LSTM`` and the parent design (PARENT_GENERAL_MS;
     at GENERAL_STREAM the f32 K3's parent timed in this run). The GENERAL
@@ -1977,7 +1995,7 @@ def check_lstm_general():
                   f"phase 3e: the {dtype} recurrence at C=H={width} ran "
                   f"the {recs[2]['recurrence']['path']} path")
     # at GENERAL_STREAM: f32 (K1/K2 streamed, K3 on the ring path), then
-    # bf16 (K1/K2 on the forward's ring path, K3 streamed), the order 6g's
+    # bf16 (K1/K2 and K3 on the ring paths), the order 6g's
     # size-GENERAL_STREAM leg sets their launches in
     wide_records = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -2109,15 +2127,17 @@ def general_512_leg(root, config, records):
     GENERAL_STREAM, which every forward cluster plan refuses, so its K1/K2
     run the streaming ``general_fwd_kernel`` in f32 and the ring path
     (``lstm_general_fwd_ring.cu``) in bf16 on the model path, and its K3
-    the ring path (``general_rec_ring_kernel``) in f32 and the streaming
-    ``general_rec_kernel`` in bf16: ``train_model`` for one step of
+    the ring path (``lstm_general_rec_ring.cu``: ``general_rec_ring_kernel``
+    in f32, ``general_rec_ring_bf16_kernel`` in bf16): ``train_model`` for
+    one step of
     GENERAL_STREAM_BATCH chunks in each dtype, K2 and K3 once each and K1
     (its validation, in f32 on the master weights in both dtypes, so on
     the streaming path) at least once, K2 and K3 each on its path alone,
     finite losses; the f32 checkpoint's step held to the same step with
     REMORA_TPU_LSTM=scan at GENERAL_STREAM_BATCH rows
-    (``check_train_step_vs_plain``, K3 on the ring path); the bf16
-    checkpoint served through ``ModelHandle.load`` in bf16 for one batch
+    (``check_train_step_vs_plain``, K3 on the ring path); the bf16 step's
+    own K3 call held to its plain versions on its own inputs
+    (``check_k3_bf16_step``); the bf16 checkpoint served through ``ModelHandle.load`` in bf16 for one batch
     of GENERAL_STREAM_BATCH chunks (K1 once on the ring path), its ML bytes
     within 1 of the plain LSTM's. Sets the ``records``' launches: K1, K2,
     K3 in f32 (K1: both legs' validations), then in bf16 (K1: the served
@@ -2133,7 +2153,7 @@ def general_512_leg(root, config, records):
     for dtype, recs in ((torch.float32, records[:3]),
                         (torch.bfloat16, records[3:])):
         bf16 = dtype == torch.bfloat16
-        k3_path = "stream" if bf16 else "ring"
+        k3_path = "ring"
         k12_path = "ring" if bf16 else "stream"
         sfx = "bf16" if bf16 else "f32"
         tag = f"general_stream_size{GENERAL_STREAM}_{sfx}"
@@ -2142,15 +2162,17 @@ def general_512_leg(root, config, records):
             d.update(dict.fromkeys(d, 0))
         prod_before = dict(K.LAUNCHES_PROD)
         t0 = time.monotonic()
-        train_model(
-            seed=1, out_path=out, remora_dataset_path=config,
-            chunk_context=None, kmer_context_bases=None,
-            batch_size=GENERAL_STREAM_BATCH, model_name="ConvLSTM_w_ref",
-            size=GENERAL_STREAM,
-            train_opts=optim.TrainOpts(epochs=1, lr_scheduler_str="constant",
-                                       learning_rate=2e-3),
-            chunks_per_epoch=GENERAL_STREAM_BATCH,
-            num_test_chunks=GENERAL_STREAM_BATCH, bf16_compute=bf16)
+        with k3_calls(K) as k3_step:
+            train_model(
+                seed=1, out_path=out, remora_dataset_path=config,
+                chunk_context=None, kmer_context_bases=None,
+                batch_size=GENERAL_STREAM_BATCH,
+                model_name="ConvLSTM_w_ref", size=GENERAL_STREAM,
+                train_opts=optim.TrainOpts(epochs=1,
+                                           lr_scheduler_str="constant",
+                                           learning_rate=2e-3),
+                chunks_per_epoch=GENERAL_STREAM_BATCH,
+                num_test_chunks=GENERAL_STREAM_BATCH, bf16_compute=bf16)
         launches, fwd_paths = dict(counts), dict(paths)
         k3_paths = dict(bwd_paths)
         with open(os.path.join(out, "batch.log")) as fh:
@@ -2175,7 +2197,9 @@ def general_512_leg(root, config, records):
                                           "dx": int(not bf16),
                                           "dw": int(not bf16),
                                           "gates_x": 0})
+        check(len(k3_step) == 1, f"{tag}: {len(k3_step)} K3 calls")
         if bf16:
+            check_k3_bf16_step(tag, *k3_step[0])
             # the validation's f32 K1 launches are the f32 record's; the
             # bf16 K1's are the served batch's
             records[0]["launches"] += launches["last"]
@@ -2187,6 +2211,68 @@ def general_512_leg(root, config, records):
             check_train_step_vs_plain(
                 os.path.join(out, "model_final.checkpoint"), kind="general",
                 batch=GENERAL_STREAM_BATCH, bwd_path="ring")
+
+
+@contextlib.contextmanager
+def k3_calls(K):
+    """Yields a list that gets, for each K3 call (``K.lstm_bwd``, which
+    ``LSTMFused.backward`` calls) made inside, copies of its inputs and
+    outputs: (x, W_aug, hs, cs, dhs, dx, dW)."""
+    calls, lstm_bwd = [], K.lstm_bwd
+
+    def capture(*args):
+        out = lstm_bwd(*args)
+        calls.append([t.clone() for t in (*args, *out)])
+        return out
+
+    K.lstm_bwd = capture
+    try:
+        yield calls
+    finally:
+        K.lstm_bwd = lstm_bwd
+
+
+def check_k3_bf16_step(tag, x, w_aug, hs, cs, dhs, dx, dw):
+    """6g's bf16 size-GENERAL_STREAM step's own K3 call (the model's T, B =
+    GENERAL_STREAM_BATCH, C = H = GENERAL_STREAM: the ring path's
+    ``general_rec_ring_bf16_kernel``) held to its plain versions on the
+    step's own inputs at 3e's bf16 limits: dx within 2e-2 abs and dW
+    within 2e-2 of its max-abs of ``lstm_bwd_reference``, and
+    ``general_recurrence``'s dgates (one launch, on the ring path) within
+    2e-2 of their max-abs of ``lstm_bwd_recurrence_reference`` on the same
+    Z."""
+    import torch
+
+    from remora_tpu_torch.infer.infer import full_f32
+    from remora_tpu_torch.kernels import lstm as K
+
+    tol = 2e-2
+    T, B, C = x.shape
+    H = cs.shape[-1]
+    check((B, C, H) == (GENERAL_STREAM_BATCH, GENERAL_STREAM,
+                        GENERAL_STREAM) and x.dtype == torch.bfloat16,
+          f"{tag}: K3 ran at T, B, C, H = {(T, B, C, H)} in {x.dtype}")
+    with full_f32():
+        dx_ref, dw_ref = K.lstm_bwd_reference(x, w_aug, hs, cs, dhs)
+        z = K.lstm_bwd_gates_reference(x, w_aug, hs)
+        before = dict(K.LAUNCHES_GENERAL_BWD)
+        dg = K.general_recurrence(z, cs, dhs, w_aug)
+        ran = {k: K.LAUNCHES_GENERAL_BWD[k] - before[k] for k in before}
+        dg_ref = K.lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)
+        torch.cuda.synchronize()
+    err = (dx.float() - dx_ref.float()).abs().max().item()
+    dw_rel, dg_rel = rel_err(dw, dw_ref), rel_err(dg, dg_ref)
+    log(f"{tag}: the step's K3 (T={T} B={B} C=H={H}) against the plain "
+        f"K3 on its own inputs: max |dx| {err:.3e}, dW {dw_rel:.3e} of its "
+        f"max-abs, the recurrence's dgates {dg_rel:.3e} of theirs against "
+        f"the twin on the same Z (tolerance {tol} each); the recurrence "
+        f"alone by path {ran}")
+    check(ran == {p: int(p == "ring") for p in ran},
+          f"{tag}: the recurrence alone ran {ran}, not once on the ring")
+    check(np.isfinite([err, dw_rel, dg_rel]).all()
+          and max(err, dw_rel, dg_rel) <= tol,
+          f"{tag}: the step's K3 disagrees with the plain K3: dx {err:.3e}, "
+          f"dW {dw_rel:.3e}, dgates {dg_rel:.3e} (tolerance {tol})")
 
 
 def serve_bf16_512(ckpt, tag):

@@ -51,12 +51,13 @@ of three paths, chosen the same way (``general_rec_plan``,
 N CTAs, each holding its gate columns' slice of W_h^T and trading partial
 dh sums through distributed shared memory (bf16 at 160 and 256, f32 at
 160; f32 at 193-256 walks the cluster's rows as groups of 48, whose
-partials fit where all R rows' do not); f32 at 257-512,
+partials fit where all R rows' do not); both dtypes at 257-512,
 ``csrc/lstm_general_rec_ring.cu``'s ring path (a CTA of 16 rows walks all
 H units with no exchange between CTAs, W_h^T's rows streamed by TMA
-through a ring of shared-memory slots); else
-``lstm_general.cu``'s ``general_rec_kernel`` (bf16 past 256, f32 past
-512). Above 1024 every entry point raises; a launch
+through a ring of shared-memory slots; f32 on FFMA tiles, bf16 on
+``mma.sync`` with dh kept in the registers of the warp that owns its
+units); else ``lstm_general.cu``'s ``general_rec_kernel`` (past 512, both
+dtypes). Above 1024 every entry point raises; a launch
 on any path that fails raises, never moving to another path.
 
 The f32 products of those K3 legs and the W_h-ring K1/K2's Z_x run
@@ -182,6 +183,13 @@ RING_REC_MAX_SLOTS = 16
 RING_REC_BAR_BYTES = 256
 RING_REC_MIN_H = 257
 RING_REC_MAX_H = 512
+# its bf16 budget (``general_rec_ring_bf16_kernel``, the same R and H range):
+# consumer warps a CTA (n8 tiles of units split among them; a producer
+# warpgroup beside them), W_h^T's k a ring slot holds (two mma steps), Z's
+# rows an item
+RING_REC_BF16_WARPS = 8
+RING_REC_BF16_CHUNK = 32
+RING_REC_BF16_ZROWS = 4
 # ``lstm_general_fwd_ring.cu``'s budget (``fwd_ring_kernel``, bf16 K1/K2):
 # rows a CTA (one m16 tile), warps a CTA (8-unit blocks split among them;
 # no producer warp), W_h's k a ring slot holds (one mma step), ring slots
@@ -702,18 +710,41 @@ def general_rec_plan(C, H, dtype, clusters=None):
 
 def general_rec_ring_cfg(H, dtype):
     """``lstm_general_rec_ring.cu``'s launch shape (its ``make_cfg``; the
-    card's ``lstm_general_rec_ring_cfg`` gives the same): f32, CTAs of R =
-    RING_REC_ROWS rows (no cluster), 1 <= H <= RING_REC_MAX_H. A dict of
-    ``hp`` (H rounded up to 4), ``warps`` (consumer warps a group, two
-    groups that take every other chunk: ceil(hp / 128)), ``threads`` (both
-    groups and one producer warp), ``slots`` (ring slots of RING_REC_CHUNK
-    rows of W_h^T, [RING_REC_CHUNK][hp] f32, as many as fit, at most
-    RING_REC_MAX_SLOTS) and ``smem`` (bytes: the mbarriers, the dgates tile
-    [R][4hp] f32, the groups' exchange tile [R][hp] f32 and the ring), or
-    None where it does not take the shape or fewer than two slots fit."""
-    if dtype != torch.float32 or not 1 <= H <= RING_REC_MAX_H:
+    card's ``lstm_general_rec_ring_cfg`` gives the same), CTAs of R =
+    RING_REC_ROWS rows (no cluster), 1 <= H <= RING_REC_MAX_H, or None where
+    it does not take the shape or too few slots fit. f32: a dict of ``hp``
+    (H rounded up to 4), ``warps`` (consumer warps a group, two groups that
+    take every other chunk: ceil(hp / 128)), ``threads`` (both groups and
+    one producer warp), ``slots`` (ring slots of RING_REC_CHUNK rows of
+    W_h^T, [RING_REC_CHUNK][hp] f32, as many as fit, at most
+    RING_REC_MAX_SLOTS, at least 2) and ``smem`` (bytes: the mbarriers, the
+    dgates tile [R][4hp] f32, the groups' exchange tile [R][hp] f32 and the
+    ring). bf16: ``hp`` (H rounded up to 8), ``ub`` (n8 tiles of units a
+    consumer warp: ceil(hp / 8 / RING_REC_BF16_WARPS)), ``threads`` (the
+    consumer warps and a producer warpgroup), ``slots`` (at
+    least 3: a half's gate math holds its two Z items and its c item) and
+    ``smem`` (the full and empty mbarriers, the A tile [R][4hp + 8] bf16,
+    then the ring from a 128-byte boundary; a slot the largest of a W_h^T
+    chunk [hp][RING_REC_BF16_CHUNK] bf16, a Z item [RING_REC_BF16_ZROWS][4H
+    rounded up to 16, + 8] f32 and a c item [3][8][hp | 8] bf16, rounded up
+    to 128 bytes)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return None
+    if not 1 <= H <= RING_REC_MAX_H:
         return None
     R = RING_REC_ROWS
+    if dtype == torch.bfloat16:
+        hp = _ceil(H, 8) * 8
+        w_off = _ceil(RING_REC_BAR_BYTES + R * (4 * hp + 8) * 2, 128) * 128
+        z_item = RING_REC_BF16_ZROWS * (_ceil(4 * H, 16) * 16 + 8) * 4
+        slot = _ceil(max(RING_REC_BF16_CHUNK * hp * 2, z_item,
+                         3 * 8 * (hp | 8) * 2), 128) * 128
+        if w_off + 3 * slot > CLUSTER_SMEM_MAX:
+            return None
+        slots = min((CLUSTER_SMEM_MAX - w_off) // slot, RING_REC_MAX_SLOTS)
+        return {"hp": hp, "ub": _ceil(hp // 8, RING_REC_BF16_WARPS),
+                "threads": 32 * RING_REC_BF16_WARPS + 128, "slots": slots,
+                "smem": w_off + slots * slot}
     hp = _ceil(H, 4) * 4
     warps = _ceil(hp, 128)
     w_off = RING_REC_BAR_BYTES + R * 4 * hp * 4 + R * hp * 4
@@ -728,12 +759,12 @@ def general_rec_ring_cfg(H, dtype):
 def general_rec_ring_plan(C, H, dtype):
     """The general K3's ring plan at C inputs and H hidden units in
     ``dtype``: (R, shared-memory bytes) for ``lstm_general_rec_ring.cu``,
-    or None. It takes f32 at RING_REC_MIN_H <= H <= RING_REC_MAX_H (where
-    ``general_rec_plan`` finds no cluster that holds W_h^T's slice), any C:
-    CTAs of R = RING_REC_ROWS rows with no cluster (each streams all of
-    W_h^T a step; GENERAL_FWD_PLAN_BATCH rows are one wave of 128 CTAs), so
-    the card's cluster capacity does not enter."""
-    if not 1 <= C <= GENERAL_MAX_C or dtype != torch.float32:
+    or None. It takes f32 and bf16 at RING_REC_MIN_H <= H <= RING_REC_MAX_H
+    (where ``general_rec_plan`` finds no cluster that holds W_h^T's slice),
+    any C: CTAs of R = RING_REC_ROWS rows with no cluster (each streams all
+    of W_h^T a step; GENERAL_FWD_PLAN_BATCH rows are one wave of 128 CTAs),
+    so the card's cluster capacity does not enter."""
+    if not 1 <= C <= GENERAL_MAX_C:
         return None
     if not RING_REC_MIN_H <= H <= RING_REC_MAX_H:
         return None
@@ -742,7 +773,7 @@ def general_rec_ring_plan(C, H, dtype):
 
 
 def general_rec_ring_weights(w_ht):
-    """``lstm_general_rec_ring.cu``'s layout of W_h^T (4H, H)
+    """``lstm_general_rec_ring.cu``'s f32 layout of W_h^T (4H, H)
     (``wide_bwd_weights``' first): (4hp, hp) f32, hp = H rounded up to 4,
     row g hp + u' gate g of unit u' (W_h^T's row g H + u'), zero past H in
     rows and columns, so every ring chunk is one 16-byte-aligned copy.
@@ -754,6 +785,37 @@ def general_rec_ring_weights(w_ht):
     out = w_ht.new_zeros((4, hp, hp))
     out[:, :H, :H] = w_ht.reshape(4, H, H)
     return out.reshape(4 * hp, hp)
+
+
+def general_rec_ring_bf16_weights(w_aug, C):
+    """``lstm_general_rec_ring.cu``'s bf16 layout of W_h^T (W_aug's rows C ..
+    C + H - 1, transposed), in W_aug's dtype and device: (4hp / 32, hp, 32),
+    hp = H rounded up to 8; chunk c's row n (a unit of dh) holds k = 32 c ..
+    32 c + 31 (k = g hp + u', gate g of unit u': W_aug[C + n, g H + u']) as
+    four 16-byte segments of 8 k, segment p stored at p ^ ((n >> 1) & 3)
+    (the kernel's ldmatrix reads 8 rows n of 64 bytes: the swizzle puts
+    them on 8 distinct bank quads); zero past H in k and n. Flat, so each
+    ring slot is one contiguous copy."""
+    H = w_aug.shape[1] // 4
+    hp = _ceil(H, 8) * 8
+    w = w_aug.new_zeros((4, hp, hp))  # [g][u'][n]
+    w[:, :H, :H] = w_aug[C:C + H].reshape(H, 4, H).permute(1, 2, 0)
+    nk = 4 * hp // RING_REC_BF16_CHUNK
+    # [k][n] -> [c][n][segment][8]
+    w = w.reshape(nk, 4, 8, hp).permute(0, 3, 1, 2)
+    n = torch.arange(hp, device=w.device)
+    seg = torch.arange(4, device=w.device)[None, :] ^ ((n[:, None] >> 1) & 3)
+    return w[:, n[:, None], seg].contiguous().reshape(-1)
+
+
+def general_rec_ring_layout(w_aug, C):
+    """The ring path's W_h^T in W_aug's dtype: ``general_rec_ring_weights``
+    of W_aug[C:C + H]^T in f32, ``general_rec_ring_bf16_weights`` in
+    bf16."""
+    if w_aug.dtype == torch.bfloat16:
+        return general_rec_ring_bf16_weights(w_aug, C)
+    H = w_aug.shape[1] // 4
+    return general_rec_ring_weights(w_aug[C:C + H].t().contiguous())
 
 
 def general_bwd_path(dtype, C, H, clusters=None):
@@ -992,10 +1054,10 @@ def _general_rec_ring_library():
         lib.lstm_general_rec_ring_bwd.argtypes = ([i32] + [ptr] * 12
                                                   + [i32] * 4 + [ptr])
         lib.lstm_general_rec_ring_bwd.restype = i32
-        lib.lstm_general_rec_ring_rec.argtypes = ([ptr] * 5 + [i32] * 3
-                                                  + [ptr])
+        lib.lstm_general_rec_ring_rec.argtypes = ([i32] + [ptr] * 5
+                                                  + [i32] * 3 + [ptr])
         lib.lstm_general_rec_ring_rec.restype = i32
-        lib.lstm_general_rec_ring_cfg.argtypes = [i32, ptr]
+        lib.lstm_general_rec_ring_cfg.argtypes = [i32, i32, ptr]
         lib.lstm_general_rec_ring_cfg.restype = i32
         lib.lstm_general_rec_ring_dw_chunks.argtypes = [i32, i32]
         lib.lstm_general_rec_ring_dw_chunks.restype = i32
@@ -1005,42 +1067,54 @@ def _general_rec_ring_library():
     return lib
 
 
-def _general_bwd_launch(dtype, C, H, device):
-    """(run, dW chunks, error string, path) of a general K3 call: the
-    cluster library behind ``lstm_general_bwd``'s signature, with the
-    plan's N, R, P and row groups, where ``general_rec_plan`` takes the
-    shape on this card; the ring library where ``general_rec_ring_plan``
-    does (its W_h^T pointer the ``general_rec_ring_weights`` layout); else
-    ``lstm_general.cu``'s streaming K3."""
+# each general K3 path's library loader and entries: (loader, K3, the
+# recurrence alone, dW chunks, error string)
+_GENERAL_BWD_ENTRIES = {
+    "cluster": ("_general_rec_library", "lstm_general_rec_cluster_bwd",
+                "lstm_general_rec_cluster_rec",
+                "lstm_general_rec_cluster_dw_chunks",
+                "lstm_general_rec_cluster_error_string"),
+    "ring": ("_general_rec_ring_library", "lstm_general_rec_ring_bwd",
+             "lstm_general_rec_ring_rec", "lstm_general_rec_ring_dw_chunks",
+             "lstm_general_rec_ring_error_string"),
+    "stream": ("_general_library", "lstm_general_bwd", "lstm_general_rec",
+               "lstm_general_bwd_dw_chunks", "lstm_general_error_string"),
+}
+
+
+def _with_plan(fn, plan, *args):
+    """``fn`` with the cluster plan's N, R, passes and row groups before
+    the stream, its last argument."""
+    return fn(*args[:-1], *plan, args[-1])
+
+
+def _general_k3_launch(dtype, C, H, device):
+    """(path, K3, the recurrence alone, dW chunks, error string) of a
+    general K3 call on the path ``general_bwd_path`` picks by shape on this
+    card, before the launch: the library entries of ``_GENERAL_BWD_ENTRIES``
+    (``lstm_general_rec_cluster.cu``, ``lstm_general_rec_ring.cu`` or
+    ``lstm_general.cu``'s streaming kernel). K3 takes (bf16, 12 pointers,
+    T, B, C, H, stream), the recurrence (bf16, z, cs, dhs, W_h^T, dg, T, B,
+    H, stream); on the ring path W_h^T is ``general_rec_ring_layout``'s."""
     caps = cluster_capacity(device.index or 0)
-    plan = general_rec_plan(C, H, dtype, caps)
-    if plan is None:
-        if general_rec_ring_plan(C, H, dtype) is not None:
-            lib = _general_rec_ring_library()
-            return (lib.lstm_general_rec_ring_bwd,
-                    lib.lstm_general_rec_ring_dw_chunks,
-                    lib.lstm_general_rec_ring_error_string, "ring")
-        lib = _general_library()
-        return (lib.lstm_general_bwd, lib.lstm_general_bwd_dw_chunks,
-                lib.lstm_general_error_string, "stream")
-    N, R, _, P, groups = plan
-    lib = _general_rec_library()
-
-    def run(*args):  # (bf16, 12 pointers, T, B, C, H, stream)
-        return lib.lstm_general_rec_cluster_bwd(*args[:-1], N, R, P, groups,
-                                                args[-1])
-
-    return (run, lib.lstm_general_rec_cluster_dw_chunks,
-            lib.lstm_general_rec_cluster_error_string, "cluster")
+    path = general_bwd_path(dtype, C, H, caps)
+    loader, *names = _GENERAL_BWD_ENTRIES[path]
+    lib = globals()[loader]()
+    bwd, rec, chunks, error_string = (getattr(lib, n) for n in names)
+    if path == "cluster":
+        N, R, _, P, groups = general_rec_plan(C, H, dtype, caps)
+        bwd, rec = (functools.partial(_with_plan, fn, (N, R, P, groups))
+                    for fn in (bwd, rec))
+    return path, bwd, rec, chunks, error_string
 
 
 def general_recurrence(z, cs, dhs, w_aug):
     """The general K3's reverse recurrence alone: dgates (T, B, 4H) in cs's
     dtype (``lstm_bwd_recurrence_reference``, its plain version, on CPU
-    tensors) on the path ``general_bwd_path`` picks for the shape:
-    ``lstm_general_rec_cluster.cu``'s clusters, ``lstm_general_rec_ring.cu``
-    or ``lstm_general.cu``'s ``general_rec_kernel``. Counted in
-    LAUNCHES_GENERAL_BWD by path."""
+    tensors) on the path ``general_bwd_path`` picks for the shape
+    (``_general_k3_launch``): ``lstm_general_rec_cluster.cu``'s clusters,
+    ``lstm_general_rec_ring.cu`` or ``lstm_general.cu``'s
+    ``general_rec_kernel``. Counted in LAUNCHES_GENERAL_BWD by path."""
     if cs.device.type == "cpu":
         return lstm_bwd_recurrence_reference(z, cs, dhs, w_aug)
     name = "general_recurrence"
@@ -1064,33 +1138,16 @@ def general_recurrence(z, cs, dhs, w_aug):
                 f"{tuple(shape)} {dtype} on {cs.device}")
     if not cs.is_contiguous():
         raise ValueError(f"{name}: operands must be contiguous")
-    bf16 = int(cs.dtype == torch.bfloat16)
-    w_ht = w_aug[C:C + H].t().contiguous()
+    path, _, run, _, error_string = _general_k3_launch(cs.dtype, C, H,
+                                                       cs.device)
+    w_ht = (general_rec_ring_layout(w_aug, C) if path == "ring"
+            else w_aug[C:C + H].t().contiguous())
     dg = torch.empty((T, B, 4 * H), dtype=cs.dtype, device=cs.device)
-    caps = cluster_capacity(cs.device.index or 0)
-    plan = general_rec_plan(C, H, cs.dtype, caps)
-    ring = None if plan is not None else general_rec_ring_plan(C, H,
-                                                                cs.dtype)
-    if ring is not None:
-        w_ht = general_rec_ring_weights(w_ht)
-    ptrs = (z.data_ptr(), cs.data_ptr(), dhs.data_ptr(), w_ht.data_ptr(),
-            dg.data_ptr())
     with torch.cuda.device(cs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if ring is not None:
-            lib, path = _general_rec_ring_library(), "ring"
-            err = lib.lstm_general_rec_ring_rec(*ptrs, T, B, H, stream)
-            error_string = lib.lstm_general_rec_ring_error_string
-        elif plan is None:
-            lib, path = _general_library(), "stream"
-            err = lib.lstm_general_rec(bf16, *ptrs, T, B, H, stream)
-            error_string = lib.lstm_general_error_string
-        else:
-            lib, path = _general_rec_library(), "cluster"
-            err = lib.lstm_general_rec_cluster_rec(bf16, *ptrs, T, B, H,
-                                                   *plan[:2], *plan[3:],
-                                                   stream)
-            error_string = lib.lstm_general_rec_cluster_error_string
+        err = run(int(cs.dtype == torch.bfloat16), z.data_ptr(),
+                  cs.data_ptr(), dhs.data_ptr(), w_ht.data_ptr(),
+                  dg.data_ptr(), T, B, H,
+                  torch.cuda.current_stream().cuda_stream)
     _raise_on(error_string, name, err)
     LAUNCHES_GENERAL_BWD[path] += 1
     return dg
@@ -1586,14 +1643,14 @@ def _lstm_bwd_split(kind, x, w_aug, hs, cs, dhs):
     cannot hold raises), "general" ``lstm_general_rec_cluster.cu``'s on
     clusters of N CTAs where ``general_rec_plan`` takes the shape,
     ``lstm_general_rec_ring.cu``'s where ``general_rec_ring_plan`` does
-    (f32 at 257-512: 16 rows a CTA, W_h^T streamed by TMA), else
+    (257-512, both dtypes: 16 rows a CTA, W_h^T streamed by TMA), else
     ``lstm_general.cu``'s (one block per 8 rows, W_h^T read through L2)."""
     global LAUNCHES_BWD
     T, B, C = x.shape
     H = w_aug.shape[1] // 4
     path = None
     if kind == "general":
-        run, chunks, error_string, path = _general_bwd_launch(
+        path, run, _, chunks, error_string = _general_k3_launch(
             x.dtype, C, H, x.device)
     else:
         lib = _wide_bwd_library()
@@ -1601,9 +1658,11 @@ def _lstm_bwd_split(kind, x, w_aug, hs, cs, dhs):
                                      lib.lstm_wide_bwd_dw_chunks,
                                      lib.lstm_wide_bwd_error_string)
     dev = x.device
-    w_ht, w_xt = wide_bwd_weights(w_aug, C)
     if path == "ring":
-        w_ht = general_rec_ring_weights(w_ht)
+        w_ht = general_rec_ring_layout(w_aug, C)
+        w_xt = w_aug[:C].t().contiguous()
+    else:
+        w_ht, w_xt = wide_bwd_weights(w_aug, C)
     z = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     dg = torch.empty((T, B, 4 * H), dtype=x.dtype, device=dev)
     dx = torch.empty_like(x)

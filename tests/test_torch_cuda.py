@@ -462,6 +462,9 @@ def test_lstm_general_legs_match_plain(cuda, T, B, C, H, dtype, tol):
     if H > 256:
         assert path == ("ring" if dtype == torch.bfloat16 and H <= 512
                         else "stream")
+        # K3: the ring path in both dtypes to 512 units
+        assert K.general_bwd_path(dtype, C, H) == ("ring" if H <= 512
+                                                   else "stream")
     params, x = _case(T, B, C, H, dtype, cuda)
     w_aug = _w_aug(params)
     dhs = torch.from_numpy(np.random.default_rng(1).normal(
@@ -561,10 +564,11 @@ def test_lstm_general_cluster_library_matches_the_plan(cuda):
 # plain twin on the same Z: the cluster path at the model's sizes 160 (both
 # dtypes) and 256 (bf16: two passes; f32: row groups), batches off a
 # cluster's R rows and beyond one wave, H off the 8-unit tiles, T = 1; the
-# ring path (f32 at 257-512: 512 in one wave and past it, C != H, H off 4
-# (257) and off 64 (300), 384) where bf16 and f32 past 512 stream; dgates
-# within 1e-5 (f32) or 2e-2 (bf16) of their largest entry, a repeated call
-# identical, one launch a call on the plan's path
+# ring path (257-512 in both dtypes: 512 in one wave and past it, C != H,
+# H off 4 (257) and off 64 (300), 384, and at 511 one row, 17 rows and C
+# != H) where both dtypes past 512 stream; dgates within 1e-5 (f32) or
+# 2e-2 (bf16) of their largest entry, a repeated call identical, one
+# launch a call on the plan's path
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,B,C,H", [(6, 37, 160, 160), (4, 100, 256, 256),
                                      (3, 161, 144, 200), (1, 9, 160, 160),
@@ -572,7 +576,9 @@ def test_lstm_general_cluster_library_matches_the_plan(cuda):
                                      (3, 2200, 256, 256), (1, 50, 240, 240),
                                      (2, 20, 512, 512), (3, 2100, 512, 512),
                                      (2, 17, 160, 512), (1, 9, 1024, 300),
-                                     (3, 40, 300, 257), (4, 2048, 384, 384)])
+                                     (3, 40, 300, 257), (4, 2048, 384, 384),
+                                     (3, 1, 200, 511), (2, 17, 511, 511),
+                                     (3, 21, 300, 511)])
 def test_general_recurrence_matches_twin(cuda, T, B, C, H, dtype):
     params, x = _case(T, B, C, H, dtype, cuda, seed=H)
     w_aug = _w_aug(params)
@@ -584,7 +590,7 @@ def test_general_recurrence_matches_twin(cuda, T, B, C, H, dtype):
     if (C, H) in ((160, 160), (256, 256)):
         assert path == "cluster"
     if H > 256:
-        assert path == ("ring" if dtype == torch.float32 else "stream")
+        assert path == ("ring" if H <= 512 else "stream")
     paths = dict(K.LAUNCHES_GENERAL_BWD)
     with full_f32():
         hs, cs = K.lstm_fwd_reference(x, w_aug)
@@ -651,34 +657,41 @@ def test_general_rec_cluster_library_matches_the_plan(cuda):
 
 def test_general_rec_ring_library_matches_the_plan(cuda):
     """lstm_general_rec_ring.cu's launch shapes are
-    ``general_rec_ring_cfg``'s; it refuses bf16, a shape outside its
-    budget, and a W_h^T layout off 16 bytes, before it reads a
-    pointer; the plan's CTAs at 257-512 run the batch in one wave."""
+    ``general_rec_ring_cfg``'s in both dtypes; it refuses a shape outside
+    its budget, a W_h^T layout off 16 bytes and, in bf16, a Z off 16 bytes
+    (its rows are bulk copies) or a walk of 2^31 ring items, before it
+    reads a pointer; the plan's CTAs at 257-512 run the batch in one
+    wave."""
     import ctypes
 
     lib = K._general_rec_ring_library()
     info = (ctypes.c_longlong * 5)()
-    for H in (1, 8, 129, 256, 257, 300, 384, 511, 512, 513, 1024):
-        cfg = K.general_rec_ring_cfg(H, torch.float32)
-        rc = lib.lstm_general_rec_ring_cfg(H, info)
-        if cfg is None:
-            assert rc == -1, H
-            assert lib.lstm_general_rec_ring_rec(
-                *[None] * 5, 1, 1, H, None) != 0
-            continue
-        assert rc == 0 and list(info) == [
-            cfg["hp"], cfg["warps"], cfg["threads"], cfg["slots"],
-            cfg["smem"]], H
-    assert lib.lstm_general_rec_ring_bwd(
-        1, *[None] * 12, 1, 1, 160, 512, None) != 0
-    assert lib.lstm_general_rec_ring_bwd(
-        0, *[None] * 12, 1, 1, 1025, 512, None) != 0
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = int(dtype == torch.bfloat16)
+        for H in (1, 8, 129, 256, 257, 300, 384, 511, 512, 513, 1024):
+            cfg = K.general_rec_ring_cfg(H, dtype)
+            rc = lib.lstm_general_rec_ring_cfg(bf16, H, info)
+            if cfg is None:
+                assert rc == -1, (dtype, H)
+                assert lib.lstm_general_rec_ring_rec(
+                    bf16, *[None] * 5, 1, 1, H, None) != 0
+                continue
+            assert rc == 0 and list(info) == [
+                cfg["hp"], cfg["ub" if bf16 else "warps"], cfg["threads"],
+                cfg["slots"], cfg["smem"]], (dtype, H)
+        assert lib.lstm_general_rec_ring_bwd(
+            bf16, *[None] * 12, 1, 1, 1025, 512, None) != 0
+        assert lib.lstm_general_rec_ring_rec(
+            bf16, None, None, None, 4, None, 1, 1, 512, None) != 0
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        for H in (257, 300, 384, 512):
+            R, _ = K.general_rec_ring_plan(H, H, dtype)
+            assert -(-K.GENERAL_FWD_PLAN_BATCH // R) <= sms, (dtype, H)
     assert lib.lstm_general_rec_ring_rec(
-        None, None, None, 4, None, 1, 1, 512, None) != 0
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for H in (257, 300, 384, 512):
-        R, _ = K.general_rec_ring_plan(H, H, torch.float32)
-        assert -(-K.GENERAL_FWD_PLAN_BATCH // R) <= sms, H
+        1, 4, None, None, 16, None, 1, 1, 512, None) != 0
+    # bf16: a walk of 2^31 ring items or more (their 32-bit count)
+    assert lib.lstm_general_rec_ring_rec(
+        1, 16, None, None, 16, None, 2 ** 25, 1, 512, None) != 0
 
 
 def test_general_fwd_ring_library_matches_the_plan(cuda):

@@ -561,17 +561,33 @@ def _rec_fits(H, dtype, caps):
     return out
 
 
-def _ring_cfg(H):
+def _ring_cfg(H, dtype=F32):
     """``lstm_general_rec_ring.cu``'s ``make_cfg`` rebuilt from its
-    description: hp = H rounded up to 4; two groups of ceil(hp / 128)
-    consumer warps and a producer warp; shared memory the 256 bytes of
-    mbarriers, the dgates tile [R][4hp] f32, the exchange tile [R][hp] f32
-    and as many ring slots of 8 W_h^T rows, [8][hp] f32, as fit in 232,448
-    bytes (16 at most, 2 at least), R = 16 rows a CTA; None past 512
-    units."""
+    description, R = 16 rows a CTA, None past 512 units. f32: hp = H
+    rounded up to 4; two groups of ceil(hp / 128) consumer warps and a
+    producer warp; shared memory the 256 bytes of mbarriers, the dgates
+    tile [R][4hp] f32, the exchange tile [R][hp] f32 and as many ring slots
+    of 8 W_h^T rows, [8][hp] f32, as fit in 232,448 bytes (16 at most, 2 at
+    least). bf16: hp = H rounded up to 8; 8 consumer warps of ceil(hp /
+    64) n8 tiles and a producer warpgroup; the 256 bytes of mbarriers, the
+    A tile [R][4hp + 8] bf16, then from a 128-byte boundary as many slots
+    as fit (16 at most, 3 at least), a slot the largest of a W_h^T chunk
+    [hp][32] bf16, a Z item [4][4H rounded up to 16, + 8] f32 and a c
+    item [3][8][hp | 8] bf16, rounded up to 128 bytes."""
     if not 1 <= H <= 512:
         return None
     R = 16
+    if dtype == BF16:
+        hp = -(-H // 8) * 8
+        fixed = -(-(256 + R * (4 * hp + 8) * 2) // 128) * 128
+        slot = max(32 * hp * 2, 4 * (-(-4 * H // 16) * 16 + 8) * 4,
+                   3 * 8 * (hp | 8) * 2)
+        slot = -(-slot // 128) * 128
+        slots = min((232448 - fixed) // slot, 16)
+        if slots < 3:
+            return None
+        return {"hp": hp, "ub": -(-(hp // 8) // 8), "threads": 384,
+                "slots": slots, "smem": fixed + slots * slot}
     hp = -(-H // 4) * 4
     warps = -(-hp // 128)
     fixed = 256 + R * 4 * hp * 4 + R * hp * 4
@@ -597,9 +613,10 @@ def test_general_rec_plan_grid(dtype, C):
         ring = K.general_rec_ring_plan(C, H, dtype)
         if plan is None:
             assert not any(fits.values()) and group is None, (C, H)
-            # the ring path: f32 at 257-512 alone, its shape the C++ plan's
-            if dtype == F32 and 257 <= H <= 512:
-                assert path == "ring" and ring == (16, _ring_cfg(H)[
+            # the ring path: 257-512 in both dtypes, its shape the C++
+            # plan's
+            if 257 <= H <= 512:
+                assert path == "ring" and ring == (16, _ring_cfg(H, dtype)[
                     "smem"]), (C, H)
             else:
                 assert path == "stream" and ring is None, (C, H)
@@ -656,9 +673,10 @@ def test_general_rec_plan_takes_the_model_widths():
     (W_h^T's slice and the dgates tile of all 160 rows take 217,600 bytes
     before any partials) on 8 x 144 rows walked as 3 groups of 48: W_h^T's
     128 x 256 f32 slice, two 48 x 132 f32 dgates tiles and an 8 x 48 x 32
-    f32 receive tile; f32 at 257-512 finds no cluster either and takes the
-    ring path (``test_general_rec_ring_takes_f32_at_257_to_512``); bf16
-    past 256 and every shape at 1024 stream."""
+    f32 receive tile; 257-512 finds no cluster in either dtype and takes
+    the ring path (``test_general_rec_ring_takes_f32_at_257_to_512``,
+    ``test_general_rec_ring_takes_bf16_at_257_to_512``); every shape past
+    512 streams."""
     assert K.general_rec_plan(160, 160, BF16) == (2, 32, 146432, 1, 1)
     assert K.general_rec_plan(160, 160, F32) == (4, 96, 229376, 1, 1)
     assert K.general_rec_plan(256, 256, BF16) == (8, 160, 215552, 2, 1)
@@ -690,7 +708,8 @@ def test_general_rec_plan_takes_the_model_widths():
     assert K.general_rec_plan(224, 224, F32) == (8, 144, smem, 1, 3)
     assert K.general_rec_plan(512, 512, F32) is None
     assert K.general_bwd_path(F32, 512, 512) == "ring"
-    assert K.general_bwd_path(BF16, 512, 512) == "stream"
+    assert K.general_rec_plan(512, 512, BF16) is None
+    assert K.general_bwd_path(BF16, 512, 512) == "ring"
     for dtype in (F32, BF16):
         assert K.general_rec_plan(1024, 1024, dtype) is None
         assert K.general_bwd_path(dtype, 1024, 1024) == "stream"
@@ -727,8 +746,9 @@ def test_general_rec_ring_takes_f32_at_257_to_512(C, H):
     of 128 CTAs (an H100 has 132 SMs), the launch shape the C++ plan's
     (``_ring_cfg``): at 512, two groups of 4 consumer warps (288 threads)
     and 4 ring slots of 16 KiB beside the 128 KiB dgates tile and the 32
-    KiB exchange tile, 229,632 bytes. bf16 there, and f32 at 256 or past
-    512, never take it."""
+    KiB exchange tile, 229,632 bytes. f32 at 256 or past 512 never takes
+    it; bf16 there takes it too, in its own launch shape
+    (``test_general_rec_ring_takes_bf16_at_257_to_512``)."""
     R, smem = K.general_rec_ring_plan(C, H, F32)
     cfg = K.general_rec_ring_cfg(H, F32)
     assert R == K.RING_REC_ROWS == 16
@@ -739,8 +759,9 @@ def test_general_rec_ring_takes_f32_at_257_to_512(C, H):
     assert 128 * cfg["warps"] >= cfg["hp"]
     assert K.general_rec_plan(C, H, F32) is None
     assert K.general_bwd_path(F32, C, H) == "ring"
-    assert K.general_bwd_path(BF16, C, H) == "stream"
-    assert K.general_rec_ring_plan(C, H, BF16) is None
+    assert K.general_bwd_path(BF16, C, H) == "ring"
+    assert K.general_rec_ring_plan(C, H, BF16) == (
+        16, _ring_cfg(H, BF16)["smem"])
     if H == 512:
         assert (cfg["warps"], cfg["threads"], cfg["slots"], smem) == (
             4, 288, 4, 229632)
@@ -748,8 +769,79 @@ def test_general_rec_ring_takes_f32_at_257_to_512(C, H):
     for bad in (256, 513, 1024):
         assert K.general_rec_ring_plan(C, bad, F32) is None
         assert K.general_bwd_path(F32, C, bad) != "ring"
-    assert K.general_rec_ring_cfg(H, BF16) is None
+    assert K.general_rec_ring_cfg(H, BF16) == _ring_cfg(H, BF16)
     assert K.general_rec_ring_cfg(513, F32) is None
+
+
+@pytest.mark.parametrize("C,H", [(257, 257), (300, 300), (384, 384),
+                                 (512, 512), (160, 512), (1024, 300),
+                                 (300, 257), (1, 384), (511, 511)])
+def test_general_rec_ring_takes_bf16_at_257_to_512(C, H):
+    """K3's bf16 recurrence at 257-512 units, any C, on the ring path
+    (``general_rec_ring_bf16_kernel``): CTAs of R = 16 rows (one m16 tile)
+    and no cluster, one wave of 128 CTAs for the plan's 2048 rows, the
+    launch shape the C++ plan's (``_ring_cfg``): at 512, 8 warps of 8 n8
+    tiles and a producer warpgroup (384 threads), the 65,792-byte A tile
+    and 5 ring slots of 32,896 bytes (a Z item of 4 rows [4][2056] f32; a
+    W_h^T chunk [512][32] bf16 is 32,768), 230,528 bytes; at least the 3
+    slots a half's gate math holds. bf16 up to 256 keeps its cluster plan,
+    and past 512 streams."""
+    R, smem = K.general_rec_ring_plan(C, H, BF16)
+    cfg = K.general_rec_ring_cfg(H, BF16)
+    assert R == K.RING_REC_ROWS == 16
+    assert cfg == _ring_cfg(H, BF16) and smem == cfg["smem"]
+    assert smem <= K.CLUSTER_SMEM_MAX and cfg["slots"] >= 3
+    assert cfg["threads"] == 32 * K.RING_REC_BF16_WARPS + 128 == 384
+    assert cfg["hp"] % 8 == 0 and cfg["hp"] - 8 < H <= cfg["hp"]
+    assert 8 * cfg["ub"] * K.RING_REC_BF16_WARPS >= cfg["hp"]
+    assert K.general_rec_plan(C, H, BF16) is None
+    assert K.general_bwd_path(BF16, C, H) == "ring"
+    if H == 512:
+        assert (cfg["ub"], cfg["slots"], smem) == (8, 5, 230528)
+        assert 256 + 16 * 2056 * 2 + 5 * 4 * 2056 * 4 == smem
+    for small in (160, 256):
+        assert K.general_rec_plan(small, small, BF16) is not None
+        assert K.general_bwd_path(BF16, small, small) == "cluster"
+    for bad in (513, 1024):
+        assert K.general_rec_ring_plan(C, bad, BF16) is None
+        assert K.general_bwd_path(BF16, C, bad) == "stream"
+    assert K.general_rec_ring_cfg(H, torch.float16) is None
+
+
+@pytest.mark.parametrize("H", [257, 300, 301, 511, 512])
+def test_general_rec_ring_bf16_weights_layout(H):
+    """The bf16 ring path's W_h^T layout (4hp / 32, hp, 32): chunk c's row
+    n holds k = 32 c .. 32 c + 31 (k = g hp + u', W_aug[C + n, g H + u'])
+    in four segments of 8, segment p at p ^ ((n >> 1) & 3); zero past H in
+    k and n. Rebuilt here in numpy, and read back as the kernel addresses
+    it."""
+    C = 7
+    rng = np.random.default_rng(H)
+    w_aug = rng.normal(size=(C + H + 1, 4 * H)).astype(np.float32)
+    got = K.general_rec_ring_bf16_weights(torch.from_numpy(w_aug).to(BF16),
+                                          C)
+    hp = -(-H // 8) * 8
+    wt = np.zeros((4 * hp, hp), np.float32)  # W_h^T, [k][n]
+    for g in range(4):
+        wt[g * hp:g * hp + H, :H] = w_aug[C:C + H, g * H:(g + 1) * H].T
+    want = np.zeros((4 * hp // 32, hp, 4, 8), np.float32)
+    for n in range(hp):
+        for p in range(4):
+            seg = p ^ ((n >> 1) & 3)
+            want[:, n, p] = wt.reshape(-1, 4, 8, hp)[:, seg, :, n]
+    assert got.dtype == BF16 and got.dim() == 1 and got.is_contiguous()
+    np.testing.assert_array_equal(
+        got.float().numpy(),
+        torch.from_numpy(want.reshape(-1)).to(BF16).float().numpy())
+    # the kernel's read of k = 32 c + 8 s + e at unit n is W_h^T[k][n]
+    back = got.float().numpy().reshape(-1, hp, 4, 8)
+    c, n, s, e = 3, hp - 1, 2, 5
+    k = 32 * c + 8 * s + e
+    assert back[c, n, s ^ ((n >> 1) & 3), e] == torch.tensor(
+        wt[k, n]).to(BF16).item()
+    # the f32 layout is unchanged by the dtype's
+    assert K.general_rec_ring_layout(torch.from_numpy(w_aug),
+                                     C).dtype == F32
 
 
 @pytest.mark.parametrize("H", [257, 300, 301, 512])
@@ -774,12 +866,13 @@ def test_general_rec_ring_weights_layout(H):
 
 
 def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
-    """``_general_bwd_launch`` decides K3's path from the plan alone, before
+    """``_general_k3_launch`` decides K3's path from the plan alone, before
     any launch: the cluster library with the plan's N, R, passes and row
     groups (f32 at 256: 3) where the plan takes the shape, the ring library
-    with its R where the ring plan does (f32 at 512), ``lstm_general.cu``'s
-    K3 where both refuse it; a launch that returns an error raises
-    (``_raise_on``), with no second try on another path."""
+    with its R where the ring plan does (257-512 in both dtypes),
+    ``lstm_general.cu``'s K3 where both refuse it (past 512); the dW
+    chunks and the error string are the same library's, and ``_raise_on``
+    raises on the launch's error through that error string."""
     calls = []
 
     class Fake:
@@ -789,7 +882,7 @@ def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
         def __getattr__(self, fn):
             def call(*args):
                 calls.append((self.name, fn, args))
-                return 7
+                return b"refused" if fn.endswith("error_string") else 7
             return call
 
     monkeypatch.setattr(K, "_general_rec_library", lambda: Fake("cluster"))
@@ -803,10 +896,14 @@ def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
                               (F32, 256, 256, "cluster"),
                               (F32, 512, 512, "ring"),
                               (F32, 300, 257, "ring"),
-                              (BF16, 512, 512, "stream"),
+                              (BF16, 512, 512, "ring"),
+                              (BF16, 300, 257, "ring"),
+                              (BF16, 1, 511, "ring"),
+                              (F32, 160, 513, "stream"),
+                              (BF16, 160, 513, "stream"),
                               (BF16, 1024, 1024, "stream")):
         calls.clear()
-        run, _chunks, _error_string, path = K._general_bwd_launch(
+        path, run, _rec, chunks, error_string = K._general_k3_launch(
             dtype, C, H, torch.device("cpu"))
         assert path == want
         err = run(int(dtype == BF16), *range(1, 13), 2, 3, C, H, 0)
@@ -818,12 +915,17 @@ def test_general_bwd_launch_picks_the_path_by_shape(monkeypatch):
             assert calls[0][2][13:17] == (2, 3, C, H)
         elif want == "ring":
             assert calls[0][1] == "lstm_general_rec_ring_bwd"
+            assert calls[0][2][0] == int(dtype == BF16)
             assert calls[0][2][-5:] == (2, 3, C, H, 0)
         else:
             assert calls[0][1] == "lstm_general_bwd"
             assert calls[0][2][-5:] == (2, 3, C, H, 0)
-        with pytest.raises(RuntimeError, match="kernel launch failed"):
-            K._raise_on(lambda e: b"refused", "lstm_bwd", err)
+        chunks(2, 3)
+        assert calls[1] == (want, K._GENERAL_BWD_ENTRIES[want][3], (2, 3))
+        with pytest.raises(RuntimeError,
+                           match="kernel launch failed: refused"):
+            K._raise_on(error_string, "lstm_bwd", err)
+        assert calls[2] == (want, K._GENERAL_BWD_ENTRIES[want][4], (7,))
     assert set(K.LAUNCHES_GENERAL_BWD) == {"cluster", "ring", "stream"}
 
 
@@ -847,3 +949,65 @@ def test_general_recurrence_on_the_cpu_is_the_plain_twin():
         assert torch.equal(got, K.lstm_bwd_recurrence_reference(
             z, cs, dhs, w_aug))
         assert got.dtype == dtype and got.shape == (T, B, 4 * H)
+
+
+def test_general_recurrence_picks_the_path_by_shape(monkeypatch):
+    """``general_recurrence``'s launch (``_general_k3_launch``'s recurrence)
+    is chosen from the plan alone, as K3's: the cluster library's
+    recurrence with the plan's N, R, passes and row groups, the ring
+    library's ``lstm_general_rec_ring_rec`` with the dtype flag at 257-512
+    in both dtypes, ``lstm_general.cu``'s ``lstm_general_rec`` past 512;
+    the error string is the same library's, and ``_raise_on`` raises on
+    the launch's error through it. The ring path's W_h^T is the dtype's
+    layout."""
+    calls = []
+
+    class Fake:
+        def __init__(self, name):
+            self.name = name
+
+        def __getattr__(self, fn):
+            def call(*args):
+                calls.append((self.name, fn, args))
+                return b"refused" if fn.endswith("error_string") else 7
+            return call
+
+    monkeypatch.setattr(K, "_general_rec_library", lambda: Fake("cluster"))
+    monkeypatch.setattr(K, "_general_rec_ring_library", lambda: Fake("ring"))
+    monkeypatch.setattr(K, "_general_library", lambda: Fake("stream"))
+    monkeypatch.setattr(K, "cluster_capacity",
+                        lambda index: K.H100_CLUSTERS)
+    names = {"cluster": "lstm_general_rec_cluster_rec",
+             "ring": "lstm_general_rec_ring_rec",
+             "stream": "lstm_general_rec"}
+    for dtype, C, H, want in ((BF16, 160, 160, "cluster"),
+                              (F32, 256, 256, "cluster"),
+                              (F32, 512, 512, "ring"),
+                              (BF16, 512, 512, "ring"),
+                              (BF16, 300, 257, "ring"),
+                              (BF16, 200, 511, "ring"),
+                              (BF16, 160, 513, "stream"),
+                              (F32, 1024, 1024, "stream")):
+        calls.clear()
+        path, _bwd, run, _chunks, error_string = K._general_k3_launch(
+            dtype, C, H, torch.device("cpu"))
+        assert path == want
+        args = (int(dtype == BF16), *range(1, 6), 2, 3, H, 0)
+        err = run(*args)
+        assert [c[:2] for c in calls] == [(want, names[want])]
+        if want == "cluster":
+            N, R, _, P, groups = K.general_rec_plan(C, H, dtype)
+            assert calls[0][2] == (*args[:-1], N, R, P, groups, 0)
+        else:
+            assert calls[0][2] == args
+        with pytest.raises(RuntimeError,
+                           match="kernel launch failed: refused"):
+            K._raise_on(error_string, "general_recurrence", err)
+        assert calls[1] == (want, K._GENERAL_BWD_ENTRIES[want][4], (7,))
+    w_aug = torch.randn(300 + 257 + 1, 4 * 257)
+    for dtype in (F32, BF16):
+        w = w_aug.to(dtype)
+        got = K.general_rec_ring_layout(w, 300)
+        want = (K.general_rec_ring_bf16_weights(w, 300) if dtype == BF16
+                else K.general_rec_ring_weights(w[300:557].t().contiguous()))
+        assert got.dtype == dtype and torch.equal(got, want)
